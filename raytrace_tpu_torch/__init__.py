@@ -1,0 +1,17 @@
+"""raytrace_tpu_torch: the path tracer on PyTorch and CUDA for Hopper.
+
+A port of ``raytrace_tpu`` (JAX on a TPU), which stays in the repository
+as the reference. The main path renders a scene JSON to a PNG through two
+hand-written CUDA kernels (``csrc/``): the bounce megakernel (K1) and the
+per-pixel conservative hit mask (K2). Each has a plain PyTorch version
+beside it, which the CPU path and the tests use. Entry points run on the
+GPU unless the caller passes ``device="cpu"``.
+"""
+
+from .renderer import BenchmarkData, Renderer, render_wavefront
+from .scene import from_dict as scene_from_dict
+from .scene import load as load_scene
+from .trace import TraceConfig
+
+__all__ = ["BenchmarkData", "Renderer", "TraceConfig", "load_scene",
+           "render_wavefront", "scene_from_dict"]

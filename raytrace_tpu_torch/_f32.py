@@ -1,0 +1,17 @@
+"""Float32 helpers that round the way the JAX package and the kernels do.
+
+PyTorch's vectorised CPU ``sqrt`` for float32 is not correctly rounded
+(about 0.6% of inputs come out one ulp off), while XLA's and CUDA's
+``sqrtf`` are. The square root of a float32 computed in float64 and
+rounded once to float32 is the correctly rounded result, so the port takes
+every float32 square root through float64.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)

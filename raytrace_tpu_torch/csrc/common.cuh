@@ -1,0 +1,239 @@
+// Device helpers shared by the port's CUDA kernels.
+//
+// Each function mirrors, operation for operation, its counterpart in the
+// plain PyTorch path (raytrace_tpu_torch/rng.py, ops/intersect.py), which
+// in turn mirrors the JAX package. The kernels are built with -fmad=false
+// and without fast math, so every float operation here rounds as the plain
+// version's does: a mismatch means a change of meaning, not of rounding.
+// Dot products sum x, y, z in that order.
+#pragma once
+
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+
+#ifndef RT_HOST_EMULATION
+#include <cuda_runtime.h>
+#define RT_DEV __device__ __forceinline__
+#else
+#define RT_DEV inline
+#endif
+
+namespace rt {
+
+constexpr float kBig = 3.0e38f;   // "no hit" distance
+constexpr float kTMin = 1e-3f;    // t_min of every ray
+constexpr uint32_t kStreamsPerBounce = 512u;
+constexpr uint32_t kShadowBase = 8u;
+constexpr uint32_t kScatterBall = 1u;
+constexpr uint32_t kDielectric = 2u;
+
+// ---------------------------------------------------------------- RNG ----
+// pcg4d (Jarzynski & Olano 2020) in native uint32: rng.py:pcg4d.
+RT_DEV void pcg4d(uint32_t& x, uint32_t& y, uint32_t& z, uint32_t& w) {
+  x = x * 1664525u + 1013904223u;
+  y = y * 1664525u + 1013904223u;
+  z = z * 1664525u + 1013904223u;
+  w = w * 1664525u + 1013904223u;
+  x += y * w;
+  y += z * x;
+  z += x * y;
+  w += y * z;
+  x ^= x >> 16;
+  y ^= y >> 16;
+  z ^= z >> 16;
+  w ^= w >> 16;
+  x += y * w;
+  y += z * x;
+  z += x * y;
+  w += y * z;
+}
+
+RT_DEV float unit_float(uint32_t u) {
+  return static_cast<float>(u >> 8) * (1.0f / 16777216.0f);
+}
+
+RT_DEV void uniform4(uint32_t pix, uint32_t samp, uint32_t stream,
+                     uint32_t seed, float u[4]) {
+  uint32_t x = pix, y = samp, z = stream, w = seed;
+  pcg4d(x, y, z, w);
+  u[0] = unit_float(x);
+  u[1] = unit_float(y);
+  u[2] = unit_float(z);
+  u[3] = unit_float(w);
+}
+
+// rng.py:sincos_2pi - quadrant reduction + short Taylor polynomials.
+RT_DEV void sincos_2pi(float u, float* sin_out, float* cos_out) {
+  const float half_pi = static_cast<float>(1.5707963267948966);
+  const float s3 = static_cast<float>(-1.0 / 6.0);
+  const float s5 = static_cast<float>(1.0 / 120.0);
+  const float s7 = static_cast<float>(-1.0 / 5040.0);
+  const float c4 = static_cast<float>(1.0 / 24.0);
+  const float c6 = static_cast<float>(-1.0 / 720.0);
+  float t = 4.0f * u;
+  float q = floorf(t + 0.5f);
+  float r = (t - q) * half_pi;
+  float r2 = r * r;
+  float s = r * (1.0f + r2 * (s3 + r2 * (s5 + r2 * s7)));
+  float c = 1.0f + r2 * (-0.5f + r2 * (c4 + r2 * c6));
+  int qm = static_cast<int>(q) & 3;
+  *sin_out = qm == 0 ? s : (qm == 1 ? c : (qm == 2 ? -s : -c));
+  *cos_out = qm == 0 ? c : (qm == 1 ? -s : (qm == 2 ? -c : s));
+}
+
+// rng.py:cbrt01 - bit-level seed (the int32 bits are positive, so C's
+// truncating division is the floor division of the JAX package) and two
+// Newton steps with IEEE division.
+RT_DEV float cbrt01(float u) {
+  const float third = static_cast<float>(1.0 / 3.0);
+  bool zero = u <= 0.0f;
+  float x = zero ? 1.0f : u;
+  int32_t i;
+  float g;
+  memcpy(&i, &x, 4);
+  int32_t gi = i / 3 + 0x2A514067;
+  memcpy(&g, &gi, 4);
+  for (int k = 0; k < 2; ++k) g = (2.0f * g + x / (g * g)) * third;
+  return zero ? 0.0f : g;
+}
+
+// rng.py:unit_ball
+RT_DEV void unit_ball(uint32_t pix, uint32_t samp, uint32_t stream,
+                      uint32_t seed, float b[3]) {
+  float u[4];
+  uniform4(pix, samp, stream, seed, u);
+  float z = 2.0f * u[0] - 1.0f;
+  float sp, cp;
+  sincos_2pi(u[1], &sp, &cp);
+  float rho = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+  float r = cbrt01(u[2]);
+  b[0] = r * rho * cp;
+  b[1] = r * rho * sp;
+  b[2] = r * z;
+}
+
+// ------------------------------------------------------------ vectors ----
+struct V3 {
+  float x, y, z;
+};
+
+RT_DEV float dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+
+// Go's Normalize: the zero vector stays zero.
+RT_DEV V3 normalize3(V3 v) {
+  float n = sqrtf(dot3(v, v));
+  if (n > 0.0f) return V3{v.x / n, v.y / n, v.z / n};
+  return V3{0.0f, 0.0f, 0.0f};
+}
+
+// ------------------------------------------------------- intersection ----
+// ops/intersect.py:sphere_t for one sphere s = [cx, cy, cz, r]; a = |d|^2.
+RT_DEV float sphere_t(V3 o, V3 d, float a, float inv_a, const float* s,
+                      float t_max) {
+  float ocx = o.x - s[0], ocy = o.y - s[1], ocz = o.z - s[2];
+  float half_b = ocx * d.x + ocy * d.y + ocz * d.z;
+  float c = (ocx * ocx + ocy * ocy + ocz * ocz) - s[3] * s[3];
+  float disc = half_b * half_b - a * c;
+  if (!(disc >= 0.0f)) return kBig;
+  float sq = sqrtf(disc);
+  float r0 = (-half_b - sq) * inv_a;
+  if (r0 >= kTMin && r0 <= t_max) return r0;
+  float r1 = (-half_b + sq) * inv_a;
+  if (r1 >= kTMin && r1 <= t_max) return r1;
+  return kBig;
+}
+
+// ops/intersect.py:triangle_t (Moller-Trumbore) for tri = [v0, e1, e2, ...].
+RT_DEV float triangle_t(V3 o, V3 d, const float* tri, float t_max) {
+  float e1x = tri[3], e1y = tri[4], e1z = tri[5];
+  float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+  float hx = d.y * e2z - d.z * e2y;
+  float hy = d.z * e2x - d.x * e2z;
+  float hz = d.x * e2y - d.y * e2x;
+  float det = e1x * hx + e1y * hy + e1z * hz;
+  if (fabsf(det) < 1e-6f) return kBig;
+  float f = 1.0f / det;
+  float sx = o.x - tri[0], sy = o.y - tri[1], sz = o.z - tri[2];
+  float u = f * (sx * hx + sy * hy + sz * hz);
+  float qx = sy * e1z - sz * e1y;
+  float qy = sz * e1x - sx * e1z;
+  float qz = sx * e1y - sy * e1x;
+  float v = f * (d.x * qx + d.y * qy + d.z * qz);
+  float t = f * (e2x * qx + e2y * qy + e2z * qz);
+  bool valid = (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) &&
+               (u + v <= 1.0f) && (t >= kTMin) && (t <= t_max);
+  return valid ? t : kBig;
+}
+
+// ops/intersect.py:triangle_blocked - the division-free any-hit.
+RT_DEV bool triangle_blocked(V3 o, V3 d, const float* tri, float t_max) {
+  float e1x = tri[3], e1y = tri[4], e1z = tri[5];
+  float e2x = tri[6], e2y = tri[7], e2z = tri[8];
+  float sx = o.x - tri[0], sy = o.y - tri[1], sz = o.z - tri[2];
+  float n2x = e1y * e2z - e1z * e2y;
+  float n2y = e1z * e2x - e1x * e2z;
+  float n2z = e1x * e2y - e1y * e2x;
+  float c1x = e2y * sz - e2z * sy;
+  float c1y = e2z * sx - e2x * sz;
+  float c1z = e2x * sy - e2y * sx;
+  float qx = sy * e1z - sz * e1y;
+  float qy = sz * e1x - sx * e1z;
+  float qz = sx * e1y - sy * e1x;
+  float det = -(d.x * n2x + d.y * n2y + d.z * n2z);
+  float sg = det >= 0.0f ? 1.0f : -1.0f;
+  float ad = det * sg;
+  float au = (d.x * c1x + d.y * c1y + d.z * c1z) * sg;
+  float av = (d.x * qx + d.y * qy + d.z * qz) * sg;
+  float at = (e2x * qx + e2y * qy + e2z * qz) * sg;
+  return (ad >= 1e-6f) && (au >= 0.0f) && (av >= 0.0f) && (au + av <= ad) &&
+         (at >= kTMin * ad) && (at <= t_max * ad);
+}
+
+// ops/intersect.py:plane_t for pl = [p.xyz, n.xyz, mat].
+RT_DEV float plane_t(V3 o, V3 d, const float* pl, float t_max) {
+  float denom = d.x * pl[3] + d.y * pl[4] + d.z * pl[5];
+  if (denom == 0.0f) return kBig;
+  float t = ((pl[0] - o.x) * pl[3] + (pl[1] - o.y) * pl[4] +
+             (pl[2] - o.z) * pl[5]) / denom;
+  return (t >= kTMin && t <= t_max) ? t : kBig;
+}
+
+// Slab envelope of an axis-aligned box bx = [min.xyz, max.xyz, ...] given
+// the inverse direction (ops/intersect.py:_slab).
+RT_DEV void box_slab(V3 o, V3 inv, const float* bx, float* near_out,
+                     float* far_out) {
+  float t0x = (bx[0] - o.x) * inv.x, t1x = (bx[3] - o.x) * inv.x;
+  float t0y = (bx[1] - o.y) * inv.y, t1y = (bx[4] - o.y) * inv.y;
+  float t0z = (bx[2] - o.z) * inv.z, t1z = (bx[5] - o.z) * inv.z;
+  *near_out = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                    fminf(t0z, t1z));
+  *far_out = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                   fmaxf(t0z, t1z));
+}
+
+RT_DEV V3 safe_inverse(V3 d) {
+  return V3{1.0f / (d.x == 0.0f ? 1e-30f : d.x),
+            1.0f / (d.y == 0.0f ? 1e-30f : d.y),
+            1.0f / (d.z == 0.0f ? 1e-30f : d.z)};
+}
+
+// ops/intersect.py:box_t (closest: near crossing preferred, far fallback).
+RT_DEV float box_t(V3 o, V3 inv, const float* bx, float t_max) {
+  float near, far;
+  box_slab(o, inv, bx, &near, &far);
+  if (!(near <= far)) return kBig;
+  if (near >= kTMin && near <= t_max) return near;
+  if (far >= kTMin && far <= t_max) return far;
+  return kBig;
+}
+
+// ops/intersect.py:box_blocked
+RT_DEV bool box_blocked(V3 o, V3 inv, const float* bx, float t_max) {
+  float near, far;
+  box_slab(o, inv, bx, &near, &far);
+  return (near <= far) && ((near >= kTMin && near <= t_max) ||
+                           (far >= kTMin && far <= t_max));
+}
+
+}  // namespace rt

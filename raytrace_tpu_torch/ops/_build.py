@@ -1,0 +1,114 @@
+"""Build the port's CUDA kernels with nvcc and load them through ctypes.
+
+All sources under ``raytrace_tpu_torch/csrc`` go to ONE nvcc call that
+links a shared library with a plain C interface: no PyTorch headers, so the
+build takes seconds, not minutes. The library lands in
+``raytrace_tpu_torch/_build/`` (listed in .gitignore) under a name keyed by
+a hash of the sources and flags, so the first use in a fresh checkout
+builds it and later uses load it. Nothing is built at import.
+
+Flags: sm_90a (Hopper), -fmad=false (no FMA contraction, so the kernels
+round as the plain PyTorch versions do) and no fast math (IEEE division
+and square root). ``-Xptxas -v`` reports registers, shared memory and
+spills; ``build()`` returns that report.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import List
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildResult:
+    path: str            # the shared library
+    built: bool          # False when a library with this key existed
+    seconds: float       # nvcc wall time (0 when not built)
+    ptxas: List[str]     # the -Xptxas -v report lines
+
+
+def _sources() -> List[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildResult:
+    """Compile every .cu under csrc into one library, unless it exists."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    key = _key()
+    lib = os.path.join(BUILD_DIR, f"librt_kernels_{key}.so")
+    log = lib + ".ptxas.txt"
+    if os.path.exists(lib):
+        ptxas = open(log).read().splitlines() if os.path.exists(log) else []
+        return BuildResult(lib, False, 0.0, ptxas)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp]
+           + [s for s in _sources() if s.endswith(".cu")])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+             if "ptxas" in ln or "spill" in ln]
+    with open(log, "w") as f:
+        f.write("\n".join(ptxas))
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    return BuildResult(lib, True, seconds, ptxas)
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    lib = ctypes.CDLL(build().path)
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    lib.rt_trace_unroll.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i,
+                                    i, i, i, i, i, u, p]
+    lib.rt_trace_unroll.restype = i
+    lib.rt_pixel_mask.argtypes = [p, i, i, ctypes.c_float, ctypes.c_float,
+                                  p, p, i, p, i, p]
+    lib.rt_pixel_mask.restype = i
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

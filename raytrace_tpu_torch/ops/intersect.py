@@ -1,0 +1,282 @@
+"""Closest-hit and any-hit tests: the plain PyTorch form.
+
+Port of the brute-force part of ``raytrace_tpu/ops/intersect.py``: batched
+lane x primitive tests with an argmin reduction. Conventions carried over:
+ray directions are not normalised (the sphere quadratic uses a = |d|^2);
+acceptance is t_min <= t <= t_max; the triangle determinant epsilon is
+1e-6; t_min is 1e-3 everywhere. Closest hit keeps the first minimum in
+the order [spheres, triangles, planes, boxes]; the triangle any-hit is the
+division-free form (``triangle_blocked``). Every dot product sums x, y, z
+in that order, as the JAX package's reductions do, so both packages agree
+bit for bit where the operations are IEEE.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .._f32 import sqrt as _sqrt
+
+BIG = float(np.float32(3.0e38))  # "no hit" distance
+
+
+class Hit(NamedTuple):
+    t: torch.Tensor           # (B,) BIG on a miss
+    hit: torch.Tensor         # (B,) bool
+    point: torch.Tensor       # (B,3)
+    normal: torch.Tensor      # (B,3) front-face flipped
+    front_face: torch.Tensor  # (B,) bool
+    mat_id: torch.Tensor      # (B,) int64
+
+
+def _dot(a, b):
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
+
+
+def _cross(a, b):
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def _col(t_max):
+    """A per-lane (B,) bound as a (B,1) column; a scalar stays a scalar."""
+    if isinstance(t_max, torch.Tensor) and t_max.ndim:
+        return t_max[..., None]
+    return t_max
+
+
+def sphere_t(origin, direction, center, radius, t_min, t_max):
+    """(B,Ns) hit distances, BIG where there is none: half-b quadratic,
+    near root preferred, far root fallback."""
+    oc = origin[..., None, :] - center
+    a = _dot(direction, direction)[..., None]
+    half_b = _dot(oc, direction[..., None, :])
+    c = _dot(oc, oc) - radius * radius
+    disc = half_b * half_b - a * c
+    ok = disc >= 0.0
+    sqrtd = _sqrt(torch.where(ok, disc, torch.ones_like(disc)))
+    inv_a = 1.0 / a
+    root0 = (-half_b - sqrtd) * inv_a
+    root1 = (-half_b + sqrtd) * inv_a
+    tm = _col(t_max)
+    in0 = ok & (root0 >= t_min) & (root0 <= tm)
+    in1 = ok & (root1 >= t_min) & (root1 <= tm)
+    return torch.where(in0, root0, torch.where(in1, root1, BIG))
+
+
+def triangle_t(origin, direction, v0, edge1, edge2, t_min, t_max):
+    """(B,Nt) Moller-Trumbore hit distances, BIG where there is none."""
+    d = direction[..., None, :]
+    h = _cross(d, edge2)
+    a = _dot(edge1, h)
+    degenerate = torch.abs(a) < 1e-6
+    f = 1.0 / torch.where(degenerate, torch.ones_like(a), a)
+    s = origin[..., None, :] - v0
+    u = f * _dot(s, h)
+    q = _cross(s, edge1)
+    v = f * _dot(d, q)
+    t = f * _dot(edge2, q)
+    tm = _col(t_max)
+    valid = ((~degenerate) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+             & (u + v <= 1.0) & (t >= t_min) & (t <= tm))
+    return torch.where(valid, t, BIG)
+
+
+def triangle_blocked(origin, direction, v0, edge1, edge2, t_min, t_max):
+    """(B,Nt) bool: division-free Moller-Trumbore any-hit.
+
+    The triple-product identities det = -d.(e1 x e2) and
+    s.(d x e2) = d.(e2 x s) turn every numerator into a dot product, and
+    the range tests multiply through by |det| instead of dividing."""
+    d = direction[..., None, :]
+    s = origin[..., None, :] - v0
+    n2 = _cross(edge1, edge2)
+    c1 = _cross(edge2, s)
+    q = _cross(s, edge1)
+    det = -_dot(d, n2)
+    sg = torch.where(det >= 0.0, 1.0, -1.0)
+    ad = det * sg
+    au = _dot(d, c1) * sg
+    av = _dot(d, q) * sg
+    at = _dot(edge2, q) * sg
+    tm = _col(t_max)
+    return ((ad >= 1e-6) & (au >= 0.0) & (av >= 0.0) & (au + av <= ad)
+            & (at >= t_min * ad) & (at <= tm * ad))
+
+
+def _slab(origin, direction, box_min, box_max):
+    inv = 1.0 / torch.where(direction == 0.0,
+                            torch.full_like(direction, 1e-30), direction)
+    o = origin[..., None, :]
+    iv = inv[..., None, :]
+    t0 = (box_min - o) * iv
+    t1 = (box_max - o) * iv
+    near = torch.amax(torch.minimum(t0, t1), dim=-1)
+    far = torch.amin(torch.maximum(t0, t1), dim=-1)
+    return near, far
+
+
+def box_t(origin, direction, box_min, box_max, t_min, t_max):
+    """(B,Nb) closest-hit distances of axis-aligned boxes: the slab
+    interval's near crossing preferred, far fallback."""
+    near, far = _slab(origin, direction, box_min, box_max)
+    ok = near <= far
+    tm = _col(t_max)
+    in0 = ok & (near >= t_min) & (near <= tm)
+    in1 = ok & (far >= t_min) & (far <= tm)
+    return torch.where(in0, near, torch.where(in1, far, BIG))
+
+
+def box_blocked(origin, direction, box_min, box_max, t_min, t_max):
+    """(B,Nb) bool: a closed box blocks iff a slab crossing is in range."""
+    near, far = _slab(origin, direction, box_min, box_max)
+    tm = _col(t_max)
+    return (near <= far) & (((near >= t_min) & (near <= tm))
+                            | ((far >= t_min) & (far <= tm)))
+
+
+def plane_t(origin, direction, point, normal, t_min, t_max):
+    """(B,Np) infinite-plane hit distances, BIG where there is none."""
+    denom = _dot(direction[..., None, :], normal)
+    para = denom == 0.0
+    t = (_dot(point - origin[..., None, :], normal)
+         / torch.where(para, torch.ones_like(denom), denom))
+    tm = _col(t_max)
+    return torch.where((~para) & (t >= t_min) & (t <= tm), t, BIG)
+
+
+def closest_hit(geom, origin, direction, t_min=1e-3, t_max=BIG) -> Hit:
+    """Closest hit over all primitives; first minimum wins in the order
+    [spheres, triangles, planes, boxes]. Cube faces are hit as boxes."""
+    ns = geom.sph_center.shape[0]
+    nt = geom.tri_v0.shape[0]
+    nt_t = geom.n_hit_tris
+    B = origin.shape[:-1]
+    cols = []
+    if ns:
+        cols.append(sphere_t(origin, direction, geom.sph_center,
+                             geom.sph_radius, t_min, t_max))
+    if nt:
+        v0 = geom.tri_v0[:nt_t]
+        tt = triangle_t(origin, direction, v0, geom.tri_v1[:nt_t] - v0,
+                        geom.tri_v2[:nt_t] - v0, t_min, t_max)
+        # cube-face columns stay BIG so plane/box ids keep their offsets
+        cols.append(torch.nn.functional.pad(tt, (0, nt - nt_t), value=BIG))
+    if geom.pl_point.shape[0]:
+        cols.append(plane_t(origin, direction, geom.pl_point,
+                            geom.pl_normal, t_min, t_max))
+    if geom.box_min.shape[0]:
+        cols.append(box_t(origin, direction, geom.box_min, geom.box_max,
+                          t_min, t_max))
+    if not cols:
+        t = torch.full(B, BIG, dtype=origin.dtype, device=origin.device)
+        idx = torch.zeros(B, dtype=torch.int64, device=origin.device)
+    else:
+        all_t = torch.cat(cols, dim=-1)
+        # argmin keeps the first minimum: the reference's strict "<" scan
+        idx = torch.argmin(all_t, dim=-1)
+        t = torch.gather(all_t, -1, idx[..., None])[..., 0]
+    return hit_from_tidx(geom, origin, direction, t, idx)
+
+
+def hit_from_tidx(geom, origin, direction, t, idx) -> Hit:
+    """The hit record from (t, winner index in [sph, tri, pln, box])."""
+    ns = geom.sph_center.shape[0]
+    nt = geom.tri_v0.shape[0]
+    npl = geom.pl_point.shape[0]
+    nbx = geom.box_min.shape[0]
+    hit = t < BIG
+    t_geo = torch.where(hit, t, torch.ones_like(t))
+    point = origin + direction * t_geo[..., None]
+    zeros3 = torch.zeros_like(point)
+    zeros_i = torch.zeros_like(idx)
+
+    is_sphere = idx < ns
+    is_box = idx >= (ns + nt + npl)
+    is_plane = (idx >= (ns + nt)) & ~is_box
+    if ns:
+        si = torch.clamp(idx, max=ns - 1)
+        n_sph = (point - geom.sph_center[si]) / geom.sph_radius[si][..., None]
+        m_sph = geom.sph_mat[si].to(torch.int64)
+    else:
+        n_sph, m_sph = zeros3, zeros_i
+    if nt:
+        ti = torch.clamp(idx - ns, 0, nt - 1)
+        n_tri = geom.tri_normal[ti]
+        m_tri = geom.tri_mat[ti].to(torch.int64)
+    else:
+        n_tri, m_tri = zeros3, zeros_i
+    if npl:
+        pi = torch.clamp(idx - ns - nt, 0, npl - 1)
+        n_pl = geom.pl_normal[pi]
+        m_pl = geom.pl_mat[pi].to(torch.int64)
+    else:
+        n_pl, m_pl = zeros3, zeros_i
+    if nbx:
+        # Point-based box normal, NEGATED: the reference winds every cube
+        # face inward, so exterior hits carry front_face=False (which
+        # steers the dielectric eta). Ties resolve x < y < z.
+        bi = torch.clamp(idx - ns - nt - npl, 0, nbx - 1)
+        lo, hi = geom.box_min[bi], geom.box_max[bi]
+        ctr = (lo + hi) * 0.5
+        half = torch.clamp((hi - lo) * 0.5, min=1e-30)
+        q = (point - ctr) / half
+        ax = torch.argmax(torch.abs(q), dim=-1, keepdim=True)
+        one_hot = torch.zeros_like(q).scatter_(-1, ax, 1.0)
+        n_box = -(one_hot * torch.sign(torch.gather(q, -1, ax)))
+        m_box = geom.box_mat[bi].to(torch.int64)
+    else:
+        n_box, m_box = zeros3, zeros_i
+
+    outward = torch.where(
+        is_sphere[..., None], n_sph, torch.where(
+            is_box[..., None], n_box,
+            torch.where(is_plane[..., None], n_pl, n_tri)))
+    mat_id = torch.where(is_sphere, m_sph, torch.where(
+        is_box, m_box, torch.where(is_plane, m_pl, m_tri)))
+    front_face = _dot(direction, outward) < 0.0
+    normal = torch.where(front_face[..., None], outward, -outward)
+    return Hit(t=t, hit=hit, point=point, normal=normal,
+               front_face=front_face, mat_id=mat_id)
+
+
+def any_hit(geom, origin, direction, t_min, t_max, exact=False):
+    """(B,) bool: does any primitive intersect with t in [t_min, t_max]?
+
+    ``t_max`` may be per lane. ``exact=True`` tests triangles with the
+    closest-hit expressions (``triangle_t``) instead of the division-free
+    form, whose verdicts can flip at 1-2 ulp boundaries: a primary-hit
+    mask must never exclude a lane the closest hit would accept.
+    """
+    blocked = torch.zeros(origin.shape[:-1], dtype=torch.bool,
+                          device=origin.device)
+    if geom.sph_center.shape[0]:
+        t = sphere_t(origin, direction, geom.sph_center, geom.sph_radius,
+                     t_min, t_max)
+        blocked |= torch.any(t < BIG, dim=-1)
+    nt = geom.n_hit_tris
+    if nt:
+        v0 = geom.tri_v0[:nt]
+        e1 = geom.tri_v1[:nt] - v0
+        e2 = geom.tri_v2[:nt] - v0
+        if exact:
+            hit = triangle_t(origin, direction, v0, e1, e2, t_min,
+                             t_max) < BIG
+        else:
+            hit = triangle_blocked(origin, direction, v0, e1, e2, t_min,
+                                   t_max)
+        blocked |= torch.any(hit, dim=-1)
+    if geom.box_min.shape[0]:
+        blocked |= torch.any(box_blocked(origin, direction, geom.box_min,
+                                         geom.box_max, t_min, t_max), dim=-1)
+    if geom.pl_point.shape[0]:
+        t = plane_t(origin, direction, geom.pl_point, geom.pl_normal, t_min,
+                    t_max)
+        blocked |= torch.any(t < BIG, dim=-1)
+    return blocked

@@ -1,0 +1,125 @@
+"""The bounce loop in plain PyTorch: the eager engine and K1's plain version.
+
+Port of ``raytrace_tpu/trace.py``. The reference's recursion (depth <= 50)
+becomes a loop over a struct-of-arrays wavefront that accumulates
+
+    radiance += throughput * (emitted + direct * w_d)
+    throughput *= attenuation * w_r
+
+with (w_r, w_d) the metallic-tier weights. Lanes die on a miss, on a
+non-scattering material (DiffuseLight adds emitted + direct unweighted) or
+at max depth. Each bounce works only on the lanes still alive: a dead
+lane's state never changes, so dropping it gives the same per-lane result
+as the JAX package's masked loop and keeps the eager engine cheap.
+
+Not in this slice of the port: thin-lens depth of field (ROADMAP Queue 1
+item 3) and the ``fast_mc`` accelerators, Russian roulette and the
+throughput epsilon (ROADMAP Queue 1 item 5, "fast_mc").
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from . import rng
+from .models import materials as mat_mod
+from .ops import intersect, shade
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceConfig:
+    """Trace settings (the reference's settings.go)."""
+
+    max_depth: int = 50
+    soft_shadows: bool = True
+    shadow_samples: int = 16
+    recursive_reflections: bool = True
+    seed: int = 0
+    depth_of_field: bool = False
+    russian_roulette_start: Optional[int] = None
+    throughput_epsilon: float = 0.0
+
+
+def check_supported(cfg: TraceConfig) -> None:
+    """Raise on the trace options this slice of the port does not carry."""
+    if cfg.depth_of_field:
+        raise NotImplementedError(
+            "thin-lens depth of field is not ported yet: ROADMAP Queue 1 "
+            "item 3 (thin_lens_perturb) and the DoF slack of the mask")
+    if cfg.russian_roulette_start is not None or cfg.throughput_epsilon:
+        raise NotImplementedError(
+            "fast_mc (Russian roulette, throughput epsilon) is not ported "
+            "yet: ROADMAP Queue 1 item 5, fast_mc")
+
+
+def _bounce(scene, pix, samp, cfg, bounce, origin, direction, throughput):
+    """One shading iteration over live lanes.
+
+    Returns (indices of the lanes that hit, their emitted and direct
+    radiance terms, scattering mask among them, next origin, next
+    direction, next throughput)."""
+    geom, mats, lights = scene.geometry, scene.materials, scene.lights
+    hit = intersect.closest_hit(geom, origin, direction, t_min=1e-3)
+    keep = hit.hit.nonzero()[:, 0]
+    pix, samp = pix[keep], samp[keep]
+    d = direction[keep]
+    tp = throughput[keep]
+    point = hit.point[keep]
+    normal = hit.normal[keep]
+    mat = mats.row(hit.mat_id[keep])
+
+    direct = shade.direct_lighting(
+        geom, lights, mat, point, normal, pix, samp, bounce,
+        soft_shadows=cfg.soft_shadows, shadow_samples=cfg.shadow_samples,
+        seed=cfg.seed)
+    ball = rng.unit_ball(pix, samp,
+                         rng.bounce_stream(bounce, rng.Streams.SCATTER_BALL),
+                         cfg.seed)
+    pick = rng.uniform4(pix, samp,
+                        rng.bounce_stream(bounce, rng.Streams.DIELECTRIC),
+                        cfg.seed)[0]
+    scat_dir, atten, did_scatter = mat_mod.scatter(
+        mat, d, normal, hit.front_face[keep], ball, pick)
+    w_r, w_d = shade.combine_weights(mat["metallic"])
+
+    emitted = tp * mat["emit"]
+    # DiffuseLight ends the path with emitted + direct unweighted.
+    lit = torch.where(did_scatter[..., None], tp * direct * w_d[..., None],
+                      tp * direct)
+    new_tp = tp * atten * w_r[..., None]
+    return keep, emitted, lit, did_scatter, point, scat_dir, new_tp
+
+
+def trace(scene, origin, direction, pix_id, samp_id,
+          cfg: TraceConfig) -> torch.Tensor:
+    """Trace a wavefront of rays to completion: radiance (B,3).
+
+    origin/direction: (B,3) float32 camera rays (direction unnormalised);
+    pix_id/samp_id: (B,) integer lane identities keying the RNG.
+    """
+    check_supported(cfg)
+    radiance = torch.zeros_like(direction)
+    lanes = torch.arange(origin.shape[0], device=origin.device)
+    o = origin
+    d = direction
+    tp = torch.ones_like(direction)
+    pix, samp = pix_id, samp_id
+    for bounce in range(cfg.max_depth):
+        if lanes.numel() == 0:
+            break
+        keep, emitted, lit, scat, point, new_d, new_tp = _bounce(
+            scene, pix, samp, cfg, bounce, o, d, tp)
+        lanes = lanes[keep]
+        # two adds in the JAX package's order: (R + emitted) + direct
+        radiance[lanes] = radiance[lanes] + emitted
+        radiance[lanes] = radiance[lanes] + lit
+        if not cfg.recursive_reflections:
+            break
+        live = scat.nonzero()[:, 0]
+        lanes = lanes[live]
+        pix, samp = pix[keep][live], samp[keep][live]
+        o, d, tp = point[live], new_d[live], new_tp[live]
+    return radiance

@@ -23,6 +23,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU; skipped where there is none")
+
+
 @pytest.fixture(autouse=True)
 def _bound_memory_maps():
     """Prevent vm.max_map_count exhaustion over the full suite.
