@@ -7,8 +7,8 @@
 // jitter-cone bound k times its distance plus eps, with forward culling;
 // planes use interval arithmetic on n.d. The output over-includes pixels
 // (they trace to exact black) but never excludes one that a jittered
-// sample would hit. Every pixel tests every primitive (no early exit, so
-// the work is fixed by the shapes). What bounds it: operations, ~26 per
+// sample would hit. Every pixel tests every primitive (bitwise ors, no
+// early exit, so the work is fixed by the shapes). What bounds it: operations, ~26 per
 // primitive per pixel; it reads the small tables from the L1 cache and
 // writes one byte per pixel. Thin-lens depth of field is not in this slice of the
 // port, so the DoF slack terms of the TPU kernel are absent (the wrapper
@@ -45,14 +45,14 @@ extern "C" __global__ void rt_pixel_mask_kernel(
     float r = s[3];
     float dist = sqrtf(oc2);
     float R = r + (dist + r) * k + eps;
-    hit = hit || ((oc2 - g * g * inv_a <= R * R) && (g >= -R * sqa));
+    hit = hit | ((oc2 - g * g * inv_a <= R * R) & (g >= -R * sqa));
   }
   for (int j = 0; j < npl; ++j) {
     const float* pl = pln + 7 * j;
     float denom = dx * pl[3] + dy * pl[4] + dz * pl[5];
     float num = (pl[0] - ox) * pl[3] + (pl[1] - oy) * pl[4] +
                 (pl[2] - oz) * pl[5];
-    hit = hit || (fabsf(denom) <= k + eps) || (num * denom > 0.0f) ||
+    hit = hit | (fabsf(denom) <= k + eps) | (num * denom > 0.0f) |
           (fabsf(num) <= eps);
   }
   out[p] = hit ? 1 : 0;

@@ -113,16 +113,13 @@ def render_band(scene, band_y0: int, *, width: int, height: int,
         band_h, width, 3)
 
 
-# Lanes per plain-engine band and per K1 launch: bounds the temporaries of
-# ray generation (the int64 hash) and of the plain engine's (lanes x
-# primitives) tests.
-BAND_LANES = 1 << 21
+# Lanes per K1 launch: bounds the temporaries of ray generation (the int64
+# hash).
 TRACE_LANES = 1 << 22
 
 
-def pick_band_height(width: int, height: int, samples: int) -> int:
-    """Largest row band whose wavefront stays under BAND_LANES."""
-    return int(min(max(1, BAND_LANES // max(1, width * samples)), height))
+def _no_hook(stage, **values):
+    pass
 
 
 def _pixel_mask(scene, *, width: int, height: int,
@@ -145,7 +142,7 @@ def _compact_pixels(hit_px, pos_px, k_px: int) -> torch.Tensor:
 
 def _trace_compacted_pixels(scene, px_cidx, *, width: int, height: int,
                             samples: int, cfg: trace_mod.TraceConfig,
-                            go_camera: bool) -> torch.Tensor:
+                            go_camera: bool, hook=_no_hook) -> torch.Tensor:
     """Trace every lane of the compacted pixels with K1 and segment-add
     each pixel's samples into the (H,W,3) mean image, in chunks of at
     most TRACE_LANES lanes."""
@@ -158,27 +155,39 @@ def _trace_compacted_pixels(scene, px_cidx, *, width: int, height: int,
         origin, direction = _lane_rays(scene, pix, samp, width=width,
                                        height=height, cfg=cfg,
                                        go_camera=go_camera)
+        hook("lane_rays", px=px, pix=pix, samp=samp, origin=origin,
+             direction=direction)
         rad = megakernel.trace_unroll(scene, origin, direction, pix, samp,
                                       cfg)
+        hook("trace", rad=rad)
         img.index_add_(0, px, rad.reshape(-1, samples, 3).sum(dim=1))
+        hook("segment_add", img=img)
     return (img / samples).reshape(height, width, 3)
 
 
 def render_wavefront(scene, *, width: int, height: int, samples: int,
-                     cfg: trace_mod.TraceConfig,
-                     go_camera: bool = True) -> torch.Tensor:
+                     cfg: trace_mod.TraceConfig, go_camera: bool = True,
+                     hook=_no_hook) -> torch.Tensor:
     """Compacted-wavefront render: (H,W,3) mean linear radiance, on the
-    scene's device."""
+    scene's device.
+
+    ``hook(stage, **values)`` is called after each stage ("mask", "count",
+    "compact", then per trace chunk "lane_rays", "trace", "segment_add")
+    with what the stage made, so that a profiler or a kernel check reads
+    the path itself instead of repeating it."""
     hit_px, pos_px = _pixel_mask(scene, width=width, height=height, cfg=cfg,
                                  go_camera=go_camera)
+    hook("mask", hit=hit_px, pos=pos_px)
     k_px = int(pos_px[-1]) + 1  # the one host read: sizes the trace
+    hook("count", k=k_px)
     if k_px <= 0:
         return torch.zeros((height, width, 3), dtype=torch.float32,
                            device=scene.device)
     px_cidx = _compact_pixels(hit_px, pos_px, k_px)
+    hook("compact", px=px_cidx)
     return _trace_compacted_pixels(scene, px_cidx, width=width,
                                    height=height, samples=samples, cfg=cfg,
-                                   go_camera=go_camera)
+                                   go_camera=go_camera, hook=hook)
 
 
 _EFFECT_BLOCKS = ("atmospheric", "volumetric", "fog")
@@ -188,8 +197,7 @@ class Renderer:
     """Drop-in equivalent of the reference's ParallelRenderer.
 
     Runs on ``device`` (default CUDA; raises when there is no GPU unless
-    ``device="cpu"`` is given). ``engine`` is "wavefront" (the main path:
-    K2, compaction, K1) or "dense" (the plain engine over every lane).
+    ``device="cpu"`` is given) through the main path, ``render_wavefront``.
     """
 
     def __init__(self, num_workers: Optional[int] = None, device=None):
@@ -205,7 +213,6 @@ class Renderer:
         self.seed = 0
         self.go_camera = True
         self.fast_mc = False
-        self.engine = "wavefront"
         self.benchmark_data = BenchmarkData()
 
     # -- settings (the reference's settings.go) ---------------------------
@@ -254,21 +261,9 @@ class Renderer:
         """(H,W,3) mean linear radiance as a tensor on the device."""
         cfg = self.trace_config()
         trace_mod.check_supported(cfg)
-        scene = scene.to(self.device)
-        if self.engine == "wavefront":
-            return render_wavefront(scene, width=width, height=height,
-                                    samples=self.samples, cfg=cfg,
-                                    go_camera=self.go_camera)
-        if self.engine != "dense":
-            raise ValueError(f"unknown engine {self.engine!r}")
-        bh = pick_band_height(width, height, self.samples)
-        bands = []
-        for y0 in range(0, height, bh):
-            rows = min(bh, height - y0)
-            bands.append(render_band(scene, y0, width=width, height=height,
-                                     band_h=rows, samples=self.samples,
-                                     cfg=cfg, go_camera=self.go_camera))
-        return torch.cat(bands, 0)
+        return render_wavefront(scene.to(self.device), width=width,
+                                height=height, samples=self.samples,
+                                cfg=cfg, go_camera=self.go_camera)
 
     def render_linear(self, scene, width: int, height: int) -> np.ndarray:
         """(H,W,3) float32 numpy mean linear radiance."""

@@ -70,8 +70,8 @@ def test_renderer_engines_agree():
     r.set_samples(2)
     r.set_max_depth(6)
     wf = r.render_linear(ts, 48, 36)
-    r.engine = "dense"
-    gate(wf, r.render_linear(ts, 48, 36))
+    gate(wf, trender.render_band(ts, 0, width=48, height=36, band_h=36,
+                                 samples=2, cfg=r.trace_config()).numpy())
     img = r.render(ts, 48, 36)
     assert img.shape == (36, 48, 3) and img.dtype == np.uint8
     assert r.benchmark_data.objects == 5 and r.benchmark_data.lights == 2
