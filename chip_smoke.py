@@ -6,34 +6,56 @@ the port builds, runs and agrees with itself on the card.
 
 Phases, in order (each prints a line before and after, with its seconds):
 
-  env           card name and power limit, torch and CUDA versions
-  build         one nvcc call for both kernels; registers, shared memory
-                and spills from -Xptxas -v
-  k2_check      K2 (pixel mask) against its plain version at 800x600 on
-                the three demo scenes: the masks must be equal
-  k1_check      K1 (bounce megakernel) against its plain version on the
-                lanes of a 64x48 frame, 4 spp, depth 50, three scenes,
-                under the image gate
-  render_check  the main path (K2, compaction, K1) against the dense plain
-                path at 800x600, 4 spp, depth 50 on the bench scene, under
-                the image gate
-  bench         Renderer().render of the bench workload (800x600, 100 spp,
-                depth 50, 16 soft-shadow rays, seed 0): one warm-up, then
-                3 timed frames; launch counts are reset just before the
-                first timed frame and read just after it
-  kernels       K1 against its plain version on the bench frame's own
-                lanes, under the image gate; each kernel's time at the
-                bench shapes (CUDA events) beside its plain version's and
-                its bound
+  env               card name and power limit, torch and CUDA versions
+  build             one nvcc call for every kernel; registers, shared
+                    memory and spills from -Xptxas -v
+  k2_check          K2 (pixel mask, brute force) against its plain version
+                    at 800x600 on the three demo scenes: masks equal
+  k1_check          K1 (bounce megakernel, unroll mode) against its plain
+                    version on the lanes of a 64x48 frame, 4 spp, depth 50,
+                    three scenes, under the image gate
+  render_check      the main path (K2, compaction, K1) against the dense
+                    plain path at 800x600, 4 spp, depth 50 on the bench
+                    scene, under the image gate
+  k6_check          K6 (pixel mask, BVH walk) against its plain version at
+                    800x600 on ring-1000 and the mixed scene, and on both
+                    without what covers the whole frame (their frames
+                    must hold hits and misses): masks equal
+  k3_check          K3+K4 (bounce megakernel, bvh mode) against its plain
+                    version on the lanes of a 64x48 frame, 4 spp, depth 50,
+                    ring-1000 and the mixed scene: max lane error 0 or the
+                    image gate
+  render_check_bvh  the main path (K6, compaction, K3+K4) against the
+                    dense plain path at 160x120, 4 spp, depth 50 on
+                    ring-1000, under the image gate
+  bench             Renderer().render of the bench workload (800x600,
+                    100 spp, depth 50, 16 soft-shadow rays, seed 0): one
+                    warm-up, then 3 timed frames; launch counts are reset
+                    just before the first timed frame and read just after
+  bench_bvh         the same on ring-1000 through K6 and K3+K4 (one timed
+                    frame instead of 3 when a frame takes over 30 s)
+  kernels           K1 and K3+K4 against their plain versions on the bench
+                    frames' own lanes (all of them for K1, a strided subset
+                    of about 20k for K3+K4, whose main-path launches must
+                    give the same lanes); each kernel's time per launch at
+                    the main path's own shapes (CUDA events; the trace runs
+                    in chunks of TRACE_LANES lanes, so ms x launches is a
+                    frame's kernel time) beside its plain version's and
+                    its bound for the same work
 
 The image gate is the goldens gate of tests/test_goldens.py: at most 0.1%
 of pixels off by more than 1e-3 and a mean absolute error below 1e-4.
 
 The bench scene is assets/sphere_reflections_light.json with the camera
 mirrored to +Z (the shipped -Z position faces away from the geometry
-under the reference camera). The last two lines of output are the JSON
-kernel record and the contract line. Any failure raises and exits non-zero
-with no contract line; without a GPU the script exits non-zero at once.
+under the reference camera). Ring-1000 is the reference benchmark's
+1000-sphere ring (bench/suite.py:ring_scene_dict); the mixed scene adds a
+prism, two cubes and a plane to a 90-sphere ring (124 primitives;
+bench/suite.py:mixed_scene_dict). Every pixel of both passes the mask,
+so k6_check adds both without their ground and back wall. The last
+two lines of output are the JSON kernel record and the contract line. Any
+failure raises and exits non-zero with no contract line; without a GPU
+the script exits non-zero at once.
 """
 
 import faulthandler
@@ -51,6 +73,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 W, H, SPP, DEPTH, SOFT = 800, 600, 100, 50, 16
 SCENES = ("sphere_reflections_light", "two_red_cubes_scene",
           "final_silver_prism_purple_cube")
+BVH_SCENES = ("ring1000", "mixed")
+MASK_SCENES = BVH_SCENES + ("ring1000-noground", "mixed-noground")
+K3_SUBSET = 20000   # lanes of the bench frame checked against the plain
+SLOW_FRAME_S = 30.0
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and fp32 instructions/s
 # outside the tensor cores: the sheet's 67 TFLOP/s counts an FMA as two
 # operations, and the kernels are built without FMA contraction, so each
@@ -99,6 +125,13 @@ def load_scene(name, device):
     return scene_mod.from_dict(data, device=device)[0]
 
 
+def bvh_scene(name, device):
+    """A bvh-mode scene of bench/suite.py:bvh_scene_dict by name."""
+    from raytrace_tpu_torch import scene as scene_mod
+    from raytrace_tpu_torch.bench.suite import bvh_scene_dict
+    return scene_mod.from_dict(bvh_scene_dict(name), device=device)[0]
+
+
 def cuda_ms(fn, reps):
     import torch
     start = torch.cuda.Event(enable_timing=True)
@@ -112,23 +145,52 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def lanes_of(scene, width, height, samples, cfg):
-    """K1's input on the main path: the compacted pixels and the rays of
-    their lanes, read from render_wavefront through its stage hook."""
+def host_ms(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def lanes_of(scene, width, height, samples, cfg, chunks=False):
+    """The trace's input on the main path: the compacted pixels and the
+    rays of their lanes, read from render_wavefront through its stage hook
+    and joined over its trace chunks; with ``chunks``, also the lane count
+    of each trace launch."""
+    import torch
     from raytrace_tpu_torch import renderer as r
-    seen = []
+    seen = {"px": [], "origin": [], "direction": [], "pix": [], "samp": []}
 
     def hook(stage, **values):
         if stage == "lane_rays":
-            seen.append(values)
+            for k in seen:
+                seen[k].append(values[k])
 
     r.render_wavefront(scene, width=width, height=height, samples=samples,
                        cfg=cfg, hook=hook)
-    if len(seen) != 1:
-        raise AssertionError(f"{len(seen)} trace chunks, expected one")
-    v = seen[0]
-    return (v["px"], v["origin"].contiguous(), v["direction"].contiguous(),
-            v["pix"], v["samp"])
+    out = tuple(torch.cat(seen[k]).contiguous() for k in seen)
+    if chunks:
+        return out + ([int(o.shape[0]) for o in seen["origin"]],)
+    return out
+
+
+def chunk_launches(mk, scene, lanes, sizes, cfg, counters=None):
+    """Prepare the trace kernel on the main path's own chunks of the frame's
+    lanes: returns (out joined over the chunks, a function that launches
+    every chunk once)."""
+    import torch
+    o, d, pix, samp = (t.split(sizes) for t in lanes)
+    cnt = counters.split(sizes) if counters is not None else [None] * len(o)
+    prepared = [mk.prepare_trace(scene, *c, cfg, counters=k)
+                for c, k in zip(zip(o, d, pix, samp), cnt)]
+
+    def launch_all():
+        for _, launch in prepared:
+            launch()
+
+    return (lambda: torch.cat([out for out, _ in prepared])), launch_all
 
 
 def pixel_image(px, rad, width, height, samples):
@@ -139,26 +201,75 @@ def pixel_image(px, rad, width, height, samples):
 
 
 def frame_stages(r, scene):
-    """Milliseconds of each stage of one bench frame: render_wavefront,
-    timed through its stage hook, then tonemap and the copy to the host.
-    Each stage is ended by a synchronise, so the sum exceeds a frame."""
+    """Milliseconds of each stage of one bench frame (render_wavefront,
+    timed through its stage hook, then tonemap and the copy to the host;
+    each stage is ended by a synchronise, so the sum exceeds a frame),
+    and the hit-pixel count."""
     import torch
     from raytrace_tpu_torch import renderer as rmod
     from raytrace_tpu_torch.ops import tonemap
     ms = {}
     last = [time.perf_counter()]
+    k = []
 
     def mark(stage, **values):
         torch.cuda.synchronize()
         now = time.perf_counter()
         ms[stage] = ms.get(stage, 0.0) + (now - last[0]) * 1e3
         last[0] = now
+        if stage == "count":
+            k.append(values["k"])
 
     img = rmod.render_wavefront(scene, width=W, height=H, samples=SPP,
                                 cfg=r.trace_config(), hook=mark)
     tonemap.tonemap_rgb8(img).cpu()
     mark("tonemap_copy")
-    return {k: round(v, 3) for k, v in ms.items()}
+    return {s: round(v, 3) for s, v in ms.items()}, k[0]
+
+
+def bench(scene, mk, what, slow_cut):
+    """Renderer().render at the bench settings: one warm-up, then 3 timed
+    frames (1 when ``slow_cut`` and the warm-up took over SLOW_FRAME_S).
+    Returns the launch counts of the first timed frame."""
+    import torch
+    from raytrace_tpu_torch import renderer as rmod
+    r = rmod.Renderer(device=torch.device("cuda"))
+    r.set_samples(SPP)
+    r.set_max_depth(DEPTH)
+    t0 = time.perf_counter()
+    r.render(scene, W, H)  # warm-up
+    warm = time.perf_counter() - t0
+    n = 1 if slow_cut and warm > SLOW_FRAME_S else 3
+    if n == 1:
+        print(f"   the warm-up frame took {warm:.1f} s > {SLOW_FRAME_S} s: "
+              "timing 1 frame, not 3", flush=True)
+    times = []
+    for i in range(n):
+        if i == 0:
+            mk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = r.render(scene, W, H)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(mk.LAUNCHES)
+    if img.shape != (H, W, 3) or str(img.dtype) != "uint8":
+        raise AssertionError(f"bad image {img.shape} {img.dtype}")
+    nonblack = float((img.sum(axis=2) > 0).mean())
+    if nonblack <= 0.0:
+        raise AssertionError(f"the {what} frame is black")
+    with tempfile.TemporaryDirectory() as tmp:
+        r.save_image(img, os.path.join(tmp, "bench.png"))
+    best = sorted(times)[len(times) // 2]
+    stages, k_px = frame_stages(r, scene)
+    print(f"   {what}: stages of one frame, ms (host clock, synchronised): "
+          f"{stages}", flush=True)
+    print(f"   {what}: frame seconds {[round(t, 4) for t in times]}; median "
+          f"{best:.4f} s = {W * H * SPP / best:.4e} camera samples/s; "
+          f"hit pixels {k_px}, lanes {k_px * SPP}; non-black "
+          f"{nonblack:.4f}; launches {launches}", flush=True)
+    return launches
 
 
 def k1_ops(scene, cnt):
@@ -178,6 +289,28 @@ def k1_ops(scene, cnt):
     costly_cost = 27 if nb else 65      # box 27, division-free triangle 65
     return (closest * per_closest + (hard + soft) * (6 + inv) + soft * 104
             + cheap * cheap_cost + costly * costly_cost), c
+
+
+def k3_ops(cnt):
+    """Operations of K3+K4 and of K4 alone, from the per-lane work
+    counters (megakernel.prepare_trace_bvh) and per-test costs read off
+    csrc/ as for K1: slab test 21, sphere 25, triangle 54, plane 17 (the
+    cheaper of plane and box), per ray 12 (direction terms); fused walk:
+    slab 46 (with the cone growth), (ray, sphere) 17, (ray, triangle) 25,
+    and 104 per soft ray for its direction (ball, normalise)."""
+    import torch
+    c = [int(x) for x in cnt.to(torch.int64).sum(0)]
+    closest, hard, soft, nodes, sph, tri, fnodes, fsph, ftri, brute = c
+    k4 = soft * 104 + fnodes * 46 + fsph * 17 + ftri * 25
+    total = ((closest + hard) * 12 + nodes * 21 + sph * 25 + tri * 54
+             + brute * 17 + k4)
+    return total, k4, c
+
+
+def bound(ops, n_bytes):
+    t_ops, t_bytes = ops / FP32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def main():
@@ -221,6 +354,10 @@ def main():
 
     cfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT, seed=0)
     scenes = {n: load_scene(n, dev) for n in SCENES}
+    bvh_scenes = {n: bvh_scene(n, dev) for n in MASK_SCENES}
+    for n, s in bvh_scenes.items():
+        if mk._kernel_mode(s) != "bvh":
+            raise AssertionError(f"{n} is not a bvh-mode scene")
 
     with Phase("k2_check"):
         for name, s in scenes.items():
@@ -241,7 +378,7 @@ def main():
     with Phase("k1_check"):
         for name, s in scenes.items():
             px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
-            got = mk.trace_unroll(s, o, d, pix, samp, cfg)
+            got = mk.trace(s, o, d, pix, samp, cfg)
             want = trace_mod.trace(s, o, d, pix, samp, cfg)
             err = float((got - want).abs().max())
             print(f"   {name}: {o.shape[0]} lanes, max lane error "
@@ -257,102 +394,65 @@ def main():
                                    band_h=H, samples=4, cfg=rcfg)
         image_gate(main_img, ref_img, "main path vs dense plain path")
 
+    with Phase("k6_check"):
+        for name, s in bvh_scenes.items():
+            got = mk.pixel_mask(s, width=W, height=H, cfg=cfg)
+            want = mk.pixel_mask_plain(s, width=W, height=H, cfg=cfg)
+            missing = int((want & ~got).sum())
+            extra = int((got & ~want).sum())
+            print(f"   {name}: {s.accel.n_nodes} nodes, {int(got.sum())} of "
+                  f"{W * H} pixels, {missing + extra} differ ({missing} "
+                  f"missing, {extra} extra)", flush=True)
+            if name.endswith("-noground") and not (want.any()
+                                                   and (~want).any()):
+                raise AssertionError(f"{name}: the frame must hold both "
+                                     "hits and misses")
+            if not torch.equal(got, want):
+                raise AssertionError(f"K6 differs from its plain version "
+                                     f"on {name}")
+            if name == BVH_SCENES[0]:
+                record["k6_err"] = float(
+                    (got.float() - want.float()).abs().max())
+
+    with Phase("k3_check"):
+        for name in BVH_SCENES:
+            s = bvh_scenes[name]
+            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
+            got = mk.trace(s, o, d, pix, samp, cfg)
+            want = trace_mod.trace(s, o, d, pix, samp, cfg)
+            err = float((got - want).abs().max())
+            print(f"   {name}: {o.shape[0]} lanes, max lane error "
+                  f"{err:.3e}", flush=True)
+            if err > 0.0:
+                image_gate(pixel_image(px, got, 64, 48, 4),
+                           pixel_image(px, want, 64, 48, 4), f"K3 {name}")
+
+    with Phase("render_check_bvh"):
+        ring = bvh_scenes[BVH_SCENES[0]]
+        rcfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT)
+        main_img = rmod.render_wavefront(ring, width=160, height=120,
+                                         samples=4, cfg=rcfg)
+        ref_img = rmod.render_band(ring, 0, width=160, height=120,
+                                   band_h=120, samples=4, cfg=rcfg)
+        image_gate(main_img, ref_img, "bvh main path vs dense plain path")
+
     with Phase("bench"):
-        r = rmod.Renderer(device=dev)
-        r.set_samples(SPP)
-        r.set_max_depth(DEPTH)
-        scene = scenes[SCENES[0]]
-        r.render(scene, W, H)  # warm-up
-        times = []
-        for i in range(3):
-            if i == 0:
-                mk.reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            img = r.render(scene, W, H)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if i == 0:
-                launches = dict(mk.LAUNCHES)
-        for k, n in launches.items():
-            if n < 1:
+        launches = bench(scenes[SCENES[0]], mk, "bench", slow_cut=False)
+        for k in ("trace_unroll", "pixel_mask"):
+            if launches[k] < 1:
                 raise AssertionError(f"the main path never launched {k}")
-        if img.shape != (H, W, 3) or str(img.dtype) != "uint8":
-            raise AssertionError(f"bad image {img.shape} {img.dtype}")
-        nonblack = float((img.sum(axis=2) > 0).mean())
-        if nonblack <= 0.0:
-            raise AssertionError("the bench frame is black")
-        with tempfile.TemporaryDirectory() as tmp:
-            r.save_image(img, os.path.join(tmp, "bench.png"))
-        best = sorted(times)[1]
-        print(f"   stages of one frame, ms (host clock, synchronised): "
-              f"{frame_stages(r, scene)}", flush=True)
-        print(f"   frame seconds {[round(t, 4) for t in times]}; median "
-              f"{best:.4f} s = {W * H * SPP / best:.4e} camera samples/s; "
-              f"non-black {nonblack:.4f}; launches {launches}", flush=True)
+
+    with Phase("bench_bvh"):
+        launches_bvh = bench(bvh_scenes[BVH_SCENES[0]], mk, "bench_bvh",
+                             slow_cut=True)
+        for k in ("trace_bvh", "pixel_mask_bvh"):
+            if launches_bvh[k] < 1:
+                raise AssertionError(f"the bvh main path never launched {k}")
 
     with Phase("kernels"):
-        scene = scenes[SCENES[0]]
-        n_px = W * H
-        # K2 at the bench frame
-        g = scene.geometry
-        nbs = g.sph_center.shape[0] + g.tri_v0.shape[0]
-        npl = g.pl_point.shape[0]
-        _, k2_launch = mk.prepare_pixel_mask(scene, width=W, height=H,
-                                             cfg=cfg)
-        k2_ms = cuda_ms(k2_launch, 20)
-        k2_plain = cuda_ms(lambda: mk.pixel_mask_plain(
-            scene, width=W, height=H, cfg=cfg), 3)
-        k2_ops = n_px * (27 + 28 * nbs + 23 * npl)
-        k2_bytes = n_px + 4 * (13 + 4 * nbs + 7 * npl)
-        k2_bound = max(k2_bytes / HBM_BYTES_PER_S,
-                       k2_ops / FP32_OPS_PER_S) * 1e3
-        # K1 at the bench lanes (100 spp over the hit pixels)
-        px, o, d, pix, samp = lanes_of(scene, W, H, SPP, cfg)
-        cnt = torch.zeros((o.shape[0], mk.COUNTERS), dtype=torch.int32,
-                          device=dev)
-        got, k1_counted = mk.prepare_trace_unroll(scene, o, d, pix, samp,
-                                                  cfg, counters=cnt)
-        k1_counted()
-        _, k1_launch = mk.prepare_trace_unroll(scene, o, d, pix, samp, cfg)
-        k1_ms = cuda_ms(k1_launch, 5)
-        t0 = time.perf_counter()
-        want = trace_mod.trace(scene, o, d, pix, samp, cfg)
-        torch.cuda.synchronize()
-        k1_plain = (time.perf_counter() - t0) * 1e3
-        k1_err = float((got - want).abs().max())
-        image_gate(pixel_image(px, got, W, H, SPP),
-                   pixel_image(px, want, W, H, SPP),
-                   f"K1 at the bench lanes (max lane error {k1_err:.3e})")
-        ops, work = k1_ops(scene, cnt)
-        k1_bytes = o.shape[0] * (12 + 12 + 4 + 4 + 12)
-        k1_bound = max(k1_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
-        print(f"   K1: {o.shape[0]} lanes, work [closest, hard, soft, "
-              f"sphere/plane tests, tri/box tests] = {work}, {ops:.4e} ops; "
-              f"{k1_ms:.4f} ms vs plain {k1_plain:.1f} ms, bound "
-              f"{k1_bound:.4f} ms", flush=True)
-        print(f"   K2: {n_px} pixels x {nbs} bounding spheres; {k2_ms:.4f} ms "
-              f"vs plain {k2_plain:.4f} ms, bound {k2_bound:.6f} ms",
-              flush=True)
-        kernels = [
-            dict(name="K1 trace_unroll", route="cuda",
-                 source="raytrace_tpu_torch/csrc/trace_unroll.cu",
-                 replaces="raytrace_tpu/ops/megakernel.py:2987",
-                 launches=launches["trace_unroll"], max_abs_err=k1_err,
-                 ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound,
-                 bound_by=("operations" if ops / FP32_OPS_PER_S
-                           >= k1_bytes / HBM_BYTES_PER_S else "bytes"),
-                 library_ms=None),
-            dict(name="K2 pixel_mask", route="cuda",
-                 source="raytrace_tpu_torch/csrc/pixel_mask.cu",
-                 replaces="raytrace_tpu/ops/megakernel.py:2532",
-                 launches=launches["pixel_mask"],
-                 max_abs_err=record["k2_err"], ms=k2_ms, plain_ms=k2_plain,
-                 bound_ms=k2_bound,
-                 bound_by=("operations" if k2_ops / FP32_OPS_PER_S
-                           >= k2_bytes / HBM_BYTES_PER_S else "bytes"),
-                 library_ms=None),
-        ]
+        kernels = kernel_rows(mk, trace_mod, scenes[SCENES[0]],
+                              bvh_scenes[BVH_SCENES[0]], cfg, launches,
+                              launches_bvh, record)
 
     print(gpu_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -360,6 +460,152 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
+                record):
+    """Each kernel at its bench frame: checks, times, bounds; the rows of
+    the JSON kernel record."""
+    import torch
+    dev = torch.device("cuda")
+    n_px = W * H
+    rows = []
+
+    # K2 at the bench frame
+    g = scene.geometry
+    nbs = g.sph_center.shape[0] + g.tri_v0.shape[0]
+    npl = g.pl_point.shape[0]
+    _, k2_launch = mk.prepare_pixel_mask(scene, width=W, height=H, cfg=cfg)
+    k2_ms = cuda_ms(k2_launch, 20)
+    k2_plain = cuda_ms(lambda: mk.pixel_mask_plain(
+        scene, width=W, height=H, cfg=cfg), 3)
+    k2_bound, k2_by = bound(n_px * (27 + 28 * nbs + 23 * npl),
+                            n_px + 4 * (13 + 4 * nbs + 7 * npl))
+
+    # K1 at the bench lanes (100 spp over the hit pixels), per launch of
+    # the main path's chunks
+    px, o, d, pix, samp, sizes = lanes_of(scene, W, H, SPP, cfg, chunks=True)
+    n_k1 = len(sizes)
+    cnt = torch.zeros((o.shape[0], mk.COUNTERS), dtype=torch.int32,
+                      device=dev)
+    k1_out, k1_counted = chunk_launches(mk, scene, (o, d, pix, samp), sizes,
+                                       cfg, counters=cnt)
+    k1_counted()
+    got = k1_out()
+    _, k1_launch = chunk_launches(mk, scene, (o, d, pix, samp), sizes, cfg)
+    k1_ms = cuda_ms(k1_launch, 5) / n_k1
+    k1_plain, want = host_ms(lambda: trace_mod.trace(scene, o, d, pix, samp,
+                                                     cfg))
+    k1_err = float((got - want).abs().max())
+    image_gate(pixel_image(px, got, W, H, SPP),
+               pixel_image(px, want, W, H, SPP),
+               f"K1 at the bench lanes (max lane error {k1_err:.3e})")
+    ops, work = k1_ops(scene, cnt)
+    k1_bound, k1_by = bound(ops / n_k1,
+                            o.shape[0] / n_k1 * (12 + 12 + 4 + 4 + 12))
+    print(f"   K1: {o.shape[0]} lanes in {n_k1} launch(es), work [closest, "
+          f"hard, soft, sphere/plane tests, tri/box tests] = {work}, "
+          f"{ops:.4e} ops; per launch {k1_ms:.4f} ms, bound "
+          f"{k1_bound:.4f} ms; plain over all lanes {k1_plain:.1f} ms",
+          flush=True)
+    print(f"   K2: {n_px} pixels x {nbs} bounding spheres; {k2_ms:.4f} ms "
+          f"vs plain {k2_plain:.4f} ms, bound {k2_bound:.6f} ms", flush=True)
+    del px, o, d, pix, samp, cnt, got, want
+
+    # K6 at the bvh bench frame
+    mwork = [0, 0]
+    mk.pixel_mask_plain(ring, width=W, height=H, cfg=cfg, work=mwork)
+    _, k6_launch = mk.prepare_pixel_mask(ring, width=W, height=H, cfg=cfg)
+    k6_ms = cuda_ms(k6_launch, 20)
+    k6_plain = cuda_ms(lambda: mk.pixel_mask_plain(
+        ring, width=W, height=H, cfg=cfg), 3)
+    rg = ring.geometry
+    nbs_r = rg.sph_center.shape[0] + rg.tri_v0.shape[0]
+    n_nodes = ring.accel.n_nodes
+    k6_bound, k6_by = bound(
+        n_px * (27 + 23 * rg.pl_point.shape[0]) + mwork[0] * 21
+        + mwork[1] * 28,
+        n_px + 4 * (13 + 4 * nbs_r + 9 * n_nodes + nbs_r))
+    print(f"   K6: {n_px} pixels, {n_nodes} nodes, work [slab tests, "
+          f"bounding-sphere tests] = {mwork}; {k6_ms:.4f} ms vs plain "
+          f"{k6_plain:.4f} ms, bound {k6_bound:.6f} ms", flush=True)
+
+    # K3+K4 at the bvh bench lanes, per launch of the main path's chunks
+    px, o, d, pix, samp, sizes = lanes_of(ring, W, H, SPP, cfg, chunks=True)
+    lanes = (o, d, pix, samp)
+    n, n_k3 = o.shape[0], len(sizes)
+    idx = torch.arange(0, n, max(1, n // K3_SUBSET), device=dev)
+    so, sd, spix, ssamp = o[idx], d[idx], pix[idx], samp[idx]
+    k3_out, k3_launch = chunk_launches(mk, ring, lanes, sizes, cfg)
+    k3_launch()
+    sub_k, sub_launch = mk.prepare_trace(ring, so, sd, spix, ssamp, cfg)
+    sub_ms = cuda_ms(sub_launch, 1)
+    if not torch.equal(k3_out()[idx], sub_k):
+        raise AssertionError("K3: the main-path launches and the subset "
+                             "launch disagree at the same lanes")
+    plain_ms, want = host_ms(lambda: trace_mod.trace(
+        ring, so, sd, spix, ssamp, cfg))
+    k3_err = float((sub_k - want).abs().max())
+    image_gate(sub_k, want, f"K3+K4 at {idx.numel()} of the bvh bench lanes "
+               f"(one lane a pixel; max lane error {k3_err:.3e})")
+    hard_cfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT,
+                                     seed=0, soft_shadows=False)
+    plain_hard_ms, _ = host_ms(lambda: trace_mod.trace(
+        ring, so, sd, spix, ssamp, hard_cfg))
+    k3_ms = cuda_ms(k3_launch, 2) / n_k3
+    _, hard_launch = chunk_launches(mk, ring, lanes, sizes, hard_cfg)
+    hard_ms = cuda_ms(hard_launch, 2) / n_k3
+    cnt = torch.zeros((n, mk.BVH_COUNTERS), dtype=torch.int32, device=dev)
+    _, counted = chunk_launches(mk, ring, lanes, sizes, cfg, counters=cnt)
+    counted()
+    ops, k4_ops, work = k3_ops(cnt)
+    k3_bound, k3_by = bound(ops / n_k3, n / n_k3 * (12 + 12 + 4 + 4 + 12))
+    k4_bound, k4_by = bound(k4_ops / n_k3, 0)
+    print(f"   K3+K4: {n} lanes in {n_k3} launches, work [closest, hard, "
+          f"soft, slab, sphere, triangle, fused slab, fused (ray, sphere), "
+          f"fused (ray, triangle), plane/box] = {work}, {ops:.4e} ops of "
+          f"which K4 {k4_ops:.4e}; per launch {k3_ms:.4f} ms, without soft "
+          f"shadows {hard_ms:.4f} ms (K4 {k3_ms - hard_ms:.4f} ms); bound "
+          f"per launch {k3_bound:.4f} ms (K4 {k4_bound:.4f} ms)", flush=True)
+    print(f"   K3+K4 on {idx.numel()} lanes: {sub_ms:.3f} ms vs plain "
+          f"{plain_ms:.1f} ms (plain without soft shadows "
+          f"{plain_hard_ms:.1f} ms)", flush=True)
+
+    if (launches["trace_unroll"], launches_bvh["trace_bvh"]) != (n_k1, n_k3):
+        raise AssertionError(f"the main path's trace launches "
+                             f"{launches['trace_unroll']}, "
+                             f"{launches_bvh['trace_bvh']} are not its "
+                             f"chunk counts {n_k1}, {n_k3}")
+
+    def row(name, source, replaces, n_launch, err, ms, plain, bnd, by,
+            **extra):
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=n_launch, max_abs_err=err,
+                    ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                    library_ms=None, **extra)
+
+    src = "raytrace_tpu_torch/csrc/"
+    mkpy = "raytrace_tpu/ops/megakernel.py:"
+    subset = dict(plain_lanes=int(idx.numel()), ms_plain_lanes=sub_ms,
+                  lanes_per_frame=n)
+    rows += [
+        row("K1 trace_unroll", src + "trace_unroll.cu", mkpy + "2987",
+            launches["trace_unroll"], k1_err, k1_ms, k1_plain, k1_bound,
+            k1_by),
+        row("K2 pixel_mask", src + "pixel_mask.cu", mkpy + "2532",
+            launches["pixel_mask"], record["k2_err"], k2_ms, k2_plain,
+            k2_bound, k2_by),
+        row("K3 trace_bvh", src + "trace_bvh.cu", mkpy + "954",
+            launches_bvh["trace_bvh"], k3_err, k3_ms, plain_ms, k3_bound,
+            k3_by, **subset),
+        row("K4 trace_bvh soft walk", src + "bvh_walk.cuh", mkpy + "1308",
+            launches_bvh["trace_bvh"], k3_err, k3_ms - hard_ms,
+            plain_ms - plain_hard_ms, k4_bound, k4_by, **subset),
+        row("K6 pixel_mask_bvh", src + "pixel_mask.cu", mkpy + "2661",
+            launches_bvh["pixel_mask_bvh"], record["k6_err"], k6_ms,
+            k6_plain, k6_bound, k6_by),
+    ]
+    return rows
 
 
 if __name__ == "__main__":

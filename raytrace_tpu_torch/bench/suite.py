@@ -1,0 +1,84 @@
+"""Benchmark and check scenes of the port: a copy of the JAX package's
+``bench/suite.py:ring_scene_dict`` (the benchmark sweep is not ported),
+and the bvh-mode scenes that the tests and ``chip_smoke.py`` share."""
+
+from __future__ import annotations
+
+import copy
+import math
+
+
+def ring_scene_dict(n_spheres: int = 10, radius: float = 5.0):
+    """The reference benchmark's synthetic scene family: a ring of spheres
+    around (0, 0, -8) with mixed materials, plus a ground sphere standing
+    in for a plane (the reference JSON schema has no planes)."""
+    objs = [{"type": "sphere", "position": [0, -1000.5, 0], "radius": 1000,
+             "material": {"type": "lambertian", "color": [0.5, 0.5, 0.5]}}]
+    mats = [{"type": "lambertian", "color": [0.8, 0.3, 0.3]},
+            {"type": "metal", "color": [0.8, 0.8, 0.9], "roughness": 0.1},
+            {"type": "glass", "color": [0.9, 0.9, 0.9]}]
+    for i in range(n_spheres):
+        ang = 2.0 * math.pi * i / n_spheres
+        objs.append({
+            "type": "sphere",
+            "position": [radius * math.cos(ang), 0.0,
+                         radius * math.sin(ang) - 8.0],
+            "radius": 0.5,
+            "material": mats[i % len(mats)],
+        })
+    return {
+        "camera": {"position": [0, 1, 8], "aspectRatio": 1.333},
+        "objects": objs,
+        "lights": [{"type": "point", "position": [5, 10, 5],
+                    "color": [1, 1, 1], "intensity": 2.0}],
+    }
+
+
+# The prism and the two cubes (the second one the ground) of
+# assets/final_silver_prism_purple_cube.json.
+_PRISM_AND_CUBES = [
+    {"type": "triangularPrism",
+     "vertices": [[-2.2, -0.8, -0.5], [-1.0, -0.8, -0.5], [-1.6, 0.6, -0.5],
+                  [-2.2, -0.8, 0.8], [-1.0, -0.8, 0.8], [-1.6, 0.6, 0.8]],
+     "material": {"type": "perfectmirror", "color": [0.92, 0.92, 0.95]}},
+    {"type": "cube", "position": [1.6, 0, 0], "size": [1.3, 1.3, 1.3],
+     "material": {"type": "shiny", "color": [0.55, 0.2, 0.8],
+                  "roughness": 0.15, "specular": 0.9}},
+    {"type": "cube", "position": [0, -501.2, 0], "size": [1000, 1000, 1000],
+     "material": {"type": "lambertian", "color": [0.5, 0.5, 0.55]}},
+]
+_BACK_WALL = {"type": "plane", "position": [0, 0, -20], "normal": [0, 0, 1],
+              "material": {"type": "lambertian", "color": [0.4, 0.5, 0.6]}}
+
+
+def mixed_scene_dict(ground: bool = True):
+    """A bvh-mode scene of every kind: a 90-sphere ring and its ground
+    sphere, the prism and the two cubes of
+    final_silver_prism_purple_cube.json and a back-wall plane.
+
+    With ``ground=False`` the three objects that cover the whole frame
+    are left out (the ground sphere, the ground cube and the back wall),
+    so the pixel mask's frame holds both hits and misses."""
+    d = ring_scene_dict(90)
+    extra = copy.deepcopy(_PRISM_AND_CUBES + [_BACK_WALL])
+    if ground:
+        d["objects"] += extra
+    else:
+        d["objects"] = d["objects"][1:] + extra[:2]
+    return d
+
+
+def bvh_scene_dict(name: str):
+    """A bvh-mode check scene by name: "ring<N>" (the ring of N spheres),
+    "mixed", and either with "-noground" appended, which leaves out what
+    covers the whole frame (for the ring, its ground sphere), so that the
+    pixel mask meets both hits and misses."""
+    base, _, rest = name.partition("-")
+    if rest not in ("", "noground"):
+        raise ValueError(f"unknown scene {name!r}")
+    if base == "mixed":
+        return mixed_scene_dict(ground=not rest)
+    d = ring_scene_dict(int(base[len("ring"):]))
+    if rest:
+        d["objects"] = d["objects"][1:]
+    return d

@@ -1,0 +1,321 @@
+// The bounce loop of one lane, shared by K1 (trace_unroll.cu) and K3+K4
+// (trace_bvh.cu).
+//
+// models/materials.py, ops/shade.py and trace.py in scalar form: closest
+// hit, direct light with hard and soft shadows, scatter, accumulation.
+// The geometry is a policy type with four members, so shading, scatter and
+// accumulation exist once:
+//
+//   void  closest(V3 o, V3 d, float* t, int* kind, int* idx)
+//         closest hit with t_min = 1e-3: kind 0 sphere, 1 triangle,
+//         2 plane, 3 box, -1 miss; idx indexes that kind's table
+//   bool  occluded(V3 o, V3 d, float t_max)      the hard shadow test
+//   float soft_unblocked(V3 p, V3 ld, float dist, const SoftRays& rays)
+//         the number of the light's soft-shadow rays that nothing
+//         blocks, as the sum of 1.0f over them
+//   void  store_work(int32_t* out)               per-lane work counters
+//
+// Table layout (row-major float32):
+//   sph [ns][5]  center.xyz, radius, mat
+//   tri [nt][13] v0.xyz, e1.xyz, e2.xyz, normal.xyz, mat (hit triangles:
+//                cube faces are left out, their boxes are the hit form)
+//   pln [npl][7] point.xyz, normal.xyz, mat
+//   box [nb][7]  min.xyz, max.xyz, mat
+//   lit [nl][7]  position.xyz, color.xyz, intensity
+//   mat [nm][14] kind, albedo.rgb, roughness, metallic, specular, ior,
+//                emit.rgb, eff_albedo.rgb
+#pragma once
+
+#include "common.cuh"
+
+#define RT_MAX_DEPTH 64
+#define RT_MAX_LIGHTS 16
+#define RT_MAX_SHADOW_SAMPLES 64
+
+namespace rt {
+
+enum Kind {
+  kLambertian = 0,
+  kMetal = 1,
+  kShiny = 2,
+  kPerfectMirror = 3,
+  kDiffuseLight = 6
+};
+
+struct Tables {
+  const float* sph;
+  const float* tri;
+  const float* pln;
+  const float* box;
+  const float* lit;
+  const float* mat;
+  int ns, nt, npl, nb, nl, nm;
+};
+
+// The draws of one (lane, bounce, light) that make its soft-shadow rays.
+struct SoftRays {
+  uint32_t pix, samp, base, seed;
+  int light, samples;
+};
+
+// Soft-shadow ray s: normalize(light_dir + 0.1 * unit_ball) with the draw
+// site of rng.py:shadow_stream.
+RT_DEV V3 soft_dir(const SoftRays& r, V3 ld, int s) {
+  uint32_t stream = r.base + kShadowBase +
+                    static_cast<uint32_t>(r.light * (r.samples + 1) + s);
+  float b[3];
+  unit_ball(r.pix, r.samp, stream, r.seed, b);
+  return normalize3(V3{ld.x + 0.1f * b[0], ld.y + 0.1f * b[1],
+                       ld.z + 0.1f * b[2]});
+}
+
+RT_DEV float tier_ambient(float m) {
+  return m > 0.9f ? 0.05f : (m > 0.7f ? 0.07f : (m > 0.5f ? 0.08f : 0.1f));
+}
+
+RT_DEV float tier_diffuse(float m) {
+  return m > 0.95f ? 0.05f
+       : m > 0.9f  ? 0.08f
+       : m > 0.8f  ? 0.12f
+       : m > 0.7f  ? 0.15f
+       : m > 0.5f  ? 0.2f
+                   : 0.25f;
+}
+
+RT_DEV float tier_spec_power(float m) {
+  return m > 0.9f ? 64.0f : (m > 0.8f ? 48.0f : 32.0f);
+}
+
+RT_DEV float tier_reflect(float m) {
+  return m > 0.95f ? 0.85f
+       : m > 0.9f  ? 0.8f
+       : m > 0.8f  ? 0.75f
+       : m > 0.7f  ? 0.7f
+       : m > 0.5f  ? 0.6f
+       : m > 0.2f  ? 0.4f
+                   : 1.0f;
+}
+
+RT_DEV float pow5(float x) {
+  float x2 = x * x;
+  return x2 * x2 * x;
+}
+
+RT_DEV V3 reflect3(V3 d, V3 n) {
+  float k = 2.0f * dot3(d, n);
+  return V3{d.x - k * n.x, d.y - k * n.y, d.z - k * n.z};
+}
+
+// One lane through the whole depth loop. counters (optional): closest-hit
+// rays, hard shadow rays, soft shadow rays, then the geometry's own work.
+template <class Geo>
+RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, uint32_t pix,
+                       uint32_t samp, int max_depth, int shadow_samples,
+                       bool soft, bool recursive, uint32_t seed, float* rad,
+                       int32_t* counters) {
+  V3 tp{1.0f, 1.0f, 1.0f};
+  V3 r{0.0f, 0.0f, 0.0f};
+  int n_closest = 0, n_hard = 0, n_soft = 0;
+  for (int bounce = 0; bounce < RT_MAX_DEPTH; ++bounce) {
+    if (bounce >= max_depth) break;
+    ++n_closest;
+    float t;
+    int kind_hit, idx;
+    geo.closest(o, d, &t, &kind_hit, &idx);
+    if (kind_hit < 0) break;  // miss: the lane contributes nothing more
+
+    V3 p{o.x + d.x * t, o.y + d.y * t, o.z + d.z * t};
+    V3 out;
+    int mid;
+    if (kind_hit == 0) {
+      const float* s = tb.sph + 5 * idx;
+      out = V3{(p.x - s[0]) / s[3], (p.y - s[1]) / s[3], (p.z - s[2]) / s[3]};
+      mid = static_cast<int>(s[4]);
+    } else if (kind_hit == 1) {
+      const float* tr = tb.tri + 13 * idx;
+      out = V3{tr[9], tr[10], tr[11]};
+      mid = static_cast<int>(tr[12]);
+    } else if (kind_hit == 2) {
+      const float* pl = tb.pln + 7 * idx;
+      out = V3{pl[3], pl[4], pl[5]};
+      mid = static_cast<int>(pl[6]);
+    } else {
+      // Point-based box normal, NEGATED: the reference winds every cube
+      // face inward, so exterior hits are back faces (this steers the
+      // dielectric eta). Ties resolve x < y < z.
+      const float* bx = tb.box + 7 * idx;
+      float q[3], aq[3];
+      for (int k = 0; k < 3; ++k) {
+        float ctr = (bx[k] + bx[3 + k]) * 0.5f;
+        float half = fmaxf((bx[3 + k] - bx[k]) * 0.5f, 1e-30f);
+        float pk = k == 0 ? p.x : (k == 1 ? p.y : p.z);
+        q[k] = (pk - ctr) / half;
+        aq[k] = fabsf(q[k]);
+      }
+      int ax = 0;
+      if (aq[1] > aq[ax]) ax = 1;
+      if (aq[2] > aq[ax]) ax = 2;
+      float sg = q[ax] > 0.0f ? 1.0f : (q[ax] < 0.0f ? -1.0f : q[ax]);
+      out = V3{-((ax == 0 ? 1.0f : 0.0f) * sg),
+               -((ax == 1 ? 1.0f : 0.0f) * sg),
+               -((ax == 2 ? 1.0f : 0.0f) * sg)};
+      mid = static_cast<int>(bx[6]);
+    }
+    bool front = dot3(d, out) < 0.0f;
+    V3 n = front ? out : V3{-out.x, -out.y, -out.z};
+
+    const float* m = tb.mat + 14 * mid;
+    int kind = static_cast<int>(m[0]);
+    V3 alb{m[1], m[2], m[3]};
+    float rough = m[4], metal = m[5], spec = m[6], ior = m[7];
+    V3 emit{m[8], m[9], m[10]};
+    V3 eff{m[11], m[12], m[13]};
+
+    // ---- direct light (ops/shade.py:direct_lighting) -------------------
+    float amb = tier_ambient(metal);
+    V3 dl{amb, amb, amb};
+    float dstr = tier_diffuse(metal);
+    float spow = tier_spec_power(metal);
+    V3 view = normalize3(V3{-p.x, -p.y, -p.z});
+    uint32_t base = static_cast<uint32_t>(bounce) * kStreamsPerBounce;
+    for (int li = 0; li < RT_MAX_LIGHTS; ++li) {
+      if (li >= tb.nl) break;
+      const float* L = tb.lit + 7 * li;
+      V3 tl{L[0] - p.x, L[1] - p.y, L[2] - p.z};
+      float dist = sqrtf(dot3(tl, tl));
+      if (!(dist >= 1e-3f)) continue;  // light too close: skipped
+      V3 ld = normalize3(tl);
+      float cos_t = fmaxf(dot3(n, ld), 0.0f);
+      // Every term below carries cos_t, so the shadow factor only matters
+      // where cos_t > 0; elsewhere any finite value gives the same sum.
+      float sf = 1.0f;
+      if (cos_t > 0.0f) {
+        ++n_hard;
+        if (geo.occluded(p, ld, dist)) {
+          sf = 0.0f;
+        } else if (soft) {
+          SoftRays rays{pix, samp, base, seed, li, shadow_samples};
+          float unblocked = geo.soft_unblocked(p, ld, dist, rays);
+          n_soft += shadow_samples;
+          sf = unblocked / static_cast<float>(shadow_samples);
+        }
+      }
+      float inten = cos_t * L[6] / (dist * dist);
+      float dscale = dstr * inten * sf;
+      V3 hd = normalize3(V3{ld.x + view.x, ld.y + view.y, ld.z + view.z});
+      float spec_i = powf(fmaxf(dot3(n, hd), 0.0f), spow);
+      float sscale = metal > 0.5f ? spec_i * inten * sf * metal * 3.0f : 0.0f;
+      dl.x = dl.x + (eff.x * dscale + L[3] * sscale);
+      dl.y = dl.y + (eff.y * dscale + L[4] * sscale);
+      dl.z = dl.z + (eff.z * dscale + L[5] * sscale);
+    }
+
+    // ---- scatter (models/materials.py:scatter) -------------------------
+    float ball[3], u4[4];
+    unit_ball(pix, samp, base + kScatterBall, seed, ball);
+    uniform4(pix, samp, base + kDielectric, seed, u4);
+    float pick = u4[0];
+    V3 bl{ball[0], ball[1], ball[2]};
+    V3 refl = reflect3(d, n);
+    float cos_raw = fabsf(dot3(d, n));
+    float f0 = (ior - 1.0f) / (ior + 1.0f);
+    f0 = f0 * f0;
+    float fres = f0 + (1.0f - f0) * pow5(1.0f - cos_raw);
+    V3 sdir, att;
+    if (kind == kLambertian) {
+      V3 l{n.x + bl.x, n.y + bl.y, n.z + bl.z};
+      bool near_zero = fabsf(l.x) < 1e-8f && fabsf(l.y) < 1e-8f &&
+                       fabsf(l.z) < 1e-8f;
+      sdir = normalize3(near_zero ? n : l);
+      att = alb;
+    } else if (kind == kMetal || kind == kShiny || kind == kPerfectMirror) {
+      V3 pert = normalize3(V3{refl.x + bl.x * rough, refl.y + bl.y * rough,
+                              refl.z + bl.z * rough});
+      if (kind == kShiny) {
+        sdir = rough > 0.0f ? pert : refl;
+        float ss = 0.4f + spec * 0.4f;
+        att = V3{fminf(alb.x * (1.0f - ss) + fres * ss, 1.0f),
+                 fminf(alb.y * (1.0f - ss) + fres * ss, 1.0f),
+                 fminf(alb.z * (1.0f - ss) + fres * ss, 1.0f)};
+      } else {
+        sdir = rough > 0.001f ? pert : refl;
+        if (kind == kMetal) {
+          float fs = 0.6f + metal * 0.4f;
+          att = V3{fminf(fmaxf(alb.x * (1.0f - fs) + fres * fs, 0.0f), 1.0f),
+                   fminf(fmaxf(alb.y * (1.0f - fs) + fres * fs, 0.0f), 1.0f),
+                   fminf(fmaxf(alb.z * (1.0f - fs) + fres * fs, 0.0f), 1.0f)};
+          if (metal > 0.8f) {
+            float mfs = 0.4f + metal * 0.5f;
+            att = V3{att.x * (1.0f - mfs) + fres * mfs,
+                     att.y * (1.0f - mfs) + fres * mfs,
+                     att.z * (1.0f - mfs) + fres * mfs};
+          }
+        } else {
+          att = V3{alb.x * 0.1f + fres * 0.9f, alb.y * 0.1f + fres * 0.9f,
+                   alb.z * 0.1f + fres * 0.9f};
+        }
+      }
+    } else {
+      // glass and dielectric (a DiffuseLight ends below; its dir is unused)
+      V3 ud = normalize3(d);
+      float ratio = front ? 1.0f / ior : ior;
+      float udn = dot3(ud, n);
+      float cos_i = fminf(-udn, 1.0f);
+      float sin_i = sqrtf(fmaxf(1.0f - cos_i * cos_i, 0.0f));
+      bool cannot = ratio * sin_i > 1.0f;
+      float r0 = (1.0f - ratio) / (1.0f + ratio);
+      r0 = r0 * r0;
+      float refl_p = r0 + (1.0f - r0) * pow5(1.0f - cos_i);
+      if (cannot || refl_p > pick) {
+        sdir = reflect3(ud, n);
+      } else {
+        // Go's Refract with its total-internal-reflection fallback
+        bool flip = udn > 0.0f;
+        V3 n2 = flip ? V3{-n.x, -n.y, -n.z} : n;
+        float eta2 = flip ? 1.0f / ratio : ratio;
+        float cos2 = flip ? -udn : udn;
+        float st2 = eta2 * eta2 * (1.0f - cos2 * cos2);
+        if (st2 > 1.0f) {
+          sdir = reflect3(ud, n2);
+        } else {
+          float ct2 = sqrtf(fmaxf(1.0f - st2, 0.0f));
+          float k = eta2 * cos2 + ct2;
+          sdir = V3{ud.x * eta2 - n2.x * k, ud.y * eta2 - n2.y * k,
+                    ud.z * eta2 - n2.z * k};
+        }
+      }
+      att = alb;
+    }
+
+    // ---- accumulate (trace.py) ------------------------------------------
+    float w_r = tier_reflect(metal);
+    float w_d = metal > 0.2f ? 1.0f - w_r : 1.0f;
+    r.x = r.x + tp.x * emit.x;
+    r.y = r.y + tp.y * emit.y;
+    r.z = r.z + tp.z * emit.z;
+    if (kind == kDiffuseLight) {
+      r.x = r.x + tp.x * dl.x;
+      r.y = r.y + tp.y * dl.y;
+      r.z = r.z + tp.z * dl.z;
+      break;
+    }
+    r.x = r.x + tp.x * dl.x * w_d;
+    r.y = r.y + tp.y * dl.y * w_d;
+    r.z = r.z + tp.z * dl.z * w_d;
+    tp = V3{tp.x * att.x * w_r, tp.y * att.y * w_r, tp.z * att.z * w_r};
+    o = p;
+    d = sdir;
+    if (!recursive) break;
+  }
+  rad[0] = r.x;
+  rad[1] = r.y;
+  rad[2] = r.z;
+  if (counters != nullptr) {
+    counters[0] = n_closest;
+    counters[1] = n_hard;
+    counters[2] = n_soft;
+    geo.store_work(counters + 3);
+  }
+}
+
+}  // namespace rt

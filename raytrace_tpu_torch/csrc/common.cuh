@@ -21,6 +21,15 @@
 
 namespace rt {
 
+// A load through the read-only data cache (tables that no thread writes).
+RT_DEV float ldg(const float* p) {
+#ifndef RT_HOST_EMULATION
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
 constexpr float kBig = 3.0e38f;   // "no hit" distance
 constexpr float kTMin = 1e-3f;    // t_min of every ray
 constexpr uint32_t kStreamsPerBounce = 512u;
@@ -166,28 +175,44 @@ RT_DEV float triangle_t(V3 o, V3 d, const float* tri, float t_max) {
   return valid ? t : kBig;
 }
 
-// ops/intersect.py:triangle_blocked - the division-free any-hit.
-RT_DEV bool triangle_blocked(V3 o, V3 d, const float* tri, float t_max) {
+// ops/intersect.py:triangle_blocked - the division-free any-hit, split
+// into the part that does not depend on the direction (TriPre, shared by
+// every ray from one origin) and the per-direction test.
+struct TriPre {
+  float n2x, n2y, n2z, c1x, c1y, c1z, qx, qy, qz, e2q;
+};
+
+RT_DEV TriPre tri_pre(V3 o, const float* tri) {
   float e1x = tri[3], e1y = tri[4], e1z = tri[5];
   float e2x = tri[6], e2y = tri[7], e2z = tri[8];
   float sx = o.x - tri[0], sy = o.y - tri[1], sz = o.z - tri[2];
-  float n2x = e1y * e2z - e1z * e2y;
-  float n2y = e1z * e2x - e1x * e2z;
-  float n2z = e1x * e2y - e1y * e2x;
-  float c1x = e2y * sz - e2z * sy;
-  float c1y = e2z * sx - e2x * sz;
-  float c1z = e2x * sy - e2y * sx;
-  float qx = sy * e1z - sz * e1y;
-  float qy = sz * e1x - sx * e1z;
-  float qz = sx * e1y - sy * e1x;
-  float det = -(d.x * n2x + d.y * n2y + d.z * n2z);
+  TriPre T;
+  T.n2x = e1y * e2z - e1z * e2y;
+  T.n2y = e1z * e2x - e1x * e2z;
+  T.n2z = e1x * e2y - e1y * e2x;
+  T.c1x = e2y * sz - e2z * sy;
+  T.c1y = e2z * sx - e2x * sz;
+  T.c1z = e2x * sy - e2y * sx;
+  T.qx = sy * e1z - sz * e1y;
+  T.qy = sz * e1x - sx * e1z;
+  T.qz = sx * e1y - sy * e1x;
+  T.e2q = e2x * T.qx + e2y * T.qy + e2z * T.qz;
+  return T;
+}
+
+RT_DEV bool tri_blocked_pre(const TriPre& T, V3 d, float t_max) {
+  float det = -(d.x * T.n2x + d.y * T.n2y + d.z * T.n2z);
   float sg = det >= 0.0f ? 1.0f : -1.0f;
   float ad = det * sg;
-  float au = (d.x * c1x + d.y * c1y + d.z * c1z) * sg;
-  float av = (d.x * qx + d.y * qy + d.z * qz) * sg;
-  float at = (e2x * qx + e2y * qy + e2z * qz) * sg;
+  float au = (d.x * T.c1x + d.y * T.c1y + d.z * T.c1z) * sg;
+  float av = (d.x * T.qx + d.y * T.qy + d.z * T.qz) * sg;
+  float at = T.e2q * sg;
   return (ad >= 1e-6f) && (au >= 0.0f) && (av >= 0.0f) && (au + av <= ad) &&
          (at >= kTMin * ad) && (at <= t_max * ad);
+}
+
+RT_DEV bool triangle_blocked(V3 o, V3 d, const float* tri, float t_max) {
+  return tri_blocked_pre(tri_pre(o, tri), d, t_max);
 }
 
 // ops/intersect.py:plane_t for pl = [p.xyz, n.xyz, mat].

@@ -1,22 +1,85 @@
-// K2: the per-pixel conservative hit mask (brute-force branch).
+// K2 and K6: the per-pixel conservative hit mask.
 //
-// Replaces raytrace_tpu/ops/megakernel.py:pixel_mask_pallas (:2532; the
-// brute-force tests bs_hit :2631 and pln_hit :2649). One thread per pixel
-// casts the pixel-center ray of the affine camera and tests it against
-// every sphere and every triangle's bounding sphere, each inflated by the
-// jitter-cone bound k times its distance plus eps, with forward culling;
-// planes use interval arithmetic on n.d. The output over-includes pixels
-// (they trace to exact black) but never excludes one that a jittered
-// sample would hit. Every pixel tests every primitive (bitwise ors, no
-// early exit, so the work is fixed by the shapes). What bounds it: operations, ~26 per
-// primitive per pixel; it reads the small tables from the L1 cache and
-// writes one byte per pixel. Thin-lens depth of field is not in this slice of the
-// port, so the DoF slack terms of the TPU kernel are absent (the wrapper
-// raises on DoF).
+// Replaces raytrace_tpu/ops/megakernel.py:pixel_mask_pallas (:2532): K2 is
+// its brute-force branch (bs_hit :2631, pln_hit :2649), K6 its bvh branch
+// (walk :2661-2705). One thread per pixel casts the pixel-center ray of the
+// affine camera and tests it against bounding spheres - every sphere and
+// every triangle's bounding sphere - each inflated by the jitter-cone
+// bound k times its distance plus eps, with forward culling; planes use
+// interval arithmetic on n.d. The output over-includes pixels (they trace
+// to exact black) but never excludes one that a jittered sample would hit.
+//
+// K2 tests every bounding sphere and every plane (bitwise ors, no early
+// exit, so the work is fixed by the shapes). What bounds it: operations,
+// ~28 per primitive per pixel; it reads the small tables from the L1 cache
+// and writes one byte per pixel.
+//
+// K6 replaces the bounding-sphere loop by the skip walk over the scene
+// BVH, whose node slabs the wrapper has grown per node by k times the
+// distance to the node's farthest corner plus eps and an fp slack
+// (megakernel.py:_mask_tree). A boxed leaf runs the bounding-sphere test
+// of its primitives (through prim_index), all of them, with bitwise ors;
+// a pixel's walk ends at its first hit. The planes follow as in K2.
+//
+// Thin-lens depth of field is not ported, so the DoF slack terms of the
+// TPU kernel are absent (the wrapper raises on DoF).
 //
 // cam: [origin.xyz, A.xyz, B.xyz, C.xyz, k] - direction = A + u*B + v*C.
 // bs:  [nbs][4] center.xyz, radius.   pln: [npl][7] point, normal, mat.
+// nodes: [n_nodes][9] min.xyz, max.xyz, skip, first, count; pidx: [P].
 #include "common.cuh"
+
+namespace rt {
+
+struct CenterRay {
+  float ox, oy, oz, dx, dy, dz, k, inv_a, sqa;
+};
+
+RT_DEV CenterRay center_ray(int p, int width, float inv_w, float inv_h,
+                            const float* cam) {
+  float u = (static_cast<float>(p % width) + 0.5f) * inv_w;
+  float v = (static_cast<float>(p / width) + 0.5f) * inv_h;
+  CenterRay c;
+  c.ox = cam[0];
+  c.oy = cam[1];
+  c.oz = cam[2];
+  c.dx = cam[3] + u * cam[6] + v * cam[9];
+  c.dy = cam[4] + u * cam[7] + v * cam[10];
+  c.dz = cam[5] + u * cam[8] + v * cam[11];
+  c.k = cam[12];
+  float a = c.dx * c.dx + c.dy * c.dy + c.dz * c.dz;
+  c.inv_a = 1.0f / a;
+  c.sqa = sqrtf(a);
+  return c;
+}
+
+// The cone-inflated bounding-sphere test s = [center.xyz, radius].
+RT_DEV bool bs_hit(const CenterRay& c, const float* s) {
+  const float eps = 1e-3f;
+  float ocx = s[0] - c.ox, ocy = s[1] - c.oy, ocz = s[2] - c.oz;
+  float oc2 = ocx * ocx + ocy * ocy + ocz * ocz;
+  float g = ocx * c.dx + ocy * c.dy + ocz * c.dz;
+  float r = s[3];
+  float dist = sqrtf(oc2);
+  float R = r + (dist + r) * c.k + eps;
+  return (oc2 - g * g * c.inv_a <= R * R) & (g >= -R * c.sqa);
+}
+
+RT_DEV bool planes_hit(const CenterRay& c, const float* pln, int npl) {
+  const float eps = 1e-3f;
+  bool hit = false;
+  for (int j = 0; j < npl; ++j) {
+    const float* pl = pln + 7 * j;
+    float denom = c.dx * pl[3] + c.dy * pl[4] + c.dz * pl[5];
+    float num = (pl[0] - c.ox) * pl[3] + (pl[1] - c.oy) * pl[4] +
+                (pl[2] - c.oz) * pl[5];
+    hit = hit | (fabsf(denom) <= c.k + eps) | (num * denom > 0.0f) |
+          (fabsf(num) <= eps);
+  }
+  return hit;
+}
+
+}  // namespace rt
 
 extern "C" __global__ void rt_pixel_mask_kernel(
     uint8_t* __restrict__ out, int width, int n_px, float inv_w,
@@ -25,36 +88,55 @@ extern "C" __global__ void rt_pixel_mask_kernel(
     int npl) {
   int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_px) return;
-  const float eps = 1e-3f;
-  float u = (static_cast<float>(p % width) + 0.5f) * inv_w;
-  float v = (static_cast<float>(p / width) + 0.5f) * inv_h;
-  float ox = cam[0], oy = cam[1], oz = cam[2];
-  float dx = cam[3] + u * cam[6] + v * cam[9];
-  float dy = cam[4] + u * cam[7] + v * cam[10];
-  float dz = cam[5] + u * cam[8] + v * cam[11];
-  float k = cam[12];
-  float a = dx * dx + dy * dy + dz * dz;
-  float inv_a = 1.0f / a;
-  float sqa = sqrtf(a);
+  rt::CenterRay c = rt::center_ray(p, width, inv_w, inv_h, cam);
   bool hit = false;
-  for (int j = 0; j < nbs; ++j) {
-    const float* s = bs + 4 * j;
-    float ocx = s[0] - ox, ocy = s[1] - oy, ocz = s[2] - oz;
-    float oc2 = ocx * ocx + ocy * ocy + ocz * ocz;
-    float g = ocx * dx + ocy * dy + ocz * dz;
-    float r = s[3];
-    float dist = sqrtf(oc2);
-    float R = r + (dist + r) * k + eps;
-    hit = hit | ((oc2 - g * g * inv_a <= R * R) & (g >= -R * sqa));
+  for (int j = 0; j < nbs; ++j) hit = hit | rt::bs_hit(c, bs + 4 * j);
+  hit = hit | rt::planes_hit(c, pln, npl);
+  out[p] = hit ? 1 : 0;
+}
+
+extern "C" __global__ void rt_pixel_mask_bvh_kernel(
+    uint8_t* __restrict__ out, int width, int n_px, float inv_w,
+    float inv_h, const float* __restrict__ cam,
+    const float* __restrict__ bs, const float* __restrict__ nodes,
+    int n_nodes, const float* __restrict__ pidx,
+    const float* __restrict__ pln, int npl) {
+  int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_px) return;
+  rt::CenterRay c = rt::center_ray(p, width, inv_w, inv_h, cam);
+  rt::V3 iv = rt::safe_inverse(rt::V3{c.dx, c.dy, c.dz});
+  bool hit = false;
+  int cur = 0;
+  for (int step = 0; step < n_nodes && cur < n_nodes && !hit; ++step) {
+    const float* nd = nodes + 9 * cur;
+    float t0x = (rt::ldg(nd) - c.ox) * iv.x;
+    float t1x = (rt::ldg(nd + 3) - c.ox) * iv.x;
+    float t0y = (rt::ldg(nd + 1) - c.oy) * iv.y;
+    float t1y = (rt::ldg(nd + 4) - c.oy) * iv.y;
+    float t0z = (rt::ldg(nd + 2) - c.oz) * iv.z;
+    float t1z = (rt::ldg(nd + 5) - c.oz) * iv.z;
+    float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                       fmaxf(fminf(t0z, t1z), 0.0f));
+    float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                      fmaxf(t0z, t1z));
+    int skip = static_cast<int>(rt::ldg(nd + 6));
+    int cnt = static_cast<int>(rt::ldg(nd + 8));
+    if (!(near <= far)) {
+      cur = skip;
+    } else if (cnt == 0) {
+      ++cur;
+    } else {
+      int first = static_cast<int>(rt::ldg(nd + 7));
+      for (int j = 0; j < cnt; ++j) {
+        const float* s = bs + 4 * static_cast<int>(rt::ldg(pidx + first + j));
+        float row[4] = {rt::ldg(s), rt::ldg(s + 1), rt::ldg(s + 2),
+                        rt::ldg(s + 3)};
+        hit = hit | rt::bs_hit(c, row);
+      }
+      cur = skip;
+    }
   }
-  for (int j = 0; j < npl; ++j) {
-    const float* pl = pln + 7 * j;
-    float denom = dx * pl[3] + dy * pl[4] + dz * pl[5];
-    float num = (pl[0] - ox) * pl[3] + (pl[1] - oy) * pl[4] +
-                (pl[2] - oz) * pl[5];
-    hit = hit | (fabsf(denom) <= k + eps) | (num * denom > 0.0f) |
-          (fabsf(num) <= eps);
-  }
+  hit = hit | rt::planes_hit(c, pln, npl);
   out[p] = hit ? 1 : 0;
 }
 
@@ -71,6 +153,24 @@ extern "C" int rt_pixel_mask(uint8_t* out, int width, int height,
     rt_pixel_mask_kernel<<<blocks, threads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         out, width, n_px, inv_w, inv_h, cam, bs, nbs, pln, npl);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K6 on `stream`. Returns cudaGetLastError() after the launch.
+extern "C" int rt_pixel_mask_bvh(uint8_t* out, int width, int height,
+                                 float inv_w, float inv_h, const float* cam,
+                                 const float* bs, const float* nodes,
+                                 int n_nodes, const float* pidx,
+                                 const float* pln, int npl, void* stream) {
+  const int threads = 256;
+  int n_px = width * height;
+  if (n_px > 0) {
+    int blocks = (n_px + threads - 1) / threads;
+    rt_pixel_mask_bvh_kernel<<<blocks, threads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        out, width, n_px, inv_w, inv_h, cam, bs, nodes, n_nodes, pidx, pln,
+        npl);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -102,9 +102,14 @@ def library() -> ctypes.CDLL:
     lib.rt_trace_unroll.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i,
                                     i, i, i, i, i, u, p]
     lib.rt_trace_unroll.restype = i
-    lib.rt_pixel_mask.argtypes = [p, i, i, ctypes.c_float, ctypes.c_float,
-                                  p, p, i, p, i, p]
+    lib.rt_trace_bvh.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i, i,
+                                 i, i, i, i, i, i, u, p]
+    lib.rt_trace_bvh.restype = i
+    f = ctypes.c_float
+    lib.rt_pixel_mask.argtypes = [p, i, i, f, f, p, p, i, p, i, p]
     lib.rt_pixel_mask.restype = i
+    lib.rt_pixel_mask_bvh.argtypes = [p, i, i, f, f, p, p, p, i, p, p, i, p]
+    lib.rt_pixel_mask_bvh.restype = i
     return lib
 
 

@@ -1,7 +1,9 @@
 """Closest-hit and any-hit tests: the plain PyTorch form.
 
-Port of the brute-force part of ``raytrace_tpu/ops/intersect.py``: batched
-lane x primitive tests with an argmin reduction. Conventions carried over:
+Port of ``raytrace_tpu/ops/intersect.py``: batched lane x primitive tests
+with an argmin reduction, or, given a scene BVH (``accel``), the tree walks
+of ``bvh.py`` for spheres and triangles with planes and boxes still tested
+brute force. Conventions carried over:
 ray directions are not normalised (the sphere quadratic uses a = |d|^2);
 acceptance is t_min <= t <= t_max; the triangle determinant epsilon is
 1e-6; t_min is 1e-3 everywhere. Closest hit keeps the first minimum in
@@ -151,9 +153,15 @@ def plane_t(origin, direction, point, normal, t_min, t_max):
     return torch.where((~para) & (t >= t_min) & (t <= tm), t, BIG)
 
 
-def closest_hit(geom, origin, direction, t_min=1e-3, t_max=BIG) -> Hit:
+def closest_hit(geom, origin, direction, t_min=1e-3, t_max=BIG,
+                accel=None) -> Hit:
     """Closest hit over all primitives; first minimum wins in the order
-    [spheres, triangles, planes, boxes]. Cube faces are hit as boxes."""
+    [spheres, triangles, planes, boxes]. Cube faces are hit as boxes.
+    With ``accel`` (a bvh.FlatBVH over the spheres and triangles) the
+    spheres and triangles are found by the tree walk instead."""
+    if accel is not None:
+        return _closest_hit_accel(geom, accel, origin, direction, t_min,
+                                  t_max)
     ns = geom.sph_center.shape[0]
     nt = geom.tri_v0.shape[0]
     nt_t = geom.n_hit_tris
@@ -183,6 +191,49 @@ def closest_hit(geom, origin, direction, t_min=1e-3, t_max=BIG) -> Hit:
         idx = torch.argmin(all_t, dim=-1)
         t = torch.gather(all_t, -1, idx[..., None])[..., 0]
     return hit_from_tidx(geom, origin, direction, t, idx)
+
+
+def _first_min(t):
+    """(min over the last axis, index of its first occurrence)."""
+    idx = torch.argmin(t, dim=-1)
+    return torch.gather(t, -1, idx[..., None])[..., 0], idx
+
+
+def _closest_hit_accel(geom, accel, origin, direction, t_min, t_max) -> Hit:
+    """Tree walk over spheres and triangles, brute force over planes and
+    boxes, merged by nearest t (intersect.py:_closest_hit_accel).
+
+    The boxes go first and their winning t seeds the walk, so subtrees
+    behind a cube are culled. The walk takes a hit only when t < t_best,
+    so a tree primitive at exactly the box's t loses to the box, and a
+    plane must be strictly nearer than both to win: at exactly equal t
+    the tie order is [boxes, tree, planes], not the brute-force
+    [spheres, triangles, planes, boxes]."""
+    from .. import bvh as bvh_mod
+    ns = geom.sph_center.shape[0]
+    nt = geom.tri_v0.shape[0]
+    npl = geom.pl_point.shape[0]
+    nb = geom.box_min.shape[0]
+    tm_walk = torch.as_tensor(t_max, dtype=origin.dtype,
+                              device=origin.device)
+    if nb:
+        t_box, b_idx = _first_min(box_t(origin, direction, geom.box_min,
+                                        geom.box_max, t_min, t_max))
+        tm_walk = torch.minimum(tm_walk, t_box)
+    t, pid = bvh_mod.traverse_closest(accel, geom, origin, direction, t_min,
+                                      tm_walk)
+    if nb:
+        box_wins = t_box < t
+        t = torch.where(box_wins, t_box, t)
+        pid = torch.where(box_wins, ns + nt + npl + b_idx, pid)
+    if npl:
+        t_pl, pl_idx = _first_min(plane_t(origin, direction, geom.pl_point,
+                                          geom.pl_normal, t_min, t_max))
+        pl_wins = t_pl < t
+        t = torch.where(pl_wins, t_pl, t)
+        pid = torch.where(pl_wins, ns + nt + pl_idx, pid)
+    # a miss keeps pid -1; hit_from_tidx reads only lanes with t < BIG
+    return hit_from_tidx(geom, origin, direction, t, torch.clamp(pid, min=0))
 
 
 def hit_from_tidx(geom, origin, direction, t, idx) -> Hit:
@@ -246,14 +297,9 @@ def hit_from_tidx(geom, origin, direction, t, idx) -> Hit:
                front_face=front_face, mat_id=mat_id)
 
 
-def any_hit(geom, origin, direction, t_min, t_max, exact=False):
-    """(B,) bool: does any primitive intersect with t in [t_min, t_max]?
-
-    ``t_max`` may be per lane. ``exact=True`` tests triangles with the
-    closest-hit expressions (``triangle_t``) instead of the division-free
-    form, whose verdicts can flip at 1-2 ulp boundaries: a primary-hit
-    mask must never exclude a lane the closest hit would accept.
-    """
+def _any_sphere_triangle(geom, origin, direction, t_min, t_max, exact):
+    """(B,) bool: brute-force occlusion by the spheres and the hit
+    triangles."""
     blocked = torch.zeros(origin.shape[:-1], dtype=torch.bool,
                           device=origin.device)
     if geom.sph_center.shape[0]:
@@ -272,6 +318,26 @@ def any_hit(geom, origin, direction, t_min, t_max, exact=False):
             hit = triangle_blocked(origin, direction, v0, e1, e2, t_min,
                                    t_max)
         blocked |= torch.any(hit, dim=-1)
+    return blocked
+
+
+def any_hit(geom, origin, direction, t_min, t_max, accel=None, exact=False):
+    """(B,) bool: does any primitive intersect with t in [t_min, t_max]?
+
+    ``t_max`` may be per lane. ``exact=True`` tests triangles with the
+    closest-hit expressions (``triangle_t``) instead of the division-free
+    form, whose verdicts can flip at 1-2 ulp boundaries: a primary-hit
+    mask must never exclude a lane the closest hit would accept. With
+    ``accel`` the spheres and triangles are tested by the early-exit tree
+    walk (bvh.traverse_any); planes and boxes stay brute force.
+    """
+    if accel is not None:
+        from .. import bvh as bvh_mod
+        blocked = bvh_mod.traverse_any(accel, geom, origin, direction, t_min,
+                                       t_max, exact=exact)
+    else:
+        blocked = _any_sphere_triangle(geom, origin, direction, t_min, t_max,
+                                       exact)
     if geom.box_min.shape[0]:
         blocked |= torch.any(box_blocked(origin, direction, geom.box_min,
                                          geom.box_max, t_min, t_max), dim=-1)

@@ -1,12 +1,18 @@
-"""The two kernels of the main path, each beside its plain PyTorch version.
+"""The kernels of the main path, each beside its plain PyTorch version.
 
 Port of the host side of ``raytrace_tpu/ops/megakernel.py``:
 
-* K1, ``trace_unroll`` - the bounce megakernel (``trace_pallas`` :2987 in
-  ``unroll`` mode). CUDA source: ``csrc/trace_unroll.cu``. Plain version:
-  ``trace.trace``.
-* K2, ``pixel_mask`` - the per-pixel conservative hit mask
-  (``pixel_mask_pallas`` :2532, brute-force branch). CUDA source:
+* ``trace`` - the bounce megakernel (``trace_pallas`` :2987), by the
+  scene's kernel mode: K1 in ``unroll`` mode (scenes of at most 96
+  primitives; CUDA source ``csrc/trace_unroll.cu``), or K3+K4 in ``bvh``
+  mode (97-4096 primitives with a scene BVH: the closest-hit and
+  hard-shadow tree walks, K3, and the fused soft-shadow walk, K4, in one
+  launch; ``csrc/trace_bvh.cu``). Plain version: ``trace.trace``, which
+  in bvh mode walks the tree once per ray
+  (``bvh.traverse_closest``/``traverse_any``).
+* K2 and K6, ``pixel_mask`` - the per-pixel conservative hit mask
+  (``pixel_mask_pallas`` :2532): brute force over bounding spheres (K2) or
+  a walk over cone-inflated node slabs (K6, bvh mode). CUDA source:
   ``csrc/pixel_mask.cu``. Plain version: ``pixel_mask_plain``.
 
 A wrapper takes its plain version only for a scene or tensor on the CPU;
@@ -14,8 +20,8 @@ on a CUDA device it launches its kernel or raises - there is no fallback.
 Each wrapper counts its launches in ``LAUNCHES``, adding one where it
 launches its kernel and nowhere else.
 
-Scenes past 96 primitives (the JAX package's ``bvh``, ``stream`` and
-``loop`` modes) are not in this slice of the port and raise.
+The JAX package's ``stream`` mode (past 4096 primitives) and ``loop`` mode
+(past 96 primitives without a BVH) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -23,20 +29,35 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import scene as scene_mod
 from .. import trace as trace_mod
 from .._f32 import sqrt as _sqrt
 from ..camera import lookat_basis
 from . import _build
 
 UNROLL_PRIM_LIMIT = 96
-MAX_DEPTH = 64            # RT_MAX_DEPTH in csrc/trace_unroll.cu
+MAX_BVH_KERNEL_PRIMS = scene_mod.MAX_BVH_KERNEL_PRIMS  # 4096
+MAX_STREAM_KERNEL_PRIMS = 1 << 18
+MAX_DEPTH = 64            # RT_MAX_DEPTH in csrc/bounce.cuh
 MAX_LIGHTS = 16           # RT_MAX_LIGHTS
 MAX_SHADOW_SAMPLES = 64   # RT_MAX_SHADOW_SAMPLES
-COUNTERS = 5              # rt::kCounters: per-lane work counters of K1
-ORDER = ("sph", "tri", "pln", "box", "lit", "mat")  # K1's table layout
+COUNTERS = 5              # rt::kUnrollCounters: per-lane work of K1
+BVH_COUNTERS = 10         # rt::kBvhCounters: per-lane work of K3+K4
+ORDER = ("sph", "tri", "pln", "box", "lit", "mat")  # the kernels' tables
 
 # Kernel launches since the last reset_launches(), by kernel.
-LAUNCHES = {"trace_unroll": 0, "pixel_mask": 0}
+LAUNCHES = {"trace_unroll": 0, "trace_bvh": 0, "pixel_mask": 0,
+            "pixel_mask_bvh": 0}
+
+# Modes of the JAX package that the port does not run yet.
+_NOT_PORTED = {
+    "stream": "past {bvh} primitives the JAX package streams leaf rows "
+              "from HBM (stream mode: K5, K6-stream), which is not ported "
+              "yet: ROADMAP Queue 2, stream tier",
+    "loop": "past {unroll} primitives without a scene BVH the JAX package "
+            "runs loop mode (K7), which is not ported yet: ROADMAP Queue 2, "
+            "with K1-ext",
+}
 
 
 def reset_launches() -> None:
@@ -44,26 +65,44 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def scene_fits_kernel(scene) -> bool:
+    """Does a kernel mode of the JAX package take this scene?"""
+    n = scene.prim_count
+    if n <= UNROLL_PRIM_LIMIT:
+        return True
+    return scene.accel is not None and n <= MAX_STREAM_KERNEL_PRIMS
+
+
 def _kernel_mode(scene) -> str:
-    """'unroll' | 'bvh' | 'stream' | 'loop' by primitive count, as in the
-    JAX package (bvh/stream need an accel, which this port cannot build
-    yet, so large scenes report 'loop')."""
-    return "unroll" if scene.prim_count <= UNROLL_PRIM_LIMIT else "loop"
+    """'unroll' | 'bvh' | 'stream' | 'loop' by primitive count (spheres +
+    triangles + planes), as in the JAX package: unroll up to 96; past it
+    bvh up to 4096 and stream beyond when the scene has a BVH, else
+    loop. The port runs unroll and bvh."""
+    n = scene.prim_count
+    if n <= UNROLL_PRIM_LIMIT:
+        return "unroll"
+    if scene.accel is not None:
+        return "bvh" if n <= MAX_BVH_KERNEL_PRIMS else "stream"
+    return "loop"
 
 
-def _require_unroll(scene) -> None:
-    if _kernel_mode(scene) != "unroll":
+def require_mode(scene) -> str:
+    """The scene's kernel mode; raises NotImplementedError for a mode the
+    port has not ported."""
+    mode = _kernel_mode(scene)
+    if mode in _NOT_PORTED:
         raise NotImplementedError(
-            f"scene has {scene.prim_count} primitives; scenes past "
-            f"{UNROLL_PRIM_LIMIT} (BVH, stream and loop modes, K3-K7) are "
-            "not ported yet: ROADMAP Queue 2")
+            f"scene has {scene.prim_count} primitives: " + _NOT_PORTED[
+                mode].format(bvh=MAX_BVH_KERNEL_PRIMS,
+                             unroll=UNROLL_PRIM_LIMIT))
+    return mode
 
 
 def pack_tables(scene):
     """Row-major float32 tables of the kernels (one row per item):
     sph (Ns,5), tri (Nt_hit,13), pln (Np,7), box (Nb,7), lit (L,7),
     mat (M,14). ``tri`` holds the hit triangles only: cube faces are hit
-    as their boxes. Column layouts are those of ``csrc/trace_unroll.cu``."""
+    as their boxes. Column layouts are those of ``csrc/bounce.cuh``."""
     g, m, lt = scene.geometry, scene.materials, scene.lights
     nt = g.n_hit_tris
     v0 = g.tri_v0[:nt]
@@ -130,28 +169,130 @@ def _cone_half_sin(cam4: torch.Tensor, width: int,
     return 0.5 * (nb / width + nc / height)
 
 
+def pack_bvh_tables(accel, inflate: float = 0.0):
+    """FlatBVH -> (nodes (N,9), prim_index (P,)) float32 tables.
+
+    Node row: [min.xyz, max.xyz, skip, first, count] (the int fields are
+    exact in float32 up to 2^24). ``inflate`` grows each box by
+    inflate * extent + inflate per side."""
+    nmin, nmax = accel.node_min, accel.node_max
+    if inflate > 0.0:
+        pad = inflate * (nmax - nmin) + inflate
+        nmin = nmin - pad
+        nmax = nmax + pad
+    col = lambda x: x.to(torch.float32)[:, None]
+    nodes = torch.cat([nmin, nmax, col(accel.node_skip),
+                       col(accel.node_first), col(accel.node_count)], 1)
+    return nodes, accel.prim_index.to(torch.float32)
+
+
+def _mask_tree(scene, cam4, k):
+    """K6's tables: (nodes (N,9), prim_index (P,)), every node slab grown
+    by the jitter cone at its farthest corner, k * |origin - corner| +
+    eps, plus the fp slack 1e-3 * extent + 1e-3 (the bvh branch of
+    pixel_mask_pallas, :2777)."""
+    eps = 1e-3
+    nodes, pidx = pack_bvh_tables(scene.accel)
+    nmin, nmax = nodes[:, 0:3], nodes[:, 3:6]
+    o = cam4[0]
+    far = torch.maximum(torch.abs(nmin - o), torch.abs(nmax - o))
+    d_far = _sqrt(far[:, 0] * far[:, 0] + far[:, 1] * far[:, 1]
+                  + far[:, 2] * far[:, 2])
+    padn = (k * d_far + eps)[:, None]
+    fp = 1e-3 * (nmax - nmin) + 1e-3
+    return (torch.cat([nmin - padn - fp, nmax + padn + fp, nodes[:, 6:]],
+                      1), pidx)
+
+
 def _mask_inputs(scene, width, height, cfg, go_camera):
+    """(mode, affine camera (4,3), cone bound k, bounding spheres (Nbs,4),
+    planes (Np,7), and in bvh mode the walk's (nodes, prim_index))."""
     if cfg.depth_of_field:
         raise NotImplementedError(
             "the mask's thin-lens DoF slack is not ported yet (and the "
             "JAX kernel's is not conservative): ROADMAP Queue 1 item 3 and "
             "Queue 3")
-    _require_unroll(scene)
+    mode = require_mode(scene)
     cam4 = _affine_camera(scene, go_camera)
     k = _cone_half_sin(cam4, width, height)
     g = scene.geometry
     pln = torch.cat([g.pl_point, g.pl_normal,
                      g.pl_mat[:, None].to(torch.float32)], 1)
-    return cam4, k, _bsphere_table(scene), pln
+    tree = _mask_tree(scene, cam4, k) if mode == "bvh" else None
+    return mode, cam4, k, _bsphere_table(scene), pln, tree
 
 
-# ---------------------------------------------------------------- K2 ----
+# ----------------------------------------------------------- K2, K6 ----
+
+def _bs_hit(o, dx, dy, dz, inv_a, sqa, k, bs):
+    """The cone-inflated bounding-sphere test of ``csrc/pixel_mask.cu``
+    (``bs_hit``): rows bs (..., 4) against center rays whose direction
+    components (and inv_a = 1/|d|^2, sqa = |d|) broadcast against them."""
+    oc = bs[..., :3] - o
+    ocx, ocy, ocz = oc[..., 0], oc[..., 1], oc[..., 2]
+    oc2 = ocx * ocx + ocy * ocy + ocz * ocz
+    g = ocx * dx + ocy * dy + ocz * dz
+    r = bs[..., 3]
+    R = r + (_sqrt(oc2) + r) * k + 1e-3
+    return (oc2 - g * g * inv_a <= R * R) & (g >= -R * sqa)
+
+
+def _mask_walk(o, d, inv_a, sqa, k, bs, nodes, pidx, leaf_size, work):
+    """(P,) bool: K6's walk for every pixel's center ray. Skip walk over
+    the inflated slabs (near clamped at 0); a boxed leaf runs the
+    bounding-sphere test of its primitives; a pixel stops at its first
+    hit. ``work`` (a list of two ints, or None) gets the node slab tests
+    and the bounding-sphere tests added to it."""
+    P, n = d.shape[0], nodes.shape[0]
+    iv = 1.0 / torch.where(d == 0.0, torch.full_like(d, 1e-30), d)
+    lo, hi = nodes[:, 0:3], nodes[:, 3:6]
+    skip, first, cnt = (nodes[:, c].to(torch.int64) for c in (6, 7, 8))
+    slots = torch.arange(leaf_size, device=d.device)
+    hit = torch.zeros(P, dtype=torch.bool, device=d.device)
+    cursor = torch.zeros(P, dtype=torch.int64, device=d.device)
+    act = torch.arange(P, device=d.device)
+    while act.numel():
+        if work is not None:
+            work[0] += act.numel()
+        cur = cursor[act]
+        t0 = (lo[cur] - o) * iv[act]
+        t1 = (hi[cur] - o) * iv[act]
+        tn, tf = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        near = torch.maximum(torch.maximum(tn[:, 0], tn[:, 1]),
+                             torch.clamp(tn[:, 2], min=0.0))
+        far = torch.minimum(torch.minimum(tf[:, 0], tf[:, 1]), tf[:, 2])
+        boxed = near <= far
+        leaf = cnt[cur] > 0
+        at = (boxed & leaf).nonzero()[:, 0]
+        h = torch.zeros_like(boxed)
+        if at.numel():
+            c = cur[at]
+            slot = torch.clamp(first[c][:, None] + slots,
+                               max=pidx.shape[0] - 1)
+            rows = bs[pidx[slot].to(torch.int64)]          # (A,L,4)
+            valid = slots < cnt[c][:, None]
+            if work is not None:
+                work[1] += int(valid.sum())
+            lane = act[at]
+            dd = d[lane]
+            h[at] = torch.any(
+                _bs_hit(o, dd[:, 0:1], dd[:, 1:2], dd[:, 2:3],
+                        inv_a[lane], sqa[lane], k, rows) & valid, dim=-1)
+        hit[act[h]] = True
+        nxt = torch.where(boxed & ~leaf, cur + 1, skip[cur])
+        nxt = torch.where(h, n, nxt)
+        cursor[act] = nxt
+        act = act[nxt < n]
+    return hit
+
 
 def pixel_mask_plain(scene, *, width: int, height: int, cfg,
-                     go_camera: bool = True) -> torch.Tensor:
-    """K2's plain version: (H*W,) bool, the same float32 operations as
-    ``csrc/pixel_mask.cu`` vectorised over (pixels, primitives)."""
-    cam4, k, bs, pln = _mask_inputs(scene, width, height, cfg, go_camera)
+                     go_camera: bool = True, work=None) -> torch.Tensor:
+    """The plain version of K2 (unroll mode) and K6 (bvh mode): (H*W,)
+    bool, the same float32 operations as ``csrc/pixel_mask.cu``,
+    vectorised over pixels. ``work``: see _mask_walk (bvh mode)."""
+    mode, cam4, k, bs, pln, tree = _mask_inputs(scene, width, height, cfg,
+                                                go_camera)
     dev = scene.device
     eps = 1e-3
     inv_w = float(np.float32(1.0 / width))
@@ -166,14 +307,11 @@ def pixel_mask_plain(scene, *, width: int, height: int, cfg,
     inv_a = 1.0 / a
     sqa = _sqrt(a)
     hit = torch.zeros((width * height,), dtype=torch.bool, device=dev)
-    if bs.shape[0]:
-        oc = bs[None, :, :3] - o
-        ocx, ocy, ocz = oc[..., 0], oc[..., 1], oc[..., 2]
-        oc2 = ocx * ocx + ocy * ocy + ocz * ocz
-        g = ocx * dx + ocy * dy + ocz * dz
-        r = bs[None, :, 3]
-        R = r + (_sqrt(oc2) + r) * k + eps
-        hit |= torch.any((oc2 - g * g * inv_a <= R * R) & (g >= -R * sqa),
+    if mode == "bvh":
+        hit |= _mask_walk(o, d, inv_a, sqa, k, bs, *tree,
+                          scene.accel.leaf_size, work)
+    elif bs.shape[0]:
+        hit |= torch.any(_bs_hit(o, dx, dy, dz, inv_a, sqa, k, bs[None]),
                          dim=-1)
     if pln.shape[0]:
         n = pln[None, :, 3:6]
@@ -188,12 +326,14 @@ def pixel_mask_plain(scene, *, width: int, height: int, cfg,
 
 def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
                        go_camera: bool = True):
-    """K2's inputs on the card: returns (out, launch). ``launch()`` runs
-    the kernel into ``out``, (H*W,) bool, and counts the launch."""
+    """The mask kernel's inputs on the card: returns (out, launch).
+    ``launch()`` runs K2 (unroll mode) or K6 (bvh mode) into ``out``,
+    (H*W,) bool, and counts the launch."""
     dev = scene.device
     if dev.type != "cuda":
         raise RuntimeError(f"pixel_mask kernel: device {dev} is not CUDA")
-    cam4, k, bs, pln = _mask_inputs(scene, width, height, cfg, go_camera)
+    mode, cam4, k, bs, pln, tree = _mask_inputs(scene, width, height, cfg,
+                                                go_camera)
     cam = torch.cat([cam4.reshape(-1), k.reshape(1)]).contiguous()
     bs = bs.contiguous()
     pln = pln.contiguous()
@@ -201,14 +341,25 @@ def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
     lib = _build.library()
     inv_w = float(np.float32(1.0 / width))
     inv_h = float(np.float32(1.0 / height))
+    if mode == "bvh":
+        nodes, pidx = (t.contiguous() for t in tree)
 
     def launch():
-        err = lib.rt_pixel_mask(
-            out.data_ptr(), width, height, inv_w, inv_h, cam.data_ptr(),
-            bs.data_ptr(), bs.shape[0], pln.data_ptr(), pln.shape[0],
-            torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "pixel_mask")
-        LAUNCHES["pixel_mask"] += 1
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if mode == "bvh":
+            err = lib.rt_pixel_mask_bvh(
+                out.data_ptr(), width, height, inv_w, inv_h, cam.data_ptr(),
+                bs.data_ptr(), nodes.data_ptr(), nodes.shape[0],
+                pidx.data_ptr(), pln.data_ptr(), pln.shape[0], stream)
+            _build.check(err, "pixel_mask_bvh")
+            LAUNCHES["pixel_mask_bvh"] += 1
+        else:
+            err = lib.rt_pixel_mask(
+                out.data_ptr(), width, height, inv_w, inv_h, cam.data_ptr(),
+                bs.data_ptr(), bs.shape[0], pln.data_ptr(), pln.shape[0],
+                stream)
+            _build.check(err, "pixel_mask")
+            LAUNCHES["pixel_mask"] += 1
 
     return out, launch
 
@@ -216,7 +367,7 @@ def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
 def pixel_mask(scene, *, width: int, height: int, cfg,
                go_camera: bool = True) -> torch.Tensor:
     """(H*W,) bool conservative per-pixel hit mask on the scene's device:
-    K2 on CUDA, its plain version on the CPU."""
+    K2 or K6 on CUDA, their plain version on the CPU."""
     if scene.device.type == "cpu":
         return pixel_mask_plain(scene, width=width, height=height, cfg=cfg,
                                 go_camera=go_camera)
@@ -226,11 +377,13 @@ def pixel_mask(scene, *, width: int, height: int, cfg,
     return out
 
 
-# ---------------------------------------------------------------- K1 ----
+# ------------------------------------------------------- K1, K3+K4 ----
 
 def _check_trace_inputs(scene, origin, direction, pix_id, samp_id, cfg):
+    """Raises for inputs the trace kernels cannot take; returns the
+    scene's kernel mode."""
     trace_mod.check_supported(cfg)
-    _require_unroll(scene)
+    mode = require_mode(scene)
     n = origin.shape[0]
     for name, t, shape in (("origin", origin, (n, 3)),
                            ("direction", direction, (n, 3)),
@@ -251,20 +404,30 @@ def _check_trace_inputs(scene, origin, direction, pix_id, samp_id, cfg):
     if scene.materials.kind.numel() and int(scene.materials.kind.max()) > 6:
         raise NotImplementedError("extended material kinds (7-12): ROADMAP "
                                   "Queue 1 item 2")
+    return mode
 
 
-def prepare_trace_unroll(scene, origin, direction, pix_id, samp_id, cfg,
-                         *, counters: torch.Tensor | None = None):
-    """K1's inputs on the card: returns (out, launch). ``launch()`` runs
-    the kernel into ``out``, (B,3) float32 radiance, and counts the
-    launch. ``counters``, a (B, COUNTERS) int32 tensor, receives each
-    lane's work: closest-hit rays, hard and soft shadow rays, and
-    occlusion tests of spheres+planes and of triangles+boxes (for
-    operation counts; off on the main path)."""
+def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
+                  *, counters: torch.Tensor | None = None):
+    """The trace kernel's inputs on the card: returns (out, launch).
+    ``launch()`` runs K1 (unroll mode) or K3+K4 (bvh mode) into ``out``,
+    (B,3) float32 radiance, and counts the launch under the kernel's name.
+
+    ``counters`` (for operation counts; off on the main path) receives
+    each lane's work. Unroll mode, (B, COUNTERS) int32: closest-hit rays,
+    hard and soft shadow rays, and occlusion tests of spheres+planes and
+    of triangles+boxes. Bvh mode, (B, BVH_COUNTERS) int32: closest-hit,
+    hard shadow and soft shadow rays, then node slab tests, sphere tests
+    and triangle tests of the closest-hit and hard shadow walks, node slab
+    tests and (sample, primitive) tests of the fused soft walks, and
+    brute-force plane and box tests."""
     dev = scene.device
     if dev.type != "cuda":
-        raise RuntimeError(f"trace_unroll kernel: device {dev} is not CUDA")
-    _check_trace_inputs(scene, origin, direction, pix_id, samp_id, cfg)
+        raise RuntimeError(f"trace kernel: device {dev} is not CUDA")
+    mode = _check_trace_inputs(scene, origin, direction, pix_id, samp_id,
+                               cfg)
+    kernel, n_counters = (("trace_bvh", BVH_COUNTERS) if mode == "bvh"
+                          else ("trace_unroll", COUNTERS))
     n = origin.shape[0]
     o = origin.to(torch.float32).contiguous()
     d = direction.to(torch.float32).contiguous()
@@ -272,42 +435,51 @@ def prepare_trace_unroll(scene, origin, direction, pix_id, samp_id, cfg,
     samp = samp_id.to(torch.int32).contiguous()
     tabs = pack_tables(scene)
     counts = [tabs[k].shape[0] for k in ORDER]
-    flat = torch.cat([tabs[k].reshape(-1) for k in ORDER]).contiguous()
+    parts = [tabs[k].reshape(-1) for k in ORDER]
+    if mode == "bvh":
+        nodes, pidx = pack_bvh_tables(scene.accel)
+        parts += [nodes.reshape(-1), pidx]
+        counts += [nodes.shape[0], scene.accel.leaf_size]
+    flat = torch.cat(parts).contiguous()
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     cptr = None
     if counters is not None:
-        if (tuple(counters.shape) != (n, COUNTERS)
+        if (tuple(counters.shape) != (n, n_counters)
                 or counters.dtype != torch.int32 or counters.device != dev
                 or not counters.is_contiguous()):
-            raise ValueError(f"counters must be a contiguous (B,{COUNTERS}) "
-                             "int32 tensor on the scene's device")
+            raise ValueError(f"counters must be a contiguous "
+                             f"(B,{n_counters}) int32 tensor on the scene's "
+                             "device")
         cptr = counters.data_ptr()
     lib = _build.library()
+    entry = getattr(lib, "rt_" + kernel)
 
     def launch():
-        err = lib.rt_trace_unroll(
+        err = entry(
             o.data_ptr(), d.data_ptr(), pix.data_ptr(), samp.data_ptr(),
             out.data_ptr(), cptr, n, flat.data_ptr(), *counts,
             cfg.max_depth, cfg.shadow_samples, int(cfg.soft_shadows),
             int(cfg.recursive_reflections), cfg.seed & 0xFFFFFFFF,
             torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "trace_unroll")
-        LAUNCHES["trace_unroll"] += 1
+        _build.check(err, kernel)
+        LAUNCHES[kernel] += 1
 
     return out, launch
 
 
-def trace_unroll(scene, origin, direction, pix_id, samp_id,
-                 cfg) -> torch.Tensor:
+def trace(scene, origin, direction, pix_id, samp_id, cfg) -> torch.Tensor:
     """Trace lanes to completion: radiance (B,3) float32.
 
-    K1 on CUDA, ``trace.trace`` on the CPU. origin/direction: (B,3)
-    float32; pix_id/samp_id: (B,) integer lane ids (uint32 values).
+    On CUDA, K1 (unroll mode) or K3+K4 (bvh mode) by the scene's kernel
+    mode; on the CPU their plain version ``trace.trace`` (which walks the
+    tree once per ray in bvh mode). origin/direction: (B,3) float32;
+    pix_id/samp_id: (B,) integer lane ids (uint32 values).
     """
     if scene.device.type == "cpu":
+        require_mode(scene)
         return trace_mod.trace(scene, origin, direction, pix_id, samp_id,
                                cfg)
-    out, launch = prepare_trace_unroll(scene, origin, direction, pix_id,
-                                       samp_id, cfg)
+    out, launch = prepare_trace(scene, origin, direction, pix_id, samp_id,
+                                cfg)
     launch()
     return out

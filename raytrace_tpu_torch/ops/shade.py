@@ -62,27 +62,44 @@ def combine_weights(metallic):
     return refl, direct
 
 
+# Soft-shadow samples are tested together, as one wavefront of at most
+# this many lanes: the tree walk's cost is its step count, not its width.
+SOFT_BATCH_LANES = 1 << 18
+
+
 def shadow_factor(geom, point, light_dist, light_dir, pix_id, samp_id,
                   bounce, light_index, *, soft_shadows=True,
-                  shadow_samples=16, seed=0):
-    """(B,) shadow factor in [0, 1]."""
-    hard = intersect.any_hit(geom, point, light_dir, 1e-3, light_dist)
+                  shadow_samples=16, seed=0, accel=None):
+    """(B,) shadow factor in [0, 1]. Each soft sample is its own
+    occlusion ray (with ``accel``, its own tree walk); samples are batched
+    into wavefronts of up to SOFT_BATCH_LANES lanes, which changes no
+    verdict."""
+    hard = intersect.any_hit(geom, point, light_dir, 1e-3, light_dist,
+                             accel=accel)
     if not soft_shadows:
         return torch.where(hard, 0.0, 1.0)
+    n = point.shape[0]
+    per = max(1, min(shadow_samples, SOFT_BATCH_LANES // max(n, 1)))
     unblocked = torch.zeros_like(light_dist)
-    for i in range(shadow_samples):
-        stream = rng.bounce_stream(
-            bounce, rng.shadow_stream(light_index, i, shadow_samples))
-        ball = rng.unit_ball(pix_id, samp_id, stream, seed)
-        soft_dir = _normalize(light_dir + 0.1 * ball)
-        blocked = intersect.any_hit(geom, point, soft_dir, 1e-3, light_dist)
-        unblocked += torch.where(blocked, 0.0, 1.0)
+    for i0 in range(0, shadow_samples, per):
+        dirs = []
+        for i in range(i0, min(i0 + per, shadow_samples)):
+            stream = rng.bounce_stream(
+                bounce, rng.shadow_stream(light_index, i, shadow_samples))
+            ball = rng.unit_ball(pix_id, samp_id, stream, seed)
+            dirs.append(_normalize(light_dir + 0.1 * ball))
+        k = len(dirs)
+        blocked = intersect.any_hit(
+            geom, point.repeat(k, 1), torch.cat(dirs), 1e-3,
+            light_dist.repeat(k), accel=accel).reshape(k, n)
+        for b in blocked:
+            unblocked += torch.where(b, 0.0, 1.0)
     return torch.where(hard, 0.0, unblocked / float(shadow_samples))
 
 
 def direct_lighting(geom, lights, mat, point, normal, pix_id, samp_id,
                     bounce, *, soft_shadows=True, shadow_samples=16,
-                    seed=0):
+                    seed=0, accel=None):
     """(B,3) direct light at the hit points."""
     metallic = mat["metallic"]
     albedo = mat["eff_albedo"]
@@ -97,7 +114,8 @@ def direct_lighting(geom, lights, mat, point, normal, pix_id, samp_id,
         live = light_dist >= 1e-3
         sf = shadow_factor(geom, point, light_dist, light_dir, pix_id,
                            samp_id, bounce, li, soft_shadows=soft_shadows,
-                           shadow_samples=shadow_samples, seed=seed)
+                           shadow_samples=shadow_samples, seed=seed,
+                           accel=accel)
         cos_theta = torch.clamp(_dot(normal, light_dir), min=0.0)
         intensity = cos_theta * lights.intensity[li] / (light_dist
                                                         * light_dist)

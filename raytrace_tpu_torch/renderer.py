@@ -3,11 +3,14 @@
 Port of the main path of ``raytrace_tpu/renderer.py``. ``render_wavefront``
 is what ``Renderer.render`` runs:
 
-1. K2 (``megakernel.pixel_mask``): a conservative per-pixel hit mask from
-   one center ray per pixel against cone-inflated primitives;
+1. the mask (``megakernel.pixel_mask``): a conservative per-pixel hit
+   mask from one center ray per pixel against cone-inflated primitives,
+   K2 (brute force) or K6 (a walk over the scene BVH's inflated slabs);
 2. pixel-granular compaction: a cumsum and a scatter of hit pixel ids;
 3. camera rays for the hit pixels' lanes (pcg4d jitter, ``_lane_rays``);
-4. K1 (``megakernel.trace_unroll``): the whole bounce loop per lane;
+4. the trace (``megakernel.trace``), by the scene's kernel mode
+   (``megakernel._kernel_mode``): K1 (up to 96 primitives) or K3+K4
+   (97-4096 primitives with a scene BVH), the whole bounce loop per lane;
 5. a per-pixel segment-add of the samples back into the image.
 
 A lane that misses everything is exactly black, so only hit pixels are
@@ -17,8 +20,9 @@ engine over every lane and serve as the reference).
 
 The host reads one number, the hit-pixel count, to size the trace. The
 JAX package's speculative capacity cache (``_KPAD_CACHE``) and its
-mid-trace survivor re-compaction (``split``) are not in this slice of the
-port (ROADMAP Queue 1 items 5 and 6).
+mid-trace survivor re-compaction (``split``, on by default only for
+stream-mode scenes there) are not in the port yet (ROADMAP Queue 1 items 5
+and 6).
 """
 
 from __future__ import annotations
@@ -113,8 +117,8 @@ def render_band(scene, band_y0: int, *, width: int, height: int,
         band_h, width, 3)
 
 
-# Lanes per K1 launch: bounds the temporaries of ray generation (the int64
-# hash).
+# Lanes per trace launch: bounds the temporaries of ray generation (the
+# int64 hash).
 TRACE_LANES = 1 << 22
 
 
@@ -124,7 +128,8 @@ def _no_hook(stage, **values):
 
 def _pixel_mask(scene, *, width: int, height: int,
                 cfg: trace_mod.TraceConfig, go_camera: bool):
-    """Per-pixel hit mask and its inclusive cumsum: (hit_px, pos_px)."""
+    """Per-pixel hit mask and its inclusive cumsum: (hit_px, pos_px). The
+    mask wrapper takes K2 or K6 by the scene's kernel mode."""
     hit_px = megakernel.pixel_mask(scene, width=width, height=height,
                                    cfg=cfg, go_camera=go_camera)
     pos_px = torch.cumsum(hit_px.to(torch.int64), 0) - 1
@@ -143,9 +148,9 @@ def _compact_pixels(hit_px, pos_px, k_px: int) -> torch.Tensor:
 def _trace_compacted_pixels(scene, px_cidx, *, width: int, height: int,
                             samples: int, cfg: trace_mod.TraceConfig,
                             go_camera: bool, hook=_no_hook) -> torch.Tensor:
-    """Trace every lane of the compacted pixels with K1 and segment-add
-    each pixel's samples into the (H,W,3) mean image, in chunks of at
-    most TRACE_LANES lanes."""
+    """Trace every lane of the compacted pixels with K1 (unroll mode) or
+    K3+K4 (bvh mode) and segment-add each pixel's samples into the
+    (H,W,3) mean image, in chunks of at most TRACE_LANES lanes."""
     img = torch.zeros((width * height, 3), dtype=torch.float32,
                       device=scene.device)
     chunk = max(1, TRACE_LANES // samples)
@@ -157,8 +162,7 @@ def _trace_compacted_pixels(scene, px_cidx, *, width: int, height: int,
                                        go_camera=go_camera)
         hook("lane_rays", px=px, pix=pix, samp=samp, origin=origin,
              direction=direction)
-        rad = megakernel.trace_unroll(scene, origin, direction, pix, samp,
-                                      cfg)
+        rad = megakernel.trace(scene, origin, direction, pix, samp, cfg)
         hook("trace", rad=rad)
         img.index_add_(0, px, rad.reshape(-1, samples, 3).sum(dim=1))
         hook("segment_add", img=img)
@@ -197,7 +201,8 @@ class Renderer:
     """Drop-in equivalent of the reference's ParallelRenderer.
 
     Runs on ``device`` (default CUDA; raises when there is no GPU unless
-    ``device="cpu"`` is given) through the main path, ``render_wavefront``.
+    ``device="cpu"`` is given) through the main path, ``render_wavefront``,
+    for scenes of up to 4096 primitives (unroll and bvh modes).
     """
 
     def __init__(self, num_workers: Optional[int] = None, device=None):

@@ -8,22 +8,30 @@ ordered last (``Geometry.occl_tris``): the boxes are the hit form, the
 faces serve only the conservative pixel mask.
 
 Values go float64 -> float32 through numpy, the cast order of the JAX
-loader, so the tables equal the JAX package's bit for bit. OBJ meshes and
-acceleration structures are not in this slice of the port (ROADMAP Queue 1
-item 2 and item 6).
+loader, so the tables equal the JAX package's bit for bit. Scenes of at
+least ``bvh.BVH_THRESHOLD`` spheres and triangles get a scene BVH
+(``Scene.accel``) at load, built from the same float32 values, so the tree
+equals the JAX package's too. OBJ meshes are not in the port yet (ROADMAP
+Queue 1 item 2).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from . import _device
+from . import bvh as bvh_mod
 from .models import materials as mat_mod
+
+# Past this many primitives (spheres + triangles + planes) the JAX package
+# streams leaf rows from HBM (stream mode, K5), which the port has not
+# ported; the tree's leaf size grows there (_accel_leaf_size).
+MAX_BVH_KERNEL_PRIMS = 4096
 
 
 def _replace_device(obj, device):
@@ -93,6 +101,9 @@ class Scene:
     lights: Lights
     sph_count: int = 0
     mesh_count: int = 0
+    # Scene BVH over the spheres and triangles (bvh.FlatBVH), or None.
+    # from_dict attaches it from bvh.BVH_THRESHOLD primitives on.
+    accel: Optional[bvh_mod.FlatBVH] = None
 
     @property
     def device(self) -> torch.device:
@@ -116,7 +127,34 @@ class Scene:
             self, camera=self.camera.to(device),
             geometry=self.geometry.to(device),
             materials=self.materials.to(device),
-            lights=self.lights.to(device))
+            lights=self.lights.to(device),
+            accel=None if self.accel is None else self.accel.to(device))
+
+
+def _accel_leaf_size(n: int) -> int:
+    """Leaf size by scene scale (n = spheres + triangles + planes):
+    LEAF_SIZE_DEFAULT up to MAX_BVH_KERNEL_PRIMS; past it the leaves grow
+    so the stream kernel's node table stays near 400 KB, as in the JAX
+    package."""
+    if n <= MAX_BVH_KERNEL_PRIMS:
+        return bvh_mod.LEAF_SIZE_DEFAULT
+    leaf = 32
+    while leaf < 512 and (4 * n // leaf) * 36 > 400_000:
+        leaf *= 2
+    return leaf
+
+
+def with_accel(scene: Scene, leaf_size: Optional[int] = None) -> Scene:
+    """The scene with a freshly built sphere+triangle BVH attached
+    (``leaf_size`` defaults to the _accel_leaf_size policy)."""
+    g = scene.geometry
+    n = g.sph_center.shape[0] + g.tri_v0.shape[0]
+    if n == 0:
+        return scene
+    if leaf_size is None:
+        leaf_size = _accel_leaf_size(n + g.pl_point.shape[0])
+    return dataclasses.replace(
+        scene, accel=bvh_mod.build_scene_bvh(g, leaf_size))
 
 
 @dataclasses.dataclass
@@ -187,12 +225,15 @@ def _i32(x, n, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.int32).reshape(n)).to(device)
 
 
-def from_dict(data: Dict[str, Any], go_parity: bool = False, device=None):
+def from_dict(data: Dict[str, Any], go_parity: bool = False, device=None,
+              build_accel: Optional[bool] = None):
     """Build (Scene, SceneConfig) from a parsed scene dict.
 
     go_parity=True reproduces the reference loader: prisms and planes are
     skipped and extended material kinds fall back to lambertian. The
     tables are made on ``device`` (default CUDA, see ``_device.resolve``).
+    build_accel: attach a scene BVH; None builds one from
+    bvh.BVH_THRESHOLD spheres + triangles on, as the JAX loader does.
     """
     device = _device.resolve(device)
     cam_d = data.get("camera", {})
@@ -312,6 +353,10 @@ def from_dict(data: Dict[str, Any], go_parity: bool = False, device=None):
     scene = Scene(camera=camera, geometry=geometry,
                   materials=mat_mod.build_table(mat_rows, device),
                   lights=lights, sph_count=sph_count, mesh_count=mesh_count)
+    if build_accel is None:
+        build_accel = ns + nt >= bvh_mod.BVH_THRESHOLD
+    if build_accel:
+        scene = with_accel(scene)
     cfg = SceneConfig(
         renderer=data.get("renderer", {}) or {},
         atmospheric=data.get("atmospheric", {}) or {},
@@ -324,8 +369,10 @@ def from_dict(data: Dict[str, Any], go_parity: bool = False, device=None):
     return scene, cfg
 
 
-def load(path: str, go_parity: bool = False, device=None):
+def load(path: str, go_parity: bool = False, device=None,
+         build_accel: Optional[bool] = None):
     """Load a scene JSON file (LoadFromFile)."""
     with open(path) as f:
         data = json.load(f)
-    return from_dict(data, go_parity=go_parity, device=device)
+    return from_dict(data, go_parity=go_parity, device=device,
+                     build_accel=build_accel)

@@ -1,7 +1,10 @@
-"""The bounce loop in plain PyTorch: the eager engine and K1's plain version.
+"""The bounce loop in plain PyTorch: the eager engine, and the plain version
+of K1 and of K3+K4.
 
-Port of ``raytrace_tpu/trace.py``. The reference's recursion (depth <= 50)
-becomes a loop over a struct-of-arrays wavefront that accumulates
+Port of ``raytrace_tpu/trace.py``; with a scene BVH (``scene.accel``) every
+closest-hit and shadow test walks the tree. The reference's recursion
+(depth <= 50) becomes a loop over a struct-of-arrays wavefront that
+accumulates
 
     radiance += throughput * (emitted + direct * w_d)
     throughput *= attenuation * w_r
@@ -62,7 +65,10 @@ def _bounce(scene, pix, samp, cfg, bounce, origin, direction, throughput):
     radiance terms, scattering mask among them, next origin, next
     direction, next throughput)."""
     geom, mats, lights = scene.geometry, scene.materials, scene.lights
-    hit = intersect.closest_hit(geom, origin, direction, t_min=1e-3)
+    # the scene BVH, when there is one: the same hits, walked
+    accel = scene.accel
+    hit = intersect.closest_hit(geom, origin, direction, t_min=1e-3,
+                                accel=accel)
     keep = hit.hit.nonzero()[:, 0]
     pix, samp = pix[keep], samp[keep]
     d = direction[keep]
@@ -74,7 +80,7 @@ def _bounce(scene, pix, samp, cfg, bounce, origin, direction, throughput):
     direct = shade.direct_lighting(
         geom, lights, mat, point, normal, pix, samp, bounce,
         soft_shadows=cfg.soft_shadows, shadow_samples=cfg.shadow_samples,
-        seed=cfg.seed)
+        seed=cfg.seed, accel=accel)
     ball = rng.unit_ball(pix, samp,
                          rng.bounce_stream(bounce, rng.Streams.SCATTER_BALL),
                          cfg.seed)

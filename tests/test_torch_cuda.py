@@ -6,11 +6,11 @@ a machine without them:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: K2 must equal its plain version (the same float32 operations,
-no FMA contraction); K1 must equal its plain version under the goldens
-image gate (<= 0.1% of pixels off by > 1e-3, mean abs error < 1e-4), which
-admits the rare lane that a one-ulp difference of a library pow sends down
-another glass branch.
+Tolerances: K2 and K6 must equal their plain version (the same float32
+operations, no FMA contraction); K1 and K3+K4 must equal their plain
+version under the goldens image gate (<= 0.1% of pixels off by > 1e-3,
+mean abs error < 1e-4), which admits the rare lane that a one-ulp
+difference of a library pow sends down another glass branch.
 """
 
 import json
@@ -22,11 +22,18 @@ import torch
 from raytrace_tpu_torch import renderer as trender
 from raytrace_tpu_torch import scene as tscene
 from raytrace_tpu_torch import trace as ttrace
+from raytrace_tpu_torch.bench.suite import bvh_scene_dict, ring_scene_dict
 from raytrace_tpu_torch.ops import megakernel as tmk
 
 ASSETS = os.path.join(os.path.dirname(__file__), "..", "assets")
 SCENES = ("sphere_reflections_light", "two_red_cubes_scene",
           "final_silver_prism_purple_cube")
+BVH_SCENES = ("ring100", "ring1000", "mixed")
+# Every pixel of a ring scene passes the mask (the camera sits inside the
+# ground's cone-inflated bounding sphere); without the objects that cover
+# the whole frame, the mask meets both hits and misses.
+MASK_SCENES = BVH_SCENES + ("ring1000-noground", "mixed-noground")
+
 
 pytestmark = pytest.mark.cuda
 
@@ -72,12 +79,47 @@ def test_k1_matches_plain(cuda, name):
     o, d = trender._lane_rays(s, pix, samp, width=W, height=H, cfg=cfg,
                               go_camera=True)
     o = o.contiguous()
-    got = tmk.trace_unroll(s, o, d, pix, samp, cfg)
+    got = tmk.trace(s, o, d, pix, samp, cfg)
     want = ttrace.trace(s, o, d, pix, samp, cfg)
     torch.cuda.synchronize()
     img = lambda r: torch.zeros((W * H, 3), device=cuda).index_add_(
         0, px, r.reshape(-1, S, 3).sum(1))
     gate(img(got), img(want))
+
+
+def lane_image(scene, tracer, cfg, W, H, S):
+    """A (W*H,3) image of the sum of each pixel's S samples traced by
+    ``tracer`` over the main path's lanes."""
+    hit, pos = trender._pixel_mask(scene, width=W, height=H, cfg=cfg,
+                                   go_camera=True)
+    px = trender._compact_pixels(hit, pos, int(pos[-1]) + 1)
+    pix, samp = trender._lane_ids(px, S)
+    o, d = trender._lane_rays(scene, pix, samp, width=W, height=H, cfg=cfg,
+                              go_camera=True)
+    rad = tracer(scene, o.contiguous(), d, pix, samp, cfg)
+    torch.cuda.synchronize()
+    return torch.zeros((W * H, 3), device=o.device).index_add_(
+        0, px, rad.reshape(-1, S, 3).sum(1))
+
+
+@pytest.mark.parametrize("name", MASK_SCENES)
+def test_k6_equals_plain(cuda, name):
+    s = tscene.from_dict(bvh_scene_dict(name), device=cuda)[0]
+    assert tmk._kernel_mode(s) == "bvh"
+    cfg = ttrace.TraceConfig()
+    got = tmk.pixel_mask(s, width=200, height=150, cfg=cfg)
+    want = tmk.pixel_mask_plain(s, width=200, height=150, cfg=cfg)
+    if name.endswith("-noground"):
+        assert want.any() and (~want).any(), "hits and misses expected"
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", BVH_SCENES)
+def test_k3_matches_plain(cuda, name):
+    s = tscene.from_dict(bvh_scene_dict(name), device=cuda)[0]
+    cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
+    got = lane_image(s, tmk.trace, cfg, 32, 24, 2)
+    gate(got, lane_image(s, ttrace.trace, cfg, 32, 24, 2))
 
 
 def test_main_path_launches_both_kernels(cuda):
@@ -90,4 +132,18 @@ def test_main_path_launches_both_kernels(cuda):
     assert tmk.LAUNCHES["pixel_mask"] >= 1
     dense = trender.render_band(s, 0, width=160, height=120, band_h=120,
                                 samples=4, cfg=cfg)
+    gate(img, dense)
+
+
+def test_bvh_main_path_launches_k6_and_k3(cuda):
+    s = tscene.from_dict(ring_scene_dict(100), device=cuda)[0]
+    cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
+    tmk.reset_launches()
+    img = trender.render_wavefront(s, width=48, height=36, samples=2,
+                                   cfg=cfg)
+    assert tmk.LAUNCHES["trace_bvh"] >= 1
+    assert tmk.LAUNCHES["pixel_mask_bvh"] >= 1
+    assert tmk.LAUNCHES["trace_unroll"] == tmk.LAUNCHES["pixel_mask"] == 0
+    dense = trender.render_band(s, 0, width=48, height=36, band_h=36,
+                                samples=2, cfg=cfg)
     gate(img, dense)
