@@ -28,12 +28,31 @@ Phases, in order (each prints a line before and after, with its seconds):
   render_check_bvh  the main path (K6, compaction, K3+K4) against the
                     dense plain path at 160x120, 4 spp, depth 50 on
                     ring-1000, under the image gate
+  k7_check          K7 (loop mode: brute force without a BVH) against its
+                    plain version on the lanes of a 64x48 frame, 4 spp,
+                    depth 50, on the icosphere golden scene without its
+                    BVH (tables in shared memory) and on ring-2500 without
+                    one (tables past the budget, read through __ldg): max
+                    lane error 0 or the image gate
+  k1ext_check       the extended body (K1-ext) on the same lanes: K1 on
+                    textured_mirror_demo and the extended_textured golden
+                    scene, K3+K4 on smooth_shading_demo; image gate, with
+                    the max lane error printed
+  bounds_check      max_depth 100, 20 lights and 80 soft-shadow samples on
+                    K1, K3+K4 and K7 (a few hundred lanes each) against the
+                    plain version: max lane error 0 or the image gate
   bench             Renderer().render of the bench workload (800x600,
                     100 spp, depth 50, 16 soft-shadow rays, seed 0): one
                     warm-up, then 3 timed frames; launch counts are reset
                     just before the first timed frame and read just after
   bench_bvh         the same on ring-1000 through K6 and K3+K4 (one timed
                     frame instead of 3 when a frame takes over 30 s)
+  bench_textured    the same on textured_mirror_demo (its look-at camera)
+                    through K2 and K1-ext
+  bench_smooth      the same on smooth_shading_demo (its look-at camera)
+                    through K6 and K3+K4 with vertex normals
+  bench_loop        the same on the icosphere golden scene without its BVH
+                    (the go camera) through K2 and K7
   kernels           K1 and K3+K4 against their plain versions on the bench
                     frames' own lanes (all of them for K1, a strided subset
                     of about 20k for K3+K4, whose main-path launches must
@@ -41,7 +60,11 @@ Phases, in order (each prints a line before and after, with its seconds):
                     the main path's own shapes (CUDA events; the trace runs
                     in chunks of TRACE_LANES lanes, so ms x launches is a
                     frame's kernel time) beside its plain version's and
-                    its bound for the same work
+                    its bound for the same work; then K7 and K1-ext (and
+                    K3+K4 with vertex normals) the same way at the three
+                    new bench frames, on a strided subset of about 20k of
+                    their lanes for the plain version; registers, stack
+                    and spills of every kernel from the build
 
 The image gate is the goldens gate of tests/test_goldens.py: at most 0.1%
 of pixels off by more than 1e-3 and a mean absolute error below 1e-4.
@@ -52,7 +75,11 @@ under the reference camera). Ring-1000 is the reference benchmark's
 1000-sphere ring (bench/suite.py:ring_scene_dict); the mixed scene adds a
 prism, two cubes and a plane to a 90-sphere ring (124 primitives;
 bench/suite.py:mixed_scene_dict). Every pixel of both passes the mask,
-so k6_check adds both without their ground and back wall. The last
+so k6_check adds both without their ground and back wall. The slice of
+meshes, vertex normals, extended kinds and textures runs the three demo
+scenes of assets/ that need it and two golden scenes of
+tests/make_goldens.py (copied into bench/suite.py:golden_scene_dict,
+since this script imports nothing of the JAX package). The last
 two lines of output are the JSON kernel record and the contract line. Any
 failure raises and exits non-zero with no contract line; without a GPU
 the script exits non-zero at once.
@@ -75,6 +102,8 @@ SCENES = ("sphere_reflections_light", "two_red_cubes_scene",
           "final_silver_prism_purple_cube")
 BVH_SCENES = ("ring1000", "mixed")
 MASK_SCENES = BVH_SCENES + ("ring1000-noground", "mixed-noground")
+LOOP_LDG_RING = 2500  # ring spheres: tables past K7's shared-memory budget
+PLAIN_CHUNK = 2048    # lanes per call of the plain brute-force engine
 K3_SUBSET = 20000   # lanes of the bench frame checked against the plain
 SLOW_FRAME_S = 30.0
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and fp32 instructions/s
@@ -132,6 +161,73 @@ def bvh_scene(name, device):
     return scene_mod.from_dict(bvh_scene_dict(name), device=device)[0]
 
 
+def asset_scene(name, device):
+    """An asset of the slice loaded from its file (mesh paths resolve
+    against assets/); rendered with its own look-at camera."""
+    from raytrace_tpu_torch import scene as scene_mod
+    return scene_mod.load(os.path.join(REPO, "assets", f"{name}.json"),
+                          device=device)[0]
+
+
+def golden_scene(name, device, build_accel=None):
+    """A golden scene of tests/make_goldens.py (bench/suite.py's copy)."""
+    from raytrace_tpu_torch import scene as scene_mod
+    from raytrace_tpu_torch.bench.suite import golden_scene_dict
+    return scene_mod.from_dict(golden_scene_dict(name)[0], device=device,
+                               build_accel=build_accel)[0]
+
+
+def with_lights(scene, n):
+    """The scene with n point lights (run-time bound checks)."""
+    import dataclasses
+    import torch
+    from raytrace_tpu_torch import scene as scene_mod
+    dev = scene.device
+    i = torch.arange(n, dtype=torch.float32, device=dev)
+    pos = torch.stack([4.0 - 0.4 * i, torch.full_like(i, 6.0),
+                       5.0 - 0.3 * i], 1)
+    return dataclasses.replace(scene, lights=scene_mod.Lights(
+        position=pos, color=torch.ones((n, 3), device=dev),
+        intensity=torch.full((n,), 3.0, device=dev)))
+
+
+def plain_trace(scene, o, d, pix, samp, cfg):
+    """The plain version over lanes in chunks of PLAIN_CHUNK: lanes are
+    independent, so the result is the one-call result, and the brute-force
+    soft-shadow batches stay small on big tables."""
+    import torch
+    from raytrace_tpu_torch import trace as trace_mod
+    return torch.cat([trace_mod.trace(scene, *(t[i:i + PLAIN_CHUNK]
+                                               for t in (o, d, pix, samp)),
+                                      cfg)
+                      for i in range(0, o.shape[0], PLAIN_CHUNK)])
+
+
+def ptxas_kernels(lines):
+    """{kernel entry: (registers, stack bytes, spill bytes)} from the
+    build's -Xptxas -v report."""
+    import re
+    out, cur = {}, None
+    for ln in lines:
+        m = re.search(r"(?:entry function|Function properties for) '?"
+                      r"([A-Za-z_]\w*)", ln)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, [None, 0, 0])
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[cur][1] = int(m.group(1))
+            out[cur][2] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def cuda_ms(fn, reps):
     import torch
     start = torch.cuda.Event(enable_timing=True)
@@ -154,7 +250,8 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def lanes_of(scene, width, height, samples, cfg, chunks=False):
+def lanes_of(scene, width, height, samples, cfg, chunks=False,
+             go_camera=True):
     """The trace's input on the main path: the compacted pixels and the
     rays of their lanes, read from render_wavefront through its stage hook
     and joined over its trace chunks; with ``chunks``, also the lane count
@@ -169,7 +266,7 @@ def lanes_of(scene, width, height, samples, cfg, chunks=False):
                 seen[k].append(values[k])
 
     r.render_wavefront(scene, width=width, height=height, samples=samples,
-                       cfg=cfg, hook=hook)
+                       cfg=cfg, go_camera=go_camera, hook=hook)
     out = tuple(torch.cat(seen[k]).contiguous() for k in seen)
     if chunks:
         return out + ([int(o.shape[0]) for o in seen["origin"]],)
@@ -221,13 +318,14 @@ def frame_stages(r, scene):
             k.append(values["k"])
 
     img = rmod.render_wavefront(scene, width=W, height=H, samples=SPP,
-                                cfg=r.trace_config(), hook=mark)
+                                cfg=r.trace_config(), go_camera=r.go_camera,
+                                hook=mark)
     tonemap.tonemap_rgb8(img).cpu()
     mark("tonemap_copy")
     return {s: round(v, 3) for s, v in ms.items()}, k[0]
 
 
-def bench(scene, mk, what, slow_cut):
+def bench(scene, mk, what, slow_cut, go_camera=True):
     """Renderer().render at the bench settings: one warm-up, then 3 timed
     frames (1 when ``slow_cut`` and the warm-up took over SLOW_FRAME_S).
     Returns the launch counts of the first timed frame."""
@@ -236,6 +334,7 @@ def bench(scene, mk, what, slow_cut):
     r = rmod.Renderer(device=torch.device("cuda"))
     r.set_samples(SPP)
     r.set_max_depth(DEPTH)
+    r.go_camera = go_camera
     t0 = time.perf_counter()
     r.render(scene, W, H)  # warm-up
     warm = time.perf_counter() - t0
@@ -436,6 +535,85 @@ def main():
                                    band_h=120, samples=4, cfg=rcfg)
         image_gate(main_img, ref_img, "bvh main path vs dense plain path")
 
+    with Phase("k7_check"):
+        loop_scenes = {
+            "icosphere": golden_scene("mesh_smooth_icosphere", dev,
+                                      build_accel=False),
+            f"ring{LOOP_LDG_RING}": loop_ring_scene(LOOP_LDG_RING, dev)}
+        for name, s in loop_scenes.items():
+            if mk._kernel_mode(s) != "loop":
+                raise AssertionError(f"{name} is not a loop-mode scene")
+            in_smem = mk.loop_tables_in_smem(mk.pack_tables(s))
+            if in_smem != (name == "icosphere"):
+                raise AssertionError(f"{name}: tables in shared memory "
+                                     f"{in_smem}")
+            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
+            mk.reset_launches()
+            got = mk.trace(s, o, d, pix, samp, cfg)
+            if mk.LAUNCHES["trace_loop"] != 1:
+                raise AssertionError(f"K7 was not launched: {mk.LAUNCHES}")
+            want = plain_trace(s, o, d, pix, samp, cfg)
+            err = float((got - want).abs().max())
+            print(f"   {name}: {s.prim_count} primitives, tables "
+                  f"{'in shared memory' if in_smem else 'through __ldg'}, "
+                  f"{o.shape[0]} lanes, max lane error {err:.3e}",
+                  flush=True)
+            if err > 0.0:
+                image_gate(pixel_image(px, got, 64, 48, 4),
+                           pixel_image(px, want, 64, 48, 4), f"K7 {name}")
+            record.setdefault("k7_check_err", []).append(err)
+            # the two table routes' speed against their bounds
+            cnt = torch.zeros((o.shape[0], mk.COUNTERS), dtype=torch.int32,
+                              device=dev)
+            _, counted = mk.prepare_trace(s, o, d, pix, samp, cfg,
+                                          counters=cnt)
+            counted()
+            ops, _ = k1_ops(s, cnt)
+            _, launch = mk.prepare_trace(s, o, d, pix, samp, cfg)
+            ms = cuda_ms(launch, 3)
+            bnd, _ = bound(ops, o.shape[0] * 44)
+            record[f"k7_{'smem' if in_smem else 'ldg'}"] = (ms, bnd)
+            print(f"   {name}: K7 {ms:.4f} ms for {ops:.4e} ops, bound "
+                  f"{bnd:.4f} ms ({bnd / ms:.0%})", flush=True)
+
+    with Phase("k1ext_check"):
+        ext = (("textured_mirror_demo", asset_scene("textured_mirror_demo",
+                                                    dev), False,
+                "trace_unroll"),
+               ("extended_textured", golden_scene("extended_textured", dev),
+                True, "trace_unroll"),
+               ("smooth_shading_demo", asset_scene("smooth_shading_demo",
+                                                   dev), False, "trace_bvh"))
+        for name, s, go, kernel in ext:
+            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg, go_camera=go)
+            mk.reset_launches()
+            got = mk.trace(s, o, d, pix, samp, cfg)
+            if mk.LAUNCHES[kernel] != 1:
+                raise AssertionError(f"{name}: {kernel} was not launched")
+            want = trace_mod.trace(s, o, d, pix, samp, cfg)
+            err = float((got - want).abs().max())
+            print(f"   {name} ({kernel}): {o.shape[0]} lanes, max lane "
+                  f"error {err:.3e}", flush=True)
+            image_gate(pixel_image(px, got, 64, 48, 4),
+                       pixel_image(px, want, 64, 48, 4), f"K1-ext {name}")
+            record.setdefault("k1ext_check_err", []).append(err)
+
+    with Phase("bounds_check"):
+        bcfg = trace_mod.TraceConfig(max_depth=100, shadow_samples=80,
+                                     seed=0)
+        for name, s in (("unroll", scenes[SCENES[2]]),
+                        ("bvh", bvh_scenes["mixed"]),
+                        ("loop", loop_scenes["icosphere"])):
+            s = with_lights(s, 20)
+            px, o, d, pix, samp = lanes_of(s, 12, 9, 2, bcfg)
+            got = mk.trace(s, o, d, pix, samp, bcfg)
+            want = trace_mod.trace(s, o, d, pix, samp, bcfg)
+            err = float((got - want).abs().max())
+            print(f"   {name}: depth 100, 20 lights, 80 soft rays, "
+                  f"{o.shape[0]} lanes, max lane error {err:.3e}", flush=True)
+            if err > 0.0:
+                image_gate(got, want, f"run-time bounds, {name}")
+
     with Phase("bench"):
         launches = bench(scenes[SCENES[0]], mk, "bench", slow_cut=False)
         for k in ("trace_unroll", "pixel_mask"):
@@ -449,10 +627,39 @@ def main():
             if launches_bvh[k] < 1:
                 raise AssertionError(f"the bvh main path never launched {k}")
 
+    frames = {}
+    for phase, key, s, go, kernels_used in (
+            ("bench_textured", "textured", ext[0][1], False,
+             ("trace_unroll", "pixel_mask")),
+            ("bench_smooth", "smooth", ext[2][1], False,
+             ("trace_bvh", "pixel_mask_bvh")),
+            ("bench_loop", "loop", loop_scenes["icosphere"], True,
+             ("trace_loop", "pixel_mask"))):
+        with Phase(phase):
+            got = bench(s, mk, phase, slow_cut=True, go_camera=go)
+            for k in kernels_used:
+                if got[k] < 1:
+                    raise AssertionError(f"the {phase} frame never "
+                                         f"launched {k}")
+            frames[key] = (s, go, got)
+
     with Phase("kernels"):
         kernels = kernel_rows(mk, trace_mod, scenes[SCENES[0]],
                               bvh_scenes[BVH_SCENES[0]], cfg, launches,
                               launches_bvh, record)
+        kernels += slice_rows(mk, scenes, frames, cfg, record)
+        regs = ptxas_kernels(res.ptxas)
+        entry = {"K1": "rt_trace_unroll_kernel", "K2": "rt_pixel_mask_kernel",
+                 "K3": "rt_trace_bvh_kernel", "K4": "rt_trace_bvh_kernel",
+                 "K6": "rt_pixel_mask_bvh_kernel",
+                 "K7": "rt_trace_loop_kernel",
+                 "K1-ext": "rt_trace_unroll_kernel"}
+        for row in kernels:
+            fn = entry[row["name"].split()[0]]
+            r_, stack, spill = regs.get(fn, (None, None, None))
+            row.update(registers=r_, stack_bytes=stack, spill_bytes=spill)
+            print(f"   {row['name']}: {fn} {r_} registers, {stack} B stack, "
+                  f"{spill} B spills", flush=True)
 
     print(gpu_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -460,6 +667,112 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def loop_ring_scene(n, device):
+    """ring-n of bench/suite.py without a BVH (loop mode)."""
+    from raytrace_tpu_torch import scene as scene_mod
+    from raytrace_tpu_torch.bench.suite import ring_scene_dict
+    return scene_mod.from_dict(ring_scene_dict(n), device=device,
+                               build_accel=False)[0]
+
+
+def frame_kernel(mk, scene, cfg, go_camera, what):
+    """The trace kernel of a bench frame, at the main path's own chunks of
+    that frame's lanes: checks, time per launch, plain time on a strided
+    subset of about K3_SUBSET lanes, bound from the work counters.
+    Returns a dict of the row's numbers."""
+    import torch
+    from raytrace_tpu_torch import trace as trace_mod
+    dev = torch.device("cuda")
+    mode = mk._kernel_mode(scene)
+    px, o, d, pix, samp, sizes = lanes_of(scene, W, H, SPP, cfg, chunks=True,
+                                          go_camera=go_camera)
+    lanes = (o, d, pix, samp)
+    n, n_launch = o.shape[0], len(sizes)
+    idx = torch.arange(0, n, max(1, n // K3_SUBSET), device=dev)
+    sub = tuple(t[idx] for t in lanes)
+    out, launch_all = chunk_launches(mk, scene, lanes, sizes, cfg)
+    launch_all()
+    sub_k, sub_launch = mk.prepare_trace(scene, *sub, cfg)
+    sub_ms = cuda_ms(sub_launch, 1)
+    if not torch.equal(out()[idx], sub_k):
+        raise AssertionError(f"{what}: the main-path launches and the "
+                             "subset launch disagree at the same lanes")
+    plain, want = host_ms(lambda: plain_trace(scene, *sub, cfg))
+    err = float((sub_k - want).abs().max())
+    image_gate(sub_k, want, f"{what} at {idx.numel()} of its bench lanes "
+               f"(max lane error {err:.3e})")
+    ms = cuda_ms(launch_all, 2) / n_launch
+    n_cnt = mk.BVH_COUNTERS if mode == "bvh" else mk.COUNTERS
+    cnt = torch.zeros((n, n_cnt), dtype=torch.int32, device=dev)
+    _, counted = chunk_launches(mk, scene, lanes, sizes, cfg, counters=cnt)
+    counted()
+    if mode == "bvh":
+        ops, _, work = k3_ops(cnt)
+    else:
+        ops, work = k1_ops(scene, cnt)
+    bnd, by = bound(ops / n_launch, n / n_launch * (12 + 12 + 4 + 4 + 12))
+    print(f"   {what}: {n} lanes in {n_launch} launch(es), work {work}, "
+          f"{ops:.4e} ops; per launch {ms:.4f} ms, bound {bnd:.4f} ms "
+          f"({by}); kernel on {idx.numel()} lanes {sub_ms:.3f} ms vs plain "
+          f"{plain:.1f} ms", flush=True)
+    return dict(launches=n_launch, err=err, ms=ms, plain=plain, bound=bnd,
+                by=by, plain_lanes=int(idx.numel()), ms_plain_lanes=sub_ms,
+                lanes_per_frame=n)
+
+
+def slice_rows(mk, scenes, frames, cfg, record):
+    """The rows of K7 and K1-ext at the three bench frames of the slice
+    (K1-ext's row is K1 on the textured frame; K3+K4 with vertex normals
+    on the smooth frame rides along as extra keys)."""
+    src = "raytrace_tpu_torch/csrc/"
+    mkpy = "raytrace_tpu/ops/megakernel.py:"
+    rows = []
+    got = {}
+    for key, kernel in (("textured", "trace_unroll"), ("smooth", "trace_bvh"),
+                        ("loop", "trace_loop")):
+        s, go, launches = frames[key]
+        got[key] = frame_kernel(mk, s, cfg, go, f"{key} frame ({kernel})")
+        if launches[kernel] != got[key]["launches"]:
+            raise AssertionError(f"the {key} frame launched {kernel} "
+                                 f"{launches[kernel]} times, not its chunk "
+                                 f"count {got[key]['launches']}")
+    t, sm, lp = got["textured"], got["smooth"], got["loop"]
+    # K2, the loop frame's mask
+    _, k2_launch = mk.prepare_pixel_mask(frames["loop"][0], width=W,
+                                         height=H, cfg=cfg)
+    record["k2_loop_ms"] = cuda_ms(k2_launch, 20)
+    print(f"   K2 on the loop frame: {record['k2_loop_ms']:.4f} ms",
+          flush=True)
+    common = dict(route="cuda", library_ms=None)
+    rows.append(dict(
+        name="K7 trace_loop", source=src + "trace_loop.cu",
+        replaces=mkpy + "608", launches=lp["launches"],
+        max_abs_err=max([lp["err"]] + record["k7_check_err"]),
+        ms=lp["ms"], plain_ms=lp["plain"], bound_ms=lp["bound"],
+        bound_by=lp["by"], plain_lanes=lp["plain_lanes"],
+        ms_plain_lanes=lp["ms_plain_lanes"],
+        lanes_per_frame=lp["lanes_per_frame"],
+        k2_mask_ms=record["k2_loop_ms"],
+        smem_check_ms=record["k7_smem"][0],
+        smem_check_bound_ms=record["k7_smem"][1],
+        ldg_check_ms=record["k7_ldg"][0],
+        ldg_check_bound_ms=record["k7_ldg"][1], **common))
+    rows.append(dict(
+        name="K1-ext bounce body (in K1, K3+K4, K7)",
+        source=src + "bounce.cuh", replaces=mkpy + "1921",
+        launches=t["launches"],
+        max_abs_err=max([t["err"], sm["err"]] + record["k1ext_check_err"]),
+        ms=t["ms"], plain_ms=t["plain"], bound_ms=t["bound"],
+        bound_by=t["by"], plain_lanes=t["plain_lanes"],
+        ms_plain_lanes=t["ms_plain_lanes"],
+        lanes_per_frame=t["lanes_per_frame"],
+        bvh_vn_ms=sm["ms"], bvh_vn_launches=sm["launches"],
+        bvh_vn_bound_ms=sm["bound"], bvh_vn_plain_ms=sm["plain"],
+        bvh_vn_plain_lanes=sm["plain_lanes"],
+        bvh_vn_lanes_per_frame=sm["lanes_per_frame"], **common))
+    return rows
 
 
 def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,

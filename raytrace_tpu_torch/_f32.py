@@ -5,6 +5,10 @@ PyTorch's vectorised CPU ``sqrt`` for float32 is not correctly rounded
 ``sqrtf`` are. The square root of a float32 computed in float64 and
 rounded once to float32 is the correctly rounded result, so the port takes
 every float32 square root through float64.
+
+On a CUDA tensor, PyTorch divides by a Python scalar as a multiply by its
+float32 reciprocal, which can differ by an ulp from the division that the
+CPU, XLA and the kernels do; ``div`` divides by a tensor instead.
 """
 
 from __future__ import annotations
@@ -15,3 +19,8 @@ import torch
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root."""
     return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded as one float32 division on every device."""
+    return x / torch.full_like(x, d)

@@ -1,11 +1,17 @@
 """Benchmark and check scenes of the port: a copy of the JAX package's
 ``bench/suite.py:ring_scene_dict`` (the benchmark sweep is not ported),
-and the bvh-mode scenes that the tests and ``chip_smoke.py`` share."""
+the bvh-mode scenes that the tests and ``chip_smoke.py`` share, and copies
+of two golden scenes of ``tests/make_goldens.py`` (``golden_scene_dict``)
+for runs that may not import the JAX package."""
 
 from __future__ import annotations
 
 import copy
 import math
+import os
+
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
+                      "assets")
 
 
 def ring_scene_dict(n_spheres: int = 10, radius: float = 5.0):
@@ -82,3 +88,57 @@ def bvh_scene_dict(name: str):
     if rest:
         d["objects"] = d["objects"][1:]
     return d
+
+
+def golden_scene_dict(name: str):
+    """A golden scene of tests/make_goldens.py by name, with its trace
+    settings: (scene dict, TraceConfig keyword arguments).
+    "extended_textured": the extended kinds mirror, sheen and emission
+    and a checkerboard texture (15 primitives, unroll mode);
+    "mesh_smooth_icosphere": an 80-face icosphere with vertex normals
+    (assets/icosphere.obj, the goldens' own OBJ) and a ground sphere, 81
+    primitives: bvh mode with the BVH that from_dict gives it, loop mode
+    without."""
+    if name == "extended_textured":
+        return {
+            "camera": {"position": [0, 1.0, 7], "aspectRatio": 1.3333},
+            "objects": [
+                {"type": "sphere", "position": [-1.4, 0.3, 0], "radius": 0.8,
+                 "material": {"type": "mirror", "color": [0.95, 0.95, 0.95],
+                              "roughness": 0.05}},
+                {"type": "sphere", "position": [1.4, 0.3, 0], "radius": 0.8,
+                 "material": {"type": "sheen", "color": [0.7, 0.3, 0.3],
+                              "sheenColor": [1.0, 0.9, 0.8],
+                              "sheenRoughness": 0.3}},
+                {"type": "sphere", "position": [0, 0.1, -1.8], "radius": 0.9,
+                 "material": {"type": "emission", "color": [0.3, 0.8, 1.0],
+                              "intensity": 2.0}},
+                {"type": "sphere", "position": [0, -100.5, 0],
+                 "radius": 100.0,
+                 "material": {"type": "lambertian", "color": [1, 1, 1],
+                              "texture": {"type": "checkerboard",
+                                          "scale": 0.8,
+                                          "color1": [0.85, 0.85, 0.9],
+                                          "color2": [0.15, 0.15, 0.2]}}},
+            ],
+            "lights": [{"position": [4, 6, 5], "color": [1, 0.98, 0.92],
+                        "intensity": 55.0}],
+        }, dict(max_depth=6, shadow_samples=8)
+    if name == "mesh_smooth_icosphere":
+        return {
+            "camera": {"position": [0, 0.4, 5], "aspectRatio": 1.3333},
+            "objects": [
+                {"type": "mesh",
+                 "path": os.path.abspath(os.path.join(ASSETS,
+                                                      "icosphere.obj")),
+                 "position": [0, 0.2, 0], "scale": 1.1,
+                 "material": {"type": "metal", "color": [0.8, 0.7, 0.5],
+                              "roughness": 0.15}},
+                {"type": "sphere", "position": [0, -101, 0], "radius": 100.0,
+                 "material": {"type": "lambertian",
+                              "color": [0.6, 0.6, 0.55]}},
+            ],
+            "lights": [{"position": [4, 6, 5], "color": [1, 1, 1],
+                        "intensity": 45.0}],
+        }, dict(max_depth=5, shadow_samples=4)
+    raise ValueError(f"unknown golden scene {name!r}")

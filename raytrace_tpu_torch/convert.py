@@ -3,15 +3,16 @@
 A ray tracer has no weights: its state is the packed scene. The JAX
 package's ``Scene`` is a pytree of arrays; ``scene_from_numpy`` takes those
 leaves as numpy arrays, grouped by table, and builds the port's ``Scene``
-from them unchanged, so both packages can trace the very same tables,
-the scene BVH (``Scene.accel``) included. This module does not import the
-JAX package: the caller hands over numpy.
+from them unchanged, so both packages can trace the very same tables: the
+vertex normals, the extended-kind columns, the texture bindings and the
+scene BVH (``Scene.accel``) included. This module does not import the JAX
+package: the caller hands over numpy, and texture bindings as plain data.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Any, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,20 +21,33 @@ from . import _device
 from . import bvh as bvh_mod
 from . import scene as scene_mod
 from .models import materials as mat_mod
+from .models import textures as tex_mod
+
+# The texture classes by name: the JAX package's names are the port's.
+TEXTURES = {cls.__name__: cls for cls in tex_mod.TEX_TYPE}
+
+
+def _tensor(arr, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "f":
+        arr = arr.astype(np.float32)
+    elif arr.dtype.kind in "iu":
+        arr = arr.astype(np.int32)
+    # np.array, not np.ascontiguousarray, which makes a 0-d array 1-d
+    return torch.from_numpy(np.array(arr, order="C")).to(device)
 
 
 def _tensors(cls, leaves: Mapping[str, np.ndarray], device, **extra):
-    kw = {}
-    for f in dataclasses.fields(cls):
-        if f.name in extra:
-            continue
-        arr = np.asarray(leaves[f.name])
-        if arr.dtype.kind == "f":
-            arr = arr.astype(np.float32)
-        elif arr.dtype.kind in "iu":
-            arr = arr.astype(np.int32)
-        kw[f.name] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    kw = {f.name: _tensor(leaves[f.name], device)
+          for f in dataclasses.fields(cls)
+          if f.name not in extra and f.default is dataclasses.MISSING}
     return cls(**kw, **extra)
+
+
+def _texture(kind: str, fields: Mapping[str, Any]):
+    cls = TEXTURES[kind]
+    return cls(**{k: tuple(v) if isinstance(v, (list, tuple)) else v
+                  for k, v in fields.items()})
 
 
 def scene_from_numpy(camera: Mapping[str, np.ndarray],
@@ -43,24 +57,40 @@ def scene_from_numpy(camera: Mapping[str, np.ndarray],
                      occl_tris: int = -1, sph_count: int = 0,
                      mesh_count: int = 0,
                      accel: Optional[Mapping[str, np.ndarray]] = None,
+                     textures: Sequence[Tuple[int, str, Mapping]] = (),
                      device=None) -> scene_mod.Scene:
     """Build the port's Scene from numpy tables.
 
     Each mapping holds the fields of the matching dataclass
     (``scene.Camera``, ``scene.Geometry``, ``materials.MaterialTable``,
     ``scene.Lights``, and for ``accel`` ``bvh.FlatBVH``, ``leaf_size``
-    included) under the JAX package's field names; extra keys (textures,
-    vertex normals, the 4-wide tree) are ignored.
+    included) under the JAX package's field names. ``geometry`` may hold
+    ``tri_vn`` ((Nt,9), or None for a flat scene); ``materials`` may hold
+    the ``aux_vec``/``aux_a``/``aux_b`` columns and ``has_advanced``.
+    ``textures`` lists the texture bindings as (material index, texture
+    class name, {field: value}). Extra keys (the 4-wide tree) are ignored.
     """
     device = _device.resolve(device)
     tree = None
     if accel is not None:
         tree = _tensors(bvh_mod.FlatBVH, accel, device,
                         leaf_size=int(accel["leaf_size"]))
+    vn = geometry.get("tri_vn")
+    mats = dict(materials)
+    n_mat = np.asarray(mats["kind"]).shape[0]
+    for name, shape in (("aux_vec", (n_mat, 3)), ("aux_a", (n_mat,)),
+                        ("aux_b", (n_mat,))):
+        if name not in mats or np.asarray(mats[name]).shape != shape:
+            mats[name] = np.zeros(shape, np.float32)
     return scene_mod.Scene(
         camera=_tensors(scene_mod.Camera, camera, device),
         geometry=_tensors(scene_mod.Geometry, geometry, device,
-                          occl_tris=int(occl_tris)),
-        materials=_tensors(mat_mod.MaterialTable, materials, device),
+                          occl_tris=int(occl_tris),
+                          tri_vn=None if vn is None else _tensor(vn, device)),
+        materials=_tensors(
+            mat_mod.MaterialTable, mats, device,
+            has_advanced=bool(mats.get("has_advanced", False)),
+            textures=tuple((int(mi), _texture(kind, fields))
+                           for mi, kind, fields in textures)),
         lights=_tensors(scene_mod.Lights, lights, device),
         sph_count=int(sph_count), mesh_count=int(mesh_count), accel=tree)

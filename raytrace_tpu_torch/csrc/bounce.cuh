@@ -1,8 +1,16 @@
-// The bounce loop of one lane, shared by K1 (trace_unroll.cu) and K3+K4
-// (trace_bvh.cu).
+// The bounce loop of one lane, shared by K1 (trace_unroll.cu), K3+K4
+// (trace_bvh.cu) and K7 (trace_loop.cu).
 //
-// models/materials.py, ops/shade.py and trace.py in scalar form: closest
-// hit, direct light with hard and soft shadows, scatter, accumulation.
+// models/materials.py, models/textures.py, ops/shade.py and trace.py in
+// scalar form: closest hit, smooth normal, material and texture, direct
+// light with hard and soft shadows, scatter, accumulation. The extended
+// body (K1-ext: smooth vertex normals, kinds 7-12, directional emission,
+// textures, did_scatter) replaces the `advanced`, `textures` and `tri_vn`
+// variants of raytrace_tpu/ops/megakernel.py:_make_kernel (:1921-1980,
+// :2289, _tri_smooth_normal_g :349). It is one body for every scene:
+// column counts and table sizes are run-time values, so one build serves
+// flat and smooth, seven-kind and extended scenes alike.
+//
 // The geometry is a policy type with four members, so shading, scatter and
 // accumulation exist once:
 //
@@ -15,22 +23,24 @@
 //         blocks, as the sum of 1.0f over them
 //   void  store_work(int32_t* out)               per-lane work counters
 //
-// Table layout (row-major float32):
-//   sph [ns][5]  center.xyz, radius, mat
-//   tri [nt][13] v0.xyz, e1.xyz, e2.xyz, normal.xyz, mat (hit triangles:
-//                cube faces are left out, their boxes are the hit form)
-//   pln [npl][7] point.xyz, normal.xyz, mat
-//   box [nb][7]  min.xyz, max.xyz, mat
-//   lit [nl][7]  position.xyz, color.xyz, intensity
-//   mat [nm][14] kind, albedo.rgb, roughness, metallic, specular, ior,
-//                emit.rgb, eff_albedo.rgb
+// Table layout (row-major float32, one flat array in this order):
+//   sph [ns][5]   center.xyz, radius, mat
+//   tri [nt][tri_cols]  13: v0.xyz, e1.xyz, e2.xyz, normal.xyz, mat (hit
+//                 triangles: cube faces are left out, their boxes are the
+//                 hit form); 22 in a smooth-shaded scene: + n0, n1, n2
+//   pln [npl][7]  point.xyz, normal.xyz, mat
+//   box [nb][7]   min.xyz, max.xyz, mat
+//   lit [nl][7]   position.xyz, color.xyz, intensity
+//   mat [nm][mat_cols]  14: kind, albedo.rgb, roughness, metallic,
+//                 specular, ior, emit.rgb, eff_albedo.rgb; 19 with an
+//                 extended kind: + aux_vec.xyz, aux_a, aux_b
+//   tex [ntex][kTexCols]  texture bindings (textures.cuh)
+//   aux [naux][3] the textures' aux rows
+// followed, in bvh mode, by the tree (bvh_walk.cuh).
 #pragma once
 
 #include "common.cuh"
-
-#define RT_MAX_DEPTH 64
-#define RT_MAX_LIGHTS 16
-#define RT_MAX_SHADOW_SAMPLES 64
+#include "textures.cuh"
 
 namespace rt {
 
@@ -39,7 +49,21 @@ enum Kind {
   kMetal = 1,
   kShiny = 2,
   kPerfectMirror = 3,
-  kDiffuseLight = 6
+  kDiffuseLight = 6,
+  kSubsurface = 7,
+  kAnisotropic = 8,
+  kClearcoat = 9,
+  kSheen = 10,
+  kEmission = 11,
+  kMirror = 12
+};
+
+constexpr float kEmissionDirectional = 1.0f;
+
+// The table sizes the wrapper passes (megakernel.prepare_trace).
+struct Dims {
+  int ns, nt, npl, nb, nl, nm, tri_cols, mat_cols, ntex, naux;
+  int n_nodes, leaf_size;  // bvh mode only
 };
 
 struct Tables {
@@ -49,8 +73,39 @@ struct Tables {
   const float* box;
   const float* lit;
   const float* mat;
-  int ns, nt, npl, nb, nl, nm;
+  const float* tex;
+  const float* aux;
+  int ns, nt, npl, nb, nl, nm, tri_cols, mat_cols, ntex, naux;
 };
+
+// Floats of the scene tables (everything before the tree).
+RT_HD int table_floats(const Dims& d) {
+  return 5 * d.ns + d.tri_cols * d.nt + 7 * d.npl + 7 * d.nb + 7 * d.nl +
+         d.mat_cols * d.nm + kTexCols * d.ntex + 3 * d.naux;
+}
+
+RT_DEV Tables make_tables(const float* base, const Dims& d) {
+  Tables tb;
+  tb.sph = base;
+  tb.tri = tb.sph + 5 * d.ns;
+  tb.pln = tb.tri + d.tri_cols * d.nt;
+  tb.box = tb.pln + 7 * d.npl;
+  tb.lit = tb.box + 7 * d.nb;
+  tb.mat = tb.lit + 7 * d.nl;
+  tb.tex = tb.mat + d.mat_cols * d.nm;
+  tb.aux = tb.tex + kTexCols * d.ntex;
+  tb.ns = d.ns;
+  tb.nt = d.nt;
+  tb.npl = d.npl;
+  tb.nb = d.nb;
+  tb.nl = d.nl;
+  tb.nm = d.nm;
+  tb.tri_cols = d.tri_cols;
+  tb.mat_cols = d.mat_cols;
+  tb.ntex = d.ntex;
+  tb.naux = d.naux;
+  return tb;
+}
 
 // The draws of one (lane, bounce, light) that make its soft-shadow rays.
 struct SoftRays {
@@ -106,6 +161,41 @@ RT_DEV V3 reflect3(V3 d, V3 n) {
   return V3{d.x - k * n.x, d.y - k * n.y, d.z - k * n.z};
 }
 
+// ops/intersect.py:_interp_tri_normal for the winning triangle row tr of
+// a smooth-shaded scene: u, v recomputed by the hit test's expressions
+// (f = 1/det), w*n0 + u*n1 + v*n2 scaled by 1/len (not divided by len).
+RT_DEV V3 smooth_normal(const float* tr, V3 o, V3 d, V3 face) {
+  float e1x = tr[3], e1y = tr[4], e1z = tr[5];
+  float e2x = tr[6], e2y = tr[7], e2z = tr[8];
+  float hx = d.y * e2z - d.z * e2y;
+  float hy = d.z * e2x - d.x * e2z;
+  float hz = d.x * e2y - d.y * e2x;
+  float det = e1x * hx + e1y * hy + e1z * hz;
+  if (!(fabsf(det) >= 1e-6f)) return face;
+  float f = 1.0f / det;
+  float sx = o.x - tr[0], sy = o.y - tr[1], sz = o.z - tr[2];
+  float u = f * (sx * hx + sy * hy + sz * hz);
+  float qx = sy * e1z - sz * e1y;
+  float qy = sz * e1x - sx * e1z;
+  float qz = sx * e1y - sy * e1x;
+  float v = f * (d.x * qx + d.y * qy + d.z * qz);
+  float w = 1.0f - u - v;
+  V3 n{w * tr[13] + u * tr[16] + v * tr[19],
+       w * tr[14] + u * tr[17] + v * tr[20],
+       w * tr[15] + u * tr[18] + v * tr[21]};
+  float ln = sqrtf(dot3(n, n));
+  float inv = 1.0f / (ln > 0.0f ? ln : 1.0f);
+  return V3{n.x * inv, n.y * inv, n.z * inv};
+}
+
+// The lambertian direction (also the clearcoat base's).
+RT_DEV V3 lambert_dir(V3 n, V3 bl) {
+  V3 l{n.x + bl.x, n.y + bl.y, n.z + bl.z};
+  bool near_zero =
+      fabsf(l.x) < 1e-8f && fabsf(l.y) < 1e-8f && fabsf(l.z) < 1e-8f;
+  return normalize3(near_zero ? n : l);
+}
+
 // One lane through the whole depth loop. counters (optional): closest-hit
 // rays, hard shadow rays, soft shadow rays, then the geometry's own work.
 template <class Geo>
@@ -116,8 +206,7 @@ RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, uint32_t pix,
   V3 tp{1.0f, 1.0f, 1.0f};
   V3 r{0.0f, 0.0f, 0.0f};
   int n_closest = 0, n_hard = 0, n_soft = 0;
-  for (int bounce = 0; bounce < RT_MAX_DEPTH; ++bounce) {
-    if (bounce >= max_depth) break;
+  for (int bounce = 0; bounce < max_depth; ++bounce) {
     ++n_closest;
     float t;
     int kind_hit, idx;
@@ -132,8 +221,9 @@ RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, uint32_t pix,
       out = V3{(p.x - s[0]) / s[3], (p.y - s[1]) / s[3], (p.z - s[2]) / s[3]};
       mid = static_cast<int>(s[4]);
     } else if (kind_hit == 1) {
-      const float* tr = tb.tri + 13 * idx;
+      const float* tr = tb.tri + tb.tri_cols * idx;
       out = V3{tr[9], tr[10], tr[11]};
+      if (tb.tri_cols >= 22) out = smooth_normal(tr, o, d, out);
       mid = static_cast<int>(tr[12]);
     } else if (kind_hit == 2) {
       const float* pl = tb.pln + 7 * idx;
@@ -164,12 +254,24 @@ RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, uint32_t pix,
     bool front = dot3(d, out) < 0.0f;
     V3 n = front ? out : V3{-out.x, -out.y, -out.z};
 
-    const float* m = tb.mat + 14 * mid;
+    const float* m = tb.mat + tb.mat_cols * mid;
     int kind = static_cast<int>(m[0]);
     V3 alb{m[1], m[2], m[3]};
     float rough = m[4], metal = m[5], spec = m[6], ior = m[7];
     V3 emit{m[8], m[9], m[10]};
     V3 eff{m[11], m[12], m[13]};
+    V3 av{0.0f, 0.0f, 0.0f};
+    float aa = 0.0f, ab = 0.0f;
+    if (tb.mat_cols >= 19) {
+      av = V3{m[14], m[15], m[16]};
+      aa = m[17];
+      ab = m[18];
+      if (kind == kEmission && aa == kEmissionDirectional) {
+        float up = fmaxf(n.y, 0.0f);
+        emit = V3{emit.x * up, emit.y * up, emit.z * up};
+      }
+    }
+    if (tb.ntex > 0) apply_texture(tb.tex, tb.ntex, tb.aux, mid, p, &alb, &eff);
 
     // ---- direct light (ops/shade.py:direct_lighting) -------------------
     float amb = tier_ambient(metal);
@@ -178,8 +280,7 @@ RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, uint32_t pix,
     float spow = tier_spec_power(metal);
     V3 view = normalize3(V3{-p.x, -p.y, -p.z});
     uint32_t base = static_cast<uint32_t>(bounce) * kStreamsPerBounce;
-    for (int li = 0; li < RT_MAX_LIGHTS; ++li) {
-      if (li >= tb.nl) break;
+    for (int li = 0; li < tb.nl; ++li) {
       const float* L = tb.lit + 7 * li;
       V3 tl{L[0] - p.x, L[1] - p.y, L[2] - p.z};
       float dist = sqrtf(dot3(tl, tl));
@@ -222,11 +323,11 @@ RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, uint32_t pix,
     f0 = f0 * f0;
     float fres = f0 + (1.0f - f0) * pow5(1.0f - cos_raw);
     V3 sdir, att;
+    // DiffuseLight and Emission never scatter; a Mirror only while its
+    // reflection stays above the surface.
+    bool scatters = kind != kDiffuseLight && kind != kEmission;
     if (kind == kLambertian) {
-      V3 l{n.x + bl.x, n.y + bl.y, n.z + bl.z};
-      bool near_zero = fabsf(l.x) < 1e-8f && fabsf(l.y) < 1e-8f &&
-                       fabsf(l.z) < 1e-8f;
-      sdir = normalize3(near_zero ? n : l);
+      sdir = lambert_dir(n, bl);
       att = alb;
     } else if (kind == kMetal || kind == kShiny || kind == kPerfectMirror) {
       V3 pert = normalize3(V3{refl.x + bl.x * rough, refl.y + bl.y * rough,
@@ -255,8 +356,34 @@ RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, uint32_t pix,
                    alb.z * 0.1f + fres * 0.9f};
         }
       }
-    } else {
-      // glass and dielectric (a DiffuseLight ends below; its dir is unused)
+    } else if (kind == kSubsurface) {
+      sdir = V3{bl.x * ab, bl.y * ab, bl.z * ab};
+      att = V3{alb.x * (av.x * aa), alb.y * (av.y * aa), alb.z * (av.z * aa)};
+    } else if (kind == kAnisotropic) {
+      float ar = rough * (1.0f + aa * dot3(av, n));
+      sdir = ar > 0.0f ? normalize3(V3{refl.x + bl.x * ar, refl.y + bl.y * ar,
+                                       refl.z + bl.z * ar})
+                       : refl;
+      att = alb;
+    } else if (kind == kClearcoat) {
+      sdir = lambert_dir(n, bl);
+      att = V3{alb.x * (1.0f - aa) + fres * aa, alb.y * (1.0f - aa) + fres * aa,
+               alb.z * (1.0f - aa) + fres * aa};
+    } else if (kind == kSheen) {
+      sdir = aa > 0.0f ? normalize3(V3{refl.x + bl.x * aa, refl.y + bl.y * aa,
+                                       refl.z + bl.z * aa})
+                       : refl;
+      att = V3{av.x * (1.0f - ab) + alb.x * ab, av.y * (1.0f - ab) + alb.y * ab,
+               av.z * (1.0f - ab) + alb.z * ab};
+    } else if (kind == kMirror) {
+      // the perturbed reflection is not normalised
+      sdir = rough > 0.0f ? V3{refl.x + bl.x * rough, refl.y + bl.y * rough,
+                               refl.z + bl.z * rough}
+                          : refl;
+      att = alb;
+      scatters = dot3(sdir, n) > 0.0f;
+    } else if (scatters) {
+      // glass and dielectric
       V3 ud = normalize3(d);
       float ratio = front ? 1.0f / ior : ior;
       float udn = dot3(ud, n);
@@ -293,7 +420,7 @@ RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, uint32_t pix,
     r.x = r.x + tp.x * emit.x;
     r.y = r.y + tp.y * emit.y;
     r.z = r.z + tp.z * emit.z;
-    if (kind == kDiffuseLight) {
+    if (!scatters) {  // the path ends with emitted + direct, unweighted
       r.x = r.x + tp.x * dl.x;
       r.y = r.y + tp.y * dl.y;
       r.z = r.z + tp.z * dl.z;

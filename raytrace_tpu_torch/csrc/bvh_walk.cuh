@@ -26,8 +26,9 @@
 // length), near-clamped at 0.9949 * t_min. That visits a superset of the
 // leaves of every per-ray walk, and each boxed leaf tests every ray not
 // yet blocked with exactly the per-ray arithmetic, so every verdict is
-// that of its own walk. Blocked rays are bits of a 64-bit mask, which
-// covers RT_MAX_SHADOW_SAMPLES; the walk ends when the mask is full.
+// that of its own walk. Blocked rays are bits of a 64-bit mask; the walk
+// ends when the mask is full. Past 64 samples the fused walk runs once
+// per block of 64 rays, so any sample count takes the same verdicts.
 //
 // The tree and the sphere and triangle tables stay in global memory
 // (4096 triangles x 13 floats outgrow the 48 KB of static shared memory)
@@ -36,7 +37,9 @@
 // Node table: [n_nodes][9] min.xyz, max.xyz, skip, first, count (floats,
 // exact integers); prim_index: [P] floats, a primitive id per leaf slot
 // (id < ns: sphere, else triangle id - ns; triangles past the hit table,
-// the cube faces, are skipped: their boxes are the hit form).
+// the cube faces, are skipped: their boxes are the hit form). The smooth
+// normal of a triangle winner (K1-ext) needs only its index, which the
+// closest-hit walk returns.
 #pragma once
 
 #include "bounce.cuh"
@@ -78,10 +81,6 @@ RT_DEV bool slab_hit(const NodeBox& b, V3 o, V3 inv, float t_max) {
   float far = fminf(fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
                           fmaxf(t0z, t1z)), t_max);
   return near <= far;
-}
-
-RT_DEV void load_row(const float* src, int n, float* dst) {
-  for (int k = 0; k < n; ++k) dst[k] = ldg(src + k);
 }
 
 struct BvhGeo {
@@ -126,14 +125,14 @@ struct BvhGeo {
         if (pid < tb.ns) {
           ++work[1];
           float s[4];
-          load_row(tb.sph + 5 * pid, 4, s);
+          load_row<true>(tb.sph + 5 * pid, 4, s);
           tj = sphere_t(o, d, a, inv_a, s, t_best);
         } else {
           int ti = pid - tb.ns;
           if (ti >= tb.nt) continue;  // a cube face
           ++work[2];
           float tr[9];
-          load_row(tb.tri + 13 * ti, 9, tr);
+          load_row<true>(tb.tri + tb.tri_cols * ti, 9, tr);
           tj = triangle_t(o, d, tr, t_best);
         }
         if (tj < t_best) { t_best = tj; best = pid; }
@@ -192,14 +191,14 @@ struct BvhGeo {
         if (pid < tb.ns) {
           ++work[1];
           float s[4];
-          load_row(tb.sph + 5 * pid, 4, s);
+          load_row<true>(tb.sph + 5 * pid, 4, s);
           if (sphere_t(o, d, a, inv_a, s, t_max) < kBig) return true;
         } else {
           int ti = pid - tb.ns;
           if (ti >= tb.nt) continue;
           ++work[2];
           float tr[9];
-          load_row(tb.tri + 13 * ti, 9, tr);
+          load_row<true>(tb.tri + tb.tri_cols * ti, 9, tr);
           if (triangle_blocked(o, d, tr, t_max)) return true;
         }
       }
@@ -208,14 +207,22 @@ struct BvhGeo {
     return false;
   }
 
-  // K4: all soft-shadow rays of one (lane, light) in one walk.
+  // K4: all soft-shadow rays of one (lane, light), in one walk for each
+  // block of up to 64 of them.
   RT_DEV float soft_unblocked(V3 p, V3 ld, float dist, const SoftRays& rays) {
-    const int S = rays.samples;
-    float sx[RT_MAX_SHADOW_SAMPLES], sy[RT_MAX_SHADOW_SAMPLES],
-        sz[RT_MAX_SHADOW_SAMPLES], sa[RT_MAX_SHADOW_SAMPLES],
-        sia[RT_MAX_SHADOW_SAMPLES];
-    for (int s = 0; s < RT_MAX_SHADOW_SAMPLES && s < S; ++s) {
-      V3 sd = soft_dir(rays, ld, s);
+    int blocked = 0;
+    for (int s0 = 0; s0 < rays.samples; s0 += 64)
+      blocked += soft_block(p, ld, dist, rays, s0,
+                            rays.samples - s0 < 64 ? rays.samples - s0 : 64);
+    return static_cast<float>(rays.samples - blocked);
+  }
+
+  // The fused walk for soft rays [s0, s0 + S): how many are blocked.
+  RT_DEV int soft_block(V3 p, V3 ld, float dist, const SoftRays& rays,
+                        int s0, int S) {
+    float sx[64], sy[64], sz[64], sa[64], sia[64];
+    for (int s = 0; s < S; ++s) {
+      V3 sd = soft_dir(rays, ld, s0 + s);
       sx[s] = sd.x;
       sy[s] = sd.y;
       sz[s] = sd.z;
@@ -224,9 +231,9 @@ struct BvhGeo {
     }
     const uint64_t full =
         S >= 64 ? ~0ull : ((1ull << static_cast<uint64_t>(S)) - 1ull);
-    uint64_t bm = 0;  // bit s: ray s is blocked
+    uint64_t bm = 0;  // bit s: ray s0 + s is blocked
     // planes and boxes outside the tree, every ray
-    for (int s = 0; s < RT_MAX_SHADOW_SAMPLES && s < S; ++s) {
+    for (int s = 0; s < S; ++s) {
       V3 sd{sx[s], sy[s], sz[s]};
       bool hit = false;
       for (int j = 0; j < tb.npl && !hit; ++j) {
@@ -280,8 +287,8 @@ struct BvhGeo {
         int pid = static_cast<int>(ldg(bvh.pidx + b.first + j));
         if (pid < tb.ns) {
           float s[4];
-          load_row(tb.sph + 5 * pid, 4, s);
-          for (int r = 0; r < RT_MAX_SHADOW_SAMPLES && r < S; ++r) {
+          load_row<true>(tb.sph + 5 * pid, 4, s);
+          for (int r = 0; r < S; ++r) {
             if (bm >> r & 1ull) continue;
             ++work[4];
             if (sphere_t(p, V3{sx[r], sy[r], sz[r]}, sa[r], sia[r], s,
@@ -292,9 +299,9 @@ struct BvhGeo {
           int ti = pid - tb.ns;
           if (ti >= tb.nt) continue;
           float tr[9];
-          load_row(tb.tri + 13 * ti, 9, tr);
+          load_row<true>(tb.tri + tb.tri_cols * ti, 9, tr);
           TriPre T = tri_pre(p, tr);
-          for (int r = 0; r < RT_MAX_SHADOW_SAMPLES && r < S; ++r) {
+          for (int r = 0; r < S; ++r) {
             if (bm >> r & 1ull) continue;
             ++work[5];
             if (tri_blocked_pre(T, V3{sx[r], sy[r], sz[r]}, dist))
@@ -304,10 +311,7 @@ struct BvhGeo {
       }
       cur = b.skip;
     }
-    int blocked = 0;
-    for (int s = 0; s < RT_MAX_SHADOW_SAMPLES && s < S; ++s)
-      blocked += static_cast<int>(bm >> s & 1ull);
-    return static_cast<float>(S - blocked);
+    return popc64(bm);
   }
 
   RT_DEV void store_work(int32_t* out) {

@@ -15,8 +15,10 @@
 #ifndef RT_HOST_EMULATION
 #include <cuda_runtime.h>
 #define RT_DEV __device__ __forceinline__
+#define RT_HD __host__ __device__ inline
 #else
 #define RT_DEV inline
+#define RT_HD inline
 #endif
 
 namespace rt {
@@ -28,6 +30,22 @@ RT_DEV float ldg(const float* p) {
 #else
   return *p;
 #endif
+}
+
+RT_DEV int popc64(uint64_t x) {
+#ifndef RT_HOST_EMULATION
+  return __popcll(x);
+#else
+  return __builtin_popcountll(x);
+#endif
+}
+
+// Copy n floats of a table row into registers; through the read-only
+// cache when the row lies in global memory (kLdg), plainly when it lies in
+// shared memory, where __ldg does not apply.
+template <bool kLdg>
+RT_DEV void load_row(const float* src, int n, float* dst) {
+  for (int k = 0; k < n; ++k) dst[k] = kLdg ? ldg(src + k) : src[k];
 }
 
 constexpr float kBig = 3.0e38f;   // "no hit" distance

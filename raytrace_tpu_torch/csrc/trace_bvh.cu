@@ -9,8 +9,9 @@
 // walks the tree (bvh.py:traverse_closest, traverse_any).
 //
 // All tables stay in global memory, read through the read-only cache:
-// sph, tri, pln, box, lit, mat as bounce.cuh lays them out, then the node
-// table [n_nodes][9] and prim_index [P] (bvh_walk.cuh). What bounds it:
+// the scene tables as bounce.cuh lays them out, then the node table
+// [n_nodes][9] and prim_index [P] (bvh_walk.cuh). The bounce body is
+// K1-ext's (smooth normals, kinds 7-12, textures). What bounds it:
 // operations (slab and primitive tests); divergence between the walks of
 // a warp's lanes is the cost this simple design accepts.
 #include "bvh_walk.cuh"
@@ -19,29 +20,17 @@ extern "C" __global__ void rt_trace_bvh_kernel(
     const float* __restrict__ origin, const float* __restrict__ direction,
     const int32_t* __restrict__ pix, const int32_t* __restrict__ samp,
     float* __restrict__ radiance, int32_t* __restrict__ counters,
-    int n_lanes, const float* __restrict__ tables, int ns, int nt, int npl,
-    int nb, int nl, int nm, int n_nodes, int leaf_size, int max_depth,
-    int shadow_samples, int soft, int recursive, uint32_t seed) {
+    int n_lanes, const float* __restrict__ tables, rt::Dims dims,
+    int max_depth, int shadow_samples, int soft, int recursive,
+    uint32_t seed) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
-  rt::Tables tb;
-  tb.sph = tables;
-  tb.tri = tb.sph + 5 * ns;
-  tb.pln = tb.tri + 13 * nt;
-  tb.box = tb.pln + 7 * npl;
-  tb.lit = tb.box + 7 * nb;
-  tb.mat = tb.lit + 7 * nl;
-  tb.ns = ns;
-  tb.nt = nt;
-  tb.npl = npl;
-  tb.nb = nb;
-  tb.nl = nl;
-  tb.nm = nm;
+  rt::Tables tb = rt::make_tables(tables, dims);
   rt::Bvh bvh;
-  bvh.nodes = tb.mat + 14 * nm;
-  bvh.pidx = bvh.nodes + 9 * n_nodes;
-  bvh.n_nodes = n_nodes;
-  bvh.leaf_size = leaf_size;
+  bvh.nodes = tables + rt::table_floats(dims);
+  bvh.pidx = bvh.nodes + 9 * dims.n_nodes;
+  bvh.n_nodes = dims.n_nodes;
+  bvh.leaf_size = dims.leaf_size;
   rt::BvhGeo geo{tb, bvh, {0, 0, 0, 0, 0, 0, 0}};
   const float* o = origin + 3 * lane;
   const float* d = direction + 3 * lane;
@@ -54,23 +43,23 @@ extern "C" __global__ void rt_trace_bvh_kernel(
 }
 
 #ifndef RT_HOST_EMULATION
-// Launch K3+K4 on `stream`. Returns cudaGetLastError() after the launch.
+// Launch K3+K4 on `stream`; dims: the table sizes (bounce.cuh:Dims) as
+// ints. Returns cudaGetLastError() after the launch.
 extern "C" int rt_trace_bvh(const float* origin, const float* direction,
                             const int32_t* pix, const int32_t* samp,
                             float* radiance, int32_t* counters, int n_lanes,
-                            const float* tables, int ns, int nt, int npl,
-                            int nb, int nl, int nm, int n_nodes,
-                            int leaf_size, int max_depth, int shadow_samples,
-                            int soft, int recursive, uint32_t seed,
-                            void* stream) {
+                            const float* tables, const int* dims,
+                            int max_depth, int shadow_samples, int soft,
+                            int recursive, uint32_t seed, void* stream) {
   const int threads = 128;
+  rt::Dims d;
+  memcpy(&d, dims, sizeof(d));
   if (n_lanes > 0) {
     int blocks = (n_lanes + threads - 1) / threads;
     rt_trace_bvh_kernel<<<blocks, threads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        origin, direction, pix, samp, radiance, counters, n_lanes, tables, ns,
-        nt, npl, nb, nl, nm, n_nodes, leaf_size, max_depth, shadow_samples,
-        soft, recursive, seed);
+        origin, direction, pix, samp, radiance, counters, n_lanes, tables, d,
+        max_depth, shadow_samples, soft, recursive, seed);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,11 @@
-"""Material table and vectorised scatter for the seven live kinds.
+"""Material table and vectorised scatter.
 
 Port of ``raytrace_tpu/models/materials.py``. Each material is a row of a
-struct-of-arrays table; ``scatter`` evaluates the kinds 0-6 with masked
-selects. The six extended kinds (7-12) and procedural textures are not in
-this slice of the port: a scene that uses them raises NotImplementedError
-(ROADMAP Queue 1 item 2, "extended kinds"; textures: Queue 1 item 2,
-``models/textures.py``).
+struct-of-arrays table; ``scatter`` evaluates every kind with masked
+selects: the seven live kinds (0-6) and the six extended kinds (7-12,
+advanced_materials.go in the reference), whose parameters sit in the
+``aux_vec``/``aux_a``/``aux_b`` columns. A material may carry a procedural
+texture (``models/textures.py``); the table lists those bindings.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .._f32 import sqrt as _sqrt
+from . import textures as tex_mod
 
 LAMBERTIAN = 0
 METAL = 1
@@ -25,6 +26,12 @@ PERFECT_MIRROR = 3
 GLASS = 4
 DIELECTRIC = 5
 DIFFUSE_LIGHT = 6
+SUBSURFACE = 7
+ANISOTROPIC = 8
+CLEARCOAT = 9
+SHEEN = 10
+EMISSION = 11        # point / directional / area (aux_a)
+MIRROR = 12          # scatters only while the reflection stays above
 
 KIND_NAMES = {
     "lambertian": LAMBERTIAN,
@@ -36,9 +43,17 @@ KIND_NAMES = {
     "diffuselight": DIFFUSE_LIGHT,
 }
 
-# Kinds 7-12 of the JAX package (advanced_materials.go in the reference).
-EXTENDED_KIND_NAMES = ("subsurface", "anisotropic", "clearcoat", "sheen",
-                       "emission", "mirror")
+EXTENDED_KIND_NAMES = {
+    **KIND_NAMES,
+    "subsurface": SUBSURFACE,
+    "anisotropic": ANISOTROPIC,
+    "clearcoat": CLEARCOAT,
+    "sheen": SHEEN,
+    "emission": EMISSION,
+    "mirror": MIRROR,
+}
+
+EMISSION_POINT, EMISSION_DIRECTIONAL, EMISSION_AREA = 0.0, 1.0, 2.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,15 +68,32 @@ class MaterialTable:
     ior: torch.Tensor         # (M,)
     emit: torch.Tensor        # (M,3)
     eff_albedo: torch.Tensor  # (M,3) effective GetAlbedo()
+    # Extended-kind parameters (zeros for the live seven): (M,3) SSS
+    # absorption / anisotropy direction / sheen color; (M,) SSS radius /
+    # anisotropy / clearcoat strength / sheen roughness / emission mode;
+    # (M,) SSS phase / clearcoat roughness / sheen tint / emission falloff.
+    aux_vec: torch.Tensor
+    aux_a: torch.Tensor
+    aux_b: torch.Tensor
+    # True when any extended kind is present (turns on their branches).
+    has_advanced: bool = False
+    # ((material index, texture), ...): procedural-texture bindings.
+    textures: tuple = ()
 
     def to(self, device) -> "MaterialTable":
-        return MaterialTable(**{f.name: getattr(self, f.name).to(device)
-                                for f in dataclasses.fields(self)})
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
 
-    def row(self, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Per-lane material parameters for material ids ``idx``."""
-        return {f.name: getattr(self, f.name)[idx]
-                for f in dataclasses.fields(self)}
+    def row(self, idx: torch.Tensor) -> Dict[str, Any]:
+        """Per-lane material parameters for material ids ``idx`` (and the
+        table's ``has_advanced``)."""
+        out = {f.name: getattr(self, f.name)[idx]
+               for f in dataclasses.fields(self)
+               if isinstance(getattr(self, f.name), torch.Tensor)}
+        out["has_advanced"] = self.has_advanced
+        return out
 
 
 def _get(mdata: Dict[str, Any], key: str, default: float) -> float:
@@ -81,24 +113,20 @@ def material_row(mdata: Dict[str, Any],
     """One table row from a scene-JSON material dict.
 
     Unknown types fall back to lambertian, as in the reference loader.
-    With ``extended=False`` (go-parity loading) the extended kinds do too;
-    otherwise they, and textures, are not ported yet and raise.
+    With ``extended=False`` (go-parity loading) the extended kinds do too,
+    and textures are ignored.
     """
     mtype = str(mdata.get("type", "lambertian")).lower()
-    if extended and mtype in EXTENDED_KIND_NAMES:
-        raise NotImplementedError(
-            f"material kind {mtype!r} (kinds 7-12) is not ported yet: "
-            "ROADMAP Queue 1 item 2, extended material kinds")
-    if extended and mdata.get("texture"):
-        raise NotImplementedError(
-            "procedural textures are not ported yet: ROADMAP Queue 1 "
-            "item 2, models/textures.py")
-    kind = KIND_NAMES.get(mtype, LAMBERTIAN)
+    names = EXTENDED_KIND_NAMES if extended else KIND_NAMES
+    kind = names.get(mtype, LAMBERTIAN)
 
     albedo = _color(mdata)
     rough = min(_get(mdata, "roughness", 0.0), 1.0)
     emit = [0.0, 0.0, 0.0]
     ior = 1.5
+    aux_vec = [0.0, 0.0, 0.0]
+    aux_a = 0.0
+    aux_b = 0.0
     if kind == LAMBERTIAN:
         rough, metallic, specular = 1.0, 0.0, 0.0
         eff_albedo = albedo
@@ -125,21 +153,64 @@ def material_row(mdata: Dict[str, Any],
         ior = _get(mdata, "refractionIndex", 1.5)
         eff_albedo = [1.0, 1.0, 1.0]
         albedo = [1.0, 1.0, 1.0]
-    else:  # DIFFUSE_LIGHT
+    elif kind == DIFFUSE_LIGHT:
         metallic, specular = 0.0, 0.0
         rough = 1.0
         emit = albedo
         eff_albedo = [0.0, 0.0, 0.0]
-    return dict(kind=kind, albedo=albedo, roughness=rough,
-                metallic=metallic, specular=specular, ior=ior, emit=emit,
-                eff_albedo=eff_albedo)
+    elif kind == SUBSURFACE:
+        metallic, specular = 0.0, 0.0
+        eff_albedo = albedo
+        aux_vec = list(mdata.get("absorption", (1.0, 1.0, 1.0)))
+        aux_a = _get(mdata, "scatteringRadius", 1.0)
+        aux_b = _get(mdata, "phaseFunction", 1.0)
+    elif kind == ANISOTROPIC:
+        metallic, specular = 0.0, 0.0
+        eff_albedo = albedo
+        aux_vec = list(mdata.get("direction", (1.0, 0.0, 0.0)))
+        aux_a = _get(mdata, "anisotropy", 0.0)
+    elif kind == CLEARCOAT:  # over a lambertian base
+        metallic, specular = 0.0, 0.0
+        eff_albedo = albedo
+        ior = _get(mdata, "clearcoatIOR", 1.5)
+        aux_a = _get(mdata, "strength", 0.5)
+        aux_b = _get(mdata, "clearcoatRoughness", 0.1)
+    elif kind == SHEEN:
+        metallic, specular = 0.0, 0.0
+        eff_albedo = albedo
+        aux_vec = list(mdata.get("sheenColor", (1.0, 1.0, 1.0)))
+        aux_a = _get(mdata, "sheenRoughness", 0.3)
+        aux_b = _get(mdata, "sheenTint", 0.5)
+    elif kind == MIRROR:
+        metallic, specular = 1.0, 1.0
+        eff_albedo = albedo
+    else:  # EMISSION
+        metallic, specular = 0.0, 0.0
+        intensity = _get(mdata, "intensity", 1.0)
+        emit = [c * intensity for c in albedo]
+        eff_albedo = [0.0, 0.0, 0.0]
+        mode = str(mdata.get("emissionType", "point")).lower()
+        aux_a = {"point": EMISSION_POINT,
+                 "directional": EMISSION_DIRECTIONAL,
+                 "area": EMISSION_AREA}.get(mode, EMISSION_POINT)
+        aux_b = _get(mdata, "falloff", 0.0)
+    row = dict(kind=kind, albedo=albedo, roughness=rough,
+               metallic=metallic, specular=specular, ior=ior, emit=emit,
+               eff_albedo=eff_albedo, aux_vec=aux_vec, aux_a=aux_a,
+               aux_b=aux_b)
+    tex = mdata.get("texture") if extended else None
+    if tex:
+        row["texture"] = tex_mod.texture_from_dict(tex)
+    return row
 
 
 def row_key(row: Dict[str, Any]) -> tuple:
     """Hashable identity of a row, for load-time deduplication."""
     return (row["kind"], tuple(row["albedo"]), row["roughness"],
             row["metallic"], row["specular"], row["ior"],
-            tuple(row["emit"]), tuple(row["eff_albedo"]))
+            tuple(row["emit"]), tuple(row["eff_albedo"]),
+            tuple(row["aux_vec"]), row["aux_a"], row["aux_b"],
+            row.get("texture"))
 
 
 def build_table(rows, device="cpu") -> MaterialTable:
@@ -159,11 +230,15 @@ def build_table(rows, device="cpu") -> MaterialTable:
         kind=torch.from_numpy(kinds).to(device),
         albedo=f("albedo"), roughness=f("roughness"),
         metallic=f("metallic"), specular=f("specular"), ior=f("ior"),
-        emit=f("emit"), eff_albedo=f("eff_albedo"))
+        emit=f("emit"), eff_albedo=f("eff_albedo"), aux_vec=f("aux_vec"),
+        aux_a=f("aux_a"), aux_b=f("aux_b"),
+        has_advanced=bool((kinds > DIFFUSE_LIGHT).any()),
+        textures=tuple((i, r["texture"]) for i, r in enumerate(rows)
+                       if r.get("texture") is not None))
 
 
 # ---------------------------------------------------------------------------
-# Vectorised scatter (kinds 0-6)
+# Vectorised scatter
 # ---------------------------------------------------------------------------
 
 def _dot(a, b):
@@ -218,6 +293,8 @@ def scatter(mat, ray_dir, normal, front_face, ball, pick_u):
     not normalised (Go parity); normal (B,3) front-face flipped;
     front_face (B,) bool; ball (B,3) unit-ball sample; pick_u (B,) uniform.
     Returns (scatter_dir (B,3), attenuation (B,3), did_scatter (B,) bool).
+    DiffuseLight and Emission never scatter; a Mirror scatters only while
+    its (unnormalised) perturbed reflection stays above the surface.
     """
     kind = mat["kind"]
     rough = mat["roughness"][..., None]
@@ -271,4 +348,36 @@ def scatter(mat, ray_dir, normal, front_face, ball, pick_u):
             k == METAL, metal_att, torch.where(
                 k == SHINY, shiny_att, torch.where(
                     k == PERFECT_MIRROR, pm_att, albedo))))
-    return out_dir, out_att, kind != DIFFUSE_LIGHT
+    did_scatter = kind != DIFFUSE_LIGHT
+    if not mat.get("has_advanced"):
+        return out_dir, out_att, did_scatter
+
+    av = mat["aux_vec"]
+    aa = mat["aux_a"][..., None]
+    ab = mat["aux_b"][..., None]
+    sss_dir = ball * ab
+    sss_att = albedo * (av * aa)
+    arough = rough * (1.0 + aa * _dot(av, normal))
+    ani_dir = torch.where(arough > 0.0,
+                          _normalize(reflected + ball * arough), reflected)
+    cc_att = albedo * (1.0 - aa) + fresnel * aa
+    sheen_col = av * (1.0 - ab) + albedo * ab
+    sheen_dir = torch.where(aa > 0.0, _normalize(reflected + ball * aa),
+                            reflected)
+    mir_dir = torch.where(rough > 0.0, reflected + ball * rough, reflected)
+    mir_up = _dot(mir_dir, normal)[..., 0] > 0.0
+    out_dir = torch.where(
+        k == SUBSURFACE, sss_dir, torch.where(
+            k == ANISOTROPIC, ani_dir, torch.where(
+                k == CLEARCOAT, lam_dir, torch.where(
+                    k == SHEEN, sheen_dir, torch.where(
+                        k == MIRROR, mir_dir, out_dir)))))
+    out_att = torch.where(
+        k == SUBSURFACE, sss_att, torch.where(
+            k == ANISOTROPIC, albedo, torch.where(
+                k == CLEARCOAT, cc_att, torch.where(
+                    k == SHEEN, sheen_col, torch.where(
+                        k == MIRROR, albedo, out_att)))))
+    did_scatter = (did_scatter & (kind != EMISSION)
+                   & ((kind != MIRROR) | mir_up))
+    return out_dir, out_att, did_scatter

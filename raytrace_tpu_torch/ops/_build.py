@@ -99,12 +99,14 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     lib = ctypes.CDLL(build().path)
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    lib.rt_trace_unroll.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i,
-                                    i, i, i, i, i, u, p]
-    lib.rt_trace_unroll.restype = i
-    lib.rt_trace_bvh.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i, i,
-                                 i, i, i, i, i, i, u, p]
-    lib.rt_trace_bvh.restype = i
+    dims = ctypes.POINTER(ctypes.c_int)  # bounce.cuh:Dims
+    lanes = [p, p, p, p, p, p, i, p, dims]
+    run = [i, i, i, i, u, p]
+    for name, extra in (("rt_trace_unroll", []), ("rt_trace_bvh", []),
+                        ("rt_trace_loop", [i])):
+        fn = getattr(lib, name)
+        fn.argtypes = lanes + extra + run
+        fn.restype = i
     f = ctypes.c_float
     lib.rt_pixel_mask.argtypes = [p, i, i, f, f, p, p, i, p, i, p]
     lib.rt_pixel_mask.restype = i

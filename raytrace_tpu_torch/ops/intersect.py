@@ -236,8 +236,38 @@ def _closest_hit_accel(geom, accel, origin, direction, t_min, t_max) -> Hit:
     return hit_from_tidx(geom, origin, direction, t, torch.clamp(pid, min=0))
 
 
+def _interp_tri_normal(geom, ti, origin, direction, n_face):
+    """Barycentric vertex-normal interpolation for the winning triangle
+    (w*n0 + u*n1 + v*n2, w = 1-u-v, normalised). u and v are recomputed
+    for the winner by the expressions of the hit test (f = 1/det), and
+    the normal is scaled by 1/len, not divided by len: the two round
+    differently, and the kernels use this form. A degenerate determinant
+    keeps the face normal."""
+    v0 = geom.tri_v0[ti]
+    e1 = geom.tri_v1[ti] - v0
+    e2 = geom.tri_v2[ti] - v0
+    h = _cross(direction, e2)
+    det = _dot(e1, h)
+    good = torch.abs(det) >= 1e-6
+    f = 1.0 / torch.where(good, det, torch.ones_like(det))
+    s = origin - v0
+    u = f * _dot(s, h)
+    q = _cross(s, e1)
+    v = f * _dot(direction, q)
+    vn = geom.tri_vn[ti]
+    w = 1.0 - u - v
+    n = (w[..., None] * vn[..., 0:3] + u[..., None] * vn[..., 3:6]
+         + v[..., None] * vn[..., 6:9])
+    ln = _sqrt(_dot(n, n))
+    inv = 1.0 / torch.where(ln > 0.0, ln, torch.ones_like(ln))
+    n = n * inv[..., None]
+    return torch.where(good[..., None], n, n_face)
+
+
 def hit_from_tidx(geom, origin, direction, t, idx) -> Hit:
-    """The hit record from (t, winner index in [sph, tri, pln, box])."""
+    """The hit record from (t, winner index in [sph, tri, pln, box]); a
+    triangle of a smooth-shaded scene (``geom.tri_vn``) takes its
+    interpolated vertex normal."""
     ns = geom.sph_center.shape[0]
     nt = geom.tri_v0.shape[0]
     npl = geom.pl_point.shape[0]
@@ -261,6 +291,8 @@ def hit_from_tidx(geom, origin, direction, t, idx) -> Hit:
         ti = torch.clamp(idx - ns, 0, nt - 1)
         n_tri = geom.tri_normal[ti]
         m_tri = geom.tri_mat[ti].to(torch.int64)
+        if geom.tri_vn is not None:
+            n_tri = _interp_tri_normal(geom, ti, origin, direction, n_tri)
     else:
         n_tri, m_tri = zeros3, zeros_i
     if npl:

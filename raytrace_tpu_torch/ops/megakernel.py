@@ -4,27 +4,34 @@ Port of the host side of ``raytrace_tpu/ops/megakernel.py``:
 
 * ``trace`` - the bounce megakernel (``trace_pallas`` :2987), by the
   scene's kernel mode: K1 in ``unroll`` mode (scenes of at most 96
-  primitives; CUDA source ``csrc/trace_unroll.cu``), or K3+K4 in ``bvh``
-  mode (97-4096 primitives with a scene BVH: the closest-hit and
-  hard-shadow tree walks, K3, and the fused soft-shadow walk, K4, in one
-  launch; ``csrc/trace_bvh.cu``). Plain version: ``trace.trace``, which
-  in bvh mode walks the tree once per ray
+  primitives, 48 with vertex normals; CUDA source ``csrc/trace_unroll.cu``),
+  K3+K4 in ``bvh`` mode (97-4096 primitives with a scene BVH: the
+  closest-hit and hard-shadow tree walks, K3, and the fused soft-shadow
+  walk, K4, in one launch; ``csrc/trace_bvh.cu``), or K7 in ``loop`` mode
+  (past the unroll limit without a BVH: brute force over tables of any
+  size; ``csrc/trace_loop.cu``). All three run the one bounce body of
+  ``csrc/bounce.cuh`` with the extended features (K1-ext: smooth normals,
+  material kinds 7-12, textures). Plain version: ``trace.trace``, which in
+  bvh mode walks the tree once per ray
   (``bvh.traverse_closest``/``traverse_any``).
 * K2 and K6, ``pixel_mask`` - the per-pixel conservative hit mask
-  (``pixel_mask_pallas`` :2532): brute force over bounding spheres (K2) or
-  a walk over cone-inflated node slabs (K6, bvh mode). CUDA source:
-  ``csrc/pixel_mask.cu``. Plain version: ``pixel_mask_plain``.
+  (``pixel_mask_pallas`` :2532): brute force over bounding spheres (K2,
+  unroll and loop modes) or a walk over cone-inflated node slabs (K6, bvh
+  mode). CUDA source: ``csrc/pixel_mask.cu``. Plain version:
+  ``pixel_mask_plain``.
 
 A wrapper takes its plain version only for a scene or tensor on the CPU;
 on a CUDA device it launches its kernel or raises - there is no fallback.
 Each wrapper counts its launches in ``LAUNCHES``, adding one where it
 launches its kernel and nowhere else.
 
-The JAX package's ``stream`` mode (past 4096 primitives) and ``loop`` mode
-(past 96 primitives without a BVH) are not ported yet and raise.
+The JAX package's ``stream`` mode (past 4096 primitives with a BVH) is not
+ported yet and raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -33,32 +40,26 @@ from .. import scene as scene_mod
 from .. import trace as trace_mod
 from .._f32 import sqrt as _sqrt
 from ..camera import lookat_basis
+from ..models import textures as tex_mod
 from . import _build
 
 UNROLL_PRIM_LIMIT = 96
+UNROLL_PRIM_LIMIT_VN = scene_mod.UNROLL_PRIM_LIMIT_VN  # 48
 MAX_BVH_KERNEL_PRIMS = scene_mod.MAX_BVH_KERNEL_PRIMS  # 4096
 MAX_STREAM_KERNEL_PRIMS = 1 << 18
-MAX_DEPTH = 64            # RT_MAX_DEPTH in csrc/bounce.cuh
-MAX_LIGHTS = 16           # RT_MAX_LIGHTS
-MAX_SHADOW_SAMPLES = 64   # RT_MAX_SHADOW_SAMPLES
-COUNTERS = 5              # rt::kUnrollCounters: per-lane work of K1
+# K7 copies its tables to shared memory up to this many bytes (the most a
+# block takes without opting in); past it they stay in global memory.
+LOOP_SMEM_BYTES = 48 * 1024
+COUNTERS = 5              # rt::kBruteCounters: per-lane work of K1 and K7
 BVH_COUNTERS = 10         # rt::kBvhCounters: per-lane work of K3+K4
-ORDER = ("sph", "tri", "pln", "box", "lit", "mat")  # the kernels' tables
+# The kernels' tables, in the order of csrc/bounce.cuh
+ORDER = ("sph", "tri", "pln", "box", "lit", "mat", "tex", "aux")
+KERNELS = {"unroll": "trace_unroll", "bvh": "trace_bvh",
+           "loop": "trace_loop"}
 
 # Kernel launches since the last reset_launches(), by kernel.
-LAUNCHES = {"trace_unroll": 0, "trace_bvh": 0, "pixel_mask": 0,
-            "pixel_mask_bvh": 0}
-
-# Modes of the JAX package that the port does not run yet.
-_NOT_PORTED = {
-    "stream": "past {bvh} primitives the JAX package streams leaf rows "
-              "from HBM (stream mode: K5, K6-stream), which is not ported "
-              "yet: ROADMAP Queue 2, stream tier",
-    "loop": "past {unroll} primitives without a scene BVH the JAX package "
-            "runs loop mode (K7), which is not ported yet: ROADMAP Queue 2, "
-            "with K1-ext",
-}
-
+LAUNCHES = {"trace_unroll": 0, "trace_bvh": 0, "trace_loop": 0,
+            "pixel_mask": 0, "pixel_mask_bvh": 0}
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -75,11 +76,14 @@ def scene_fits_kernel(scene) -> bool:
 
 def _kernel_mode(scene) -> str:
     """'unroll' | 'bvh' | 'stream' | 'loop' by primitive count (spheres +
-    triangles + planes), as in the JAX package: unroll up to 96; past it
-    bvh up to 4096 and stream beyond when the scene has a BVH, else
-    loop. The port runs unroll and bvh."""
+    triangles + planes), as in the JAX package: unroll up to 96 (48 in a
+    smooth-shaded scene); past it bvh up to 4096 and stream beyond when
+    the scene has a BVH, else loop. The port runs unroll, bvh and loop."""
     n = scene.prim_count
-    if n <= UNROLL_PRIM_LIMIT:
+    limit = UNROLL_PRIM_LIMIT
+    if scene.geometry.tri_vn is not None:
+        limit = min(limit, UNROLL_PRIM_LIMIT_VN)
+    if n <= limit:
         return "unroll"
     if scene.accel is not None:
         return "bvh" if n <= MAX_BVH_KERNEL_PRIMS else "stream"
@@ -87,39 +91,56 @@ def _kernel_mode(scene) -> str:
 
 
 def require_mode(scene) -> str:
-    """The scene's kernel mode; raises NotImplementedError for a mode the
-    port has not ported."""
+    """The scene's kernel mode; raises NotImplementedError for stream
+    mode, which the port has not ported."""
     mode = _kernel_mode(scene)
-    if mode in _NOT_PORTED:
+    if mode == "stream":
         raise NotImplementedError(
-            f"scene has {scene.prim_count} primitives: " + _NOT_PORTED[
-                mode].format(bvh=MAX_BVH_KERNEL_PRIMS,
-                             unroll=UNROLL_PRIM_LIMIT))
+            f"scene has {scene.prim_count} primitives: past "
+            f"{MAX_BVH_KERNEL_PRIMS} primitives the JAX package streams leaf "
+            "rows from HBM (stream mode: K5, K6-stream), which is not "
+            "ported yet: ROADMAP Queue 2, stream tier")
     return mode
 
 
 def pack_tables(scene):
     """Row-major float32 tables of the kernels (one row per item):
-    sph (Ns,5), tri (Nt_hit,13), pln (Np,7), box (Nb,7), lit (L,7),
-    mat (M,14). ``tri`` holds the hit triangles only: cube faces are hit
-    as their boxes. Column layouts are those of ``csrc/bounce.cuh``."""
+    sph (Ns,5), tri (Nt_hit,13) or with vertex normals (Nt_hit,22),
+    pln (Np,7), box (Nb,7), lit (L,7), mat (M,14) or with an extended kind
+    (M,19), and the texture table: tex (T,16) and its aux rows (A,3).
+    ``tri`` holds the hit triangles only: cube faces are hit as their
+    boxes. Column layouts are those of ``csrc/bounce.cuh`` and
+    ``csrc/textures.cuh``."""
     g, m, lt = scene.geometry, scene.materials, scene.lights
     nt = g.n_hit_tris
     v0 = g.tri_v0[:nt]
     f = lambda x: x.to(torch.float32)
     col = lambda x: f(x)[:, None]
+    tri = [v0, g.tri_v1[:nt] - v0, g.tri_v2[:nt] - v0, g.tri_normal[:nt],
+           col(g.tri_mat[:nt])]
+    if g.tri_vn is not None:
+        tri.append(g.tri_vn[:nt])
+    mat = [col(m.kind), m.albedo, m.roughness[:, None], m.metallic[:, None],
+           m.specular[:, None], m.ior[:, None], m.emit, m.eff_albedo]
+    if m.has_advanced:
+        mat += [m.aux_vec, m.aux_a[:, None], m.aux_b[:, None]]
+    tex, aux = tex_mod.texture_rows(m.textures)
     return dict(
         sph=torch.cat([g.sph_center, g.sph_radius[:, None],
                        col(g.sph_mat)], 1),
-        tri=torch.cat([v0, g.tri_v1[:nt] - v0, g.tri_v2[:nt] - v0,
-                       g.tri_normal[:nt], col(g.tri_mat[:nt])], 1),
+        tri=torch.cat(tri, 1),
         pln=torch.cat([g.pl_point, g.pl_normal, col(g.pl_mat)], 1),
         box=torch.cat([g.box_min, g.box_max, col(g.box_mat)], 1),
         lit=torch.cat([lt.position, lt.color, lt.intensity[:, None]], 1),
-        mat=torch.cat([col(m.kind), m.albedo, m.roughness[:, None],
-                       m.metallic[:, None], m.specular[:, None],
-                       m.ior[:, None], m.emit, m.eff_albedo], 1),
+        mat=torch.cat(mat, 1),
+        tex=tex.to(scene.device),
+        aux=aux.to(scene.device),
     )
+
+
+def loop_tables_in_smem(tabs) -> bool:
+    """Does K7 take these tables (``pack_tables``) into shared memory?"""
+    return 4 * sum(tabs[k].numel() for k in ORDER) <= LOOP_SMEM_BYTES
 
 
 def _affine_camera(scene, go_camera: bool) -> torch.Tensor:
@@ -394,53 +415,57 @@ def _check_trace_inputs(scene, origin, direction, pix_id, samp_id, cfg):
         if t.device != scene.device:
             raise ValueError(f"{name} is on {t.device}, the scene on "
                              f"{scene.device}")
-    if not (0 < cfg.max_depth <= MAX_DEPTH):
-        raise ValueError(f"max_depth must be in [1, {MAX_DEPTH}]")
-    if not (0 < cfg.shadow_samples <= MAX_SHADOW_SAMPLES):
-        raise ValueError(f"shadow_samples must be in [1, "
-                         f"{MAX_SHADOW_SAMPLES}]")
-    if scene.lights.position.shape[0] > MAX_LIGHTS:
-        raise NotImplementedError(f"more than {MAX_LIGHTS} lights")
-    if scene.materials.kind.numel() and int(scene.materials.kind.max()) > 6:
-        raise NotImplementedError("extended material kinds (7-12): ROADMAP "
-                                  "Queue 1 item 2")
     return mode
+
+
+def trace_tables(scene, mode):
+    """The trace kernel's scene input: (flat float32 tables in the order of
+    ``csrc/bounce.cuh``, then in bvh mode the tree; the table sizes as
+    ``bounce.cuh:Dims``; whether K7 takes the tables into shared
+    memory)."""
+    tabs = pack_tables(scene)
+    dims = [tabs[k].shape[0] for k in ORDER[:6]] + [
+        tabs["tri"].shape[1] if tabs["tri"].shape[0] else 13,
+        tabs["mat"].shape[1], tabs["tex"].shape[0], tabs["aux"].shape[0]]
+    parts = [tabs[k].reshape(-1) for k in ORDER]
+    if mode == "bvh":
+        nodes, pidx = pack_bvh_tables(scene.accel)
+        parts += [nodes.reshape(-1), pidx]
+        dims += [nodes.shape[0], scene.accel.leaf_size]
+    else:
+        dims += [0, 0]
+    return (torch.cat(parts).contiguous(), dims,
+            mode == "loop" and loop_tables_in_smem(tabs))
 
 
 def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
                   *, counters: torch.Tensor | None = None):
     """The trace kernel's inputs on the card: returns (out, launch).
-    ``launch()`` runs K1 (unroll mode) or K3+K4 (bvh mode) into ``out``,
-    (B,3) float32 radiance, and counts the launch under the kernel's name.
+    ``launch()`` runs K1 (unroll mode), K3+K4 (bvh mode) or K7 (loop mode)
+    into ``out``, (B,3) float32 radiance, and counts the launch under the
+    kernel's name (``KERNELS``).
 
     ``counters`` (for operation counts; off on the main path) receives
-    each lane's work. Unroll mode, (B, COUNTERS) int32: closest-hit rays,
-    hard and soft shadow rays, and occlusion tests of spheres+planes and
-    of triangles+boxes. Bvh mode, (B, BVH_COUNTERS) int32: closest-hit,
-    hard shadow and soft shadow rays, then node slab tests, sphere tests
-    and triangle tests of the closest-hit and hard shadow walks, node slab
-    tests and (sample, primitive) tests of the fused soft walks, and
-    brute-force plane and box tests."""
+    each lane's work. Unroll and loop modes, (B, COUNTERS) int32:
+    closest-hit rays, hard and soft shadow rays, and occlusion tests of
+    spheres+planes and of triangles+boxes. Bvh mode, (B, BVH_COUNTERS)
+    int32: closest-hit, hard shadow and soft shadow rays, then node slab
+    tests, sphere tests and triangle tests of the closest-hit and hard
+    shadow walks, node slab tests and (sample, primitive) tests of the
+    fused soft walks, and brute-force plane and box tests."""
     dev = scene.device
     if dev.type != "cuda":
         raise RuntimeError(f"trace kernel: device {dev} is not CUDA")
     mode = _check_trace_inputs(scene, origin, direction, pix_id, samp_id,
                                cfg)
-    kernel, n_counters = (("trace_bvh", BVH_COUNTERS) if mode == "bvh"
-                          else ("trace_unroll", COUNTERS))
+    kernel = KERNELS[mode]
+    n_counters = BVH_COUNTERS if mode == "bvh" else COUNTERS
     n = origin.shape[0]
     o = origin.to(torch.float32).contiguous()
     d = direction.to(torch.float32).contiguous()
     pix = pix_id.to(torch.int32).contiguous()
     samp = samp_id.to(torch.int32).contiguous()
-    tabs = pack_tables(scene)
-    counts = [tabs[k].shape[0] for k in ORDER]
-    parts = [tabs[k].reshape(-1) for k in ORDER]
-    if mode == "bvh":
-        nodes, pidx = pack_bvh_tables(scene.accel)
-        parts += [nodes.reshape(-1), pidx]
-        counts += [nodes.shape[0], scene.accel.leaf_size]
-    flat = torch.cat(parts).contiguous()
+    flat, dims, in_smem = trace_tables(scene, mode)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     cptr = None
     if counters is not None:
@@ -453,11 +478,13 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
         cptr = counters.data_ptr()
     lib = _build.library()
     entry = getattr(lib, "rt_" + kernel)
+    dims_c = (ctypes.c_int * len(dims))(*dims)
+    extra = (int(in_smem),) if mode == "loop" else ()
 
     def launch():
         err = entry(
             o.data_ptr(), d.data_ptr(), pix.data_ptr(), samp.data_ptr(),
-            out.data_ptr(), cptr, n, flat.data_ptr(), *counts,
+            out.data_ptr(), cptr, n, flat.data_ptr(), dims_c, *extra,
             cfg.max_depth, cfg.shadow_samples, int(cfg.soft_shadows),
             int(cfg.recursive_reflections), cfg.seed & 0xFFFFFFFF,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -470,9 +497,9 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
 def trace(scene, origin, direction, pix_id, samp_id, cfg) -> torch.Tensor:
     """Trace lanes to completion: radiance (B,3) float32.
 
-    On CUDA, K1 (unroll mode) or K3+K4 (bvh mode) by the scene's kernel
-    mode; on the CPU their plain version ``trace.trace`` (which walks the
-    tree once per ray in bvh mode). origin/direction: (B,3) float32;
+    On CUDA, K1 (unroll mode), K3+K4 (bvh mode) or K7 (loop mode) by the
+    scene's kernel mode; on the CPU their plain version ``trace.trace``
+    (which walks the tree once per ray in bvh mode). origin/direction: (B,3) float32;
     pix_id/samp_id: (B,) integer lane ids (uint32 values).
     """
     if scene.device.type == "cpu":

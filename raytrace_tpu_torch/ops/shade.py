@@ -14,6 +14,7 @@ import torch
 
 from . import intersect
 from .. import rng
+from .._f32 import div as _div
 from .._f32 import sqrt as _sqrt
 
 
@@ -71,9 +72,9 @@ def shadow_factor(geom, point, light_dist, light_dir, pix_id, samp_id,
                   bounce, light_index, *, soft_shadows=True,
                   shadow_samples=16, seed=0, accel=None):
     """(B,) shadow factor in [0, 1]. Each soft sample is its own
-    occlusion ray (with ``accel``, its own tree walk); samples are batched
-    into wavefronts of up to SOFT_BATCH_LANES lanes, which changes no
-    verdict."""
+    occlusion ray (with ``accel``, its own tree walk); samples are drawn
+    and tested together, in wavefronts of up to SOFT_BATCH_LANES lanes,
+    which changes no draw and no verdict."""
     hard = intersect.any_hit(geom, point, light_dir, 1e-3, light_dist,
                              accel=accel)
     if not soft_shadows:
@@ -82,19 +83,19 @@ def shadow_factor(geom, point, light_dist, light_dir, pix_id, samp_id,
     per = max(1, min(shadow_samples, SOFT_BATCH_LANES // max(n, 1)))
     unblocked = torch.zeros_like(light_dist)
     for i0 in range(0, shadow_samples, per):
-        dirs = []
-        for i in range(i0, min(i0 + per, shadow_samples)):
-            stream = rng.bounce_stream(
-                bounce, rng.shadow_stream(light_index, i, shadow_samples))
-            ball = rng.unit_ball(pix_id, samp_id, stream, seed)
-            dirs.append(_normalize(light_dir + 0.1 * ball))
-        k = len(dirs)
+        k = min(per, shadow_samples - i0)
+        sample = torch.arange(i0, i0 + k, device=point.device)
+        stream = rng.bounce_stream(
+            bounce, rng.shadow_stream(light_index, sample, shadow_samples))
+        ball = rng.unit_ball(pix_id.repeat(k), samp_id.repeat(k),
+                             stream.repeat_interleave(n), seed)
+        dirs = _normalize(light_dir.repeat(k, 1) + 0.1 * ball)
         blocked = intersect.any_hit(
-            geom, point.repeat(k, 1), torch.cat(dirs), 1e-3,
-            light_dist.repeat(k), accel=accel).reshape(k, n)
-        for b in blocked:
-            unblocked += torch.where(b, 0.0, 1.0)
-    return torch.where(hard, 0.0, unblocked / float(shadow_samples))
+            geom, point.repeat(k, 1), dirs, 1e-3, light_dist.repeat(k),
+            accel=accel).reshape(k, n)
+        # a count of unblocked rays: exact in float32, so any order
+        unblocked += (~blocked).sum(0).to(unblocked.dtype)
+    return torch.where(hard, 0.0, _div(unblocked, float(shadow_samples)))
 
 
 def direct_lighting(geom, lights, mat, point, normal, pix_id, samp_id,

@@ -9,8 +9,10 @@ is what ``Renderer.render`` runs:
 2. pixel-granular compaction: a cumsum and a scatter of hit pixel ids;
 3. camera rays for the hit pixels' lanes (pcg4d jitter, ``_lane_rays``);
 4. the trace (``megakernel.trace``), by the scene's kernel mode
-   (``megakernel._kernel_mode``): K1 (up to 96 primitives) or K3+K4
-   (97-4096 primitives with a scene BVH), the whole bounce loop per lane;
+   (``megakernel._kernel_mode``): K1 (up to 96 primitives, 48 in a
+   smooth-shaded scene), K3+K4 (97-4096 primitives with a scene BVH) or
+   K7 (past the unroll limit without a BVH), the whole bounce loop per
+   lane;
 5. a per-pixel segment-add of the samples back into the image.
 
 A lane that misses everything is exactly black, so only hit pixels are
@@ -148,8 +150,8 @@ def _compact_pixels(hit_px, pos_px, k_px: int) -> torch.Tensor:
 def _trace_compacted_pixels(scene, px_cidx, *, width: int, height: int,
                             samples: int, cfg: trace_mod.TraceConfig,
                             go_camera: bool, hook=_no_hook) -> torch.Tensor:
-    """Trace every lane of the compacted pixels with K1 (unroll mode) or
-    K3+K4 (bvh mode) and segment-add each pixel's samples into the
+    """Trace every lane of the compacted pixels with the scene's trace
+    kernel (K1, K3+K4 or K7) and segment-add each pixel's samples into the
     (H,W,3) mean image, in chunks of at most TRACE_LANES lanes."""
     img = torch.zeros((width * height, 3), dtype=torch.float32,
                       device=scene.device)
@@ -202,7 +204,8 @@ class Renderer:
 
     Runs on ``device`` (default CUDA; raises when there is no GPU unless
     ``device="cpu"`` is given) through the main path, ``render_wavefront``,
-    for scenes of up to 4096 primitives (unroll and bvh modes).
+    in the unroll, bvh and loop modes (every scene but those past 4096
+    primitives with a BVH, the stream tier, which raises).
     """
 
     def __init__(self, num_workers: Optional[int] = None, device=None):
@@ -279,8 +282,8 @@ class Renderer:
         """Render to an (H,W,3) uint8 image and fill benchmark data.
 
         The scene config's renderer block (samples, maxDepth, ...) is
-        honoured; its post effects are not ported yet (ROADMAP Queue 1
-        item 10) and raise when enabled."""
+        honoured; its post effects are not ported yet (the post-effects
+        slice, ROADMAP Queue 1 item 2) and raise when enabled."""
         self._apply_renderer_block(scene_config)
         if scene_config is not None:
             blocks = [scene_config.atmospheric, scene_config.volumetric,
@@ -288,8 +291,8 @@ class Renderer:
             if any((b or {}).get("enabled") for b in blocks):
                 raise NotImplementedError(
                     "scene post effects (atmosphere, fog, volumetric, "
-                    "bloom, ...) are not ported yet: ROADMAP Queue 1 "
-                    "item 10")
+                    "bloom, ...) are not ported yet: the post-effects "
+                    "slice, ROADMAP Queue 1 item 2")
         t0 = time.perf_counter()
         linear = self.render_linear_device(scene, width, height)
         img = tonemap.tonemap_rgb8(linear).cpu().numpy()

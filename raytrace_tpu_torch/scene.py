@@ -1,24 +1,27 @@
 """Scene schema and loader: JSON -> dataclasses of tensors.
 
 Port of ``raytrace_tpu/scene.py`` for spheres, cubes, triangular prisms,
-planes and point lights. Geometry is struct-of-arrays: spheres as
+OBJ meshes (``models/mesh.py``), planes and point lights. Geometry is
+struct-of-arrays: spheres as
 (center, radius, mat), every triangle in one flat table, planes, and cubes
 as axis-aligned boxes plus their 12 inward-wound face triangles, which are
 ordered last (``Geometry.occl_tris``): the boxes are the hit form, the
-faces serve only the conservative pixel mask.
+faces serve only the conservative pixel mask. A scene with a smooth-shaded
+mesh carries per-vertex normals for every triangle (``Geometry.tri_vn``).
 
 Values go float64 -> float32 through numpy, the cast order of the JAX
 loader, so the tables equal the JAX package's bit for bit. Scenes of at
 least ``bvh.BVH_THRESHOLD`` spheres and triangles get a scene BVH
 (``Scene.accel``) at load, built from the same float32 values, so the tree
-equals the JAX package's too. OBJ meshes are not in the port yet (ROADMAP
-Queue 1 item 2).
+equals the JAX package's too; smooth-shaded scenes get one from
+``UNROLL_PRIM_LIMIT_VN`` primitives on, as there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -27,11 +30,16 @@ import torch
 from . import _device
 from . import bvh as bvh_mod
 from .models import materials as mat_mod
+from .models import mesh as mesh_mod
 
 # Past this many primitives (spheres + triangles + planes) the JAX package
 # streams leaf rows from HBM (stream mode, K5), which the port has not
 # ported; the tree's leaf size grows there (_accel_leaf_size).
 MAX_BVH_KERNEL_PRIMS = 4096
+# Smooth-shaded scenes leave unroll mode past this many primitives in the
+# JAX package (megakernel.UNROLL_PRIM_LIMIT_VN), and from_dict gives them
+# a BVH past it so that they run bvh mode, not loop mode.
+UNROLL_PRIM_LIMIT_VN = 48
 
 
 def _replace_device(obj, device):
@@ -73,6 +81,10 @@ class Geometry:
     # Triangles [0, occl_tris) take part in hit tests; [occl_tris, Nt) are
     # cube faces covered by the boxes. -1: no boxes, all triangles.
     occl_tris: int = -1
+    # (Nt,9) per-vertex normals [n0.xyz, n1.xyz, n2.xyz], interpolated at
+    # the hit, or None (flat shading). Flat triangles of a smooth scene
+    # carry their face normal in all three slots.
+    tri_vn: Optional[torch.Tensor] = None
 
     def to(self, device) -> "Geometry":
         return _replace_device(self, device)
@@ -226,14 +238,17 @@ def _i32(x, n, device) -> torch.Tensor:
 
 
 def from_dict(data: Dict[str, Any], go_parity: bool = False, device=None,
-              build_accel: Optional[bool] = None):
+              build_accel: Optional[bool] = None, base_dir: str = "."):
     """Build (Scene, SceneConfig) from a parsed scene dict.
 
-    go_parity=True reproduces the reference loader: prisms and planes are
-    skipped and extended material kinds fall back to lambertian. The
-    tables are made on ``device`` (default CUDA, see ``_device.resolve``).
-    build_accel: attach a scene BVH; None builds one from
-    bvh.BVH_THRESHOLD spheres + triangles on, as the JAX loader does.
+    go_parity=True reproduces the reference loader: prisms, meshes and
+    planes are skipped, extended material kinds fall back to lambertian
+    and textures are ignored. The tables are made on ``device`` (default
+    CUDA, see ``_device.resolve``). build_accel: attach a scene BVH; None
+    builds one from bvh.BVH_THRESHOLD spheres + triangles on, or for a
+    smooth-shaded scene past UNROLL_PRIM_LIMIT_VN primitives, as the JAX
+    loader does. base_dir resolves relative mesh paths; ``load`` passes
+    the scene file's directory.
     """
     device = _device.resolve(device)
     cam_d = data.get("camera", {})
@@ -253,6 +268,7 @@ def from_dict(data: Dict[str, Any], go_parity: bool = False, device=None,
     mat_index: Dict[tuple, int] = {}
     sph_c, sph_r, sph_m = [], [], []
     tri_v0, tri_v1, tri_v2, tri_n, tri_m = [], [], [], [], []
+    tri_vn: list = []  # per triangle (n0, n1, n2), or None (flat)
     cub_v0, cub_v1, cub_v2, cub_n, cub_m = [], [], [], [], []
     box_lo, box_hi, box_m = [], [], []
     pl_p, pl_n, pl_m = [], [], []
@@ -271,6 +287,17 @@ def from_dict(data: Dict[str, Any], go_parity: bool = False, device=None,
         return _face_normal(np.asarray(v0, np.float64),
                             np.asarray(v1, np.float64),
                             np.asarray(v2, np.float64))
+
+    def add_tris(tris, mid):
+        # (v0, v1, v2) flat, or (v0, v1, v2, (n0, n1, n2)) smooth
+        for item in tris:
+            v0, v1, v2 = item[0], item[1], item[2]
+            tri_v0.append(v0)
+            tri_v1.append(v1)
+            tri_v2.append(v2)
+            tri_n.append(face_normal(v0, v1, v2))
+            tri_vn.append(item[3] if len(item) > 3 else None)
+            tri_m.append(mid)
 
     for obj in data.get("objects", []):
         otype = str(obj.get("type", "")).lower()
@@ -296,17 +323,12 @@ def from_dict(data: Dict[str, Any], go_parity: bool = False, device=None,
             mesh_count += 1
         elif otype == "triangularprism" and not go_parity:
             mid = add_material(obj.get("material"))
-            for v0, v1, v2 in _prism_triangles(obj.get("vertices", [])):
-                tri_v0.append(v0)
-                tri_v1.append(v1)
-                tri_v2.append(v2)
-                tri_n.append(face_normal(v0, v1, v2))
-                tri_m.append(mid)
+            add_tris(_prism_triangles(obj.get("vertices", [])), mid)
             mesh_count += 1
         elif otype == "mesh" and not go_parity:
-            raise NotImplementedError(
-                "OBJ meshes are not ported yet: ROADMAP Queue 1 item 2, "
-                "models/mesh.py")
+            mid = add_material(obj.get("material"))
+            add_tris(mesh_mod.mesh_from_dict(obj, base_dir), mid)
+            mesh_count += 1
         elif otype == "plane" and not go_parity:
             mid = add_material(obj.get("material"))
             pl_p.append(_vec3(obj.get("position")))
@@ -327,9 +349,16 @@ def from_dict(data: Dict[str, Any], go_parity: bool = False, device=None,
     tri_v2 += cub_v2
     tri_n += cub_n
     tri_m += cub_m
+    tri_vn += [None] * len(cub_v0)
 
     ns, nt, nl, npl, nb = (len(sph_c), len(tri_v0), len(l_pos), len(pl_p),
                            len(box_lo))
+    vn = None
+    if any(v is not None for v in tri_vn):
+        vn = _f32([np.tile(np.asarray(tri_n[k], np.float64), 3) if v is None
+                   else np.concatenate([np.asarray(v[j], np.float64)
+                                        for j in range(3)])
+                   for k, v in enumerate(tri_vn)], (nt, 9), device)
     geometry = Geometry(
         sph_center=_f32(sph_c, (ns, 3), device),
         sph_radius=_f32(sph_r, (ns,), device),
@@ -346,6 +375,7 @@ def from_dict(data: Dict[str, Any], go_parity: bool = False, device=None,
         box_max=_f32(box_hi, (nb, 3), device),
         box_mat=_i32(box_m, nb, device),
         occl_tris=n_occl,
+        tri_vn=vn,
     )
     lights = Lights(position=_f32(l_pos, (nl, 3), device),
                     color=_f32(l_col, (nl, 3), device),
@@ -354,7 +384,8 @@ def from_dict(data: Dict[str, Any], go_parity: bool = False, device=None,
                   materials=mat_mod.build_table(mat_rows, device),
                   lights=lights, sph_count=sph_count, mesh_count=mesh_count)
     if build_accel is None:
-        build_accel = ns + nt >= bvh_mod.BVH_THRESHOLD
+        build_accel = ns + nt >= bvh_mod.BVH_THRESHOLD or (
+            vn is not None and ns + nt + npl > UNROLL_PRIM_LIMIT_VN)
     if build_accel:
         scene = with_accel(scene)
     cfg = SceneConfig(
@@ -371,8 +402,10 @@ def from_dict(data: Dict[str, Any], go_parity: bool = False, device=None,
 
 def load(path: str, go_parity: bool = False, device=None,
          build_accel: Optional[bool] = None):
-    """Load a scene JSON file (LoadFromFile)."""
+    """Load a scene JSON file (LoadFromFile); mesh paths resolve against
+    the file's directory."""
     with open(path) as f:
         data = json.load(f)
     return from_dict(data, go_parity=go_parity, device=device,
-                     build_accel=build_accel)
+                     build_accel=build_accel,
+                     base_dir=os.path.dirname(os.path.abspath(path)))

@@ -10,14 +10,17 @@ accumulates
     throughput *= attenuation * w_r
 
 with (w_r, w_d) the metallic-tier weights. Lanes die on a miss, on a
-non-scattering material (DiffuseLight adds emitted + direct unweighted) or
-at max depth. Each bounce works only on the lanes still alive: a dead
+material that does not scatter (DiffuseLight, Emission, a Mirror whose
+reflection dips below the surface: each adds emitted + direct unweighted)
+or at max depth. A directional Emission scales its light by max(n.y, 0);
+a textured material takes the texture's albedo at the hit point, for
+scatter and direct light alike. Each bounce works only on the lanes still alive: a dead
 lane's state never changes, so dropping it gives the same per-lane result
 as the JAX package's masked loop and keeps the eager engine cheap.
 
 Not in this slice of the port: thin-lens depth of field (ROADMAP Queue 1
 item 3) and the ``fast_mc`` accelerators, Russian roulette and the
-throughput epsilon (ROADMAP Queue 1 item 5, "fast_mc").
+throughput epsilon (ROADMAP Queue 1 item 4, "fast_mc").
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 
 from . import rng
 from .models import materials as mat_mod
+from .models import textures as tex_mod
 from .ops import intersect, shade
 
 
@@ -55,7 +59,7 @@ def check_supported(cfg: TraceConfig) -> None:
     if cfg.russian_roulette_start is not None or cfg.throughput_epsilon:
         raise NotImplementedError(
             "fast_mc (Russian roulette, throughput epsilon) is not ported "
-            "yet: ROADMAP Queue 1 item 5, fast_mc")
+            "yet: ROADMAP Queue 1 item 4, fast_mc")
 
 
 def _bounce(scene, pix, samp, cfg, bounce, origin, direction, throughput):
@@ -75,7 +79,23 @@ def _bounce(scene, pix, samp, cfg, bounce, origin, direction, throughput):
     tp = throughput[keep]
     point = hit.point[keep]
     normal = hit.normal[keep]
-    mat = mats.row(hit.mat_id[keep])
+    mat_id = hit.mat_id[keep]
+    mat = mats.row(mat_id)
+    emit = mat["emit"]
+    if mats.has_advanced:
+        is_dir = ((mat["kind"] == mat_mod.EMISSION)
+                  & (mat["aux_a"] == mat_mod.EMISSION_DIRECTIONAL))
+        emit = torch.where(is_dir[..., None],
+                           emit * torch.clamp(normal[..., 1:2], min=0.0),
+                           emit)
+    if mats.textures:
+        alb, eff = mat["albedo"], mat["eff_albedo"]
+        for mi, tex in mats.textures:
+            sel = (mat_id == mi)[..., None]
+            t_alb = tex_mod.textured_albedo(tex, point, alb)
+            alb = torch.where(sel, t_alb, alb)
+            eff = torch.where(sel, t_alb, eff)
+        mat = {**mat, "albedo": alb, "eff_albedo": eff}
 
     direct = shade.direct_lighting(
         geom, lights, mat, point, normal, pix, samp, bounce,
@@ -91,8 +111,8 @@ def _bounce(scene, pix, samp, cfg, bounce, origin, direction, throughput):
         mat, d, normal, hit.front_face[keep], ball, pick)
     w_r, w_d = shade.combine_weights(mat["metallic"])
 
-    emitted = tp * mat["emit"]
-    # DiffuseLight ends the path with emitted + direct unweighted.
+    emitted = tp * emit
+    # A lane that does not scatter ends with emitted + direct unweighted.
     lit = torch.where(did_scatter[..., None], tp * direct * w_d[..., None],
                       tp * direct)
     new_tp = tp * atten * w_r[..., None]

@@ -53,7 +53,7 @@ from raytrace_tpu_torch.ops import intersect as tisect
 from raytrace_tpu_torch.ops import megakernel as tmk
 from raytrace_tpu_torch.utils import image as timage
 
-from test_torch_scene import jax_leaves
+from test_torch_scene import jax_leaves, one_torch_thread  # noqa: F401
 from test_torch_trace import camera_lanes
 
 TREE = ("node_min", "node_max", "node_skip", "node_first", "node_count",

@@ -32,9 +32,11 @@ from raytrace_tpu import rng as jrng
 from raytrace_tpu import scene as jscene
 from raytrace_tpu import trace as jtrace
 from raytrace_tpu.ops import megakernel as jmk
+from raytrace_tpu_torch import renderer as trender
 from raytrace_tpu_torch import scene as tscene
 from raytrace_tpu_torch import trace as ttrace
 from raytrace_tpu_torch.ops import megakernel as tmk
+from test_torch_scene import one_torch_thread  # noqa: F401
 
 ASSETS = os.path.join(os.path.dirname(__file__), "..", "assets")
 
@@ -148,15 +150,30 @@ def test_wrappers_take_plain_versions_on_cpu():
 
 
 def test_large_scenes_raise():
-    """Past 96 primitives without a scene BVH the JAX package runs loop
-    mode, which the port has not ported."""
-    objs = [{"type": "sphere", "position": [i, 0, -5], "radius": 0.2}
-            for i in range(97)]
-    ts = tscene.from_dict({"objects": objs}, device="cpu",
-                          build_accel=False)[0]
+    """Past 96 primitives without a scene BVH the scene no longer raises:
+    the port runs K7 there (loop mode; on the CPU its plain version). The
+    JAX package's kernel mode is loop too, but its Renderer sends such
+    scenes to the brute-force jnp engine, which computes the same thing.
+    The main path (mask, compaction, trace) equals the dense path."""
+    objs = [{"type": "sphere", "position": [(i % 10) - 4.5, i // 10 - 4.5,
+                                            -8], "radius": 0.45,
+             "material": {"type": ("metal", "lambertian")[i % 2],
+                          "color": [0.8, 0.5, 0.3]}} for i in range(97)]
+    d = {"camera": {"position": [0, 0, -3], "aspectRatio": 1.0},
+         "objects": objs, "lights": [{"position": [3, 5, 4],
+                                      "intensity": 20.0}]}
+    ts = tscene.from_dict(d, device="cpu", build_accel=False)[0]
     assert tmk._kernel_mode(ts) == "loop"
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tmk.pixel_mask(ts, width=4, height=4, cfg=ttrace.TraceConfig())
+    assert tmk._kernel_mode(ts) == jmk._kernel_mode(
+        jscene.from_dict(d, build_accel=False)[0])
+    cfg = ttrace.TraceConfig(max_depth=4, shadow_samples=2)
+    kw = dict(width=12, height=12, samples=2, cfg=cfg)
+    wf = trender.render_wavefront(ts, **kw).numpy()
+    dense = trender.render_band(ts, 0, band_h=12, **kw).numpy()
+    assert (dense.sum(-1) > 0).mean() > 0.2
+    diff = np.abs(wf - dense).max(axis=-1)
+    assert (diff > 1e-3).mean() <= 0.001
+    assert float(np.abs(wf - dense).mean()) < 1e-4
 
 
 def test_mask_dof_raises():

@@ -32,6 +32,7 @@ from raytrace_tpu_torch import scene as tscene
 from raytrace_tpu_torch import trace as ttrace
 from raytrace_tpu_torch.ops import tonemap as ttonemap
 from raytrace_tpu_torch.utils import image as timage
+from test_torch_scene import one_torch_thread  # noqa: F401
 
 ASSETS = os.path.join(os.path.dirname(__file__), "..", "assets")
 
@@ -126,7 +127,7 @@ def test_scene_config_renderer_block_and_effects():
     assert img.shape == (12, 16, 3)
     assert (r.samples, r.max_depth, r.soft_shadows) == (1, 2, False)
     cfg.fog = {"enabled": True}
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="post-effects slice"):
         r.render(ts, 16, 12, scene_config=cfg)
 
 
