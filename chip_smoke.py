@@ -25,6 +25,14 @@ Phases, in order (each prints a line before and after, with its seconds):
                     version on the lanes of a 64x48 frame, 4 spp, depth 50,
                     ring-1000 and the mixed scene: max lane error 0 or the
                     image gate
+  k3wide_check      K3-wide (the 4-wide stack walk of K3+K4 and K5) on the
+                    lanes of a 64x48 frame, 4 spp, depth 50: K3+K4 on the
+                    4-wide walk and on the binary walk (the same scene
+                    without its 4-wide view), each against its plain
+                    version (max lane error 0 or the image gate), on
+                    ring-1000 and the mixed scene (where the two walks
+                    must also pass the image gate against each other) and
+                    on the twin scene, whose exact ties must split them
   render_check_bvh  the main path (K6, compaction, K3+K4) against the
                     dense plain path at 160x120, 4 spp, depth 50 on
                     ring-1000, under the image gate
@@ -41,6 +49,31 @@ Phases, in order (each prints a line before and after, with its seconds):
   bounds_check      max_depth 100, 20 lights and 80 soft-shadow samples on
                     K1, K3+K4 and K7 (a few hundred lanes each) against the
                     plain version: max lane error 0 or the image gate
+  k6s_check         K6-stream (pixel mask, node-only walk, stream mode)
+                    against its plain version at 800x600 on grid-5833 and
+                    ico-10241, and on ring-1000 (and without its ground)
+                    forced into stream mode, where it must also pass every
+                    pixel of K6's mask on the same tree: masks equal
+  k5_check          K5 (bounce megakernel, stream mode) against its plain
+                    version on a strided subset of the lanes of a 64x48
+                    frame, 4 spp, depth 50, on grid-5833 and ico-10241
+                    (max lane error 0 or the image gate), and bit-equal to
+                    K3+K4 on every lane of the same frame of ring-1000 and
+                    the mixed scene forced into stream mode (same tree)
+  kstate_check      K1-state: K1, K3+K4, K5 and K7 each run bounces [0,4)
+                    with state and then [4,50) from it, on a few thousand
+                    lanes: alive flags and the state of alive lanes equal
+                    to the plain version's, each segment's radiance
+                    against the plain version's on the same inputs and the
+                    sum against one [0,50) launch under the image gate
+                    (max lane errors printed)
+  render_check_stream  the stream main path (K6-stream, compaction, the
+                    split ladder of K5 launches with K1-state) on
+                    grid-5833 at 160x120, 4 spp, depth 50, against the
+                    dense plain path and against the same path unsplit,
+                    under the image gate; then one frame with the first
+                    capacity forced below the survivors, which must report
+                    overflow and equal the unsplit frame
   bench             Renderer().render of the bench workload (800x600,
                     100 spp, depth 50, 16 soft-shadow rays, seed 0): one
                     warm-up, then 3 timed frames; launch counts are reset
@@ -53,6 +86,10 @@ Phases, in order (each prints a line before and after, with its seconds):
                     through K6 and K3+K4 with vertex normals
   bench_loop        the same on the icosphere golden scene without its BVH
                     (the go camera) through K2 and K7
+  bench_stream_grid the same on grid-5833 through K6-stream and the
+                    ladder of K5 launches (K1-state), with the survivor
+                    fraction at each level of the ladder
+  bench_stream_mesh the same on ico-10241 (its OBJ written at run time)
   kernels           K1 and K3+K4 against their plain versions on the bench
                     frames' own lanes (all of them for K1, a strided subset
                     of about 20k for K3+K4, whose main-path launches must
@@ -63,8 +100,20 @@ Phases, in order (each prints a line before and after, with its seconds):
                     its bound for the same work; then K7 and K1-ext (and
                     K3+K4 with vertex normals) the same way at the three
                     new bench frames, on a strided subset of about 20k of
-                    their lanes for the plain version; registers, stack
-                    and spills of every kernel from the build
+                    their lanes (2.5k on the smooth frame) for the plain
+                    version; then K6-stream, K5
+                    and K1-state at the grid-5833 frame: K5's time per
+                    launch over the frame's own ladder segments (inputs
+                    read through the stage hook), the ladder's summed
+                    segment times beside one unsplit launch per chunk
+                    over the same lanes, and the plain version on a
+                    strided subset of about K5_SUBSET lanes, and
+                    K1-state's two segments against the plain version's
+                    on a strided subset of about STATE_SUBSET of the
+                    frame's lanes; K3-wide as K3+K4's and K5's unsplit
+                    launches on the 4-wide walk beside the same launches
+                    on the binary walk; registers, stack and spills of
+                    every kernel from the build
 
 The image gate is the goldens gate of tests/test_goldens.py: at most 0.1%
 of pixels off by more than 1e-3 and a mean absolute error below 1e-4.
@@ -79,7 +128,13 @@ so k6_check adds both without their ground and back wall. The slice of
 meshes, vertex normals, extended kinds and textures runs the three demo
 scenes of assets/ that need it and two golden scenes of
 tests/make_goldens.py (copied into bench/suite.py:golden_scene_dict,
-since this script imports nothing of the JAX package). The last
+since this script imports nothing of the JAX package). The stream tier
+runs the JAX package's two stream workloads (tools/tpu_stream_smoke.py,
+copied into bench/suite.py): grid-5833, an 18^3 grid of spheres, a third
+of them glass, over a plane, and ico-10241, two smooth-shaded
+4x-subdivided icospheres over a plane; small scenes are forced into
+stream mode by lowering megakernel.MAX_BVH_KERNEL_PRIMS before they are
+built. The last
 two lines of output are the JSON kernel record and the contract line. Any
 failure raises and exits non-zero with no contract line; without a GPU
 the script exits non-zero at once.
@@ -105,7 +160,14 @@ MASK_SCENES = BVH_SCENES + ("ring1000-noground", "mixed-noground")
 LOOP_LDG_RING = 2500  # ring spheres: tables past K7's shared-memory budget
 PLAIN_CHUNK = 2048    # lanes per call of the plain brute-force engine
 K3_SUBSET = 20000   # lanes of the bench frame checked against the plain
+# The plain versions run on the host's clock, which varies by 1.5x between
+# machines; these subsets keep the script well inside its watchdog.
+K5_SUBSET = 2000    # lanes of a stream frame checked against the plain
+SMOOTH_SUBSET = 2500  # the same for the smooth frame, whose plain version
+                      # tests some 50 triangles a soft-shadow ray
+STATE_SUBSET = 500    # lanes of a stream frame for K1-state's plain time
 SLOW_FRAME_S = 30.0
+CARD = "card not read"  # nvidia-smi's name and power limit, read in env
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and fp32 instructions/s
 # outside the tensor cores: the sheet's 67 TFLOP/s counts an FMA as two
 # operations, and the kernels are built without FMA contraction, so each
@@ -301,13 +363,15 @@ def frame_stages(r, scene):
     """Milliseconds of each stage of one bench frame (render_wavefront,
     timed through its stage hook, then tonemap and the copy to the host;
     each stage is ended by a synchronise, so the sum exceeds a frame),
-    and the hit-pixel count."""
+    the hit-pixel count, and for a split frame the ladder's levels:
+    {bounce: [survivors, lanes, capacity]} summed over the chunks."""
     import torch
     from raytrace_tpu_torch import renderer as rmod
     from raytrace_tpu_torch.ops import tonemap
     ms = {}
     last = [time.perf_counter()]
     k = []
+    levels = {}
 
     def mark(stage, **values):
         torch.cuda.synchronize()
@@ -316,13 +380,20 @@ def frame_stages(r, scene):
         last[0] = now
         if stage == "count":
             k.append(values["k"])
+        if stage == "overflow":
+            levels["overflow"] = values["overflow"]
+        if stage == "split_compact":
+            lv = levels.setdefault(values["bounce"], [0, 0, 0])
+            lv[0] += int(values["survivors"])
+            lv[1] += values["lanes"]
+            lv[2] += values["cap"]
 
     img = rmod.render_wavefront(scene, width=W, height=H, samples=SPP,
                                 cfg=r.trace_config(), go_camera=r.go_camera,
                                 hook=mark)
     tonemap.tonemap_rgb8(img).cpu()
     mark("tonemap_copy")
-    return {s: round(v, 3) for s, v in ms.items()}, k[0]
+    return {s: round(v, 3) for s, v in ms.items()}, k[0], levels
 
 
 def bench(scene, mk, what, slow_cut, go_camera=True):
@@ -361,10 +432,19 @@ def bench(scene, mk, what, slow_cut, go_camera=True):
     with tempfile.TemporaryDirectory() as tmp:
         r.save_image(img, os.path.join(tmp, "bench.png"))
     best = sorted(times)[len(times) // 2]
-    stages, k_px = frame_stages(r, scene)
+    stages, k_px, levels = frame_stages(r, scene)
     print(f"   {what}: stages of one frame, ms (host clock, synchronised): "
           f"{stages}", flush=True)
-    print(f"   {what}: frame seconds {[round(t, 4) for t in times]}; median "
+    if levels:
+        n0 = k_px * SPP
+        ov = levels.pop("overflow", None)
+        print(f"   {what}: split ladder (overflow {ov}), survivors at each "
+              "level (bounce: survivors, of the frame's lanes, of the "
+              "level's input lanes, capacity): " + "; ".join(
+                  f"{b}: {v[0]}, {v[0] / n0:.4f}, {v[0] / v[1]:.4f}, {v[2]}"
+                  for b, v in sorted(levels.items())), flush=True)
+    print(f"   {what} [{CARD}]: frame seconds "
+          f"{[round(t, 4) for t in times]}; median "
           f"{best:.4f} s = {W * H * SPP / best:.4e} camera samples/s; "
           f"hit pixels {k_px}, lanes {k_px * SPP}; non-black "
           f"{nonblack:.4f}; launches {launches}", flush=True)
@@ -436,6 +516,8 @@ def main():
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip().splitlines()
         gpu_line = smi[0].strip() if smi else "nvidia-smi: no output"
+        global CARD
+        CARD = gpu_line
         print(gpu_line, flush=True)
         print(f"   torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)}, "
@@ -526,6 +608,16 @@ def main():
                 image_gate(pixel_image(px, got, 64, 48, 4),
                            pixel_image(px, want, 64, 48, 4), f"K3 {name}")
 
+    with Phase("k3wide_check"):
+        twins = twin_scene(dev)
+        for name, s in (("ring1000", bvh_scenes["ring1000"]),
+                        ("mixed", bvh_scenes["mixed"]), ("twins", twins)):
+            err, differ = wide_check(mk, trace_mod, s, cfg, name)
+            record.setdefault("k3wide_err", []).append(err)
+            if name == "twins" and differ < 5:
+                raise AssertionError("the twin scene's ties must split the "
+                                     "4-wide and the binary walk")
+
     with Phase("render_check_bvh"):
         ring = bvh_scenes[BVH_SCENES[0]]
         rcfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT)
@@ -614,6 +706,84 @@ def main():
             if err > 0.0:
                 image_gate(got, want, f"run-time bounds, {name}")
 
+    with Phase("k6s_check"):
+        obj_dir = tempfile.TemporaryDirectory()
+        stream_scenes = {"grid5833": stream_scene("grid", dev),
+                         "ico10241": stream_scene("mesh", dev, obj_dir.name)}
+        for name, s in stream_scenes.items():
+            if mk._kernel_mode(s) != "stream":
+                raise AssertionError(f"{name} is not a stream-mode scene")
+            got = mk.pixel_mask(s, width=W, height=H, cfg=cfg)
+            want = mk.pixel_mask_plain(s, width=W, height=H, cfg=cfg)
+            print(f"   {name}: {s.prim_count} primitives, leaf "
+                  f"{s.accel.leaf_size}, {s.accel.n_nodes} nodes, "
+                  f"{int(got.sum())} of {W * H} pixels, "
+                  f"{int((got != want).sum())} differ", flush=True)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K6-stream differs from its plain "
+                                     f"version on {name}")
+        record["k6s_err"] = 0.0
+        for name in ("ring1000", "ring1000-noground"):
+            with forced_stream(mk):
+                s = bvh_scene(name, dev)
+                got = mk.pixel_mask(s, width=W, height=H, cfg=cfg)
+                want = mk.pixel_mask_plain(s, width=W, height=H, cfg=cfg)
+            k6 = mk.pixel_mask(s, width=W, height=H, cfg=cfg)  # same tree
+            print(f"   {name} forced into stream mode: {int(got.sum())} of "
+                  f"{W * H} pixels, K6 on the same tree {int(k6.sum())}, "
+                  f"{int((got != want).sum())} differ from the plain "
+                  "version", flush=True)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K6-stream differs from its plain "
+                                     f"version on {name}")
+            if (k6 & ~got).any():
+                raise AssertionError(f"K6-stream drops pixels of K6 on "
+                                     f"{name}")
+
+    with Phase("k5_check"):
+        for name, s in stream_scenes.items():
+            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
+            idx = torch.arange(0, o.shape[0], max(1, o.shape[0] // K5_SUBSET),
+                               device=dev)
+            sub = tuple(t[idx] for t in (o, d, pix, samp))
+            mk.reset_launches()
+            got = mk.trace(s, *sub, cfg)
+            if mk.LAUNCHES["trace_stream"] != 1:
+                raise AssertionError(f"K5 was not launched: {mk.LAUNCHES}")
+            want = plain_trace(s, *sub, cfg)
+            err = float((got - want).abs().max())
+            print(f"   {name}: {idx.numel()} of {o.shape[0]} lanes, max lane "
+                  f"error {err:.3e}", flush=True)
+            if err > 0.0:
+                image_gate(got, want, f"K5 {name} (lanes as pixels)")
+            record.setdefault("k5_check_err", []).append(err)
+        for name in BVH_SCENES:
+            with forced_stream(mk):
+                s = bvh_scene(name, dev)
+                px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
+                mk.reset_launches()
+                k5 = mk.trace(s, o, d, pix, samp, cfg)
+                if mk.LAUNCHES["trace_stream"] != 1:
+                    raise AssertionError(f"K5 was not launched on {name}")
+            k3 = mk.trace(s, o, d, pix, samp, cfg)  # bvh mode, same tree
+            print(f"   {name} forced into stream mode: {o.shape[0]} lanes, "
+                  f"K5 vs K3+K4 max lane error "
+                  f"{float((k5 - k3).abs().max()):.3e}", flush=True)
+            if not torch.equal(k5, k3):
+                raise AssertionError(f"K5 differs from K3+K4 on {name}")
+
+    with Phase("kstate_check"):
+        for name, s, kernel in (
+                ("K1", scenes[SCENES[2]], "trace_unroll"),
+                ("K3+K4", bvh_scenes["mixed"], "trace_bvh"),
+                ("K5", stream_scenes["grid5833"], "trace_stream"),
+                ("K7", loop_scenes["icosphere"], "trace_loop")):
+            err = state_check(mk, trace_mod, s, kernel, cfg, name)
+            record.setdefault("kstate_err", []).append(err)
+
+    with Phase("render_check_stream"):
+        render_check_stream(mk, rmod, trace_mod, stream_scenes["grid5833"])
+
     with Phase("bench"):
         launches = bench(scenes[SCENES[0]], mk, "bench", slow_cut=False)
         for k in ("trace_unroll", "pixel_mask"):
@@ -626,6 +796,8 @@ def main():
         for k in ("trace_bvh", "pixel_mask_bvh"):
             if launches_bvh[k] < 1:
                 raise AssertionError(f"the bvh main path never launched {k}")
+        if launches_bvh["trace_wide"] != launches_bvh["trace_bvh"]:
+            raise AssertionError("the bvh main path did not walk 4-wide")
 
     frames = {}
     for phase, key, s, go, kernels_used in (
@@ -643,23 +815,55 @@ def main():
                                          f"launched {k}")
             frames[key] = (s, go, got)
 
+    for phase, key in (("bench_stream_grid", "grid5833"),
+                       ("bench_stream_mesh", "ico10241")):
+        with Phase(phase):
+            got = bench(stream_scenes[key], mk, phase, slow_cut=True)
+            for k in ("pixel_mask_stream", "trace_stream", "trace_state"):
+                if got[k] < 1:
+                    raise AssertionError(f"the {phase} frame never "
+                                         f"launched {k}")
+            for k in ("pixel_mask_bvh", "trace_bvh"):
+                if got[k] != 0:
+                    raise AssertionError(f"the {phase} frame launched {k}")
+            if got["trace_wide"] != got["trace_stream"]:
+                raise AssertionError(f"the {phase} frame did not walk "
+                                     "4-wide")
+            frames[key] = (stream_scenes[key], True, got)
+
     with Phase("kernels"):
         kernels = kernel_rows(mk, trace_mod, scenes[SCENES[0]],
                               bvh_scenes[BVH_SCENES[0]], cfg, launches,
                               launches_bvh, record)
         kernels += slice_rows(mk, scenes, frames, cfg, record)
+        kernels += stream_rows(mk, frames, cfg, record)
+        for row in kernels:   # K3-wide in K5: the stream frames, unsplit
+            if row["name"].startswith("K3-wide"):
+                row.update(record["k3wide_stream"])
+        obj_dir.cleanup()
         regs = ptxas_kernels(res.ptxas)
         entry = {"K1": "rt_trace_unroll_kernel", "K2": "rt_pixel_mask_kernel",
                  "K3": "rt_trace_bvh_kernel", "K4": "rt_trace_bvh_kernel",
                  "K6": "rt_pixel_mask_bvh_kernel",
                  "K7": "rt_trace_loop_kernel",
-                 "K1-ext": "rt_trace_unroll_kernel"}
+                 "K1-ext": "rt_trace_unroll_kernel",
+                 "K3-wide": "rt_trace_bvh_kernel",
+                 "K5": "rt_trace_stream_state_kernel",
+                 "K6-stream": "rt_pixel_mask_stream_kernel",
+                 "K1-state": "rt_trace_stream_state_kernel"}
         for row in kernels:
             fn = entry[row["name"].split()[0]]
             r_, stack, spill = regs.get(fn, (None, None, None))
             row.update(registers=r_, stack_bytes=stack, spill_bytes=spill)
+            if row["name"].startswith("K5"):
+                row["unsplit_entry_registers"] = regs.get(
+                    "rt_trace_stream_kernel", (None,))[0]
             print(f"   {row['name']}: {fn} {r_} registers, {stack} B stack, "
                   f"{spill} B spills", flush=True)
+        for fn in ("rt_trace_unroll_state_kernel", "rt_trace_bvh_state_kernel",
+                   "rt_trace_loop_state_kernel"):
+            print(f"   {fn}: {regs.get(fn)} (registers, stack bytes, "
+                  "spill bytes)", flush=True)
 
     print(gpu_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -667,6 +871,407 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def twin_scene(device):
+    """bench/suite.py:twin_scene_dict on a leaf-size-1 tree: clusters of
+    coincident spheres, where the walk's order picks the copy a lane
+    shows."""
+    from raytrace_tpu_torch import scene as scene_mod
+    from raytrace_tpu_torch.bench.suite import twin_scene_dict
+    return scene_mod.with_accel(
+        scene_mod.from_dict(twin_scene_dict(), device=device)[0],
+        leaf_size=1)
+
+
+def without_wide(scene):
+    """The scene with its 4-wide view taken away: the walks go binary."""
+    import dataclasses
+    return dataclasses.replace(scene, accel=dataclasses.replace(
+        scene.accel, wide4=None))
+
+
+def wide_check(mk, trace_mod, scene, cfg, what):
+    """K3-wide on the lanes of a 64x48 frame, 4 spp: K3+K4 with the 4-wide
+    walk against its plain version, and the same launch on the binary walk
+    against its own; returns (the larger max lane error, the lanes on
+    which the two walks differ by more than 1e-3)."""
+    px, o, d, pix, samp = lanes_of(scene, 64, 48, 4, cfg)
+    lanes = (o, d, pix, samp)
+    binary = without_wide(scene)
+    mk.reset_launches()
+    wide = mk.trace(scene, *lanes, cfg)
+    walk2 = mk.trace(binary, *lanes, cfg)
+    if (mk.LAUNCHES["trace_bvh"], mk.LAUNCHES["trace_wide"]) != (2, 1):
+        raise AssertionError(f"{what}: K3 was not launched once with and "
+                             f"once without the 4-wide walk: {mk.LAUNCHES}")
+    errs = []
+    for got, s, walk in ((wide, scene, "4-wide"), (walk2, binary, "binary")):
+        want = trace_mod.trace(s, *lanes, cfg)
+        errs.append(float((got - want).abs().max()))
+        if errs[-1] > 0.0:
+            image_gate(pixel_image(px, got, 64, 48, 4),
+                       pixel_image(px, want, 64, 48, 4),
+                       f"K3 {walk} walk on {what} vs plain")
+    differ = int(((wide - walk2).abs().amax(dim=-1) > 1e-3).sum())
+    if what != "twins":   # no exact ties: the two walks take the same hits
+        image_gate(pixel_image(px, wide, 64, 48, 4),
+                   pixel_image(px, walk2, 64, 48, 4),
+                   f"K3 4-wide vs binary walk on {what}")
+    print(f"   {what}: {o.shape[0]} lanes; max lane error vs plain: 4-wide "
+          f"{errs[0]:.3e}, binary {errs[1]:.3e}; the two walks differ on "
+          f"{differ} lanes", flush=True)
+    return max(errs), differ
+
+
+def stream_scene(name, device, tmpdir=None):
+    """grid-5833 ("grid") or ico-10241 ("mesh", its OBJ written into
+    tmpdir) of bench/suite.py: the JAX package's stream workloads."""
+    from raytrace_tpu_torch import scene as scene_mod
+    from raytrace_tpu_torch.bench import suite
+    d = (suite.grid_scene_dict() if name == "grid"
+         else suite.mesh_scene_dict(tmpdir))
+    return scene_mod.from_dict(d, device=device)[0]
+
+
+class forced_stream:
+    """Within the block, a scene with a BVH past 8 primitives is a
+    stream-mode scene (megakernel.MAX_BVH_KERNEL_PRIMS lowered); one
+    built within it carries the stream table, on the tree it would have
+    had in bvh mode."""
+
+    def __init__(self, mk):
+        self.mk = mk
+
+    def __enter__(self):
+        self.old = self.mk.MAX_BVH_KERNEL_PRIMS
+        self.mk.MAX_BVH_KERNEL_PRIMS = 8
+
+    def __exit__(self, *exc):
+        self.mk.MAX_BVH_KERNEL_PRIMS = self.old
+        return False
+
+
+def state_check(mk, trace_mod, scene, kernel, cfg, what, split=4):
+    """K1-state on a trace kernel: [0, split) with state, then
+    [split, depth) from it, each against its plain version on the same
+    inputs and together against one [0, depth) launch, on a strided
+    subset of about K5_SUBSET lanes of a 64x48 frame. Returns the max lane
+    error of the segments against the plain version."""
+    import torch
+    px, o, d, pix, samp = lanes_of(scene, 64, 48, 4, cfg)
+    idx = torch.arange(0, o.shape[0], max(1, o.shape[0] // K5_SUBSET),
+                       device=o.device)
+    lanes = tuple(t[idx] for t in (o, d, pix, samp))
+    whole = mk.trace(scene, *lanes, cfg)
+    mk.reset_launches()
+    ra, st = mk.trace(scene, *lanes, cfg, end_bounce=split,
+                      return_state=True)
+    rb = mk.trace(scene, st["origin"], st["direction"], *lanes[2:], cfg,
+                  start_bounce=split, init_throughput=st["throughput"],
+                  init_alive=st["alive"])
+    if (mk.LAUNCHES[kernel], mk.LAUNCHES["trace_state"]) != (2, 2):
+        raise AssertionError(f"{what}: {kernel} with state was not "
+                             f"launched twice: {mk.LAUNCHES}")
+    pa, pst = trace_mod.trace(scene, *lanes, cfg, end_bounce=split,
+                              return_state=True)
+    alive = pst["alive"] > 0
+    if not torch.equal(st["alive"], pst["alive"]):
+        raise AssertionError(f"{what}: alive flags differ from the plain "
+                             "version")
+    for k in ("origin", "direction", "throughput"):
+        if not torch.equal(st[k][alive], pst[k][alive]):
+            raise AssertionError(f"{what}: the state's {k} differs from "
+                                 "the plain version on alive lanes")
+    pb = trace_mod.trace(scene, st["origin"], st["direction"], *lanes[2:],
+                         cfg, start_bounce=split,
+                         init_throughput=st["throughput"],
+                         init_alive=st["alive"])
+    err_a = float((ra - pa).abs().max())
+    err_b = float((rb - pb).abs().max())
+    err = float((ra + rb - whole).abs().max())
+    print(f"   {what} ({kernel}): {idx.numel()} lanes, {int(alive.sum())} "
+          f"alive at bounce {split}; vs plain max: [0,{split}) {err_a:.3e}, "
+          f"[{split},{cfg.max_depth}) from the same state {err_b:.3e}; "
+          f"[0,{split}) + [{split},{cfg.max_depth}) vs one launch: max "
+          f"lane error {err:.3e}", flush=True)
+    for got, want, seg in ((ra, pa, f"[0,{split})"),
+                           (rb, pb, f"[{split},{cfg.max_depth})"),
+                           (ra + rb, whole, "two segments vs one launch")):
+        if not torch.equal(got, want):
+            image_gate(got, want, f"K1-state {what} {seg} (lanes as "
+                       "pixels)")
+    return max(err_a, err_b)
+
+
+def render_check_stream(mk, rmod, trace_mod, scene, w=160, h=120, spp=4):
+    """The stream main path at w x h, spp, depth 50 against the dense
+    plain path and the same path unsplit; then a frame whose first
+    capacity is forced below the survivors."""
+    import torch
+    rcfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT)
+    key = (w, h, spp, rcfg, True)
+    seen = {"segment": 0, "overflow": []}
+
+    def hook(stage, **values):
+        if stage == "segment":
+            seen["segment"] += 1
+        if stage == "overflow":
+            seen["overflow"].append(values["overflow"])
+
+    split = rmod.pick_split(scene, rcfg)
+    mk.reset_launches()
+    img = rmod.render_wavefront(scene, width=w, height=h, samples=spp,
+                                cfg=rcfg, hook=hook)
+    print(f"   ladder {split}, deep caps {rmod.pick_deep_caps(scene)}: "
+          f"{seen['segment']} segments, overflow {seen['overflow']}, "
+          f"launches {mk.LAUNCHES}", flush=True)
+    if seen["overflow"] != [0] or seen["segment"] != len(split) + 1:
+        raise AssertionError("the ladder did not run as expected")
+    rmod._SPLIT_BLACKLIST.add(key)
+    try:
+        unsplit = rmod.render_wavefront(scene, width=w, height=h,
+                                        samples=spp, cfg=rcfg)
+    finally:
+        rmod._SPLIT_BLACKLIST.discard(key)
+    ref = rmod.render_band(scene, 0, width=w, height=h, band_h=h,
+                           samples=spp, cfg=rcfg)
+    image_gate(img, ref, "stream main path vs dense plain path")
+    image_gate(img, unsplit, "stream main path vs the same unsplit")
+    seen["overflow"] = []
+    old = rmod.SURV_FRAC, rmod.SPLIT_QUANTUM
+    rmod.SURV_FRAC, rmod.SPLIT_QUANTUM = 1 << 30, 1  # first capacity: 1
+    try:
+        forced = rmod.render_wavefront(scene, width=w, height=h,
+                                       samples=spp, cfg=rcfg, hook=hook)
+        blacklisted = key in rmod._SPLIT_BLACKLIST
+    finally:
+        rmod.SURV_FRAC, rmod.SPLIT_QUANTUM = old
+        rmod._SPLIT_BLACKLIST.discard(key)
+    print(f"   first capacity forced to 1 lane: overflow "
+          f"{seen['overflow']}, blacklisted {blacklisted}, equal to the "
+          f"unsplit frame {torch.equal(forced, unsplit)}", flush=True)
+    if not (seen["overflow"] and seen["overflow"][0] > 0 and blacklisted
+            and torch.equal(forced, unsplit)):
+        raise AssertionError("a forced overflow did not redo the frame "
+                             "unsplit")
+
+
+def ladder_frame(mk, scene, cfg, launches, what):
+    """K5 with K1-state at a stream bench frame: every segment launch of
+    the frame's ladder re-run from its own inputs (read through the stage
+    hook), timed together, and with work counters for the bound; one
+    unsplit launch per chunk over the same lanes; the kernel and its plain
+    version on a strided subset of about K5_SUBSET lanes, unsplit and as
+    two segments. Returns a dict of the rows' numbers."""
+    import torch
+    from raytrace_tpu_torch import renderer as rmod
+    from raytrace_tpu_torch import trace as trace_mod
+    segs, chunks = [], []
+
+    def hook(stage, **values):
+        if stage == "segment":
+            segs.append(values)
+        elif stage == "lane_rays":
+            chunks.append(values)
+
+    rmod.render_wavefront(scene, width=W, height=H, samples=SPP, cfg=cfg,
+                          hook=hook)
+
+    def prepare(v, counters=None):
+        last = v["b1"] >= cfg.max_depth
+        kw = dict(start_bounce=v["b0"], return_state=not last,
+                  end_bounce=None if last else v["b1"])
+        if v["b0"] > 0:
+            kw.update(init_throughput=v["throughput"], init_alive=v["alive"])
+        return mk.prepare_trace(scene, v["origin"], v["direction"], v["pix"],
+                                v["samp"], cfg, counters=counters, **kw)
+
+    n_launch = len(segs)
+    if not (n_launch == launches["trace_stream"] == launches["trace_state"]):
+        raise AssertionError(f"{what}: {n_launch} ladder segments, but the "
+                             f"bench frame launched {launches}")
+    prepared = [prepare(v)[1] for v in segs]
+    ladder_ms = cuda_ms(lambda: [f() for f in prepared], 1)
+    # each level's launches on their own: where the ladder's time goes
+    level_ms = {}
+    for v, f in zip(segs, prepared):
+        level_ms[v["b0"]] = level_ms.get(v["b0"], 0.0) + cuda_ms(f, 1)
+    del prepared
+    alive_in = {}
+    for v in segs:
+        n_alive = (v["origin"].shape[0] if v["alive"] is None
+                   else int((v["alive"] > 0).sum()))
+        alive_in[v["b0"]] = alive_in.get(v["b0"], 0) + n_alive
+    print(f"   {what}: the ladder's levels, launched one at a time "
+          "(first bounce: ms over the chunks, lanes alive in, lanes "
+          "launched): " + "; ".join(
+              f"{b}: {level_ms[b]:.2f}, {alive_in[b]}, "
+              f"{sum(v['origin'].shape[0] for v in segs if v['b0'] == b)}"
+              for b in sorted(level_ms)), flush=True)
+    unsplit = [mk.prepare_trace(scene, c["origin"], c["direction"],
+                                c["pix"], c["samp"], cfg)[1] for c in chunks]
+    unsplit_ms = cuda_ms(lambda: [f() for f in unsplit], 1)
+    # the same launches on the binary walk (K3-wide against it)
+    binary = without_wide(scene)
+    unsplit = [mk.prepare_trace(binary, c["origin"], c["direction"],
+                                c["pix"], c["samp"], cfg)[1] for c in chunks]
+    unsplit_binary_ms = cuda_ms(lambda: [f() for f in unsplit], 1)
+    del unsplit
+    # the host's share of a segment: its scene tables are packed anew at
+    # every launch (megakernel.trace_tables)
+    tables_ms, _ = host_ms(lambda: mk.trace_tables(scene, "stream"))
+    ops = n_bytes = 0
+    work = [0] * mk.BVH_COUNTERS
+    tables = 4 * (scene.accel.n_nodes * 9
+                  + scene.accel.stream_tab.numel())
+    for v in segs:
+        n = v["origin"].shape[0]
+        cnt = torch.zeros((n, mk.BVH_COUNTERS), dtype=torch.int32,
+                          device=v["origin"].device)
+        prepare(v, cnt)[1]()
+        o_, _, w_ = k3_ops(cnt)
+        ops += o_
+        work = [a + b for a, b in zip(work, w_)]
+        n_bytes += tables + n * (12 + 12 + 4 + 4 + 12) + (
+            n * 16 if v["b0"] > 0 else 0) + (
+            n * 40 if v["b1"] < cfg.max_depth else 0)
+        del cnt
+    bnd, by = bound(ops / n_launch, n_bytes / n_launch)
+    # plain version, on a strided subset of the frame's lanes
+    lanes = tuple(torch.cat([c[k] for c in chunks])
+                  for k in ("origin", "direction", "pix", "samp"))
+    n_all = lanes[0].shape[0]
+    idx = torch.arange(0, n_all, max(1, n_all // K5_SUBSET),
+                       device=lanes[0].device)
+    sub = tuple(t[idx] for t in lanes)
+    k_sub, k_launch = mk.prepare_trace(scene, *sub, cfg)
+    sub_ms = cuda_ms(k_launch, 1)
+    plain_ms, want = host_ms(lambda: plain_trace(scene, *sub, cfg))
+    err = float((k_sub - want).abs().max())
+    image_gate(k_sub, want, f"{what}: K5 at {idx.numel()} of its bench lanes "
+               f"(max lane error {err:.3e})")
+    b1 = segs[0]["b1"]
+    sidx = torch.arange(0, n_all, max(1, n_all // STATE_SUBSET),
+                        device=lanes[0].device)
+    ssub = tuple(t[sidx] for t in lanes)
+    (ka, st), a_launch = mk.prepare_trace(scene, *ssub, cfg, end_bounce=b1,
+                                          return_state=True)
+    a_launch()
+    kb, b_launch = mk.prepare_trace(
+        scene, st["origin"], st["direction"], *ssub[2:], cfg,
+        start_bounce=b1, init_throughput=st["throughput"],
+        init_alive=st["alive"])
+    b_launch()
+    state_sub_ms = cuda_ms(lambda: (a_launch(), b_launch()), 1)
+    plain_state_ms, ((pa, pst), pb) = host_ms(lambda: (
+        trace_mod.trace(scene, *ssub, cfg, end_bounce=b1, return_state=True),
+        trace_mod.trace(scene, st["origin"], st["direction"], *ssub[2:], cfg,
+                        start_bounce=b1, init_throughput=st["throughput"],
+                        init_alive=st["alive"])))
+    # K1-state against its plain version on the frame's own lanes: the
+    # ladder's first segment, and the rest of the depth from its state
+    alive = pst["alive"] > 0
+    if not torch.equal(st["alive"], pst["alive"]):
+        raise AssertionError(f"{what}: K1-state's alive flags differ from "
+                             "the plain version's")
+    for k in ("origin", "direction", "throughput"):
+        if not torch.equal(st[k][alive], pst[k][alive]):
+            raise AssertionError(f"{what}: K1-state's {k} differs from the "
+                                 "plain version's on alive lanes")
+    state_err = 0.0
+    for got, want, seg in ((ka, pa, f"[0,{b1})"),
+                           (kb, pb, f"[{b1},{cfg.max_depth})")):
+        state_err = max(state_err, float((got - want).abs().max()))
+        image_gate(got, want, f"{what}: K1-state {seg} at {sidx.numel()} "
+                   "of its bench lanes vs plain")
+    print(f"   {what}: {n_launch} ladder segments over {len(chunks)} "
+          f"chunk(s), {sum(v['origin'].shape[0] for v in segs)} segment "
+          f"lanes; work {work}, {ops:.4e} ops; ladder {ladder_ms:.3f} ms "
+          f"({ladder_ms / n_launch:.4f} ms a launch) vs one unsplit launch "
+          f"a chunk {unsplit_ms:.3f} ms; bound per launch {bnd:.4f} ms "
+          f"({by}); on {idx.numel()} lanes: kernel {sub_ms:.3f} ms vs "
+          f"plain {plain_ms:.1f} ms; on {sidx.numel()} lanes as two "
+          f"segments {state_sub_ms:.3f} ms vs plain {plain_state_ms:.1f} ms "
+          f"(max lane error {state_err:.3e}, {int(alive.sum())} alive at "
+          f"bounce {b1}); one unsplit launch a chunk on the binary walk "
+          f"{unsplit_binary_ms:.3f} ms; trace_tables on the host "
+          f"{tables_ms:.3f} ms a segment", flush=True)
+    return dict(launches=n_launch, ms=ladder_ms / n_launch,
+                ladder_ms=ladder_ms, unsplit_ms=unsplit_ms,
+                unsplit_binary_ms=unsplit_binary_ms, tables_ms=tables_ms,
+                state_err=state_err,
+                level_ms={str(b): v for b, v in sorted(level_ms.items())},
+                chunks=len(chunks), bound=bnd, by=by, plain=plain_ms,
+                err=err, plain_lanes=int(idx.numel()), ms_plain_lanes=sub_ms,
+                state_lanes=int(sidx.numel()),
+                state_ms_plain_lanes=state_sub_ms,
+                state_plain=plain_state_ms)
+
+
+def stream_rows(mk, frames, cfg, record):
+    """The rows of K6-stream, K5 and K1-state at the grid-5833 bench frame,
+    with ico-10241's numbers as extra keys."""
+    n_px = W * H
+    src = "raytrace_tpu_torch/csrc/"
+    mkpy = "raytrace_tpu/ops/megakernel.py:"
+    grid, _, g_launches = frames["grid5833"]
+    mesh, _, m_launches = frames["ico10241"]
+    mwork = [0, 0]
+    mk.pixel_mask_plain(grid, width=W, height=H, cfg=cfg, work=mwork)
+    _, k6s_launch = mk.prepare_pixel_mask(grid, width=W, height=H, cfg=cfg)
+    k6s_ms = cuda_ms(k6s_launch, 20)
+    k6s_plain = cuda_ms(lambda: mk.pixel_mask_plain(
+        grid, width=W, height=H, cfg=cfg), 3)
+    npl = grid.geometry.pl_point.shape[0]
+    k6s_bound, k6s_by = bound(
+        n_px * (27 + 23 * npl) + mwork[0] * 21,
+        n_px + 4 * (13 + 9 * grid.accel.n_nodes + 7 * npl))
+    print(f"   K6-stream: {n_px} pixels, {grid.accel.n_nodes} nodes, "
+          f"{mwork[0]} slab tests; {k6s_ms:.4f} ms vs plain "
+          f"{k6s_plain:.4f} ms, bound {k6s_bound:.6f} ms", flush=True)
+    g = ladder_frame(mk, grid, cfg, g_launches, "grid-5833 frame (K5)")
+    m = ladder_frame(mk, mesh, cfg, m_launches, "ico-10241 frame (K5)")
+    common = dict(route="cuda", library_ms=None)
+    mesh_keys = dict(mesh_ms=m["ms"], mesh_launches=m["launches"],
+                     mesh_bound_ms=m["bound"], mesh_plain_ms=m["plain"],
+                     mesh_plain_lanes=m["plain_lanes"],
+                     mesh_ms_plain_lanes=m["ms_plain_lanes"])
+    record["k3wide_stream"] = dict(
+        grid_unsplit_ms=g["unsplit_ms"],
+        grid_unsplit_binary_ms=g["unsplit_binary_ms"],
+        mesh_unsplit_ms=m["unsplit_ms"],
+        mesh_unsplit_binary_ms=m["unsplit_binary_ms"])
+    return [
+        # the main path launches K5's state entry only (every segment of
+        # the ladder); its plain entry runs a frame unsplit after overflow
+        dict(name="K5 trace_stream", source=src + "trace_stream.cu",
+             replaces=mkpy + "813", launches=g["launches"],
+             max_abs_err=max([g["err"], m["err"]] + record["k5_check_err"]),
+             ms=g["ms"], plain_ms=g["plain"], bound_ms=g["bound"],
+             bound_by=g["by"], plain_lanes=g["plain_lanes"],
+             ms_plain_lanes=g["ms_plain_lanes"], chunks=g["chunks"],
+             unsplit_entry_ms=g["unsplit_ms"] / g["chunks"],
+             tables_host_ms=g["tables_ms"],
+             **mesh_keys, **common),
+        dict(name="K6-stream pixel_mask_stream", source=src + "pixel_mask.cu",
+             replaces=mkpy + "2597",
+             launches=g_launches["pixel_mask_stream"],
+             max_abs_err=record["k6s_err"], ms=k6s_ms, plain_ms=k6s_plain,
+             bound_ms=k6s_bound, bound_by=k6s_by, **common),
+        dict(name="K1-state resumable bounce loop (in K1, K3+K4, K5, K7)",
+             source=src + "bounce.cuh", replaces=mkpy + "2448",
+             launches=g_launches["trace_state"],
+             max_abs_err=max([g["state_err"], m["state_err"]]
+                             + record["kstate_err"]), ms=g["ms"],
+             plain_ms=g["state_plain"], bound_ms=g["bound"],
+             bound_by=g["by"], plain_lanes=g["state_lanes"],
+             ms_plain_lanes=g["state_ms_plain_lanes"],
+             ladder_ms=g["ladder_ms"], unsplit_ms=g["unsplit_ms"],
+             level_ms=g["level_ms"], mesh_ladder_ms=m["ladder_ms"],
+             mesh_unsplit_ms=m["unsplit_ms"], mesh_level_ms=m["level_ms"],
+             **common),
+    ]
 
 
 def loop_ring_scene(n, device):
@@ -677,10 +1282,10 @@ def loop_ring_scene(n, device):
                                build_accel=False)[0]
 
 
-def frame_kernel(mk, scene, cfg, go_camera, what):
+def frame_kernel(mk, scene, cfg, go_camera, what, subset=K3_SUBSET):
     """The trace kernel of a bench frame, at the main path's own chunks of
     that frame's lanes: checks, time per launch, plain time on a strided
-    subset of about K3_SUBSET lanes, bound from the work counters.
+    subset of about ``subset`` lanes, bound from the work counters.
     Returns a dict of the row's numbers."""
     import torch
     from raytrace_tpu_torch import trace as trace_mod
@@ -690,7 +1295,7 @@ def frame_kernel(mk, scene, cfg, go_camera, what):
                                           go_camera=go_camera)
     lanes = (o, d, pix, samp)
     n, n_launch = o.shape[0], len(sizes)
-    idx = torch.arange(0, n, max(1, n // K3_SUBSET), device=dev)
+    idx = torch.arange(0, n, max(1, n // subset), device=dev)
     sub = tuple(t[idx] for t in lanes)
     out, launch_all = chunk_launches(mk, scene, lanes, sizes, cfg)
     launch_all()
@@ -730,10 +1335,12 @@ def slice_rows(mk, scenes, frames, cfg, record):
     mkpy = "raytrace_tpu/ops/megakernel.py:"
     rows = []
     got = {}
-    for key, kernel in (("textured", "trace_unroll"), ("smooth", "trace_bvh"),
-                        ("loop", "trace_loop")):
+    for key, kernel, subset in (("textured", "trace_unroll", K3_SUBSET),
+                                ("smooth", "trace_bvh", SMOOTH_SUBSET),
+                                ("loop", "trace_loop", K3_SUBSET)):
         s, go, launches = frames[key]
-        got[key] = frame_kernel(mk, s, cfg, go, f"{key} frame ({kernel})")
+        got[key] = frame_kernel(mk, s, cfg, go, f"{key} frame ({kernel})",
+                                subset)
         if launches[kernel] != got[key]["launches"]:
             raise AssertionError(f"the {key} frame launched {kernel} "
                                  f"{launches[kernel]} times, not its chunk "
@@ -868,7 +1475,16 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
     k3_ms = cuda_ms(k3_launch, 2) / n_k3
     _, hard_launch = chunk_launches(mk, ring, lanes, sizes, hard_cfg)
     hard_ms = cuda_ms(hard_launch, 2) / n_k3
+    # K3-wide: the same launches on the binary walk, and the slab tests of
+    # each walk
+    ring_bin = without_wide(ring)
+    _, bin_launch = chunk_launches(mk, ring_bin, lanes, sizes, cfg)
+    bin_ms = cuda_ms(bin_launch, 2) / n_k3
     cnt = torch.zeros((n, mk.BVH_COUNTERS), dtype=torch.int32, device=dev)
+    _, counted = chunk_launches(mk, ring_bin, lanes, sizes, cfg, counters=cnt)
+    counted()
+    work_bin = k3_ops(cnt)[2]
+    cnt.zero_()
     _, counted = chunk_launches(mk, ring, lanes, sizes, cfg, counters=cnt)
     counted()
     ops, k4_ops, work = k3_ops(cnt)
@@ -883,6 +1499,9 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
     print(f"   K3+K4 on {idx.numel()} lanes: {sub_ms:.3f} ms vs plain "
           f"{plain_ms:.1f} ms (plain without soft shadows "
           f"{plain_hard_ms:.1f} ms)", flush=True)
+    print(f"   K3-wide: per launch {k3_ms:.4f} ms on the 4-wide walk vs "
+          f"{bin_ms:.4f} ms on the binary walk; work on the binary walk "
+          f"{work_bin}", flush=True)
 
     if (launches["trace_unroll"], launches_bvh["trace_bvh"]) != (n_k1, n_k3):
         raise AssertionError(f"the main path's trace launches "
@@ -917,6 +1536,12 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
         row("K6 pixel_mask_bvh", src + "pixel_mask.cu", mkpy + "2661",
             launches_bvh["pixel_mask_bvh"], record["k6_err"], k6_ms,
             k6_plain, k6_bound, k6_by),
+        row("K3-wide 4-wide stack walk (in K3+K4, K5)",
+            src + "bvh_walk.cuh", mkpy + "1000", launches_bvh["trace_wide"],
+            max([k3_err] + record["k3wide_err"]), k3_ms, plain_ms,
+            k3_bound, k3_by, binary_ms=bin_ms, slab_tests=work[3],
+            binary_slab_tests=work_bin[3], soft_slab_tests=work[6],
+            binary_soft_slab_tests=work_bin[6], **subset),
     ]
     return rows
 

@@ -1,14 +1,19 @@
 """Benchmark and check scenes of the port: a copy of the JAX package's
 ``bench/suite.py:ring_scene_dict`` (the benchmark sweep is not ported),
-the bvh-mode scenes that the tests and ``chip_smoke.py`` share, and copies
-of two golden scenes of ``tests/make_goldens.py`` (``golden_scene_dict``)
-for runs that may not import the JAX package."""
+the bvh-mode scenes that the tests and ``chip_smoke.py`` share, copies
+of two golden scenes of ``tests/make_goldens.py`` (``golden_scene_dict``),
+a scene of exact ties for the walks' order (``twin_scene_dict``), and
+copies of the JAX package's two stream-mode workloads of
+``tools/tpu_stream_smoke.py`` (``grid_scene_dict``, ``icosphere_obj``,
+``mesh_scene_dict``), for runs that may not import the JAX package."""
 
 from __future__ import annotations
 
 import copy
 import math
 import os
+
+import numpy as np
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
                       "assets")
@@ -72,6 +77,28 @@ def mixed_scene_dict(ground: bool = True):
     else:
         d["objects"] = d["objects"][1:] + extra[:2]
     return d
+
+
+def twin_scene_dict():
+    """97 primitives: 12 clusters of 8 coincident spheres, each copy of a
+    cluster with its own colour, over a ground plane. A ray that hits a
+    cluster hits all 8 copies at exactly the same t, so which copy it
+    shows is the walk's tie order: built with leaf size 1, the 4-wide walk
+    (K3-wide) and the binary walk show different copies on many lanes."""
+    cols = ([0.9, 0.1, 0.1], [0.1, 0.9, 0.1], [0.1, 0.1, 0.9],
+            [0.9, 0.9, 0.1], [0.9, 0.1, 0.9], [0.1, 0.9, 0.9],
+            [0.5, 0.5, 0.5], [0.9, 0.5, 0.1])
+    objs = [{"type": "sphere", "position": [x, y, -1.0], "radius": 0.45,
+             "material": {"type": "lambertian", "color": c}}
+            for x in (-1.5, -0.5, 0.5, 1.5) for y in (1.2, 2.0, 2.8)
+            for c in cols]
+    objs.append({"type": "plane", "position": [0, 0, 0], "normal": [0, 1, 0],
+                 "material": {"type": "lambertian",
+                              "color": [0.5, 0.5, 0.5]}})
+    return {"camera": {"position": [0, 2, 3], "aspectRatio": 1.33},
+            "objects": objs,
+            "lights": [{"type": "point", "position": [3, 8, 4],
+                        "color": [1, 1, 1], "intensity": 2.0}]}
 
 
 def bvh_scene_dict(name: str):
@@ -142,3 +169,103 @@ def golden_scene_dict(name: str):
                         "intensity": 45.0}],
         }, dict(max_depth=5, shadow_samples=4)
     raise ValueError(f"unknown golden scene {name!r}")
+
+
+def grid_scene_dict(side: int = 18):
+    """grid-5833, the JAX package's first stream workload
+    (tools/tpu_stream_smoke.py:50): an 18^3 grid of radius-0.35 spheres
+    (one third each lambertian, metal and glass) over a ground plane, one
+    light: 5,833 primitives."""
+    objs = [{"type": "plane", "position": [0, -0.5, 0],
+             "normal": [0, 1, 0],
+             "material": {"type": "lambertian", "color": [0.5, 0.5, 0.5]}}]
+    mats = [{"type": "lambertian", "color": [0.8, 0.3, 0.3]},
+            {"type": "metal", "color": [0.8, 0.8, 0.9], "roughness": 0.1},
+            {"type": "glass", "color": [0.9, 0.9, 0.9]}]
+    k = 0
+    for ix in range(side):
+        for iy in range(side):
+            for iz in range(side):
+                objs.append({
+                    "type": "sphere",
+                    "position": [(ix - side / 2) * 1.2,
+                                 iy * 1.2 + 0.2,
+                                 (iz - side / 2) * 1.2 - 16.0],
+                    "radius": 0.35,
+                    "material": mats[k % 3]})
+                k += 1
+    return {
+        "camera": {"position": [0, 6, 18], "aspectRatio": 1.333},
+        "objects": objs,
+        "lights": [{"type": "point", "position": [10, 30, 20],
+                    "color": [1, 1, 1], "intensity": 2.0}],
+    }
+
+
+def icosphere_obj(subdiv: int = 4) -> str:
+    """Midpoint-subdivided unit icosphere OBJ text (20 * 4^subdiv faces)
+    with per-vertex normals (the positions on the unit sphere)
+    (tools/tpu_stream_smoke.py:83)."""
+    t = (1.0 + 5 ** 0.5) / 2.0
+    verts = np.array([
+        [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+        [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+        [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], np.float64)
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+             (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+             (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+             (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    verts = [tuple(v) for v in verts]
+    cache = {}
+
+    def mid(a, b):
+        key = (min(a, b), max(a, b))
+        if key not in cache:
+            m = np.asarray(verts[a]) + np.asarray(verts[b])
+            m /= np.linalg.norm(m)
+            cache[key] = len(verts)
+            verts.append(tuple(m))
+        return cache[key]
+
+    for _ in range(subdiv):
+        nxt = []
+        for (a, b, c) in faces:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            nxt += [(a, ab, ca), (ab, b, bc), (ca, bc, c), (ab, bc, ca)]
+        faces = nxt
+    lines = [f"v {v[0]:.9f} {v[1]:.9f} {v[2]:.9f}" for v in verts]
+    lines += [f"vn {v[0]:.9f} {v[1]:.9f} {v[2]:.9f}" for v in verts]
+    lines += [f"f {a+1}//{a+1} {b+1}//{b+1} {c+1}//{c+1}"
+              for (a, b, c) in faces]
+    return "\n".join(lines) + "\n"
+
+
+def mesh_scene_dict(tmpdir: str, subdiv: int = 4):
+    """ico-10241, the JAX package's second stream workload
+    (tools/tpu_stream_smoke.py:133): two smooth-shaded icosphere meshes
+    (2 x 20 * 4^subdiv triangles with vertex normals; 10,240 at subdiv 4)
+    over a ground plane, one light. The OBJ is written into ``tmpdir``."""
+    path = os.path.join(tmpdir, f"ico{subdiv}.obj")
+    if not os.path.exists(path):
+        with open(path, "w") as f:
+            f.write(icosphere_obj(subdiv))
+    return {
+        "camera": {"position": [0, 1, 6], "aspectRatio": 1.333},
+        "objects": [
+            {"type": "plane", "position": [0, -0.8, 0],
+             "normal": [0, 1, 0],
+             "material": {"type": "lambertian",
+                          "color": [0.5, 0.5, 0.5]}},
+            {"type": "mesh", "path": path, "position": [0, 0.6, 0],
+             "scale": 1.4, "smooth": True,
+             "material": {"type": "metal", "color": [0.8, 0.8, 0.9],
+                          "roughness": 0.1}},
+            {"type": "mesh", "path": path, "position": [-2.6, 0.4, -1],
+             "scale": 1.0, "smooth": True,
+             "material": {"type": "lambertian",
+                          "color": [0.8, 0.3, 0.3]}},
+        ],
+        "lights": [{"type": "point", "position": [6, 10, 8],
+                    "color": [1, 1, 1], "intensity": 2.0}],
+    }

@@ -12,16 +12,26 @@ lanes at once (every live lane advances its own cursor each step). They
 are the plain versions of the BVH kernels K3 and K4 and give the JAX
 package's ``traverse_closest``/``traverse_any`` results: the same node
 order, the same slab and primitive arithmetic, and the same strict
-``t < t_best`` acceptance, so equal-``t`` ties resolve the same way.
+``t < t_best`` acceptance, so equal-``t`` ties resolve the same way. A
+tree that carries the stream table (``FlatBVH.stream_tab``, stream mode)
+is walked over its unified leaf rows, dispatching on each row's tag: the
+plain version of K5, bit-equal to the walk over the scene tables.
 
-Not ported: the 4-wide collapse (``widen4``), SAH, the Octree and the
-KD-tree (ROADMAP).
+``widen4`` collapses the tree into the 4-wide layout that the kernels'
+closest-hit, hard-shadow and soft-shadow walks take by default
+(``wide_walk``, K3-wide), and ``traverse_closest_wide`` is its plain
+closest-hit walk: a per-lane stack in the JAX kernel's order, so it
+differs from the binary walk only in which of two hits at exactly equal
+``t`` wins. (The shadow walks' verdicts do not depend on the order: their
+plain versions stay ``traverse_any``.)
+
+Not ported: SAH, the Octree and the KD-tree (ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -30,6 +40,14 @@ from .ops import intersect
 
 BVH_THRESHOLD = 64       # from_dict builds a tree from this many prims
 LEAF_SIZE_DEFAULT = 16   # primitives per leaf at most
+_BIG = np.float32(3.0e38)  # the corners of an empty 4-wide slot
+WIDE_STACK = 64          # a lane's stack in the kernels' 4-wide walk
+                         # (csrc/bvh_walk.cuh kWideStack)
+# The JAX kernel takes the 4-wide walk in stream mode only while its
+# scalar memory holds the binary nodes, the 4-wide table and one leaf of
+# 128-float rows within this many bytes (megakernel.py:3113-3118); the
+# port keeps the same choice so that it walks in the reference's order.
+WIDE_STREAM_BUDGET = 700_000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +64,14 @@ class FlatBVH:
     node_count: torch.Tensor  # (N,) int32 prims in a leaf, 0 for inner
     prim_index: torch.Tensor  # (P,) int32 permutation of primitive ids
     leaf_size: int = 4        # most primitives in any leaf
+    # Stream mode only: the unified primitive rows in leaf order
+    # (megakernel.pack_stream_table), packed once when the scene is built.
+    stream_tab: Optional[torch.Tensor] = None
+    # The 4-wide view (widen4), attached by build_scene_bvh: (W,36)
+    # float32, per wide node 4 slots of [min.xyz, max.xyz, child, first,
+    # count], and the most entries a walk's stack holds.
+    wide4: Optional[torch.Tensor] = None
+    wide_stack: int = 0
 
     @property
     def n_nodes(self) -> int:
@@ -120,16 +146,98 @@ def build_bvh(lo, hi, leaf_size: int = LEAF_SIZE_DEFAULT,
                    leaf_size=leaf_size)
 
 
+def widen4(flat: FlatBVH):
+    """Collapse a binary tree into the 4-wide layout on the host
+    (``raytrace_tpu/bvh.py:widen4``): ((W,36) float32 table, stack bound).
+
+    A binary node's children are i + 1 and that child's skip pointer. A
+    wide node's slots are, per binary child, the child itself when it is a
+    leaf, else its two children; an inner slot points at the wide node of
+    its binary node, numbered in preorder. A slot is [min.xyz, max.xyz,
+    child, first, count] (child -1 for a leaf, first -1 and count 0 for an
+    inner slot); an empty slot has the corners +BIG/-BIG, child -1 and
+    count 0. The stack bound is 3 * depth + 1: a pop pushes at most 3 more
+    entries than it takes."""
+    nmin = flat.node_min.cpu().numpy()
+    nmax = flat.node_max.cpu().numpy()
+    nskip = flat.node_skip.cpu().numpy()
+    ncount = flat.node_count.cpu().numpy()
+    nfirst = flat.node_first.cpu().numpy()
+    rows: List[np.ndarray] = []
+
+    def row(slots):
+        """slots: (binary node, wide child or -1) -> one table row."""
+        r = np.zeros((4, 9), np.float32)
+        r[:, 0:3] = _BIG
+        r[:, 3:6] = -_BIG
+        r[:, 6:8] = -1.0
+        for s, (b, w) in enumerate(slots):
+            r[s, 0:3] = nmin[b]
+            r[s, 3:6] = nmax[b]
+            r[s, 6] = w
+            if ncount[b] > 0:
+                r[s, 7] = nfirst[b]
+                r[s, 8] = ncount[b]
+        return r.reshape(36)
+
+    depth = [0]
+
+    def rec(i: int, d: int) -> int:
+        depth[0] = max(depth[0], d)
+        my = len(rows)
+        rows.append(None)
+        slots = []
+        for c in (i + 1, int(nskip[i + 1])):
+            if ncount[c] > 0:
+                slots.append(c)
+            else:
+                slots.extend((c + 1, int(nskip[c + 1])))
+        rows[my] = row([(b, -1 if ncount[b] > 0 else rec(b, d + 1))
+                        for b in slots])
+        return my
+
+    if nmin.shape[0] == 1 and ncount[0] == 0:
+        rows.append(row([]))   # no primitives: four empty slots
+    elif ncount[0] > 0:
+        rows.append(row([(0, -1)]))  # the root is a leaf
+    else:
+        rec(0, 1)
+    return np.stack(rows), 3 * max(depth[0], 1) + 1
+
+
+def with_wide4(flat: FlatBVH) -> FlatBVH:
+    """The tree with its 4-wide view attached, on the tree's device."""
+    table, stack = widen4(flat)
+    return dataclasses.replace(
+        flat, wide4=torch.from_numpy(table).to(flat.node_min.device),
+        wide_stack=stack)
+
+
+def wide_walk(bvh: FlatBVH) -> bool:
+    """Do the walks of this tree take the 4-wide layout? As the JAX
+    kernel decides (``trace_pallas`` :3071, :3113-3118): always in bvh
+    mode, and in stream mode (a tree with the stream table) within
+    WIDE_STREAM_BUDGET; besides, the stack bound must fit WIDE_STACK,
+    which it does for any median-split tree up to the stream cap."""
+    if bvh.wide4 is None or bvh.wide_stack + 4 > WIDE_STACK:
+        return False
+    if bvh.stream_tab is None:
+        return True
+    return 4 * (9 * bvh.n_nodes + bvh.wide4.numel()
+                + 128 * bvh.leaf_size) <= WIDE_STREAM_BUDGET
+
+
 def build_scene_bvh(geom, leaf_size: int = LEAF_SIZE_DEFAULT) -> FlatBVH:
     """One tree over a Geometry's spheres and then its triangles (cube
-    faces included), on the geometry's device; planes are unbounded and
-    stay outside it."""
+    faces included), on the geometry's device, with its 4-wide view;
+    planes are unbounded and stay outside it."""
     host = lambda x: x.detach().cpu().numpy()
     c, r = host(geom.sph_center), host(geom.sph_radius)[:, None]
     v0, v1, v2 = host(geom.tri_v0), host(geom.tri_v1), host(geom.tri_v2)
     lo = np.concatenate([c - r, np.minimum(np.minimum(v0, v1), v2)], axis=0)
     hi = np.concatenate([c + r, np.maximum(np.maximum(v0, v1), v2)], axis=0)
-    return build_bvh(lo, hi, leaf_size, device=geom.sph_center.device)
+    return with_wide4(build_bvh(lo, hi, leaf_size,
+                                device=geom.sph_center.device))
 
 
 # ------------------------------------------------------------- walks ----
@@ -150,7 +258,9 @@ def _box_hit(bmin, bmax, o, inv_d, t_min, t_max):
 
 
 class _Leaves:
-    """Per-lane gathers of the primitives in each lane's current leaf."""
+    """Per-lane gathers of the primitives in each lane's current leaf, by
+    primitive id from the scene tables (bvh mode). A slot's key is its
+    primitive id."""
 
     def __init__(self, bvh: FlatBVH, geom):
         self.ns = geom.sph_center.shape[0]
@@ -165,10 +275,13 @@ class _Leaves:
                                   device=bvh.prim_index.device)
 
     def gather(self, first, count):
-        """(pid (A,L), valid slot (A,L)) of the leaves at first/count."""
+        """(key (A,L), valid slot (A,L)) of the leaves at first/count."""
         p = self.bvh.prim_index
         slot = torch.clamp(first[:, None] + self.slots, max=p.shape[0] - 1)
         return p[slot].to(torch.int64), self.slots < count[:, None]
+
+    def prim_id(self, key):
+        return key
 
     def closest_t(self, o, d, pid, t_min, t_max):
         """(A,L) hit distances of the slots' primitives, BIG where none
@@ -208,6 +321,60 @@ class _Leaves:
         return hit
 
 
+class _RowLeaves:
+    """The same gathers from the unified rows of the stream table (stream
+    mode: the plain version of K5's leaf reads). A leaf's rows are
+    [first, first + count) in slot order; a slot's key is its row. Tag 0
+    is a sphere (center in cols 1-3, radius in col 4), 1 a triangle (v0,
+    e1, e2 in cols 1-9), 2 a cube face and -1 padding, which no test
+    takes: boxes are the hit form of cubes. The floats are those of the
+    scene tables, so every verdict is the bvh-mode walk's."""
+
+    def __init__(self, bvh: FlatBVH):
+        self.bvh = bvh
+        self.rows = bvh.stream_tab[:, :10].contiguous()
+        self.slots = torch.arange(bvh.leaf_size,
+                                  device=bvh.prim_index.device)
+
+    def gather(self, first, count):
+        # the table ends in leaf_size padding rows: no slot runs past it
+        return first[:, None] + self.slots, self.slots < count[:, None]
+
+    def prim_id(self, key):
+        p = self.bvh.prim_index
+        return p[torch.clamp(key, max=p.shape[0] - 1)].to(torch.int64)
+
+    def _split(self, key):
+        r = self.rows[key]                                   # (A,L,10)
+        return r[..., 0], r[..., 1:4], r[..., 4:7], r[..., 7:10]
+
+    def closest_t(self, o, d, key, t_min, t_max):
+        tag, v0, e1, e2 = self._split(key)
+        ts = intersect.sphere_t(o, d, v0, e1[..., 0], t_min, t_max)
+        tt = intersect.triangle_t(o, d, v0, e1, e2, t_min, t_max)
+        return torch.where(tag == 0, ts,
+                           torch.where(tag == 1, tt, intersect.BIG))
+
+    def blocked(self, o, d, key, t_min, t_max, exact):
+        tag, v0, e1, e2 = self._split(key)
+        hs = intersect.sphere_t(o, d, v0, e1[..., 0], t_min,
+                                t_max) < intersect.BIG
+        args = (o, d, v0, e1, e2, t_min, t_max)
+        if exact:
+            ht = intersect.triangle_t(*args) < intersect.BIG
+        else:
+            ht = intersect.triangle_blocked(*args)
+        return torch.where(tag == 0, hs, ht & (tag == 1))
+
+
+def _leaves(bvh: FlatBVH, geom):
+    """The walk's leaf reads: the stream table's rows when the tree
+    carries one (stream mode), else the scene tables by primitive id."""
+    if bvh.stream_tab is not None:
+        return _RowLeaves(bvh)
+    return _Leaves(bvh, geom)
+
+
 def traverse_closest(bvh: FlatBVH, geom, origin, direction, t_min=1e-3,
                      t_max=intersect.BIG):
     """Closest hit over the tree's spheres and triangles: (t, pid) with
@@ -227,7 +394,7 @@ def traverse_closest(bvh: FlatBVH, geom, origin, direction, t_min=1e-3,
                          max=intersect.BIG).clone()
     best = torch.full((B,), -1, dtype=torch.int64, device=dev)
     cursor = torch.zeros(B, dtype=torch.int64, device=dev)
-    leaves = _Leaves(bvh, geom)
+    leaves = _leaves(bvh, geom)
     act = torch.arange(B, device=dev)
     while act.numel():
         cur = cursor[act]
@@ -238,19 +405,78 @@ def traverse_closest(bvh: FlatBVH, geom, origin, direction, t_min=1e-3,
         leaf = cnt > 0
         at = (box & leaf).nonzero()[:, 0]
         if at.numel():
-            pid, valid = leaves.gather(bvh.node_first[cur[at]], cnt[at])
-            t = leaves.closest_t(o[at], d[at], pid, t_min, tb[at])
+            key, valid = leaves.gather(bvh.node_first[cur[at]], cnt[at])
+            t = leaves.closest_t(o[at], d[at], key, t_min, tb[at])
             t = torch.where(valid, t, intersect.BIG)
             j = torch.argmin(t, dim=-1, keepdim=True)
             tj = torch.gather(t, 1, j)[:, 0]
             won = tj < tb[at]
             lanes = act[at[won]]
             t_best[lanes] = tj[won]
-            best[lanes] = torch.gather(pid, 1, j)[:, 0][won]
+            best[lanes] = leaves.prim_id(torch.gather(key, 1, j)[:, 0][won])
         nxt = torch.where(box & ~leaf, cur + 1,
                           bvh.node_skip[cur].to(torch.int64))
         cursor[act] = nxt
         act = act[nxt < n]
+    return torch.where(best >= 0, t_best, intersect.BIG), best
+
+
+def traverse_closest_wide(bvh: FlatBVH, geom, origin, direction,
+                          t_min=1e-3, t_max=intersect.BIG):
+    """``traverse_closest`` over the 4-wide layout: the plain version of
+    K3-wide's closest-hit walk (``closest_fn_wide`` :1000), in its order.
+
+    Each lane pops a wide node off its stack, slab-tests the 4 slots
+    against the t_best it popped with, runs the boxed leaf slots in slot
+    order and pushes the boxed inner slots in slot order (the last pushed
+    is popped first). The boxed leaves' slots are tested at once against
+    that t_best: their first minimum is what the one-by-one scan keeps."""
+    B = origin.shape[0]
+    dev = origin.device
+    inv_d = _safe_inverse(direction)
+    t_best = torch.clamp(torch.as_tensor(t_max, dtype=origin.dtype,
+                                         device=dev).expand(B),
+                         max=intersect.BIG).clone()
+    best = torch.full((B,), -1, dtype=torch.int64, device=dev)
+    w = bvh.wide4.view(-1, 4, 9)
+    lo, hi = w[..., 0:3], w[..., 3:6]
+    child, first, count = (w[..., c].to(torch.int64) for c in (6, 7, 8))
+    stack = torch.zeros((B, bvh.wide_stack + 4), dtype=torch.int64,
+                        device=dev)
+    sp = torch.ones(B, dtype=torch.int64, device=dev)
+    leaves = _leaves(bvh, geom)
+    L = bvh.leaf_size
+    act = torch.arange(B, device=dev)
+    while act.numel():
+        sa = sp[act] - 1
+        cur = stack[act, sa]
+        o, d, tb = origin[act], direction[act], t_best[act]
+        box = _box_hit(lo[cur], hi[cur], o[:, None], inv_d[act][:, None],
+                       t_min, tb[:, None])                         # (A,4)
+        leaf = box & (count[cur] > 0)
+        at = leaf.any(dim=-1).nonzero()[:, 0]
+        if at.numel():
+            c = cur[at]
+            key, valid = leaves.gather(first[c].clamp(min=0).reshape(-1),
+                                       count[c].reshape(-1))
+            key = key.view(-1, 4 * L)
+            valid = (valid.view(-1, 4, L) & leaf[at][..., None]).view(
+                -1, 4 * L)
+            t = leaves.closest_t(o[at], d[at], key, t_min, tb[at])
+            t = torch.where(valid, t, intersect.BIG)
+            j = torch.argmin(t, dim=-1, keepdim=True)
+            tj = torch.gather(t, 1, j)[:, 0]
+            won = tj < tb[at]
+            lanes = act[at[won]]
+            t_best[lanes] = tj[won]
+            best[lanes] = leaves.prim_id(torch.gather(key, 1, j)[:, 0][won])
+        for s in range(4):
+            push = box[:, s] & (child[cur, s] >= 0)
+            stack[act, sa] = torch.where(push, child[cur, s],
+                                         stack[act, sa])
+            sa = sa + push.to(torch.int64)
+        sp[act] = sa
+        act = act[sa > 0]
     return torch.where(best >= 0, t_best, intersect.BIG), best
 
 
@@ -266,7 +492,7 @@ def traverse_any(bvh: FlatBVH, geom, origin, direction, t_min, t_max,
     tm = torch.as_tensor(t_max, dtype=origin.dtype, device=dev).expand(B)
     blocked = torch.zeros(B, dtype=torch.bool, device=dev)
     cursor = torch.zeros(B, dtype=torch.int64, device=dev)
-    leaves = _Leaves(bvh, geom)
+    leaves = _leaves(bvh, geom)
     act = torch.arange(B, device=dev)
     while act.numel():
         cur = cursor[act]
@@ -278,8 +504,8 @@ def traverse_any(bvh: FlatBVH, geom, origin, direction, t_min, t_max,
         at = (box & leaf).nonzero()[:, 0]
         hit = torch.zeros_like(box)
         if at.numel():
-            pid, valid = leaves.gather(bvh.node_first[cur[at]], cnt[at])
-            h = leaves.blocked(o[at], d[at], pid, t_min, tma[at], exact)
+            key, valid = leaves.gather(bvh.node_first[cur[at]], cnt[at])
+            h = leaves.blocked(o[at], d[at], key, t_min, tma[at], exact)
             hit[at] = torch.any(h & valid, dim=-1)
         blocked[act[hit]] = True
         nxt = torch.where(box & ~leaf, cur + 1,

@@ -5,7 +5,8 @@ package's ``Scene`` is a pytree of arrays; ``scene_from_numpy`` takes those
 leaves as numpy arrays, grouped by table, and builds the port's ``Scene``
 from them unchanged, so both packages can trace the very same tables: the
 vertex normals, the extended-kind columns, the texture bindings and the
-scene BVH (``Scene.accel``) included. This module does not import the JAX
+scene BVH (``Scene.accel``) included, with a stream-mode scene's unified
+leaf rows (``accel["stream_tab"]``). This module does not import the JAX
 package: the caller hands over numpy, and texture bindings as plain data.
 """
 
@@ -68,13 +69,20 @@ def scene_from_numpy(camera: Mapping[str, np.ndarray],
     ``tri_vn`` ((Nt,9), or None for a flat scene); ``materials`` may hold
     the ``aux_vec``/``aux_a``/``aux_b`` columns and ``has_advanced``.
     ``textures`` lists the texture bindings as (material index, texture
-    class name, {field: value}). Extra keys (the 4-wide tree) are ignored.
+    class name, {field: value}). ``accel`` may hold ``stream_tab``, the JAX
+    package's stream table (its rows padded to 128 columns): its first 14
+    (23 with vertex normals) columns become the port's, and they must equal
+    the port's own ``megakernel.pack_stream_table`` of the scene, or
+    ValueError. The 4-wide view is not carried: the port widens the
+    carried tree itself (``bvh.widen4``, the JAX package's ``widen4``
+    table for the same tree), so extra keys are ignored.
     """
     device = _device.resolve(device)
     tree = None
     if accel is not None:
-        tree = _tensors(bvh_mod.FlatBVH, accel, device,
-                        leaf_size=int(accel["leaf_size"]))
+        tree = bvh_mod.with_wide4(_tensors(
+            bvh_mod.FlatBVH, accel, device,
+            leaf_size=int(accel["leaf_size"])))
     vn = geometry.get("tri_vn")
     mats = dict(materials)
     n_mat = np.asarray(mats["kind"]).shape[0]
@@ -82,7 +90,7 @@ def scene_from_numpy(camera: Mapping[str, np.ndarray],
                         ("aux_b", (n_mat,))):
         if name not in mats or np.asarray(mats[name]).shape != shape:
             mats[name] = np.zeros(shape, np.float32)
-    return scene_mod.Scene(
+    scene = scene_mod.Scene(
         camera=_tensors(scene_mod.Camera, camera, device),
         geometry=_tensors(scene_mod.Geometry, geometry, device,
                           occl_tris=int(occl_tris),
@@ -94,3 +102,14 @@ def scene_from_numpy(camera: Mapping[str, np.ndarray],
                            for mi, kind, fields in textures)),
         lights=_tensors(scene_mod.Lights, lights, device),
         sph_count=int(sph_count), mesh_count=int(mesh_count), accel=tree)
+    tab = None if accel is None else accel.get("stream_tab")
+    if tab is None:
+        return scene
+    from .ops import megakernel
+    own = megakernel.pack_stream_table(scene)
+    got = _tensor(np.asarray(tab)[:, :own.shape[1]], device)
+    if not torch.equal(got, own):
+        raise ValueError("the JAX scene's stream table differs from the "
+                         "port's pack_stream_table of the same scene")
+    return dataclasses.replace(scene, accel=dataclasses.replace(
+        tree, stream_tab=got))

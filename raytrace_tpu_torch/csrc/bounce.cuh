@@ -1,5 +1,5 @@
 // The bounce loop of one lane, shared by K1 (trace_unroll.cu), K3+K4
-// (trace_bvh.cu) and K7 (trace_loop.cu).
+// (trace_bvh.cu), K5 (trace_stream.cu) and K7 (trace_loop.cu).
 //
 // models/materials.py, models/textures.py, ops/shade.py and trace.py in
 // scalar form: closest hit, smooth normal, material and texture, direct
@@ -11,12 +11,28 @@
 // column counts and table sizes are run-time values, so one build serves
 // flat and smooth, seven-kind and extended scenes alike.
 //
-// The geometry is a policy type with four members, so shading, scatter and
-// accumulation exist once:
+// The loop is resumable (K1-state, the start_bounce/end_bounce/
+// return_state variant of _make_kernel, :278-300, state writes
+// :2448-2459): it runs bounces [start_bounce, end_bounce) from a given
+// throughput and alive flag, the radiance it returns is that segment's
+// alone, and it can write the state the lane carries into bounce
+// end_bounce - origin, direction, throughput and alive, 10 floats. Draws
+// key off the absolute bounce, so segments sum to the whole trace. The
+// resumable form is a second instantiation (kState) of each trace kernel,
+// which a launch takes only when it passes state in or out: the state
+// costs the whole loop registers (K1 about 20), and without it the kernels
+// keep their occupancy.
+//
+// The geometry is a policy type with these members, so shading, scatter
+// and accumulation exist once:
 //
 //   void  closest(V3 o, V3 d, float* t, int* kind, int* idx)
 //         closest hit with t_min = 1e-3: kind 0 sphere, 1 triangle,
-//         2 plane, 3 box, -1 miss; idx indexes that kind's table
+//         2 plane, 3 box, -1 miss; idx indexes that kind's rows
+//   const float* sphere_row(int idx)    the hit sphere's center.xyz and
+//         radius, its material at column kSphMat
+//   const float* triangle_row(int idx)  the hit triangle's row in the
+//         tri layout below
 //   bool  occluded(V3 o, V3 d, float t_max)      the hard shadow test
 //   float soft_unblocked(V3 p, V3 ld, float dist, const SoftRays& rays)
 //         the number of the light's soft-shadow rays that nothing
@@ -36,7 +52,9 @@
 //                 extended kind: + aux_vec.xyz, aux_a, aux_b
 //   tex [ntex][kTexCols]  texture bindings (textures.cuh)
 //   aux [naux][3] the textures' aux rows
-// followed, in bvh mode, by the tree (bvh_walk.cuh).
+// followed, in bvh and stream modes, by the tree (bvh_walk.cuh). In
+// stream mode ns = nt = 0: spheres and triangles are rows of the stream
+// table (trace_stream.cu).
 #pragma once
 
 #include "common.cuh"
@@ -63,7 +81,7 @@ constexpr float kEmissionDirectional = 1.0f;
 // The table sizes the wrapper passes (megakernel.prepare_trace).
 struct Dims {
   int ns, nt, npl, nb, nl, nm, tri_cols, mat_cols, ntex, naux;
-  int n_nodes, leaf_size;  // bvh mode only
+  int n_nodes, leaf_size, n_wide;  // bvh and stream modes only
 };
 
 struct Tables {
@@ -105,6 +123,53 @@ RT_DEV Tables make_tables(const float* base, const Dims& d) {
   tb.ntex = d.ntex;
   tb.naux = d.naux;
   return tb;
+}
+
+constexpr int kStateCols = 10;  // origin.xyz, direction.xyz, tp.xyz, alive
+
+// One trace launch's lanes (flat arrays, lane i at 3*i, 10*i, ...) and
+// run settings, as the wrapper passes them (megakernel.prepare_trace).
+struct Lanes {
+  const float* origin;     // (n,3)
+  const float* direction;  // (n,3)
+  const int32_t* pix;      // (n,)
+  const int32_t* samp;     // (n,)
+  const float* tp_in;      // (n,3) initial throughput, or null: ones
+  const float* alive_in;   // (n,) initial alive flag 0/1, or null: alive
+  float* radiance;         // (n,3) the segment's radiance
+  float* state;            // (n,kStateCols) the state after, or null
+  int32_t* counters;       // (n,n_counters) work counters, or null
+  int n;
+};
+
+struct Run {
+  int start_bounce, end_bounce, shadow_samples, soft, recursive;
+  uint32_t seed;
+};
+
+// Does a launch resume or return lane state (the kState instantiation)?
+RT_HD bool stateful(const Lanes& io, const Run& run) {
+  return run.start_bounce != 0 || io.tp_in != nullptr ||
+         io.alive_in != nullptr || io.state != nullptr;
+}
+
+RT_HD Lanes make_lanes(const float* origin, const float* direction,
+                       const int32_t* pix, const int32_t* samp,
+                       const float* tp_in, const float* alive_in,
+                       float* radiance, float* state, int32_t* counters,
+                       int n) {
+  Lanes io;
+  io.origin = origin;
+  io.direction = direction;
+  io.pix = pix;
+  io.samp = samp;
+  io.tp_in = tp_in;
+  io.alive_in = alive_in;
+  io.radiance = radiance;
+  io.state = state;
+  io.counters = counters;
+  io.n = n;
+  return io;
 }
 
 // The draws of one (lane, bounce, light) that make its soft-shadow rays.
@@ -196,32 +261,42 @@ RT_DEV V3 lambert_dir(V3 n, V3 bl) {
   return normalize3(near_zero ? n : l);
 }
 
-// One lane through the whole depth loop. counters (optional): closest-hit
-// rays, hard shadow rays, soft shadow rays, then the geometry's own work.
-template <class Geo>
-RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, uint32_t pix,
-                       uint32_t samp, int max_depth, int shadow_samples,
-                       bool soft, bool recursive, uint32_t seed, float* rad,
+// One lane through bounces [start_bounce, end_bounce) of the depth loop,
+// from throughput tp if alive. rad gets the segment's radiance; state
+// (optional) the lane's origin, direction, throughput and alive flag after
+// it: a lane that misses or stops scattering keeps those of the bounce it
+// died at. counters (optional): closest-hit rays, hard shadow rays, soft
+// shadow rays, then the geometry's own work.
+template <bool kState, class Geo>
+RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, V3 tp,
+                       bool alive, uint32_t pix, uint32_t samp,
+                       const Run& run, float* rad, float* state,
                        int32_t* counters) {
-  V3 tp{1.0f, 1.0f, 1.0f};
+  const bool soft = run.soft != 0;
+  const int shadow_samples = run.shadow_samples;
+  const uint32_t seed = run.seed;
   V3 r{0.0f, 0.0f, 0.0f};
   int n_closest = 0, n_hard = 0, n_soft = 0;
-  for (int bounce = 0; bounce < max_depth; ++bounce) {
+  for (int bounce = kState ? run.start_bounce : 0;
+       (!kState || alive) && bounce < run.end_bounce; ++bounce) {
     ++n_closest;
     float t;
     int kind_hit, idx;
     geo.closest(o, d, &t, &kind_hit, &idx);
-    if (kind_hit < 0) break;  // miss: the lane contributes nothing more
+    if (kind_hit < 0) {  // miss: the lane contributes nothing more
+      alive = false;
+      break;
+    }
 
     V3 p{o.x + d.x * t, o.y + d.y * t, o.z + d.z * t};
     V3 out;
     int mid;
     if (kind_hit == 0) {
-      const float* s = tb.sph + 5 * idx;
+      const float* s = geo.sphere_row(idx);
       out = V3{(p.x - s[0]) / s[3], (p.y - s[1]) / s[3], (p.z - s[2]) / s[3]};
-      mid = static_cast<int>(s[4]);
+      mid = static_cast<int>(s[Geo::kSphMat]);
     } else if (kind_hit == 1) {
-      const float* tr = tb.tri + tb.tri_cols * idx;
+      const float* tr = geo.triangle_row(idx);
       out = V3{tr[9], tr[10], tr[11]};
       if (tb.tri_cols >= 22) out = smooth_normal(tr, o, d, out);
       mid = static_cast<int>(tr[12]);
@@ -424,6 +499,7 @@ RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, uint32_t pix,
       r.x = r.x + tp.x * dl.x;
       r.y = r.y + tp.y * dl.y;
       r.z = r.z + tp.z * dl.z;
+      alive = false;
       break;
     }
     r.x = r.x + tp.x * dl.x * w_d;
@@ -432,17 +508,57 @@ RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, uint32_t pix,
     tp = V3{tp.x * att.x * w_r, tp.y * att.y * w_r, tp.z * att.z * w_r};
     o = p;
     d = sdir;
-    if (!recursive) break;
+    if (run.recursive == 0) {
+      alive = false;
+      break;
+    }
   }
   rad[0] = r.x;
   rad[1] = r.y;
   rad[2] = r.z;
+  if (kState && state != nullptr) {
+    state[0] = o.x;
+    state[1] = o.y;
+    state[2] = o.z;
+    state[3] = d.x;
+    state[4] = d.y;
+    state[5] = d.z;
+    state[6] = tp.x;
+    state[7] = tp.y;
+    state[8] = tp.z;
+    state[9] = alive ? 1.0f : 0.0f;
+  }
   if (counters != nullptr) {
     counters[0] = n_closest;
     counters[1] = n_hard;
     counters[2] = n_soft;
     geo.store_work(counters + 3);
   }
+}
+
+// Lane `lane` of a launch: reads its inputs, runs trace_lane, writes its
+// outputs (the entry of every trace kernel).
+template <bool kState, class Geo>
+RT_DEV void run_lane(Geo& geo, const Tables& tb, const Lanes& io,
+                     const Run& run, int lane, int n_counters) {
+  const float* o = io.origin + 3 * lane;
+  const float* d = io.direction + 3 * lane;
+  V3 tp{1.0f, 1.0f, 1.0f};
+  bool alive = true;
+  if (kState) {
+    if (io.tp_in != nullptr) {
+      const float* t = io.tp_in + 3 * lane;
+      tp = V3{t[0], t[1], t[2]};
+    }
+    alive = io.alive_in == nullptr || io.alive_in[lane] > 0.0f;
+  }
+  trace_lane<kState>(geo, tb, V3{o[0], o[1], o[2]}, V3{d[0], d[1], d[2]},
+             tp, alive,
+             static_cast<uint32_t>(io.pix[lane]),
+             static_cast<uint32_t>(io.samp[lane]), run, io.radiance + 3 * lane,
+             io.state == nullptr ? nullptr : io.state + kStateCols * lane,
+             io.counters == nullptr ? nullptr
+                                    : io.counters + n_counters * lane);
 }
 
 }  // namespace rt

@@ -26,8 +26,14 @@ constexpr int kBruteCounters = 5;  // 3 from trace_lane + tests[2]
 // and boxes (tests[1]).
 template <bool kLdg>
 struct BruteGeo {
+  static constexpr int kSphMat = 4;  // sph row: center.xyz, radius, mat
   const Tables& tb;
   int tests[2];
+
+  RT_DEV const float* sphere_row(int i) const { return tb.sph + 5 * i; }
+  RT_DEV const float* triangle_row(int i) const {
+    return tb.tri + tb.tri_cols * i;
+  }
 
   // First minimum over [sph, tri, pln, box] (strict <, in table order).
   RT_DEV void closest(V3 o, V3 d, float* t_out, int* kind_out,
@@ -113,20 +119,11 @@ struct BruteGeo {
 };
 
 // One thread, one lane: the shared entry of K1 and K7 over the tables tb.
-template <bool kLdg>
-RT_DEV void brute_lane(const Tables& tb, int lane, const float* origin,
-                       const float* direction, const int32_t* pix,
-                       const int32_t* samp, float* radiance,
-                       int32_t* counters, int max_depth, int shadow_samples,
-                       int soft, int recursive, uint32_t seed) {
+template <bool kLdg, bool kState>
+RT_DEV void brute_lane(const Tables& tb, const Lanes& io, const Run& run,
+                       int lane) {
   BruteGeo<kLdg> geo{tb, {0, 0}};
-  const float* o = origin + 3 * lane;
-  const float* d = direction + 3 * lane;
-  trace_lane(geo, tb, V3{o[0], o[1], o[2]}, V3{d[0], d[1], d[2]},
-             static_cast<uint32_t>(pix[lane]),
-             static_cast<uint32_t>(samp[lane]), max_depth, shadow_samples,
-             soft != 0, recursive != 0, seed, radiance + 3 * lane,
-             counters == nullptr ? nullptr : counters + kBruteCounters * lane);
+  run_lane<kState>(geo, tb, io, run, lane, kBruteCounters);
 }
 
 }  // namespace rt

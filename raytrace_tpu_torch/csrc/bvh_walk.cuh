@@ -1,23 +1,32 @@
-// K3 and K4: the scene-BVH walks of the bounce loop in bvh mode.
+// K3 and K4: the scene-BVH walks of the bounce loop in bvh mode, and over
+// the stream table's leaf rows in stream mode (K5, trace_stream.cu).
 //
 // Replaces, in raytrace_tpu/ops/megakernel.py:_make_kernel(mode="bvh"),
 // the closest-hit walks closest_fn_binary (:954) and closest_fn_wide
 // (:1000) and the hard-shadow walk occl_test_fn (:1104) - K3 - and the
 // fused soft-shadow walk soft_fused_fn (:1308, _node_delta :1401) - K4.
-// Plain versions: bvh.py:traverse_closest / traverse_any, as
-// ops/intersect.py and ops/shade.py call them (one walk per ray).
+// Plain versions: bvh.py:traverse_closest_wide (traverse_closest in the
+// binary order) and traverse_any, as ops/intersect.py and ops/shade.py
+// call them (one walk per ray).
 //
-// One thread walks for one lane. The walks are stackless: the tree is in
-// DFS order with skip pointers, a box hit moves the cursor to the next
-// node and a miss to the node's skip pointer, so the cursor only grows and
-// a walk visits each node at most once (the node loops are bounded by the
-// node count, the leaf loops by the leaf size). The closest-hit walk is
-// the binary walk of traverse_closest in the same node order with the same
-// slab and primitive arithmetic and the same strict t < t_best, so it
-// takes the same hit, ties included. (The TPU kernel's default is a 4-wide
-// stack walk, which differs only on exact ties; the 4-wide layout is later
-// performance work.) Boxes and planes are unbounded or few and stay brute
-// force around the walk, in the order of intersect.py:_closest_hit_accel.
+// One thread walks for one lane, in one of two orders (walk_tree below).
+// The 4-wide stack walk - K3-wide, the JAX kernel's default, replacing
+// closest_fn_wide (:1000) and the wide bodies of the shadow walks (:1258,
+// :1621) - pops a wide node off the lane's stack, slab-tests its 4 slots
+// against the state it popped with, runs the boxed leaf slots in slot
+// order and pushes the boxed inner slots in slot order. The binary skip
+// walk, the fallback, takes the tree in DFS order with skip pointers: a
+// box hit moves the cursor to the next node and a miss to the node's skip
+// pointer, so a walk visits each node at most once. Which one a scene
+// takes is bvh.py:wide_walk's choice, the JAX kernel's: the 4-wide table
+// is then in the tables and n_wide > 0. The closest-hit walk has
+// the slab and primitive arithmetic and the strict t < t_best of
+// bvh.py:traverse_closest_wide (traverse_closest for the binary order), so
+// it takes the same hit, ties included; the two orders differ only in
+// which of two hits at exactly equal t wins. The shadow walks' verdicts do
+// not depend on the order. Boxes and planes are unbounded or few and stay
+// brute force around the walk, in the order of
+// intersect.py:_closest_hit_accel.
 //
 // K4 makes one walk for all soft-shadow rays of a (lane, light): node
 // slabs are tested once, with the central light direction, against boxes
@@ -35,11 +44,17 @@
 // and are read through the read-only cache.
 //
 // Node table: [n_nodes][9] min.xyz, max.xyz, skip, first, count (floats,
-// exact integers); prim_index: [P] floats, a primitive id per leaf slot
-// (id < ns: sphere, else triangle id - ns; triangles past the hit table,
-// the cube faces, are skipped: their boxes are the hit form). The smooth
-// normal of a triangle winner (K1-ext) needs only its index, which the
-// closest-hit walk returns.
+// exact integers); 4-wide table: [n_wide][4][9] min.xyz, max.xyz, child,
+// first, count per slot (bvh.py:widen4). Where a leaf's primitives come
+// from is the Leaves policy of the walks:
+//   TreeLeaves (bvh mode, K3+K4): prim_index [P] floats, a primitive id
+//     per leaf slot (id < ns: sphere, else triangle id - ns; triangles past
+//     the hit table, the cube faces, are skipped: their boxes are the hit
+//     form), into the sphere and triangle tables;
+//   RowLeaves (stream mode, K5, trace_stream.cu): the unified rows of the
+//     stream table, one per leaf slot, read in place (see there).
+// The hit's attributes (the smooth normal of a triangle winner, K1-ext,
+// included) are read from the row that the closest-hit walk returns.
 #pragma once
 
 #include "bounce.cuh"
@@ -47,12 +62,54 @@
 namespace rt {
 
 constexpr int kBvhCounters = 10;  // 3 from trace_lane + 7 below
+constexpr int kWideStack = 64;    // bvh.py:WIDE_STACK
 
 struct Bvh {
   const float* nodes;
-  const float* pidx;
   int n_nodes;
   int leaf_size;
+  const float* wide;  // the 4-wide table, when n_wide > 0
+  int n_wide;
+};
+
+// The tables after the scene tables (bvh and stream modes): the node
+// table, then the 4-wide table; returns what follows them.
+RT_DEV const float* bvh_tables(const float* tables, const Dims& dims,
+                               Bvh* bvh) {
+  bvh->nodes = tables + table_floats(dims);
+  bvh->n_nodes = dims.n_nodes;
+  bvh->leaf_size = dims.leaf_size;
+  bvh->wide = bvh->nodes + 9 * dims.n_nodes;
+  bvh->n_wide = dims.n_wide;
+  return bvh->wide + 36 * dims.n_wide;
+}
+
+// Leaf slots as indices into the scene's sphere and triangle tables.
+struct TreeLeaves {
+  static constexpr int kSphMat = 4;  // sph row: center.xyz, radius, mat
+  const Tables& tb;
+  const float* pidx;
+
+  // The primitive of leaf slot `slot`: 0 sphere (*row: center.xyz,
+  // radius), 1 triangle (*row: v0, e1, e2), -1 none (a cube face); *id
+  // indexes sphere_row/triangle_row.
+  RT_DEV int prim(int slot, int* id, const float** row) const {
+    int pid = static_cast<int>(ldg(pidx + slot));
+    if (pid < tb.ns) {
+      *id = pid;
+      *row = tb.sph + 5 * pid;
+      return 0;
+    }
+    int ti = pid - tb.ns;
+    if (ti >= tb.nt) return -1;
+    *id = ti;
+    *row = tb.tri + tb.tri_cols * ti;
+    return 1;
+  }
+  RT_DEV const float* sphere_row(int i) const { return tb.sph + 5 * i; }
+  RT_DEV const float* triangle_row(int i) const {
+    return tb.tri + tb.tri_cols * i;
+  }
 };
 
 struct NodeBox {
@@ -72,10 +129,10 @@ RT_DEV NodeBox load_node(const Bvh& bvh, int i) {
 }
 
 // bvh.py:_box_hit - the slab interval clamped to [t_min, t_max].
-RT_DEV bool slab_hit(const NodeBox& b, V3 o, V3 inv, float t_max) {
-  float t0x = (b.lo.x - o.x) * inv.x, t1x = (b.hi.x - o.x) * inv.x;
-  float t0y = (b.lo.y - o.y) * inv.y, t1y = (b.hi.y - o.y) * inv.y;
-  float t0z = (b.lo.z - o.z) * inv.z, t1z = (b.hi.z - o.z) * inv.z;
+RT_DEV bool slab_hit(V3 lo, V3 hi, V3 o, V3 inv, float t_max) {
+  float t0x = (lo.x - o.x) * inv.x, t1x = (hi.x - o.x) * inv.x;
+  float t0y = (lo.y - o.y) * inv.y, t1y = (hi.y - o.y) * inv.y;
+  float t0z = (lo.z - o.z) * inv.z, t1z = (hi.z - o.z) * inv.z;
   float near = fmaxf(fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
                            fminf(t0z, t1z)), kTMin);
   float far = fminf(fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
@@ -83,14 +140,81 @@ RT_DEV bool slab_hit(const NodeBox& b, V3 o, V3 inv, float t_max) {
   return near <= far;
 }
 
+// One ray's walk of the tree, in the 4-wide order when the tables hold the
+// 4-wide view (n_wide > 0), else the binary order. enter(lo, hi): is a box
+// entered (its slab test, with the walk's current state); leaf(first,
+// count): run a boxed leaf, returning true to end the walk. A wide node's
+// four slots are tested before any of them runs, as in closest_fn_wide.
+// Both orders are in every kernel entry (K3+K4 takes 155 registers, 122
+// with the binary walk alone): entries of one order each were slower on
+// the stream frames' ladder segments in a same-call A/B on the H100,
+// although they took fewer registers (PERF.md).
+template <class Enter, class Leaf>
+RT_DEV void walk_tree(const Bvh& bvh, Enter&& enter, Leaf&& leaf) {
+  if (bvh.n_wide > 0) {
+    int stack[kWideStack];
+    int sp = 1;
+    stack[0] = 0;
+    while (sp > 0) {
+      const float* w = bvh.wide + 36 * stack[--sp];
+      bool boxed[4];
+      for (int s = 0; s < 4; ++s) {
+        const float* b = w + 9 * s;
+        boxed[s] = enter(V3{ldg(b), ldg(b + 1), ldg(b + 2)},
+                         V3{ldg(b + 3), ldg(b + 4), ldg(b + 5)});
+      }
+      // A leaf that ends the walk ends it after the node's four slots, as
+      // the JAX body sets sp = 0 after them. (A return from inside this
+      // loop, or the loop kept rolled with `#pragma unroll 1`, came out of
+      // ptxas -O3 with wrong soft-shadow verdicts on the H100, right at -O1
+      // and in a host build of the same source; PERF.md.)
+      bool done = false;
+      for (int s = 0; s < 4; ++s) {
+        if (!boxed[s]) continue;
+        const float* m = w + 9 * s + 6;
+        int child = static_cast<int>(ldg(m));
+        int count = static_cast<int>(ldg(m + 2));
+        if (count > 0 && !done)
+          done = leaf(static_cast<int>(ldg(m + 1)), count);
+        // wide_walk admits a tree only when its stack bound fits
+        if (child >= 0 && sp < kWideStack) stack[sp++] = child;
+      }
+      if (done) return;
+    }
+  } else {
+    int cur = 0;
+    for (int step = 0; step < bvh.n_nodes && cur < bvh.n_nodes; ++step) {
+      NodeBox b = load_node(bvh, cur);
+      if (!enter(b.lo, b.hi)) {
+        cur = b.skip;
+        continue;
+      }
+      if (b.count == 0) {
+        ++cur;
+        continue;
+      }
+      if (leaf(b.first, b.count)) return;
+      cur = b.skip;
+    }
+  }
+}
+
+template <class Leaves>
 struct BvhGeo {
+  static constexpr int kSphMat = Leaves::kSphMat;
   const Tables& tb;
+  Leaves lv;
   Bvh bvh;
   // Work: [0] node slab tests and [1] sphere and [2] triangle tests of the
   // closest-hit and hard-shadow walks; [3] node slab tests and [4] (ray,
   // sphere) and [5] (ray, triangle) tests of the fused soft walks; [6]
   // brute-force plane and box tests.
   int work[7];
+
+  RT_DEV const float* sphere_row(int i) const { return lv.sphere_row(i); }
+  RT_DEV const float* triangle_row(int i) const {
+    return lv.triangle_row(i);
+  }
 
   RT_DEV void closest(V3 o, V3 d, float* t_out, int* kind_out,
                       int* idx_out) {
@@ -106,45 +230,45 @@ struct BvhGeo {
       if (tj < t_box) { t_box = tj; b_idx = j; }
     }
     float t_best = t_box;
-    int best = -1;
-    int cur = 0;
-    for (int step = 0; step < bvh.n_nodes && cur < bvh.n_nodes; ++step) {
-      ++work[0];
-      NodeBox b = load_node(bvh, cur);
-      if (!slab_hit(b, o, inv, t_best)) {
-        cur = b.skip;
-        continue;
-      }
-      if (b.count == 0) {
-        ++cur;
-        continue;
-      }
-      for (int j = 0; j < bvh.leaf_size && j < b.count; ++j) {
-        int pid = static_cast<int>(ldg(bvh.pidx + b.first + j));
-        float tj;
-        if (pid < tb.ns) {
-          ++work[1];
-          float s[4];
-          load_row<true>(tb.sph + 5 * pid, 4, s);
-          tj = sphere_t(o, d, a, inv_a, s, t_best);
-        } else {
-          int ti = pid - tb.ns;
-          if (ti >= tb.nt) continue;  // a cube face
-          ++work[2];
-          float tr[9];
-          load_row<true>(tb.tri + tb.tri_cols * ti, 9, tr);
-          tj = triangle_t(o, d, tr, t_best);
-        }
-        if (tj < t_best) { t_best = tj; best = pid; }
-      }
-      cur = b.skip;
-    }
+    int best_kind = -1, best_id = 0;
+    walk_tree(
+        bvh,
+        [&](V3 lo, V3 hi) {
+          ++work[0];
+          return slab_hit(lo, hi, o, inv, t_best);
+        },
+        [&](int first, int count) {
+          for (int j = 0; j < bvh.leaf_size && j < count; ++j) {
+            int id;
+            const float* row;
+            int k = lv.prim(first + j, &id, &row);
+            if (k < 0) continue;  // a cube face
+            float tj;
+            if (k == 0) {
+              ++work[1];
+              float s[4];
+              load_row<true>(row, 4, s);
+              tj = sphere_t(o, d, a, inv_a, s, t_best);
+            } else {
+              ++work[2];
+              float tr[9];
+              load_row<true>(row, 9, tr);
+              tj = triangle_t(o, d, tr, t_best);
+            }
+            if (tj < t_best) {
+              t_best = tj;
+              best_kind = k;
+              best_id = id;
+            }
+          }
+          return false;
+        });
     float t = kBig;
     int kind = -1, idx = 0;
-    if (best >= 0) {
+    if (best_kind >= 0) {
       t = t_best;
-      kind = best < tb.ns ? 0 : 1;
-      idx = best < tb.ns ? best : best - tb.ns;
+      kind = best_kind;
+      idx = best_id;
     }
     if (tb.nb > 0 && t_box < t) { t = t_box; kind = 3; idx = b_idx; }
     float t_pl = kBig;
@@ -174,37 +298,35 @@ struct BvhGeo {
     }
     float a = dot3(d, d);
     float inv_a = 1.0f / a;
-    int cur = 0;
-    for (int step = 0; step < bvh.n_nodes && cur < bvh.n_nodes; ++step) {
-      ++work[0];
-      NodeBox b = load_node(bvh, cur);
-      if (!slab_hit(b, o, inv, t_max)) {
-        cur = b.skip;
-        continue;
-      }
-      if (b.count == 0) {
-        ++cur;
-        continue;
-      }
-      for (int j = 0; j < bvh.leaf_size && j < b.count; ++j) {
-        int pid = static_cast<int>(ldg(bvh.pidx + b.first + j));
-        if (pid < tb.ns) {
-          ++work[1];
-          float s[4];
-          load_row<true>(tb.sph + 5 * pid, 4, s);
-          if (sphere_t(o, d, a, inv_a, s, t_max) < kBig) return true;
-        } else {
-          int ti = pid - tb.ns;
-          if (ti >= tb.nt) continue;
-          ++work[2];
-          float tr[9];
-          load_row<true>(tb.tri + tb.tri_cols * ti, 9, tr);
-          if (triangle_blocked(o, d, tr, t_max)) return true;
-        }
-      }
-      cur = b.skip;
-    }
-    return false;
+    bool blocked = false;
+    walk_tree(
+        bvh,
+        [&](V3 lo, V3 hi) {
+          ++work[0];
+          return slab_hit(lo, hi, o, inv, t_max);
+        },
+        [&](int first, int count) {
+          for (int j = 0; j < bvh.leaf_size && j < count; ++j) {
+            int id;
+            const float* row;
+            int k = lv.prim(first + j, &id, &row);
+            if (k < 0) continue;
+            if (k == 0) {
+              ++work[1];
+              float s[4];
+              load_row<true>(row, 4, s);
+              blocked = sphere_t(o, d, a, inv_a, s, t_max) < kBig;
+            } else {
+              ++work[2];
+              float tr[9];
+              load_row<true>(row, 9, tr);
+              blocked = triangle_blocked(o, d, tr, t_max);
+            }
+            if (blocked) return true;
+          }
+          return false;
+        });
+    return blocked;
   }
 
   // K4: all soft-shadow rays of one (lane, light), in one walk for each
@@ -252,65 +374,62 @@ struct BvhGeo {
     const float cone = 0.102f;
     const float tminc = 0.9949f * kTMin;
     V3 iv = safe_inverse(ld);
-    int cur = 0;
-    for (int step = 0; step < bvh.n_nodes && cur < bvh.n_nodes; ++step) {
-      if (bm == full) break;
-      ++work[3];
-      NodeBox b = load_node(bvh, cur);
-      // _node_delta: the cone's reach at the node's farthest corner
-      float fx = fmaxf((b.lo.x - p.x) * (b.lo.x - p.x),
-                       (b.hi.x - p.x) * (b.hi.x - p.x));
-      float fy = fmaxf((b.lo.y - p.y) * (b.lo.y - p.y),
-                       (b.hi.y - p.y) * (b.hi.y - p.y));
-      float fz = fmaxf((b.lo.z - p.z) * (b.lo.z - p.z),
-                       (b.hi.z - p.z) * (b.hi.z - p.z));
-      float delta = cone * fminf(sqrtf(fx + fy + fz), dist);
-      float t0x = (b.lo.x - delta - p.x) * iv.x;
-      float t1x = (b.hi.x + delta - p.x) * iv.x;
-      float t0y = (b.lo.y - delta - p.y) * iv.y;
-      float t1y = (b.hi.y + delta - p.y) * iv.y;
-      float t0z = (b.lo.z - delta - p.z) * iv.z;
-      float t1z = (b.hi.z + delta - p.z) * iv.z;
-      float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                         fmaxf(fminf(t0z, t1z), tminc));
-      float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                        fminf(fmaxf(t0z, t1z), dist));
-      if (!(near <= far)) {
-        cur = b.skip;
-        continue;
-      }
-      if (b.count == 0) {
-        ++cur;
-        continue;
-      }
-      for (int j = 0; j < bvh.leaf_size && j < b.count && bm != full; ++j) {
-        int pid = static_cast<int>(ldg(bvh.pidx + b.first + j));
-        if (pid < tb.ns) {
-          float s[4];
-          load_row<true>(tb.sph + 5 * pid, 4, s);
-          for (int r = 0; r < S; ++r) {
-            if (bm >> r & 1ull) continue;
-            ++work[4];
-            if (sphere_t(p, V3{sx[r], sy[r], sz[r]}, sa[r], sia[r], s,
-                         dist) < kBig)
-              bm |= 1ull << r;
+    if (bm == full) return popc64(bm);
+    walk_tree(
+        bvh,
+        [&](V3 lo, V3 hi) {
+          ++work[3];
+          // _node_delta: the cone's reach at the box's farthest corner
+          float fx = fmaxf((lo.x - p.x) * (lo.x - p.x),
+                           (hi.x - p.x) * (hi.x - p.x));
+          float fy = fmaxf((lo.y - p.y) * (lo.y - p.y),
+                           (hi.y - p.y) * (hi.y - p.y));
+          float fz = fmaxf((lo.z - p.z) * (lo.z - p.z),
+                           (hi.z - p.z) * (hi.z - p.z));
+          float delta = cone * fminf(sqrtf(fx + fy + fz), dist);
+          float t0x = (lo.x - delta - p.x) * iv.x;
+          float t1x = (hi.x + delta - p.x) * iv.x;
+          float t0y = (lo.y - delta - p.y) * iv.y;
+          float t1y = (hi.y + delta - p.y) * iv.y;
+          float t0z = (lo.z - delta - p.z) * iv.z;
+          float t1z = (hi.z + delta - p.z) * iv.z;
+          float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                             fmaxf(fminf(t0z, t1z), tminc));
+          float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                            fminf(fmaxf(t0z, t1z), dist));
+          return near <= far;
+        },
+        [&](int first, int count) {
+          for (int j = 0; j < bvh.leaf_size && j < count && bm != full;
+               ++j) {
+            int id;
+            const float* row;
+            int k = lv.prim(first + j, &id, &row);
+            if (k < 0) continue;
+            if (k == 0) {
+              float s[4];
+              load_row<true>(row, 4, s);
+              for (int r = 0; r < S; ++r) {
+                if (bm >> r & 1ull) continue;
+                ++work[4];
+                if (sphere_t(p, V3{sx[r], sy[r], sz[r]}, sa[r], sia[r], s,
+                             dist) < kBig)
+                  bm |= 1ull << r;
+              }
+            } else {
+              float tr[9];
+              load_row<true>(row, 9, tr);
+              TriPre T = tri_pre(p, tr);
+              for (int r = 0; r < S; ++r) {
+                if (bm >> r & 1ull) continue;
+                ++work[5];
+                if (tri_blocked_pre(T, V3{sx[r], sy[r], sz[r]}, dist))
+                  bm |= 1ull << r;
+              }
+            }
           }
-        } else {
-          int ti = pid - tb.ns;
-          if (ti >= tb.nt) continue;
-          float tr[9];
-          load_row<true>(tb.tri + tb.tri_cols * ti, 9, tr);
-          TriPre T = tri_pre(p, tr);
-          for (int r = 0; r < S; ++r) {
-            if (bm >> r & 1ull) continue;
-            ++work[5];
-            if (tri_blocked_pre(T, V3{sx[r], sy[r], sz[r]}, dist))
-              bm |= 1ull << r;
-          }
-        }
-      }
-      cur = b.skip;
-    }
+          return bm == full;
+        });
     return popc64(bm);
   }
 

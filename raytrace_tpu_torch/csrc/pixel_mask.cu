@@ -1,8 +1,9 @@
-// K2 and K6: the per-pixel conservative hit mask.
+// K2, K6 and K6-stream: the per-pixel conservative hit mask.
 //
 // Replaces raytrace_tpu/ops/megakernel.py:pixel_mask_pallas (:2532): K2 is
 // its brute-force branch (bs_hit :2631, pln_hit :2649), K6 its bvh branch
-// (walk :2661-2705). One thread per pixel casts the pixel-center ray of the
+// (walk :2661-2705), K6-stream its node-only branch (node_only :2597, leaf
+// mark :2691-2693). One thread per pixel casts the pixel-center ray of the
 // affine camera and tests it against bounding spheres - every sphere and
 // every triangle's bounding sphere - each inflated by the jitter-cone
 // bound k times its distance plus eps, with forward culling; planes use
@@ -20,6 +21,12 @@
 // (megakernel.py:_mask_tree). A boxed leaf runs the bounding-sphere test
 // of its primitives (through prim_index), all of them, with bitwise ors;
 // a pixel's walk ends at its first hit. The planes follow as in K2.
+//
+// K6-stream (stream mode, past 4096 primitives) is K6's walk with the
+// leaf test replaced: a pixel whose inflated slab walk reaches a leaf is
+// marked. It reads no bounding-sphere table (that table is what the TPU
+// could not hold at this scale), so it passes a superset of K6's pixels;
+// the extra ones trace to black.
 //
 // Thin-lens depth of field is not ported, so the DoF slack terms of the
 // TPU kernel are absent (the wrapper raises on DoF).
@@ -95,6 +102,51 @@ extern "C" __global__ void rt_pixel_mask_kernel(
   out[p] = hit ? 1 : 0;
 }
 
+namespace rt {
+
+// K6's walk (kNodeOnly false: bounding-sphere tests at a boxed leaf, bs
+// and pidx read) or K6-stream's (true: a boxed leaf marks the pixel).
+template <bool kNodeOnly>
+RT_DEV bool mask_walk(const CenterRay& c, const float* bs, const float* nodes,
+                      int n_nodes, const float* pidx) {
+  V3 iv = safe_inverse(V3{c.dx, c.dy, c.dz});
+  bool hit = false;
+  int cur = 0;
+  for (int step = 0; step < n_nodes && cur < n_nodes && !hit; ++step) {
+    const float* nd = nodes + 9 * cur;
+    float t0x = (ldg(nd) - c.ox) * iv.x;
+    float t1x = (ldg(nd + 3) - c.ox) * iv.x;
+    float t0y = (ldg(nd + 1) - c.oy) * iv.y;
+    float t1y = (ldg(nd + 4) - c.oy) * iv.y;
+    float t0z = (ldg(nd + 2) - c.oz) * iv.z;
+    float t1z = (ldg(nd + 5) - c.oz) * iv.z;
+    float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                       fmaxf(fminf(t0z, t1z), 0.0f));
+    float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                      fmaxf(t0z, t1z));
+    int skip = static_cast<int>(ldg(nd + 6));
+    int cnt = static_cast<int>(ldg(nd + 8));
+    if (!(near <= far)) {
+      cur = skip;
+    } else if (cnt == 0) {
+      ++cur;
+    } else if (kNodeOnly) {
+      hit = true;
+    } else {
+      int first = static_cast<int>(ldg(nd + 7));
+      for (int j = 0; j < cnt; ++j) {
+        const float* s = bs + 4 * static_cast<int>(ldg(pidx + first + j));
+        float row[4] = {ldg(s), ldg(s + 1), ldg(s + 2), ldg(s + 3)};
+        hit = hit | bs_hit(c, row);
+      }
+      cur = skip;
+    }
+  }
+  return hit;
+}
+
+}  // namespace rt
+
 extern "C" __global__ void rt_pixel_mask_bvh_kernel(
     uint8_t* __restrict__ out, int width, int n_px, float inv_w,
     float inv_h, const float* __restrict__ cam,
@@ -104,38 +156,20 @@ extern "C" __global__ void rt_pixel_mask_bvh_kernel(
   int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_px) return;
   rt::CenterRay c = rt::center_ray(p, width, inv_w, inv_h, cam);
-  rt::V3 iv = rt::safe_inverse(rt::V3{c.dx, c.dy, c.dz});
-  bool hit = false;
-  int cur = 0;
-  for (int step = 0; step < n_nodes && cur < n_nodes && !hit; ++step) {
-    const float* nd = nodes + 9 * cur;
-    float t0x = (rt::ldg(nd) - c.ox) * iv.x;
-    float t1x = (rt::ldg(nd + 3) - c.ox) * iv.x;
-    float t0y = (rt::ldg(nd + 1) - c.oy) * iv.y;
-    float t1y = (rt::ldg(nd + 4) - c.oy) * iv.y;
-    float t0z = (rt::ldg(nd + 2) - c.oz) * iv.z;
-    float t1z = (rt::ldg(nd + 5) - c.oz) * iv.z;
-    float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                       fmaxf(fminf(t0z, t1z), 0.0f));
-    float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                      fmaxf(t0z, t1z));
-    int skip = static_cast<int>(rt::ldg(nd + 6));
-    int cnt = static_cast<int>(rt::ldg(nd + 8));
-    if (!(near <= far)) {
-      cur = skip;
-    } else if (cnt == 0) {
-      ++cur;
-    } else {
-      int first = static_cast<int>(rt::ldg(nd + 7));
-      for (int j = 0; j < cnt; ++j) {
-        const float* s = bs + 4 * static_cast<int>(rt::ldg(pidx + first + j));
-        float row[4] = {rt::ldg(s), rt::ldg(s + 1), rt::ldg(s + 2),
-                        rt::ldg(s + 3)};
-        hit = hit | rt::bs_hit(c, row);
-      }
-      cur = skip;
-    }
-  }
+  bool hit = rt::mask_walk<false>(c, bs, nodes, n_nodes, pidx);
+  hit = hit | rt::planes_hit(c, pln, npl);
+  out[p] = hit ? 1 : 0;
+}
+
+extern "C" __global__ void rt_pixel_mask_stream_kernel(
+    uint8_t* __restrict__ out, int width, int n_px, float inv_w,
+    float inv_h, const float* __restrict__ cam,
+    const float* __restrict__ nodes, int n_nodes,
+    const float* __restrict__ pln, int npl) {
+  int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_px) return;
+  rt::CenterRay c = rt::center_ray(p, width, inv_w, inv_h, cam);
+  bool hit = rt::mask_walk<true>(c, nullptr, nodes, n_nodes, nullptr);
   hit = hit | rt::planes_hit(c, pln, npl);
   out[p] = hit ? 1 : 0;
 }
@@ -171,6 +205,24 @@ extern "C" int rt_pixel_mask_bvh(uint8_t* out, int width, int height,
                                static_cast<cudaStream_t>(stream)>>>(
         out, width, n_px, inv_w, inv_h, cam, bs, nodes, n_nodes, pidx, pln,
         npl);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K6-stream on `stream`. Returns cudaGetLastError() after the
+// launch.
+extern "C" int rt_pixel_mask_stream(uint8_t* out, int width, int height,
+                                    float inv_w, float inv_h,
+                                    const float* cam, const float* nodes,
+                                    int n_nodes, const float* pln, int npl,
+                                    void* stream) {
+  const int threads = 256;
+  int n_px = width * height;
+  if (n_px > 0) {
+    int blocks = (n_px + threads - 1) / threads;
+    rt_pixel_mask_stream_kernel<<<blocks, threads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        out, width, n_px, inv_w, inv_h, cam, nodes, n_nodes, pln, npl);
   }
   return static_cast<int>(cudaGetLastError());
 }

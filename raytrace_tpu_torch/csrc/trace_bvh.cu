@@ -10,56 +10,63 @@
 //
 // All tables stay in global memory, read through the read-only cache:
 // the scene tables as bounce.cuh lays them out, then the node table
-// [n_nodes][9] and prim_index [P] (bvh_walk.cuh). The bounce body is
-// K1-ext's (smooth normals, kinds 7-12, textures). What bounds it:
-// operations (slab and primitive tests); divergence between the walks of
-// a warp's lanes is the cost this simple design accepts.
+// [n_nodes][9], the 4-wide table [n_wide][36] and prim_index [P]
+// (bvh_walk.cuh). The bounce body is K1-ext's (smooth normals, kinds
+// 7-12, textures). What bounds it: operations (slab and primitive tests);
+// divergence between the walks of a warp's lanes is the cost this simple
+// design accepts.
 #include "bvh_walk.cuh"
 
-extern "C" __global__ void rt_trace_bvh_kernel(
-    const float* __restrict__ origin, const float* __restrict__ direction,
-    const int32_t* __restrict__ pix, const int32_t* __restrict__ samp,
-    float* __restrict__ radiance, int32_t* __restrict__ counters,
-    int n_lanes, const float* __restrict__ tables, rt::Dims dims,
-    int max_depth, int shadow_samples, int soft, int recursive,
-    uint32_t seed) {
+template <bool kState>
+RT_DEV void trace_bvh_body(const rt::Lanes& io, const float* tables,
+                           const rt::Dims& dims, const rt::Run& run) {
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
+  if (lane >= io.n) return;
   rt::Tables tb = rt::make_tables(tables, dims);
   rt::Bvh bvh;
-  bvh.nodes = tables + rt::table_floats(dims);
-  bvh.pidx = bvh.nodes + 9 * dims.n_nodes;
-  bvh.n_nodes = dims.n_nodes;
-  bvh.leaf_size = dims.leaf_size;
-  rt::BvhGeo geo{tb, bvh, {0, 0, 0, 0, 0, 0, 0}};
-  const float* o = origin + 3 * lane;
-  const float* d = direction + 3 * lane;
-  rt::trace_lane(geo, tb, rt::V3{o[0], o[1], o[2]}, rt::V3{d[0], d[1], d[2]},
-                 static_cast<uint32_t>(pix[lane]),
-                 static_cast<uint32_t>(samp[lane]), max_depth, shadow_samples,
-                 soft != 0, recursive != 0, seed, radiance + 3 * lane,
-                 counters == nullptr ? nullptr
-                                     : counters + rt::kBvhCounters * lane);
+  const float* pidx = rt::bvh_tables(tables, dims, &bvh);
+  rt::TreeLeaves lv{tb, pidx};
+  rt::BvhGeo<rt::TreeLeaves> geo{tb, lv, bvh, {0, 0, 0, 0, 0, 0, 0}};
+  rt::run_lane<kState>(geo, tb, io, run, lane, rt::kBvhCounters);
+}
+
+extern "C" __global__ void rt_trace_bvh_kernel(
+    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
+    rt::Run run) {
+  trace_bvh_body<false>(io, tables, dims, run);
+}
+
+// K1-state: the same with lane state in or out.
+extern "C" __global__ void rt_trace_bvh_state_kernel(
+    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
+    rt::Run run) {
+  trace_bvh_body<true>(io, tables, dims, run);
 }
 
 #ifndef RT_HOST_EMULATION
 // Launch K3+K4 on `stream`; dims: the table sizes (bounce.cuh:Dims) as
-// ints. Returns cudaGetLastError() after the launch.
+// ints; tp_in, alive_in, state and counters may be null
+// (bounce.cuh:Lanes). Returns cudaGetLastError() after the launch.
 extern "C" int rt_trace_bvh(const float* origin, const float* direction,
                             const int32_t* pix, const int32_t* samp,
-                            float* radiance, int32_t* counters, int n_lanes,
-                            const float* tables, const int* dims,
-                            int max_depth, int shadow_samples, int soft,
-                            int recursive, uint32_t seed, void* stream) {
+                            const float* tp_in, const float* alive_in,
+                            float* radiance, float* state, int32_t* counters,
+                            int n_lanes, const float* tables, const int* dims,
+                            int start_bounce, int end_bounce,
+                            int shadow_samples, int soft, int recursive,
+                            uint32_t seed, void* stream) {
   const int threads = 128;
   rt::Dims d;
   memcpy(&d, dims, sizeof(d));
+  rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
+                                alive_in, radiance, state, counters, n_lanes);
+  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive, seed};
   if (n_lanes > 0) {
     int blocks = (n_lanes + threads - 1) / threads;
-    rt_trace_bvh_kernel<<<blocks, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        origin, direction, pix, samp, radiance, counters, n_lanes, tables, d,
-        max_depth, shadow_samples, soft, recursive, seed);
+    auto kernel = rt::stateful(io, run) ? rt_trace_bvh_state_kernel
+                                        : rt_trace_bvh_kernel;
+    kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        io, tables, d, run);
   }
   return static_cast<int>(cudaGetLastError());
 }

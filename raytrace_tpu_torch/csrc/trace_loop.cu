@@ -22,13 +22,10 @@
 // Table layout: bounce.cuh.
 #include "brute_force.cuh"
 
-extern "C" __global__ void rt_trace_loop_kernel(
-    const float* __restrict__ origin, const float* __restrict__ direction,
-    const int32_t* __restrict__ pix, const int32_t* __restrict__ samp,
-    float* __restrict__ radiance, int32_t* __restrict__ counters,
-    int n_lanes, const float* __restrict__ tables, rt::Dims dims,
-    int in_smem, int max_depth, int shadow_samples, int soft, int recursive,
-    uint32_t seed) {
+template <bool kState>
+RT_DEV void trace_loop_body(const rt::Lanes& io, const float* tables,
+                            const rt::Dims& dims, int in_smem,
+                            const rt::Run& run) {
   extern __shared__ float smem[];
   if (in_smem) {
     const int n_table = rt::table_floats(dims);
@@ -37,43 +34,58 @@ extern "C" __global__ void rt_trace_loop_kernel(
     __syncthreads();
   }
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
+  if (lane >= io.n) return;
   if (in_smem) {
     rt::Tables tb = rt::make_tables(smem, dims);
-    rt::brute_lane<false>(tb, lane, origin, direction, pix, samp, radiance,
-                          counters, max_depth, shadow_samples, soft,
-                          recursive, seed);
+    rt::brute_lane<false, kState>(tb, io, run, lane);
   } else {
     rt::Tables tb = rt::make_tables(tables, dims);
-    rt::brute_lane<true>(tb, lane, origin, direction, pix, samp, radiance,
-                         counters, max_depth, shadow_samples, soft,
-                         recursive, seed);
+    rt::brute_lane<true, kState>(tb, io, run, lane);
   }
+}
+
+extern "C" __global__ void rt_trace_loop_kernel(
+    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
+    int in_smem, rt::Run run) {
+  trace_loop_body<false>(io, tables, dims, in_smem, run);
+}
+
+// K1-state: the same with lane state in or out.
+extern "C" __global__ void rt_trace_loop_state_kernel(
+    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
+    int in_smem, rt::Run run) {
+  trace_loop_body<true>(io, tables, dims, in_smem, run);
 }
 
 #ifndef RT_HOST_EMULATION
 // Launch K7 on `stream`; dims: the table sizes (bounce.cuh:Dims) as ints;
-// in_smem: copy the tables to shared memory (they fit the budget).
-// Returns cudaGetLastError() after the launch.
+// in_smem: copy the tables to shared memory (they fit the budget); tp_in,
+// alive_in, state and counters may be null (bounce.cuh:Lanes). Returns
+// cudaGetLastError() after the launch.
 extern "C" int rt_trace_loop(const float* origin, const float* direction,
                              const int32_t* pix, const int32_t* samp,
-                             float* radiance, int32_t* counters,
-                             int n_lanes, const float* tables,
-                             const int* dims, int in_smem, int max_depth,
+                             const float* tp_in, const float* alive_in,
+                             float* radiance, float* state,
+                             int32_t* counters, int n_lanes,
+                             const float* tables, const int* dims,
+                             int in_smem, int start_bounce, int end_bounce,
                              int shadow_samples, int soft, int recursive,
                              uint32_t seed, void* stream) {
   const int threads = 128;
   rt::Dims d;
   memcpy(&d, dims, sizeof(d));
+  rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
+                                alive_in, radiance, state, counters, n_lanes);
+  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive, seed};
   size_t smem = in_smem ? static_cast<size_t>(rt::table_floats(d)) *
                               sizeof(float)
                         : 0;
   if (n_lanes > 0) {
     int blocks = (n_lanes + threads - 1) / threads;
-    rt_trace_loop_kernel<<<blocks, threads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-        origin, direction, pix, samp, radiance, counters, n_lanes, tables, d,
-        in_smem, max_depth, shadow_samples, soft, recursive, seed);
+    auto kernel = rt::stateful(io, run) ? rt_trace_loop_state_kernel
+                                        : rt_trace_loop_kernel;
+    kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        io, tables, d, in_smem, run);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,118 @@
+// K5: the bounce megakernel for stream-mode scenes (4097-262,144
+// primitives with a scene BVH).
+//
+// Replaces raytrace_tpu/ops/megakernel.py:trace_pallas (:2987) built by
+// _make_kernel(mode="stream") (_dma_leaf :813, _leaf_closest :909,
+// _leaf_any :1190, _leaf_all :1504; wrapper :3080-3125): the walks of K3
+// and K4 (bvh_walk.cuh) over the node table, in the 4-wide order (K3-wide)
+// where bvh.py:wide_walk takes it, with each leaf's primitives
+// read from the stream table (megakernel.pack_stream_table) instead of the
+// sphere and triangle tables, and the bounce body of bounce.cuh (K1-ext,
+// K1-state). Plain version: trace.py:trace, whose walks read the same rows
+// (bvh.py:_RowLeaves).
+//
+// Stream table: [P + leaf_size][cols] floats, cols = tri_cols + 1 (14, or
+// 23 with vertex normals): tag (0 sphere, 1 triangle, 2 cube-face
+// triangle, -1 padding), then the triangle layout of bounce.cuh - v0.xyz,
+// e1.xyz, e2.xyz, normal.xyz, mat, n0, n1, n2 - with a sphere's center in
+// the v0 slot, its radius in e1.x and its mat in col 13. Rows are in leaf
+// order: a leaf's primitives are rows [first, first + count). Cube faces
+// (tag 2) are skipped by every trace walk, as in bvh mode: boxes are the
+// hit form of cubes and stay brute force, as do planes. The hit's
+// attributes come from its row, the same floats as the scene tables, so
+// K5 equals K3+K4 on the same tree bit for bit.
+//
+// Design for Hopper. The TPU kernel copies each visited leaf's rows from
+// HBM into a scalar-memory scratch because its node table fills most of
+// that memory; here one thread walks for one lane and reads the leaf's
+// rows in place from global memory through the read-only cache (__ldg),
+// as K3 reads its tables. Leaves hold 32-512 rows; no loop keeps a
+// per-leaf array. At the 262,144-primitive cap the node table is about
+// 590 KB and the rows 24 MB (at 23 floats): both stay in global memory,
+// and a warp's lanes share the L2-resident top of the tree. What bounds
+// it: operations (slab and primitive tests); divergence between the walks
+// of a warp's lanes is the cost this simple design accepts.
+#include "bvh_walk.cuh"
+
+namespace rt {
+
+// Leaf slots as rows of the stream table.
+struct RowLeaves {
+  static constexpr int kSphMat = 12;  // (row + 1)[12] is col 13
+  const float* rows;
+  int cols;
+
+  // As TreeLeaves::prim; *id is the row, *row its cols 1...
+  RT_DEV int prim(int slot, int* id, const float** row) const {
+    const float* r = rows + cols * slot;
+    int tag = static_cast<int>(ldg(r));
+    *id = slot;
+    *row = r + 1;
+    return tag == 0 ? 0 : (tag == 1 ? 1 : -1);
+  }
+  RT_DEV const float* sphere_row(int i) const { return rows + cols * i + 1; }
+  RT_DEV const float* triangle_row(int i) const {
+    return rows + cols * i + 1;
+  }
+};
+
+}  // namespace rt
+
+template <bool kState>
+RT_DEV void trace_stream_body(const rt::Lanes& io, const float* tables,
+                              const rt::Dims& dims, const float* rows,
+                              const rt::Run& run) {
+  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= io.n) return;
+  rt::Tables tb = rt::make_tables(tables, dims);
+  rt::Bvh bvh;
+  rt::bvh_tables(tables, dims, &bvh);
+  rt::RowLeaves lv{rows, dims.tri_cols + 1};
+  rt::BvhGeo<rt::RowLeaves> geo{tb, lv, bvh, {0, 0, 0, 0, 0, 0, 0}};
+  rt::run_lane<kState>(geo, tb, io, run, lane, rt::kBvhCounters);
+}
+
+extern "C" __global__ void rt_trace_stream_kernel(
+    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
+    const float* __restrict__ rows, rt::Run run) {
+  trace_stream_body<false>(io, tables, dims, rows, run);
+}
+
+// K1-state: the same with lane state in or out (every launch of the split
+// ladder).
+extern "C" __global__ void rt_trace_stream_state_kernel(
+    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
+    const float* __restrict__ rows, rt::Run run) {
+  trace_stream_body<true>(io, tables, dims, rows, run);
+}
+
+#ifndef RT_HOST_EMULATION
+// Launch K5 on `stream`; dims: the table sizes (bounce.cuh:Dims) as ints,
+// with ns = nt = 0; rows: the stream table; tp_in, alive_in, state and
+// counters may be null (bounce.cuh:Lanes). Returns cudaGetLastError()
+// after the launch.
+extern "C" int rt_trace_stream(const float* origin, const float* direction,
+                               const int32_t* pix, const int32_t* samp,
+                               const float* tp_in, const float* alive_in,
+                               float* radiance, float* state,
+                               int32_t* counters, int n_lanes,
+                               const float* tables, const int* dims,
+                               const float* rows, int start_bounce,
+                               int end_bounce, int shadow_samples, int soft,
+                               int recursive, uint32_t seed, void* stream) {
+  const int threads = 128;
+  rt::Dims d;
+  memcpy(&d, dims, sizeof(d));
+  rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
+                                alive_in, radiance, state, counters, n_lanes);
+  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive, seed};
+  if (n_lanes > 0) {
+    int blocks = (n_lanes + threads - 1) / threads;
+    auto kernel = rt::stateful(io, run) ? rt_trace_stream_state_kernel
+                                        : rt_trace_stream_kernel;
+    kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        io, tables, d, rows, run);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+#endif

@@ -100,18 +100,25 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build().path)
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     dims = ctypes.POINTER(ctypes.c_int)  # bounce.cuh:Dims
-    lanes = [p, p, p, p, p, p, i, p, dims]
-    run = [i, i, i, i, u, p]
+    # origin, direction, pix, samp, tp_in, alive_in, radiance, state,
+    # counters, n_lanes, tables, dims (bounce.cuh:Lanes, Dims)
+    lanes = [p] * 9 + [i, p, dims]
+    # start_bounce, end_bounce, shadow_samples, soft, recursive, seed,
+    # stream (bounce.cuh:Run)
+    run = [i, i, i, i, i, u, p]
     for name, extra in (("rt_trace_unroll", []), ("rt_trace_bvh", []),
-                        ("rt_trace_loop", [i])):
+                        ("rt_trace_stream", [p]), ("rt_trace_loop", [i])):
         fn = getattr(lib, name)
         fn.argtypes = lanes + extra + run
         fn.restype = i
     f = ctypes.c_float
-    lib.rt_pixel_mask.argtypes = [p, i, i, f, f, p, p, i, p, i, p]
-    lib.rt_pixel_mask.restype = i
-    lib.rt_pixel_mask_bvh.argtypes = [p, i, i, f, f, p, p, p, i, p, p, i, p]
-    lib.rt_pixel_mask_bvh.restype = i
+    head = [p, i, i, f, f, p]  # out, width, height, inv_w, inv_h, cam
+    for name, args in (("rt_pixel_mask", [p, i, p, i, p]),
+                       ("rt_pixel_mask_bvh", [p, p, i, p, p, i, p]),
+                       ("rt_pixel_mask_stream", [p, i, p, i, p])):
+        fn = getattr(lib, name)
+        fn.argtypes = head + args
+        fn.restype = i
     return lib
 
 

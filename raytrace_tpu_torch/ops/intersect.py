@@ -220,8 +220,9 @@ def _closest_hit_accel(geom, accel, origin, direction, t_min, t_max) -> Hit:
         t_box, b_idx = _first_min(box_t(origin, direction, geom.box_min,
                                         geom.box_max, t_min, t_max))
         tm_walk = torch.minimum(tm_walk, t_box)
-    t, pid = bvh_mod.traverse_closest(accel, geom, origin, direction, t_min,
-                                      tm_walk)
+    walk = (bvh_mod.traverse_closest_wide if bvh_mod.wide_walk(accel)
+            else bvh_mod.traverse_closest)
+    t, pid = walk(accel, geom, origin, direction, t_min, tm_walk)
     if nb:
         box_wins = t_box < t
         t = torch.where(box_wins, t_box, t)

@@ -5,26 +5,31 @@ is what ``Renderer.render`` runs:
 
 1. the mask (``megakernel.pixel_mask``): a conservative per-pixel hit
    mask from one center ray per pixel against cone-inflated primitives,
-   K2 (brute force) or K6 (a walk over the scene BVH's inflated slabs);
+   K2 (brute force), K6 (a walk over the scene BVH's inflated slabs) or
+   K6-stream (the same walk, stopping at the leaf slabs);
 2. pixel-granular compaction: a cumsum and a scatter of hit pixel ids;
 3. camera rays for the hit pixels' lanes (pcg4d jitter, ``_lane_rays``);
 4. the trace (``megakernel.trace``), by the scene's kernel mode
    (``megakernel._kernel_mode``): K1 (up to 96 primitives, 48 in a
-   smooth-shaded scene), K3+K4 (97-4096 primitives with a scene BVH) or
-   K7 (past the unroll limit without a BVH), the whole bounce loop per
-   lane;
+   smooth-shaded scene), K3+K4 (97-4096 primitives with a scene BVH), K5
+   (4097-262,144 primitives with a scene BVH) or K7 (past the unroll
+   limit without a BVH), the whole bounce loop per lane - in stream mode
+   run as the survivor split ladder (``trace_with_split``): segments of
+   bounces, each a resumable launch (K1-state), with the lanes still
+   alive compacted between them;
 5. a per-pixel segment-add of the samples back into the image.
 
 A lane that misses everything is exactly black, so only hit pixels are
-traced, and since every draw is keyed by (pixel, sample) the result equals
-the dense path's (``render_band``/``lane_radiance``, which run the plain
-engine over every lane and serve as the reference).
+traced, and since every draw is keyed by (pixel, sample) and by the
+absolute bounce the result equals the dense path's
+(``render_band``/``lane_radiance``, which run the plain engine over every
+lane and serve as the reference) up to the float reassociation of the
+ladder's per-level radiance sums.
 
-The host reads one number, the hit-pixel count, to size the trace. The
-JAX package's speculative capacity cache (``_KPAD_CACHE``) and its
-mid-trace survivor re-compaction (``split``, on by default only for
-stream-mode scenes there) are not in the port yet (ROADMAP Queue 1 items 5
-and 6).
+The host reads the hit-pixel count, to size the trace, and in a split
+frame the ladder's overflow, once, after the trace. The JAX package's
+speculative capacity cache (``_KPAD_CACHE``) is not in the port yet
+(ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from . import _device
 from . import camera as cam_mod
 from . import rng
 from . import trace as trace_mod
+from .models import materials as mat_mod
 from .ops import megakernel, tonemap
 from .utils import image as image_util
 
@@ -122,10 +128,140 @@ def render_band(scene, band_y0: int, *, width: int, height: int,
 # Lanes per trace launch: bounds the temporaries of ray generation (the
 # int64 hash).
 TRACE_LANES = 1 << 22
+# Neighbouring pixels per run of the trace chunks' interleave
+# (_pixel_chunks).
+CHUNK_RUN = 64
+# Survivor capacities of the split ladder are multiples of the JAX stream
+# kernel's lane block (16 rows x 128 lanes), so they equal the JAX
+# package's for the same lane count.
+SPLIT_QUANTUM = 16 * 128
+# The first level of the ladder keeps 1/SURV_FRAC of a chunk's lanes.
+SURV_FRAC = 4
+# Render configurations whose ladder overflowed: they render unsplit.
+_SPLIT_BLACKLIST: set = set()
 
 
 def _no_hook(stage, **values):
     pass
+
+
+def _split_levels(split) -> tuple:
+    """Normalise a split spec (0 | int | tuple of ascending bounces)."""
+    if not split:
+        return ()
+    if isinstance(split, int):
+        return (split,)
+    return tuple(split)
+
+
+def _auto_surv_cap(n_lanes: int, frac: Optional[int] = None) -> int:
+    """Survivor capacity of a ladder level: 1/frac of the wavefront
+    (SURV_FRAC by default), rounded up to SPLIT_QUANTUM, never above the
+    wavefront rounded up (renderer.py:_auto_surv_cap :491)."""
+    frac = SURV_FRAC if frac is None else frac
+    q = SPLIT_QUANTUM
+    return min(-(-n_lanes // q) * q, -(-max(1, n_lanes // frac) // q) * q)
+
+
+def pick_deep_caps(scene) -> str:
+    """Deep-level capacity policy of the ladder (:577): "const" when at
+    least 5% of the spheres and triangles are glass or dielectric (glass
+    chains keep lanes alive, so deep levels keep the first level's
+    capacity and cannot overflow), else "shrink" (half of the level
+    above). Box and plane materials are not counted, as in the JAX
+    package. Reads the material ids to the host."""
+    g = scene.geometry
+    mats = torch.cat([g.sph_mat.reshape(-1), g.tri_mat.reshape(-1)])
+    if mats.numel() == 0:
+        return "shrink"
+    kind = scene.materials.kind.to(mats.device)[mats.to(torch.int64)]
+    refr = (kind == mat_mod.GLASS) | (kind == mat_mod.DIELECTRIC)
+    return "const" if float(refr.to(torch.float32).mean()) >= 0.05 else (
+        "shrink")
+
+
+def pick_split(scene, cfg: trace_mod.TraceConfig):
+    """The split ladder (:513): bounces at which the lanes still alive are
+    compacted. Only stream-mode scenes traced to depth 12 or more split:
+    from bounce 2 (shrink scenes) or 4 (const scenes), each level about
+    1.45x the last (at least 3 more), up to max_depth - 2 and 8 levels.
+    Returns 0, a bounce, or a tuple of bounces."""
+    if megakernel._kernel_mode(scene) != "stream" or cfg.max_depth < 12:
+        return 0
+    b = 2 if pick_deep_caps(scene) == "shrink" else 4
+    levels = []
+    while b <= cfg.max_depth - 2 and len(levels) < 8:
+        levels.append(b)
+        b = b + max(3, int(0.45 * b))
+    return tuple(levels) if len(levels) > 1 else (levels[0] if levels
+                                                   else 0)
+
+
+def trace_with_split(scene, origin, direction, pix, samp,
+                     cfg: trace_mod.TraceConfig, *, split=0,
+                     surv_cap: int = 0, deep_caps: str = "const",
+                     hook=_no_hook):
+    """The trace with mid-trace survivor re-compaction (:259): returns
+    (radiance (B,3), overflow), overflow a 0-d int64 tensor on the device.
+
+    Each level runs its bounce segment with ``megakernel.trace`` (resumable
+    launches, K1-state), compacts the lanes still alive into a capacity
+    (a cumsum, a scatter of lane ids and gathers), and goes on with the
+    compacted state from the level's bounce. The first level's capacity is
+    ``surv_cap``; deeper levels keep it ("const") or take half of it
+    ("shrink"). Survivors past a capacity are dropped and counted in
+    overflow: a caller that sees overflow > 0 must trace again unsplit.
+    Otherwise the radiance is the unsplit trace's up to one float add per
+    level. ``hook`` sees each segment ("segment": its bounces and inputs)
+    and each compaction ("split_compact": survivors and capacity)."""
+    levels = tuple(b for b in _split_levels(split) if 0 < b < cfg.max_depth)
+    zero = torch.zeros((), dtype=torch.int64, device=origin.device)
+
+    def go(o, d, px_, sp_, tp, al, b0, rest, cap0, level):
+        seg = dict(start_bounce=b0)
+        if b0 > 0:
+            seg.update(init_throughput=tp, init_alive=al)
+        if not rest:
+            rad = megakernel.trace(scene, o, d, px_, sp_, cfg, **seg)
+            hook("segment", b0=b0, b1=cfg.max_depth, origin=o, direction=d,
+                 pix=px_, samp=sp_, throughput=tp, alive=al)
+            return rad, zero
+        b1 = rest[0]
+        n = o.shape[0]
+        if cap0 > 0:
+            cap = min(n, cap0)
+        elif deep_caps == "const":
+            cap = n  # alive lanes never resurrect: no deep overflow
+        else:
+            cap = _auto_surv_cap(n, frac=2)
+        rad_a, st = megakernel.trace(scene, o, d, px_, sp_, cfg,
+                                     end_bounce=b1, return_state=True, **seg)
+        hook("segment", b0=b0, b1=b1, origin=o, direction=d, pix=px_,
+             samp=sp_, throughput=tp, alive=al)
+        alive = st["alive"] > 0.0
+        pos = torch.cumsum(alive.to(torch.int64), 0) - 1
+        k_surv = pos[-1] + 1
+        overflow = torch.clamp(k_surv - cap, min=0)
+        target = torch.where(alive, torch.clamp(pos, max=cap - 1),
+                             torch.full_like(pos, cap))
+        sidx = torch.zeros(cap + 1, dtype=torch.int64, device=o.device)
+        sidx.scatter_(0, target, torch.arange(n, device=o.device))
+        sidx = sidx[:cap]  # slot cap collected the dead lanes
+        valid = torch.arange(cap, device=o.device) < torch.clamp(k_surv,
+                                                                 max=cap)
+        take = lambda t: t.index_select(0, sidx)
+        hook("split_compact", level=level, bounce=b1, lanes=n, cap=cap,
+             survivors=k_surv)
+        rad_b, ov_deep = go(
+            take(st["origin"]), take(st["direction"]), take(px_),
+            take(sp_), take(st["throughput"]),
+            torch.where(valid, take(st["alive"]), 0.0), b1, rest[1:], 0,
+            level + 1)
+        rad_b = torch.where(valid[:, None], rad_b, 0.0)
+        return rad_a.index_add_(0, sidx, rad_b), overflow + ov_deep
+
+    return go(origin, direction, pix, samp, None, None, 0, levels, surv_cap,
+              0)
 
 
 def _pixel_mask(scene, *, width: int, height: int,
@@ -147,28 +283,57 @@ def _compact_pixels(hit_px, pos_px, k_px: int) -> torch.Tensor:
     return out[:k_px]  # slot k_px collected the misses
 
 
+def _pixel_chunks(px_cidx, samples: int, interleave: bool):
+    """The compacted pixels in trace chunks of at most TRACE_LANES lanes:
+    consecutive pixels, or with ``interleave`` (a split frame) runs of
+    CHUNK_RUN neighbouring pixels dealt out in turn - chunk c of n takes
+    runs c, c + n, c + 2n, ... - so that each chunk is a sample of the
+    whole frame. A ladder level's survivors are then about the frame's
+    share, where a chunk of neighbouring rows over glass keeps more lanes
+    alive than the first capacity (a quarter of them) and overflows. An
+    unsplit frame keeps consecutive chunks: interleaved ones slowed K3+K4
+    on ring-1000, each launch then holding the frame's slowest pixels."""
+    n = px_cidx.shape[0]
+    chunk = max(1, TRACE_LANES // samples)
+    if n <= chunk:
+        return [px_cidx]
+    if not interleave:
+        return list(px_cidx.split(chunk))
+    runs_per_chunk = max(1, chunk // CHUNK_RUN)
+    n_chunks = -(-(-(-n // CHUNK_RUN)) // runs_per_chunk)
+    run = torch.arange(n, device=px_cidx.device) // CHUNK_RUN % n_chunks
+    return [px_cidx[run == c] for c in range(n_chunks)]
+
+
 def _trace_compacted_pixels(scene, px_cidx, *, width: int, height: int,
                             samples: int, cfg: trace_mod.TraceConfig,
-                            go_camera: bool, hook=_no_hook) -> torch.Tensor:
+                            go_camera: bool, split=0,
+                            deep_caps: str = "const", hook=_no_hook):
     """Trace every lane of the compacted pixels with the scene's trace
-    kernel (K1, K3+K4 or K7) and segment-add each pixel's samples into the
-    (H,W,3) mean image, in chunks of at most TRACE_LANES lanes."""
+    kernel and segment-add each pixel's samples into the (H,W,3) mean
+    image, in chunks of at most TRACE_LANES lanes (``_pixel_chunks``),
+    each chunk through the split ladder (``trace_with_split``; first-level
+    capacity from the chunk's lane count). Returns (image, overflow summed
+    over the chunks, a 0-d tensor on the device)."""
     img = torch.zeros((width * height, 3), dtype=torch.float32,
                       device=scene.device)
-    chunk = max(1, TRACE_LANES // samples)
-    for c0 in range(0, px_cidx.shape[0], chunk):
-        px = px_cidx[c0:c0 + chunk]
+    overflow = torch.zeros((), dtype=torch.int64, device=scene.device)
+    for px in _pixel_chunks(px_cidx, samples, interleave=bool(split)):
         pix, samp = _lane_ids(px, samples)
         origin, direction = _lane_rays(scene, pix, samp, width=width,
                                        height=height, cfg=cfg,
                                        go_camera=go_camera)
         hook("lane_rays", px=px, pix=pix, samp=samp, origin=origin,
              direction=direction)
-        rad = megakernel.trace(scene, origin, direction, pix, samp, cfg)
+        rad, ov = trace_with_split(
+            scene, origin, direction, pix, samp, cfg, split=split,
+            surv_cap=_auto_surv_cap(pix.shape[0]) if split else 0,
+            deep_caps=deep_caps, hook=hook)
+        overflow = overflow + ov
         hook("trace", rad=rad)
         img.index_add_(0, px, rad.reshape(-1, samples, 3).sum(dim=1))
         hook("segment_add", img=img)
-    return (img / samples).reshape(height, width, 3)
+    return (img / samples).reshape(height, width, 3), overflow
 
 
 def render_wavefront(scene, *, width: int, height: int, samples: int,
@@ -177,10 +342,19 @@ def render_wavefront(scene, *, width: int, height: int, samples: int,
     """Compacted-wavefront render: (H,W,3) mean linear radiance, on the
     scene's device.
 
+    The trace runs the split ladder of ``pick_split`` (stream mode at
+    depth 12 or more) unless this configuration overflowed before
+    (``_SPLIT_BLACKLIST``); a frame whose ladder overflows is blacklisted
+    and traced again unsplit.
+
     ``hook(stage, **values)`` is called after each stage ("mask", "count",
-    "compact", then per trace chunk "lane_rays", "trace", "segment_add")
-    with what the stage made, so that a profiler or a kernel check reads
-    the path itself instead of repeating it."""
+    "compact", then per trace chunk "lane_rays", the ladder's "segment"
+    and "split_compact" stages, "trace", "segment_add", and in a split
+    frame "overflow") with what the stage made, so that a profiler or a
+    kernel check reads the path itself instead of repeating it."""
+    key = (width, height, samples, cfg, go_camera)
+    split = 0 if key in _SPLIT_BLACKLIST else pick_split(scene, cfg)
+    deep_caps = pick_deep_caps(scene) if split else "const"
     hit_px, pos_px = _pixel_mask(scene, width=width, height=height, cfg=cfg,
                                  go_camera=go_camera)
     hook("mask", hit=hit_px, pos=pos_px)
@@ -191,9 +365,18 @@ def render_wavefront(scene, *, width: int, height: int, samples: int,
                            device=scene.device)
     px_cidx = _compact_pixels(hit_px, pos_px, k_px)
     hook("compact", px=px_cidx)
-    return _trace_compacted_pixels(scene, px_cidx, width=width,
-                                   height=height, samples=samples, cfg=cfg,
-                                   go_camera=go_camera, hook=hook)
+    trace_px = lambda sp: _trace_compacted_pixels(
+        scene, px_cidx, width=width, height=height, samples=samples,
+        cfg=cfg, go_camera=go_camera, split=sp, deep_caps=deep_caps,
+        hook=hook)
+    img, overflow = trace_px(split)
+    if split:
+        ov = int(overflow)  # the ladder's one host read, after the trace
+        hook("overflow", overflow=ov)
+        if ov > 0:
+            _SPLIT_BLACKLIST.add(key)
+            img, _ = trace_px(0)
+    return img
 
 
 _EFFECT_BLOCKS = ("atmospheric", "volumetric", "fog")
@@ -204,8 +387,8 @@ class Renderer:
 
     Runs on ``device`` (default CUDA; raises when there is no GPU unless
     ``device="cpu"`` is given) through the main path, ``render_wavefront``,
-    in the unroll, bvh and loop modes (every scene but those past 4096
-    primitives with a BVH, the stream tier, which raises).
+    in the unroll, bvh, stream and loop modes (every scene but those past
+    262,144 primitives with a BVH, which raise).
     """
 
     def __init__(self, num_workers: Optional[int] = None, device=None):

@@ -14,7 +14,9 @@ loader, so the tables equal the JAX package's bit for bit. Scenes of at
 least ``bvh.BVH_THRESHOLD`` spheres and triangles get a scene BVH
 (``Scene.accel``) at load, built from the same float32 values, so the tree
 equals the JAX package's too; smooth-shaded scenes get one from
-``UNROLL_PRIM_LIMIT_VN`` primitives on, as there.
+``UNROLL_PRIM_LIMIT_VN`` primitives on, as there. Past
+``MAX_BVH_KERNEL_PRIMS`` primitives the accel also carries the stream
+table (``_attach_stream_table``).
 """
 
 from __future__ import annotations
@@ -32,9 +34,10 @@ from . import bvh as bvh_mod
 from .models import materials as mat_mod
 from .models import mesh as mesh_mod
 
-# Past this many primitives (spheres + triangles + planes) the JAX package
-# streams leaf rows from HBM (stream mode, K5), which the port has not
-# ported; the tree's leaf size grows there (_accel_leaf_size).
+# Past this many primitives (spheres + triangles + planes) a scene with a
+# BVH runs stream mode (K5: the walk reads unified leaf rows,
+# Scene.accel.stream_tab); the tree's leaf size grows there
+# (_accel_leaf_size).
 MAX_BVH_KERNEL_PRIMS = 4096
 # Smooth-shaded scenes leave unroll mode past this many primitives in the
 # JAX package (megakernel.UNROLL_PRIM_LIMIT_VN), and from_dict gives them
@@ -165,8 +168,21 @@ def with_accel(scene: Scene, leaf_size: Optional[int] = None) -> Scene:
         return scene
     if leaf_size is None:
         leaf_size = _accel_leaf_size(n + g.pl_point.shape[0])
-    return dataclasses.replace(
-        scene, accel=bvh_mod.build_scene_bvh(g, leaf_size))
+    return _attach_stream_table(dataclasses.replace(
+        scene, accel=bvh_mod.build_scene_bvh(g, leaf_size)))
+
+
+def _attach_stream_table(scene: Scene) -> Scene:
+    """A stream-mode scene (a BVH and more than
+    megakernel.MAX_BVH_KERNEL_PRIMS primitives, as the JAX package reads
+    it) with its unified primitive rows packed once, at build
+    time (megakernel.pack_stream_table), on the accel; other scenes as
+    they are."""
+    from .ops import megakernel
+    if (scene.accel is None
+            or scene.prim_count <= megakernel.MAX_BVH_KERNEL_PRIMS):
+        return scene
+    return megakernel.with_stream_table(scene)
 
 
 @dataclasses.dataclass

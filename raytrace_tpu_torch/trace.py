@@ -119,33 +119,75 @@ def _bounce(scene, pix, samp, cfg, bounce, origin, direction, throughput):
     return keep, emitted, lit, did_scatter, point, scat_dir, new_tp
 
 
-def trace(scene, origin, direction, pix_id, samp_id,
-          cfg: TraceConfig) -> torch.Tensor:
-    """Trace a wavefront of rays to completion: radiance (B,3).
+def state_dict(state: torch.Tensor) -> dict:
+    """The resumable lane state, (B,10) float32 [origin.xyz, direction.xyz,
+    throughput.xyz, alive], as the JAX package's dict of views."""
+    return {"origin": state[:, 0:3], "direction": state[:, 3:6],
+            "throughput": state[:, 6:9], "alive": state[:, 9]}
+
+
+def trace(scene, origin, direction, pix_id, samp_id, cfg: TraceConfig, *,
+          start_bounce: int = 0, end_bounce: Optional[int] = None,
+          init_throughput=None, init_alive=None, return_state: bool = False):
+    """Trace a wavefront of rays: radiance (B,3), or (radiance, state).
 
     origin/direction: (B,3) float32 camera rays (direction unnormalised);
     pix_id/samp_id: (B,) integer lane identities keying the RNG.
+
+    The resumable form (K1-state's plain version; the contract of the JAX
+    package's ``trace_pallas``, :2987-3001) runs bounces
+    [start_bounce, min(end_bounce, max_depth)) from ``init_throughput``
+    (default ones) for the lanes whose ``init_alive`` is nonzero (default
+    every lane); the radiance is that segment's alone, 0 for a lane that
+    starts dead. With ``return_state`` it also returns the state each lane
+    carries into bounce ``end_bounce`` (``state_dict``): a lane still alive
+    has the origin, direction and throughput of its next ray; a lane that
+    died keeps those of the bounce where it missed or stopped scattering.
+    Draws key off the absolute bounce index, so [0,b) and then [b,D) from
+    the state sum to the [0,D) radiance up to one float add.
     """
     check_supported(cfg)
+    n = origin.shape[0]
     radiance = torch.zeros_like(direction)
-    lanes = torch.arange(origin.shape[0], device=origin.device)
-    o = origin
-    d = direction
-    tp = torch.ones_like(direction)
-    pix, samp = pix_id, samp_id
-    for bounce in range(cfg.max_depth):
+    tp_all = (torch.ones_like(direction) if init_throughput is None
+              else init_throughput.to(torch.float32))
+    if init_alive is None:
+        lanes = torch.arange(n, device=origin.device)
+        alive_all = torch.ones(n, dtype=torch.float32, device=origin.device)
+    else:
+        alive_all = (init_alive > 0).to(torch.float32)
+        lanes = alive_all.nonzero()[:, 0]
+    state = None
+    if return_state:
+        state = torch.cat([origin, direction, tp_all, alive_all[:, None]],
+                          1).to(torch.float32)
+    o, d, tp = origin[lanes], direction[lanes], tp_all[lanes]
+    pix, samp = pix_id[lanes], samp_id[lanes]
+    end = cfg.max_depth if end_bounce is None else min(end_bounce,
+                                                       cfg.max_depth)
+    for bounce in range(start_bounce, end):
         if lanes.numel() == 0:
             break
         keep, emitted, lit, scat, point, new_d, new_tp = _bounce(
             scene, pix, samp, cfg, bounce, o, d, tp)
+        if state is not None:
+            state[lanes, 9] = 0.0  # alive again only if it scatters on
         lanes = lanes[keep]
         # two adds in the JAX package's order: (R + emitted) + direct
         radiance[lanes] = radiance[lanes] + emitted
         radiance[lanes] = radiance[lanes] + lit
-        if not cfg.recursive_reflections:
-            break
         live = scat.nonzero()[:, 0]
         lanes = lanes[live]
         pix, samp = pix[keep][live], samp[keep][live]
         o, d, tp = point[live], new_d[live], new_tp[live]
-    return radiance
+        if state is not None:
+            state[lanes, 0:3] = o
+            state[lanes, 3:6] = d
+            state[lanes, 6:9] = tp
+        if not cfg.recursive_reflections:
+            break
+        if state is not None:
+            state[lanes, 9] = 1.0
+    if state is None:
+        return radiance
+    return radiance, state_dict(state)

@@ -21,8 +21,10 @@
   package's exact per-lane any-hit covers at 32x24, 4 spp.
 * Slice: render_wavefront (mask, compaction, trace, segment-add) equals
   render_band under the goldens gate on ring-100.
-* Dispatch: _kernel_mode equals the JAX package's at the tier edges;
-  stream-size scenes raise; the CLI renders a bvh scene.
+* Dispatch: _kernel_mode equals the JAX package's at the tier edges; a
+  4,097-sphere scene renders through the stream tier's plain path and
+  equals render_band; past MAX_STREAM_KERNEL_PRIMS the port raises; the
+  CLI renders a bvh scene.
 """
 
 import dataclasses
@@ -268,19 +270,47 @@ def test_kernel_mode_matches_jax(n):
         assert ts.accel.leaf_size == js.accel.leaf_size
 
 
-def test_stream_scenes_raise():
+@pytest.fixture(scope="module")
+def stream_4097():
     ts = tscene.from_dict(spheres_dict(4097), device="cpu")[0]
     assert tmk._kernel_mode(ts) == "stream"
+    assert ts.accel.stream_tab is not None
+    return ts
+
+
+def test_stream_scenes_render(stream_4097):
+    """A 4,097-sphere scene renders through the stream tier's plain path
+    (K6-stream's and K5's plain versions) and equals the dense path."""
+    ts = dataclasses.replace(stream_4097, camera=dataclasses.replace(
+        stream_4097.camera, position=torch.tensor([32.0, 32.0, -1.0])))
     r = trender.Renderer(device="cpu")
     r.set_samples(1)
-    with pytest.raises(NotImplementedError, match="stream"):
+    r.set_max_depth(3)
+    img = r.render_linear(ts, 4, 3)
+    ref = trender.render_band(ts, 0, width=4, height=3, band_h=3, samples=1,
+                              cfg=r.trace_config()).numpy()
+    assert (img.sum(-1) > 0).any()
+    np.testing.assert_array_equal(img, ref)
+    assert r.render(ts, 4, 3).shape == (3, 4, 3)
+
+
+def test_past_stream_cap_raises(stream_4097, monkeypatch):
+    """Past MAX_STREAM_KERNEL_PRIMS primitives the port raises, naming the
+    JAX package's band route (here the cap is lowered below the scene's
+    4,097 primitives)."""
+    monkeypatch.setattr(tmk, "MAX_STREAM_KERNEL_PRIMS", 4096)
+    ts = stream_4097
+    assert not tmk.scene_fits_kernel(ts)
+    r = trender.Renderer(device="cpu")
+    r.set_samples(1)
+    with pytest.raises(NotImplementedError, match="band"):
         r.render(ts, 4, 3)
-    with pytest.raises(NotImplementedError, match="stream"):
+    with pytest.raises(NotImplementedError, match="band"):
         tmk.pixel_mask(ts, width=4, height=3, cfg=ttrace.TraceConfig())
     o = torch.tensor([[0.0, 1.0, 8.0]])
     d = torch.tensor([[0.0, 0.0, -1.0]])
     i = torch.zeros(1, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="stream"):
+    with pytest.raises(NotImplementedError, match="band"):
         tmk.trace(ts, o, d, i, i, ttrace.TraceConfig())
 
 

@@ -6,28 +6,36 @@ a machine without them:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: K2 and K6 must equal their plain version (the same float32
-operations, no FMA contraction); K1, K3+K4 and K7, with the extended body
-(K1-ext: smooth normals, kinds 7-12, textures), must equal their plain
-version under the goldens image gate (<= 0.1% of pixels off by > 1e-3,
-mean abs error < 1e-4), which admits the rare lane that a one-ulp
-difference of a library pow or sin sends down another branch.
+Tolerances: K2, K6 and K6-stream must equal their plain version (the
+same float32 operations, no FMA contraction); K1, K3+K4, K5 and K7, with
+the extended body (K1-ext: smooth normals, kinds 7-12, textures), must
+equal their plain version under the goldens image gate (<= 0.1% of pixels
+off by > 1e-3, mean abs error < 1e-4), which admits the rare lane that a
+one-ulp difference of a library pow or sin sends down another branch. K5
+must equal K3+K4 on the same tree bit for bit (the same walks over the
+same floats). K3-wide (the 4-wide walk of K3+K4 and K5) must take its
+plain version's hits where primitives tie exactly in t. K1-state's two
+segments must give the alive flags of the plain version exactly, its
+state on the lanes still alive, and the unsplit launch's radiance under
+the image gate.
 """
 
 import copy
-
+import dataclasses
 import json
 import os
 
 import pytest
 import torch
 
+from raytrace_tpu_torch import bvh as tbvh
 from raytrace_tpu_torch import renderer as trender
 from raytrace_tpu_torch import scene as tscene
 from raytrace_tpu_torch import trace as ttrace
 from raytrace_tpu_torch.bench.suite import (bvh_scene_dict,
                                              golden_scene_dict,
-                                             ring_scene_dict)
+                                             ring_scene_dict,
+                                             twin_scene_dict)
 from raytrace_tpu_torch.ops import megakernel as tmk
 
 # The scenes of the extended body: (asset, kernel); the assets run with
@@ -137,6 +145,25 @@ def test_k3_matches_plain(cuda, name):
     gate(got, lane_image(s, ttrace.trace, cfg, 32, 24, 2))
 
 
+def test_k3_wide_tie_order_matches_plain(cuda):
+    """K3-wide on twin_scene_dict (exact ties): the kernel's 4-wide walk
+    takes the copies of its plain version; without the 4-wide view the
+    binary walk takes other copies on some lanes, as its plain version
+    does."""
+    s = tscene.with_accel(tscene.from_dict(twin_scene_dict(),
+                                           device=cuda)[0], leaf_size=1)
+    assert tbvh.wide_walk(s.accel)
+    binary = dataclasses.replace(s, accel=dataclasses.replace(
+        s.accel, wide4=None))
+    cfg = ttrace.TraceConfig(max_depth=4, shadow_samples=4)
+    lanes = main_path_lanes(s, 32, 24, 2, cfg)
+    wide = tmk.trace(s, *lanes, cfg)
+    gate(wide, ttrace.trace(s, *lanes, cfg))
+    walk2 = tmk.trace(binary, *lanes, cfg)
+    gate(walk2, ttrace.trace(binary, *lanes, cfg))
+    assert int(((wide - walk2).abs().amax(-1) > 1e-3).sum()) >= 5
+
+
 def test_main_path_launches_both_kernels(cuda):
     s = scene_on(SCENES[0], cuda)
     cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
@@ -235,6 +262,108 @@ def test_loop_main_path_launches_k2_and_k7(cuda):
     assert tmk.LAUNCHES["trace_loop"] >= 1
     assert tmk.LAUNCHES["pixel_mask"] >= 1
     assert tmk.LAUNCHES["trace_unroll"] == tmk.LAUNCHES["trace_bvh"] == 0
+    dense = trender.render_band(s, 0, width=48, height=36, band_h=36,
+                                samples=2, cfg=cfg)
+    gate(img, dense)
+
+
+def forced_stream(d, device, monkeypatch):
+    """A small scene in stream mode (MAX_BVH_KERNEL_PRIMS patched below
+    its size before it is built, so its accel carries the stream table),
+    on a leaf-size-4 tree."""
+    monkeypatch.setattr(tmk, "UNROLL_PRIM_LIMIT", 4)
+    monkeypatch.setattr(tmk, "MAX_BVH_KERNEL_PRIMS", 8)
+    s = tscene.with_accel(tscene.from_dict(d, device=device,
+                                           build_accel=False)[0],
+                          leaf_size=4)
+    assert tmk._kernel_mode(s) == "stream"
+    assert s.accel.stream_tab is not None
+    return s
+
+
+def main_path_lanes(scene, W, H, S, cfg):
+    hit, pos = trender._pixel_mask(scene, width=W, height=H, cfg=cfg,
+                                   go_camera=True)
+    px = trender._compact_pixels(hit, pos, int(pos[-1]) + 1)
+    pix, samp = trender._lane_ids(px, S)
+    o, d = trender._lane_rays(scene, pix, samp, width=W, height=H, cfg=cfg,
+                              go_camera=True)
+    return o.contiguous(), d, pix, samp
+
+
+@pytest.mark.parametrize("name", ["ring100", "mixed"])
+def test_k5_equals_k3_and_plain(cuda, name, monkeypatch):
+    s = forced_stream(bvh_scene_dict(name), cuda, monkeypatch)
+    cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
+    lanes = main_path_lanes(s, 32, 24, 2, cfg)
+    tmk.reset_launches()
+    k5 = tmk.trace(s, *lanes, cfg)
+    assert tmk.LAUNCHES["trace_stream"] == 1
+    gate(k5, ttrace.trace(s, *lanes, cfg))
+    monkeypatch.setattr(tmk, "MAX_BVH_KERNEL_PRIMS", 4096)
+    tree = dataclasses.replace(s, accel=dataclasses.replace(
+        s.accel, stream_tab=None))
+    assert tmk._kernel_mode(tree) == "bvh"
+    assert torch.equal(k5, tmk.trace(tree, *lanes, cfg))
+
+
+@pytest.mark.parametrize("name", ["ring100-noground", "mixed-noground"])
+def test_k6_stream_equals_plain(cuda, name, monkeypatch):
+    s = forced_stream(bvh_scene_dict(name), cuda, monkeypatch)
+    cfg = ttrace.TraceConfig()
+    tmk.reset_launches()
+    got = tmk.pixel_mask(s, width=200, height=150, cfg=cfg)
+    assert tmk.LAUNCHES["pixel_mask_stream"] == 1
+    want = tmk.pixel_mask_plain(s, width=200, height=150, cfg=cfg)
+    assert want.any() and (~want).any(), "hits and misses expected"
+    assert torch.equal(got, want)
+    monkeypatch.setattr(tmk, "MAX_BVH_KERNEL_PRIMS", 4096)
+    k6 = tmk.pixel_mask(s, width=200, height=150, cfg=cfg)
+    assert not (k6 & ~got).any()  # node-only passes a superset of K6
+
+
+STATE_SCENES = {"unroll": lambda: scene_dict(SCENES[2]),
+                "bvh": lambda: bvh_scene_dict("mixed"),
+                "stream": lambda: bvh_scene_dict("mixed"),
+                "loop": icosphere_dict}
+
+
+@pytest.mark.parametrize("mode", list(STATE_SCENES))
+def test_k1_state_matches_unsplit(cuda, mode, monkeypatch):
+    d = STATE_SCENES[mode]()
+    if mode == "stream":
+        s = forced_stream(d, cuda, monkeypatch)
+    else:
+        s = tscene.from_dict(d, device=cuda,
+                             build_accel=False if mode == "loop" else None)[0]
+    assert tmk._kernel_mode(s) == mode
+    cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
+    lanes = main_path_lanes(s, 32, 24, 2, cfg)
+    whole = tmk.trace(s, *lanes, cfg)
+    tmk.reset_launches()
+    ra, st = tmk.trace(s, *lanes, cfg, end_bounce=3, return_state=True)
+    rb = tmk.trace(s, st["origin"], st["direction"], *lanes[2:], cfg,
+                   start_bounce=3, init_throughput=st["throughput"],
+                   init_alive=st["alive"])
+    assert tmk.LAUNCHES["trace_state"] == 2
+    pa, pst = ttrace.trace(s, *lanes, cfg, end_bounce=3, return_state=True)
+    assert torch.equal(st["alive"], pst["alive"])
+    alive = pst["alive"] > 0
+    for k in ("origin", "direction", "throughput"):
+        assert torch.equal(st[k][alive], pst[k][alive]), k
+    gate(ra + rb, whole)
+
+
+def test_stream_main_path_launches_k6s_k5_and_state(cuda, monkeypatch):
+    s = forced_stream(bvh_scene_dict("mixed"), cuda, monkeypatch)
+    cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
+    assert trender.pick_split(s, cfg) == (4, 7, 10, 14, 20, 29, 42)
+    tmk.reset_launches()
+    img = trender.render_wavefront(s, width=48, height=36, samples=2,
+                                   cfg=cfg)
+    assert tmk.LAUNCHES["pixel_mask_stream"] == 1
+    assert tmk.LAUNCHES["trace_stream"] == tmk.LAUNCHES["trace_state"] == 8
+    assert tmk.LAUNCHES["trace_bvh"] == tmk.LAUNCHES["pixel_mask_bvh"] == 0
     dense = trender.render_band(s, 0, width=48, height=36, band_h=36,
                                 samples=2, cfg=cfg)
     gate(img, dense)

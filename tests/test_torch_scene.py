@@ -259,8 +259,11 @@ def test_scene_from_numpy_traces_the_same(name):
 
 @pytest.mark.parametrize("feature", ["post effects", "depth of field",
                                      "stream tier"])
-def test_out_of_slice_features_raise(feature):
-    """What the port still leaves out raises, naming where it is queued."""
+def test_out_of_slice_features_raise(feature, monkeypatch):
+    """What the port still leaves out raises, naming where it is queued.
+    In the stream tier that is a scene past MAX_STREAM_KERNEL_PRIMS, which
+    the JAX package renders with its band route (the cap is lowered here
+    below the scene's 4,097 primitives)."""
     r = trender.Renderer(device="cpu")
     r.set_samples(1)
     if feature == "post effects":
@@ -278,7 +281,8 @@ def test_out_of_slice_features_raise(feature):
         d = {"objects": [{"type": "sphere", "position": [i % 64, i // 64, -5],
                           "radius": 0.2} for i in range(4097)]}
         ts = tscene.from_dict(d, device="cpu")[0]
-        with pytest.raises(NotImplementedError, match="stream tier"):
+        monkeypatch.setattr(tmk, "MAX_STREAM_KERNEL_PRIMS", 4096)
+        with pytest.raises(NotImplementedError, match="band route"):
             r.render(ts, 4, 3)
 
 
