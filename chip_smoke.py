@@ -74,6 +74,30 @@ Phases, in order (each prints a line before and after, with its seconds):
                     under the image gate; then one frame with the first
                     capacity forced below the survivors, which must report
                     overflow and equal the unsplit frame
+  guard             K1-guard: K1 with its soft-shadow guard (the main
+                    path's) against K1 without it and against the plain
+                    guarded version (megakernel.shadow_factor_guarded in
+                    the plain engine), on every lane of a 64x48, 4 spp
+                    frame of the bench scene, textured_mirror_demo and
+                    three golden scenes (spheres, boxes, a plane,
+                    triangles), both entries: guarded = unguarded bit for
+                    bit, and error 0 or the image gate against the plain
+                    version; both entries' times and the share of (lane,
+                    light, occluder) triples skipped
+  dof               the masks' thin-lens branch: K2, K6 and K6-stream with
+                    DoF (L=0.1, F=10 and L=0.25, F=5) equal to their plain
+                    version at 800x600 on the bench scene, ring-1000 (and
+                    without its ground) and grid-5833, each a superset of
+                    the pinhole mask; conservative against the dense plain
+                    path (every pixel that some of 256 lens samples hits
+                    lies in the mask, 160x120); the DoF main path against
+                    the dense plain path under the image gate
+  fast_mc           K1, K3+K4 and K7 with fast_mc (roulette from bounce 8,
+                    the Renderer's, and from bounce 2; cutoff 1e-4) equal
+                    to their plain version on the lanes of a 64x48 frame,
+                    every segment of grid-5833's split ladder (K5) too,
+                    with the lanes the roulette changed printed; the
+                    fast_mc main path against the dense plain path
   bench             Renderer().render of the bench workload (800x600,
                     100 spp, depth 50, 16 soft-shadow rays, seed 0): one
                     warm-up, then 3 timed frames; launch counts are reset
@@ -90,6 +114,28 @@ Phases, in order (each prints a line before and after, with its seconds):
                     ladder of K5 launches (K1-state), with the survivor
                     fraction at each level of the ladder
   bench_stream_mesh the same on ico-10241 (its OBJ written at run time)
+  bench_dof*        the bench scene, ring-1000 and grid-5833 (1 frame)
+                    with the Renderer's depth of field (L=0.1, F=10)
+  bench_fast_mc*    the bench scene and ring-1000 with the Renderer's
+                    fast_mc; then the frame's own trace launches (K1,
+                    K3+K4) against the plain version on a strided subset
+                    of about 20k of their lanes, error 0, and against the
+                    same launches without the roulette, which must change
+                    some lanes
+  effects           Renderer.render(scene, 800, 600, scene_config) on
+                    atmosphere_demo.json (sky, fog, volumetric) and on
+                    final_silver_prism_purple_cube.json with its fog,
+                    bloom and vignette on and depthOfField, lensFlare and
+                    chromaticAberration added, both with their look-at
+                    camera at 100 spp, depth 50: stage times (render, each
+                    effect, tone map); on atmosphere_demo the linear
+                    image after the effects against the plain path's (the
+                    wrappers' plain versions) under the image gate; on the
+                    other, whose 48M lanes the plain path cannot trace
+                    within the watchdog, the frame's own K1 launches
+                    against the plain guarded version on a strided subset
+                    of about 20k of their lanes (error 0 or the image
+                    gate)
   kernels           K1 and K3+K4 against their plain versions on the bench
                     frames' own lanes (all of them for K1, a strided subset
                     of about 20k for K3+K4, whose main-path launches must
@@ -112,8 +158,10 @@ Phases, in order (each prints a line before and after, with its seconds):
                     on a strided subset of about STATE_SUBSET of the
                     frame's lanes; K3-wide as K3+K4's and K5's unsplit
                     launches on the 4-wide walk beside the same launches
-                    on the binary walk; registers, stack and spills of
-                    every kernel from the build
+                    on the binary walk; K1-guard (K1 guarded and
+                    unguarded at the bench frame's lanes, both bounds) and
+                    the DoF masks at the DoF frames; registers, stack and
+                    spills of every kernel from the build
 
 The image gate is the goldens gate of tests/test_goldens.py: at most 0.1%
 of pixels off by more than 1e-3 and a mean absolute error below 1e-4.
@@ -175,6 +223,18 @@ CARD = "card not read"  # nvidia-smi's name and power limit, read in env
 # per second. Used for the kernels' bounds only.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 33.5e12
+# K1-guard's operations a guard evaluation, read off csrc/brute_force.cuh:
+# a sphere's (sphere_oc 9, sphere_guard 31); a triangle's bounding sphere
+# costs more and a plane's less: a round count, like the others.
+GUARD_OPS = 40
+# The scenes of K1-guard's check (bench/suite.py:golden_scene_dict copies
+# the three goldens): spheres, boxes, a plane and triangles between them.
+GUARD_SCENES = ("bench", "textured_mirror_demo", "cubes_dielectric_plane",
+                "prism_perfectmirror", "spheres_metal_glass")
+# Thin-lens settings of the DoF checks: the Go default, and a wide lens
+# focused near (the case where the JAX kernel's leaf slack falls short).
+DOF_LENSES = ((0.1, 10.0), (0.25, 5.0))
+DOF_DENSE = 256       # lens samples a pixel of the conservativeness check
 
 
 class Phase:
@@ -335,14 +395,14 @@ def lanes_of(scene, width, height, samples, cfg, chunks=False,
     return out
 
 
-def chunk_launches(mk, scene, lanes, sizes, cfg, counters=None):
+def chunk_launches(mk, scene, lanes, sizes, cfg, counters=None, **kw):
     """Prepare the trace kernel on the main path's own chunks of the frame's
-    lanes: returns (out joined over the chunks, a function that launches
-    every chunk once)."""
+    lanes (``kw``: more arguments of prepare_trace): returns (out joined
+    over the chunks, a function that launches every chunk once)."""
     import torch
     o, d, pix, samp = (t.split(sizes) for t in lanes)
     cnt = counters.split(sizes) if counters is not None else [None] * len(o)
-    prepared = [mk.prepare_trace(scene, *c, cfg, counters=k)
+    prepared = [mk.prepare_trace(scene, *c, cfg, counters=k, **kw)
                 for c, k in zip(zip(o, d, pix, samp), cnt)]
 
     def launch_all():
@@ -396,8 +456,10 @@ def frame_stages(r, scene):
     return {s: round(v, 3) for s, v in ms.items()}, k[0], levels
 
 
-def bench(scene, mk, what, slow_cut, go_camera=True):
-    """Renderer().render at the bench settings: one warm-up, then 3 timed
+def bench(scene, mk, what, slow_cut, go_camera=True, dof=False,
+          fast_mc=False, frames=3):
+    """Renderer().render at the bench settings (with the Renderer's depth
+    of field or fast_mc when asked): one warm-up, then ``frames`` timed
     frames (1 when ``slow_cut`` and the warm-up took over SLOW_FRAME_S).
     Returns the launch counts of the first timed frame."""
     import torch
@@ -405,11 +467,13 @@ def bench(scene, mk, what, slow_cut, go_camera=True):
     r = rmod.Renderer(device=torch.device("cuda"))
     r.set_samples(SPP)
     r.set_max_depth(DEPTH)
+    r.set_depth_of_field(dof)
+    r.fast_mc = fast_mc
     r.go_camera = go_camera
     t0 = time.perf_counter()
     r.render(scene, W, H)  # warm-up
     warm = time.perf_counter() - t0
-    n = 1 if slow_cut and warm > SLOW_FRAME_S else 3
+    n = 1 if slow_cut and warm > SLOW_FRAME_S else frames
     if n == 1:
         print(f"   the warm-up frame took {warm:.1f} s > {SLOW_FRAME_S} s: "
               "timing 1 frame, not 3", flush=True)
@@ -455,19 +519,23 @@ def k1_ops(scene, cnt):
     """Operations K1 ran, from its per-lane work counters and the
     per-test costs read off csrc/: every add, multiply, divide, square
     root, compare and min/max counts one. Shading arithmetic is left out,
-    so the count, and the bound from it, is low."""
+    so the count, and the bound from it, is low. K1-guard's work: GUARD_OPS
+    a guard evaluation, and only the soft-shadow rays it drew (the soft
+    counter less the rays it left undrawn) and the tests it ran."""
     import torch
     g = scene.geometry
     ns, nt = g.sph_center.shape[0], g.n_hit_tris
     npl, nb = g.pl_point.shape[0], g.box_min.shape[0]
     c = [int(x) for x in cnt.to(torch.int64).sum(0)]
-    closest, hard, soft, cheap, costly = c
+    closest, hard, soft, cheap, costly, guards, _, undrawn = c
+    drawn = soft - undrawn
     inv = 6 if nb else 0
     per_closest = 6 + inv + 25 * ns + 54 * nt + 17 * npl + 27 * nb
     cheap_cost = 17 if npl else 25      # plane 17, sphere 25
     costly_cost = 27 if nb else 65      # box 27, division-free triangle 65
-    return (closest * per_closest + (hard + soft) * (6 + inv) + soft * 104
-            + cheap * cheap_cost + costly * costly_cost), c
+    return (closest * per_closest + (hard + drawn) * (6 + inv) + drawn * 104
+            + cheap * cheap_cost + costly * costly_cost
+            + guards * GUARD_OPS), c
 
 
 def k3_ops(cnt):
@@ -784,6 +852,118 @@ def main():
     with Phase("render_check_stream"):
         render_check_stream(mk, rmod, trace_mod, stream_scenes["grid5833"])
 
+    with Phase("guard"):
+        for name in GUARD_SCENES:
+            s, go = guard_scene(name, dev)
+            if mk._kernel_mode(s) != "unroll":
+                raise AssertionError(f"{name} is not an unroll-mode scene")
+            err, _, _ = guard_check(mk, trace_mod, s, cfg, name, go)
+            record.setdefault("guard_err", []).append(err)
+
+    grid = stream_scenes["grid5833"]
+    with Phase("dof"):
+        for name, s, kernel in (
+                ("bench", scenes[SCENES[0]], "pixel_mask"),
+                ("ring1000", bvh_scenes["ring1000"], "pixel_mask_bvh"),
+                ("ring1000-noground", bvh_scenes["ring1000-noground"],
+                 "pixel_mask_bvh"),
+                ("grid5833", grid, "pixel_mask_stream")):
+            pin = mk.pixel_mask(s, width=W, height=H, cfg=cfg)
+            for lens in DOF_LENSES:
+                dcfg = dof_cfg(trace_mod, lens, max_depth=DEPTH,
+                               shadow_samples=SOFT)
+                mk.reset_launches()
+                got = mk.pixel_mask(s, width=W, height=H, cfg=dcfg)
+                if (mk.LAUNCHES[kernel], mk.LAUNCHES["mask_dof"]) != (1, 1):
+                    raise AssertionError(f"{name}: the DoF mask launched "
+                                         f"{mk.LAUNCHES}")
+                want = mk.pixel_mask_plain(s, width=W, height=H, cfg=dcfg)
+                print(f"   {name} ({kernel}) L={lens[0]}, F={lens[1]}: "
+                      f"{int(got.sum())} of {W * H} pixels (pinhole "
+                      f"{int(pin.sum())}), {int((got != want).sum())} "
+                      "differ from the plain version", flush=True)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{kernel} with DoF differs from "
+                                         f"its plain version on {name}")
+                if (pin & ~got).any():
+                    raise AssertionError(f"{name}: the DoF mask drops "
+                                         "pinhole pixels")
+        record["dof_mask_err"] = 0.0
+        for name, s in (("bench", scenes[SCENES[0]]),
+                        ("ring1000-noground", bvh_scenes["ring1000-noground"]),
+                        ("grid5833", grid)):
+            for lens in DOF_LENSES:
+                dof_dense_check(mk, rmod, s, dof_cfg(trace_mod, lens), name)
+        dcfg = dof_cfg(trace_mod, DOF_LENSES[1], max_depth=DEPTH,
+                       shadow_samples=SOFT)
+        for name, s, w, h in (("bench", scenes[SCENES[0]], 160, 120),
+                              ("ring1000", bvh_scenes["ring1000"], 160, 120),
+                              ("grid5833", grid, 80, 60)):
+            mk.reset_launches()
+            img = rmod.render_wavefront(s, width=w, height=h, samples=4,
+                                        cfg=dcfg)
+            if mk.LAUNCHES["mask_dof"] != 1:
+                raise AssertionError(f"{name}: the DoF main path launched "
+                                     f"{mk.LAUNCHES}")
+            ref = rmod.render_band(s, 0, width=w, height=h, band_h=h,
+                                   samples=4, cfg=dcfg)
+            image_gate(img, ref, f"DoF main path on {name} ({w}x{h}, 4 spp) "
+                       "vs dense plain path")
+
+    with Phase("fast_mc"):
+        # the Renderer's settings (roulette from bounce 8), and roulette
+        # from bounce 2, where it ends most lanes that scatter
+        fcfgs = [trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT,
+                                       russian_roulette_start=rr,
+                                       throughput_epsilon=1e-4)
+                 for rr in (8, 2)]
+        fcfg = fcfgs[0]
+        rf = rmod.Renderer(device=dev)
+        rf.set_max_depth(DEPTH)
+        rf.fast_mc = True
+        if rf.trace_config() != fcfg:
+            raise AssertionError("the Renderer's fast_mc settings moved: "
+                                 f"{rf.trace_config()}")
+        for name, s, kernel in (
+                ("bench", scenes[SCENES[0]], "trace_unroll"),
+                ("spheres_metal_glass", golden_scene("spheres_metal_glass",
+                                                     dev), "trace_unroll"),
+                ("ring1000", bvh_scenes["ring1000"], "trace_bvh"),
+                ("icosphere", loop_scenes["icosphere"], "trace_loop")):
+            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
+            full = mk.trace(s, o, d, pix, samp, cfg)
+            cut = mk.trace(s, o, d, pix, samp, without_roulette(fcfg))
+            for c in fcfgs:
+                mk.reset_launches()
+                got = mk.trace(s, o, d, pix, samp, c)
+                if mk.LAUNCHES[kernel] != 1:
+                    raise AssertionError(f"{name}: {kernel} was not "
+                                         "launched")
+                want = plain_trace(s, o, d, pix, samp, c)
+                err = float((got - want).abs().max())
+                print(f"   {name} ({kernel}), roulette from bounce "
+                      f"{c.russian_roulette_start}: {o.shape[0]} lanes, "
+                      f"fast_mc vs plain max lane error {err:.3e}; lanes "
+                      f"changed by fast_mc {int((got != full).any(1).sum())}"
+                      f", by the roulette {int((got != cut).any(1).sum())}",
+                      flush=True)
+                if err != 0.0:
+                    raise AssertionError(f"{kernel} with fast_mc differs "
+                                         f"from its plain version on {name}")
+                record.setdefault("fast_mc_err", []).append(err)
+        for c in fcfgs:
+            record["fast_mc_err"].append(segments_check(
+                mk, trace_mod, rmod, grid, c, "grid5833 (K5, fast_mc, "
+                f"roulette from bounce {c.russian_roulette_start})"))
+        for name, s in (("bench", scenes[SCENES[0]]),
+                        ("ring1000", bvh_scenes["ring1000"])):
+            img = rmod.render_wavefront(s, width=160, height=120, samples=4,
+                                        cfg=fcfg)
+            ref = rmod.render_band(s, 0, width=160, height=120, band_h=120,
+                                   samples=4, cfg=fcfg)
+            image_gate(img, ref, f"fast_mc main path on {name} (160x120, "
+                       "4 spp) vs dense plain path")
+
     with Phase("bench"):
         launches = bench(scenes[SCENES[0]], mk, "bench", slow_cut=False)
         for k in ("trace_unroll", "pixel_mask"):
@@ -831,10 +1011,63 @@ def main():
                                      "4-wide")
             frames[key] = (stream_scenes[key], True, got)
 
+    dof_frames = {}
+    for phase, key, s, kernel in (
+            ("bench_dof", "bench", scenes[SCENES[0]], "pixel_mask"),
+            ("bench_dof_bvh", "ring1000", bvh_scenes[BVH_SCENES[0]],
+             "pixel_mask_bvh"),
+            ("bench_dof_stream", "grid5833", grid, "pixel_mask_stream")):
+        with Phase(phase):
+            got = bench(s, mk, phase, slow_cut=True, dof=True,
+                        frames=1 if key == "grid5833" else 3)
+            if got["mask_dof"] != got[kernel] or got[kernel] < 1:
+                raise AssertionError(f"the {phase} frame did not launch "
+                                     f"{kernel} with DoF: {got}")
+            dof_frames[key] = got
+    for phase, s, kernel in (
+            ("bench_fast_mc", scenes[SCENES[0]], "trace_unroll"),
+            ("bench_fast_mc_bvh", bvh_scenes[BVH_SCENES[0]], "trace_bvh")):
+        with Phase(phase):
+            got = bench(s, mk, phase, slow_cut=True, fast_mc=True)
+            if got[kernel] < 1:
+                raise AssertionError(f"the {phase} frame never launched "
+                                     f"{kernel}")
+            record["fast_mc_err"].append(fast_mc_frame_check(
+                mk, s, fcfg, got, kernel, phase))
+
+    with Phase("effects"):
+        from raytrace_tpu_torch import scene as scene_mod
+        atmo, acfg = scene_mod.load(os.path.join(
+            REPO, "assets", "atmosphere_demo.json"), device=dev)
+        fx_launches = effects_frame(mk, rmod, atmo, acfg, "atmosphere_demo",
+                                    gate="image")
+        fsil, fcfg2 = scene_mod.load(os.path.join(
+            REPO, "assets", "final_silver_prism_purple_cube.json"),
+            device=dev)
+        for blk in (fcfg2.fog, fcfg2.effects["bloom"],
+                    fcfg2.effects["vignette"]):
+            blk["enabled"] = True
+        fcfg2.effects.update(
+            depthOfField={"enabled": True, "focalDistance": 8.0,
+                          "aperture": 0.05},
+            lensFlare={"enabled": True, "intensity": 0.3},
+            chromaticAberration={"enabled": True, "strength": 2.0})
+        # the plain path over all of this frame's 48M lanes outlasts the
+        # watchdog: K1 is held to the plain guarded version on a strided
+        # subset of the frame's own lanes
+        effects_frame(mk, rmod, fsil, fcfg2,
+                      "final_silver_prism_purple_cube", gate="lanes")
+        for k in ("pixel_mask", "trace_unroll", "trace_guard"):
+            if fx_launches[k] < 1:
+                raise AssertionError(f"the effects frame never launched {k}")
+
     with Phase("kernels"):
         kernels = kernel_rows(mk, trace_mod, scenes[SCENES[0]],
                               bvh_scenes[BVH_SCENES[0]], cfg, launches,
                               launches_bvh, record)
+        kernels += port_rows(mk, trace_mod, scenes[SCENES[0]],
+                             bvh_scenes[BVH_SCENES[0]], grid, cfg, launches,
+                             dof_frames, record)
         kernels += slice_rows(mk, scenes, frames, cfg, record)
         kernels += stream_rows(mk, frames, cfg, record)
         for row in kernels:   # K3-wide in K5: the stream frames, unsplit
@@ -850,7 +1083,11 @@ def main():
                  "K3-wide": "rt_trace_bvh_kernel",
                  "K5": "rt_trace_stream_state_kernel",
                  "K6-stream": "rt_pixel_mask_stream_kernel",
-                 "K1-state": "rt_trace_stream_state_kernel"}
+                 "K1-state": "rt_trace_stream_state_kernel",
+                 "K1-guard": "rt_trace_unroll_kernel",
+                 "K2-dof": "rt_pixel_mask_kernel",
+                 "K6-dof": "rt_pixel_mask_bvh_kernel",
+                 "K6-stream-dof": "rt_pixel_mask_stream_kernel"}
         for row in kernels:
             fn = entry[row["name"].split()[0]]
             r_, stack, spill = regs.get(fn, (None, None, None))
@@ -1274,6 +1511,318 @@ def stream_rows(mk, frames, cfg, record):
     ]
 
 
+class plain_guarded:
+    """Within the block the plain engine's soft-shadow loop is K1-guard's
+    plain version (shade.shadow_factor swapped for
+    megakernel.shadow_factor_guarded): the plain guarded K1."""
+
+    def __enter__(self):
+        from raytrace_tpu_torch.ops import megakernel as mk
+        from raytrace_tpu_torch.ops import shade
+        self.shade, self.old = shade, shade.shadow_factor
+        shade.shadow_factor = mk.shadow_factor_guarded
+
+    def __exit__(self, *exc):
+        self.shade.shadow_factor = self.old
+        return False
+
+
+class plain_kernels:
+    """Within the block the wrappers run their plain versions on the card
+    (megakernel.pixel_mask and megakernel.trace swapped): the main path as
+    its plain version, for whole-frame gates. Unroll scenes only (no
+    ladder)."""
+
+    def __init__(self, mk):
+        self.mk = mk
+
+    def __enter__(self):
+        import torch
+        from raytrace_tpu_torch import trace as trace_mod
+        mk = self.mk
+        self.old = mk.pixel_mask, mk.trace
+        mk.pixel_mask = lambda scene, **kw: mk.pixel_mask_plain(scene, **kw)
+
+        def trace(scene, o, d, pix, samp, cfg, start_bounce=0, **kw):
+            if start_bounce or kw:
+                raise ValueError("plain_kernels: unsplit traces only")
+            step = 1 << 21
+            return torch.cat([trace_mod.trace(
+                scene, o[i:i + step], d[i:i + step], pix[i:i + step],
+                samp[i:i + step], cfg) for i in range(0, o.shape[0], step)])
+
+        mk.trace = trace
+
+    def __exit__(self, *exc):
+        self.mk.pixel_mask, self.mk.trace = self.old
+        return False
+
+
+def guard_scene(name, device):
+    if name == "bench":
+        return load_scene(SCENES[0], device), True
+    if name == "textured_mirror_demo":
+        return asset_scene(name, device), False
+    return golden_scene(name, device), True
+
+
+def guard_check(mk, trace_mod, scene, cfg, what, go_camera):
+    """K1 with K1-guard (soft_guard=1, the main path's) against K1 without
+    it and against the plain guarded version, on every lane of a 64x48,
+    4 spp frame, in both entries (the state entry over [0, 3)): error 0.
+    Prints both entries' times and the guard's work. Returns (error,
+    guarded counters, unguarded counters)."""
+    import torch
+    px, o, d, pix, samp = lanes_of(scene, 64, 48, 4, cfg, go_camera=go_camera)
+    lanes = (o, d, pix, samp)
+    n = o.shape[0]
+    res = {}
+    for guard in (True, False):
+        cnt = torch.zeros((n, mk.COUNTERS), dtype=torch.int32,
+                          device=o.device)
+        out, launch = mk.prepare_trace(scene, *lanes, cfg, soft_guard=guard,
+                                       counters=cnt)
+        mk.reset_launches()
+        launch()
+        if mk.LAUNCHES["trace_guard"] != int(guard):
+            raise AssertionError(f"{what}: guard {guard}, launches "
+                                 f"{mk.LAUNCHES}")
+        (sa, st), s_launch = mk.prepare_trace(
+            scene, *lanes, cfg, soft_guard=guard, end_bounce=3,
+            return_state=True)
+        s_launch()
+        _, t_launch = mk.prepare_trace(scene, *lanes, cfg, soft_guard=guard)
+        res[guard] = dict(out=out, sa=sa, st=st, ms=cuda_ms(t_launch, 3),
+                          state_ms=cuda_ms(s_launch, 3),
+                          work=[int(x) for x in cnt.to(torch.int64).sum(0)])
+    with plain_guarded():
+        want = trace_mod.trace(scene, *lanes, cfg)
+        pa, pst = trace_mod.trace(scene, *lanes, cfg, end_bounce=3,
+                                  return_state=True)
+    g, u = res[True], res[False]
+    # the guard's own claim: guarded and unguarded K1 agree bit for bit
+    same = (torch.equal(g["out"], u["out"]) and torch.equal(g["sa"], u["sa"])
+            and all(torch.equal(g["st"][k], u["st"][k]) for k in pst))
+    # the kernel against the plain guarded version: error 0, or (the
+    # extended body's library pow and sin may round an ulp apart) the
+    # image gate, as K1's other checks
+    err = max(float((g["out"] - want).abs().max()),
+              float((g["sa"] - pa).abs().max()))
+    alive = pst["alive"] > 0
+    off = g["st"]["alive"] != pst["alive"]
+    for k in ("origin", "direction", "throughput"):
+        off |= alive & (g["st"][k] != pst[k]).any(1)
+    n_off = int(off.sum())
+    if n_off > 1e-3 * n:
+        raise AssertionError(f"{what}: K1-guard's state differs from the "
+                             f"plain guarded version on {n_off} lanes")
+    gw, uw = g["work"], u["work"]
+    skipped = 1.0 - gw[6] / gw[5] if gw[5] else 0.0
+    print(f"   {what}: {n} lanes, K1 guarded equal to unguarded {same} "
+          f"(state entry included), vs plain guarded max lane error "
+          f"{err:.3e} (lanes whose state differs: {n_off}); guards {gw[5]}, flagged {gw[6]}: {skipped:.4f} of "
+          f"the (lane, light, occluder) triples skipped; soft rays asked "
+          f"{gw[2]}, undrawn {gw[7]}; occlusion tests (hard + soft) guarded "
+          f"{gw[3] + gw[4]} vs unguarded {uw[3] + uw[4]}; ms guarded "
+          f"{g['ms']:.4f} vs unguarded {u['ms']:.4f}, state entry "
+          f"{g['state_ms']:.4f} vs {u['state_ms']:.4f}", flush=True)
+    if not same:
+        raise AssertionError(f"{what}: K1-guard changed a result")
+    if err > 0.0:
+        image_gate(pixel_image(px, g["out"], 64, 48, 4),
+                   pixel_image(px, want, 64, 48, 4),
+                   f"K1-guard {what} vs plain guarded")
+    return err, gw, uw
+
+
+def dof_cfg(trace_mod, lens, **kw):
+    L, F = lens
+    return trace_mod.TraceConfig(depth_of_field=True, dof_lens_radius=L,
+                                 dof_focus_distance=F, **kw)
+
+
+def dof_dense_check(mk, rmod, scene, cfg, what, w=160, h=120):
+    """The DoF mask (its kernel) against the dense plain path: every pixel
+    that some of DOF_DENSE lens samples hits (the exact primary any-hit,
+    the tree walked where there is one) must lie in the mask."""
+    import torch
+    from raytrace_tpu_torch.ops import intersect
+    mask = mk.pixel_mask(scene, width=w, height=h, cfg=cfg)
+    dev = mask.device
+    dense = torch.zeros(w * h, dtype=torch.bool, device=dev)
+    rows = max(1, (1 << 20) // (w * DOF_DENSE))
+    for y0 in range(0, h, rows):
+        px = torch.arange(y0 * w, min(h, y0 + rows) * w, device=dev)
+        pix, samp = rmod._lane_ids(px, DOF_DENSE)
+        o, d = rmod._lane_rays(scene, pix, samp, width=w, height=h, cfg=cfg,
+                               go_camera=True)
+        hit = intersect.any_hit(scene.geometry, o.contiguous(), d, 1e-3,
+                                intersect.BIG, accel=scene.accel, exact=True)
+        dense[px] = hit.reshape(-1, DOF_DENSE).any(1)
+    missing = int((dense & ~mask).sum())
+    print(f"   {what}: L={cfg.dof_lens_radius}, F={cfg.dof_focus_distance} at "
+          f"{w}x{h}: mask {int(mask.sum())}, hit by some of {DOF_DENSE} lens "
+          f"samples {int(dense.sum())}, missing {missing}", flush=True)
+    if missing or not dense.any():
+        raise AssertionError(f"{what}: the DoF mask is not conservative")
+
+
+def segments_check(mk, trace_mod, rmod, scene, cfg, what, w=64, h=48,
+                   spp=4):
+    """Every segment of a stream main-path frame's split ladder (K5 with
+    K1-state), re-run from its own inputs, against its plain version on a
+    strided subset of at most K5_SUBSET of its lanes: error 0."""
+    import torch
+    segs = []
+
+    def hook(stage, **values):
+        if stage == "segment":
+            segs.append(values)
+
+    mk.reset_launches()
+    rmod.render_wavefront(scene, width=w, height=h, samples=spp, cfg=cfg,
+                          hook=hook)
+    if len(segs) < 2 or mk.LAUNCHES["trace_stream"] != len(segs):
+        raise AssertionError(f"{what}: no ladder ran: {mk.LAUNCHES}")
+    err = 0.0
+    for v in segs:
+        n = v["origin"].shape[0]
+        idx = torch.arange(0, n, max(1, n // K5_SUBSET),
+                           device=v["origin"].device)
+        last = v["b1"] >= cfg.max_depth
+        kw = dict(start_bounce=v["b0"],
+                  end_bounce=None if last else v["b1"])
+        if v["b0"] > 0:
+            kw.update(init_throughput=v["throughput"][idx],
+                      init_alive=v["alive"][idx])
+        args = tuple(v[k][idx] for k in ("origin", "direction", "pix",
+                                         "samp"))
+        got = mk.trace(scene, *args, cfg, **kw)
+        want = trace_mod.trace(scene, *args, cfg, **kw)
+        err = max(err, float((got - want).abs().max()))
+    print(f"   {what}: {len(segs)} ladder segments, max lane error against "
+          f"the plain version {err:.3e}", flush=True)
+    if err != 0.0:
+        raise AssertionError(f"{what}: a segment differs from its plain "
+                             "version")
+    return err
+
+
+def effects_frame(mk, rmod, scene, scfg, what, gate):
+    """Renderer.render(scene, W, H, scene_config) with the scene's look-at
+    camera through the main path and the effects; stage times of one
+    frame (render, then each effect that runs, then the tone map and the
+    copy). ``gate`` "image": the linear image after the effects against
+    the plain path's (plain_kernels) under the image gate; "lanes": the
+    frame's K1 launches against the plain guarded version on a strided
+    subset of their lanes (frame_lanes_check). Returns the entry point's
+    launch counts."""
+    import torch
+    from raytrace_tpu_torch.ops import tonemap
+    r = rmod.Renderer(device=torch.device("cuda"))
+    r.go_camera = False
+    r.render(scene, W, H, scfg)  # warm-up
+    mk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = r.render(scene, W, H, scfg)
+    torch.cuda.synchronize()
+    frame = time.perf_counter() - t0
+    launches = dict(mk.LAUNCHES)
+    if img.shape != (H, W, 3) or not img.any():
+        raise AssertionError(f"{what}: bad image")
+    ms = {}
+    last = [time.perf_counter()]
+
+    def mark(stage, **values):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        ms[stage] = round((now - last[0]) * 1e3, 3)
+        last[0] = now
+
+    lin = r.render_linear_device(scene, W, H)
+    mark("render")
+    out = r._apply_scene_effects(scene, lin, W, H, scfg, hook=mark)
+    tonemap.tonemap_rgb8(out).cpu()
+    mark("tonemap_copy")
+    print(f"   {what} [{CARD}]: {r.samples} spp, depth {r.max_depth}: frame "
+          f"{frame:.4f} s; stages of one frame, ms (host clock, "
+          f"synchronised): {ms}; launches {launches}", flush=True)
+    if gate == "lanes":
+        frame_lanes_check(mk, scene, r.trace_config(), r.samples, False,
+                          launches, "trace_unroll", f"{what} (K1, guarded)",
+                          exact=False, guarded=True)
+        return launches
+    got = r._apply_scene_effects(scene, lin, W, H, scfg)
+    with plain_kernels(mk):
+        lin_p = r.render_linear_device(scene, W, H)
+    want = r._apply_scene_effects(scene, lin_p, W, H, scfg)
+    image_gate(got, want, f"{what} at {r.samples} spp, after the effects, "
+               "vs the plain path")
+    return launches
+
+
+def without_roulette(cfg):
+    """fast_mc's throughput cutoff alone: what roulette changes shows
+    against it."""
+    import dataclasses
+    return dataclasses.replace(cfg, russian_roulette_start=None)
+
+
+def frame_lanes_check(mk, scene, cfg, samples, go_camera, launches, kernel,
+                      what, exact=True, guarded=False):
+    """The trace kernel at a timed frame's own lanes and chunks (the frame
+    launched ``kernel`` once a chunk, as ``launches`` must show): its
+    output against the plain version (the plain guarded one for
+    ``guarded``) on a strided subset of about K3_SUBSET lanes, at error 0
+    (else, unless ``exact``, under the image gate, lanes as pixels).
+    Returns (error, the frame's lanes, their chunk sizes, the output)."""
+    import contextlib
+    import torch
+    px, o, d, pix, samp, sizes = lanes_of(scene, W, H, samples, cfg,
+                                          chunks=True, go_camera=go_camera)
+    if launches[kernel] != len(sizes):
+        raise AssertionError(f"{what}: the frame launched {kernel} "
+                             f"{launches[kernel]} times, not its chunk "
+                             f"count {len(sizes)}")
+    lanes = (o, d, pix, samp)
+    out, launch_all = chunk_launches(mk, scene, lanes, sizes, cfg)
+    launch_all()
+    got = out()
+    n = o.shape[0]
+    idx = torch.arange(0, n, max(1, n // K3_SUBSET), device=o.device)
+    with plain_guarded() if guarded else contextlib.nullcontext():
+        want = plain_trace(scene, *(t[idx] for t in lanes), cfg)
+    err = float((got[idx] - want).abs().max())
+    print(f"   {what}: {n} lanes in {len(sizes)} launch(es); at {idx.numel()} "
+          f"of them max lane error against the plain version {err:.3e}",
+          flush=True)
+    if err > 0.0:
+        if exact:
+            raise AssertionError(f"{what}: the kernel differs from its "
+                                 "plain version")
+        image_gate(got[idx], want, f"{what} at {idx.numel()} lanes")
+    return err, lanes, sizes, got
+
+
+def fast_mc_frame_check(mk, scene, cfg, launches, kernel, what):
+    """A fast_mc bench frame's trace launches against the plain version at
+    error 0 (frame_lanes_check), and against the same launches without
+    the roulette: the roulette from bounce 8 must change some lanes."""
+    err, lanes, sizes, got = frame_lanes_check(
+        mk, scene, cfg, SPP, True, launches, kernel, f"{what} ({kernel})")
+    cut, launch_all = chunk_launches(mk, scene, lanes, sizes,
+                                     without_roulette(cfg))
+    launch_all()
+    changed = int((got != cut()).any(1).sum())
+    print(f"   {what}: lanes changed by the roulette from bounce "
+          f"{cfg.russian_roulette_start}: {changed} of {got.shape[0]}",
+          flush=True)
+    if changed == 0:
+        raise AssertionError(f"{what}: the roulette changed no lane")
+    return err
+
+
 def loop_ring_scene(n, device):
     """ring-n of bench/suite.py without a BVH (loop mode)."""
     from raytrace_tpu_torch import scene as scene_mod
@@ -1382,6 +1931,108 @@ def slice_rows(mk, scenes, frames, cfg, record):
     return rows
 
 
+def port_rows(mk, trace_mod, scene, ring, grid, cfg, launches,
+              dof_frames, record):
+    """The rows of K1-guard (at the bench frame's lanes, guarded and
+    unguarded) and of the masks' DoF branch (K2-dof, K6-dof, K6-stream-dof
+    at the bench, ring-1000 and grid-5833 frames, lens L=0.1, F=10: the
+    Renderer's)."""
+    import torch
+    dev = torch.device("cuda")
+    src = "raytrace_tpu_torch/csrc/"
+    mkpy = "raytrace_tpu/ops/megakernel.py:"
+    common = dict(route="cuda", library_ms=None)
+    n_px = W * H
+    px, o, d, pix, samp, sizes = lanes_of(scene, W, H, SPP, cfg, chunks=True)
+    lanes = (o, d, pix, samp)
+    n, n_k1 = o.shape[0], len(sizes)
+    out = {}
+    for guard in (True, False):
+        cnt = torch.zeros((n, mk.COUNTERS), dtype=torch.int32, device=dev)
+        _, counted = chunk_launches(mk, scene, lanes, sizes, cfg,
+                                    counters=cnt, soft_guard=guard)
+        counted()
+        ops, work = k1_ops(scene, cnt)
+        res, launch = chunk_launches(mk, scene, lanes, sizes, cfg,
+                                     soft_guard=guard)
+        launch()
+        ms = cuda_ms(launch, 5) / n_k1
+        bnd, by = bound(ops / n_k1, n / n_k1 * (12 + 12 + 4 + 4 + 12))
+        out[guard] = dict(res=res(), ms=ms, ops=ops, work=work, bound=bnd,
+                          by=by)
+    g, u = out[True], out[False]
+    if not torch.equal(g["res"], u["res"]):
+        raise AssertionError("K1-guard changed the bench frame's lanes")
+    idx = torch.arange(0, n, max(1, n // K3_SUBSET), device=dev)
+    sub = tuple(t[idx] for t in lanes)
+    with plain_guarded():
+        plain, want = host_ms(lambda: trace_mod.trace(scene, *sub, cfg))
+    err = float((g["res"][idx] - want).abs().max())
+    image_gate(g["res"][idx], want, f"K1-guard at {idx.numel()} of the "
+               f"bench lanes vs the plain guarded version (max lane error "
+               f"{err:.3e})")
+    _, sub_launch = mk.prepare_trace(scene, *sub, cfg)
+    sub_ms = cuda_ms(sub_launch, 1)
+    gw = g["work"]
+    print(f"   K1-guard at the bench lanes: work {gw} (unguarded "
+          f"{u['work']}); {1.0 - gw[6] / max(gw[5], 1):.4f} of the (lane, "
+          f"light, occluder) triples skipped; per launch {g['ms']:.4f} ms "
+          f"guarded vs {u['ms']:.4f} ms unguarded; bound {g['bound']:.4f} ms "
+          f"for the guarded work, {u['bound']:.4f} ms for the unguarded; "
+          f"plain guarded on {idx.numel()} lanes {plain:.1f} ms", flush=True)
+    if launches["trace_guard"] != launches["trace_unroll"]:
+        raise AssertionError(f"the bench frame ran K1 without its guard: "
+                             f"{launches}")
+    rows = [dict(
+        name="K1-guard soft-shadow guard (in K1)",
+        source=src + "brute_force.cuh", replaces=mkpy + "1718",
+        launches=launches["trace_guard"],
+        max_abs_err=max([err] + record["guard_err"]), ms=g["ms"],
+        plain_ms=plain, bound_ms=g["bound"], bound_by=g["by"],
+        unguarded_ms=u["ms"], unguarded_bound_ms=u["bound"],
+        plain_lanes=int(idx.numel()), ms_plain_lanes=sub_ms,
+        lanes_per_frame=n, guards=gw[5], flagged=gw[6],
+        undrawn_soft_rays=gw[7], **common)]
+    del px, o, d, pix, samp, lanes, out, g, u
+    dcfg = dof_cfg(trace_mod, DOF_LENSES[0], max_depth=DEPTH,
+                   shadow_samples=SOFT)
+    for name, s, key, kernel, line in (
+            ("K2-dof pixel_mask", scene, "bench", "pixel_mask", "2636"),
+            ("K6-dof pixel_mask_bvh", ring, "ring1000", "pixel_mask_bvh",
+             "2774"),
+            ("K6-stream-dof pixel_mask_stream", grid, "grid5833",
+             "pixel_mask_stream", "2774")):
+        _, launch = mk.prepare_pixel_mask(s, width=W, height=H, cfg=dcfg)
+        ms = cuda_ms(launch, 20)
+        plain = cuda_ms(lambda: mk.pixel_mask_plain(
+            s, width=W, height=H, cfg=dcfg), 3)
+        g = s.geometry
+        npl = g.pl_point.shape[0]
+        nbs = g.sph_center.shape[0] + g.tri_v0.shape[0]
+        mwork = [0, 0]
+        if kernel != "pixel_mask":
+            mk.pixel_mask_plain(s, width=W, height=H, cfg=dcfg, work=mwork)
+            nbs_tests = mwork[1]
+        else:
+            nbs_tests = n_px * nbs
+        # a bounding-sphere test with the lens slack: 28 + 14 operations
+        ops = n_px * (27 + 23 * npl) + mwork[0] * 21 + nbs_tests * 42
+        tables = (4 * 9 * s.accel.n_nodes if s.accel is not None else 0) + (
+            0 if kernel == "pixel_mask_stream" else 4 * 5 * nbs)
+        bnd, by = bound(ops, n_px + 4 * (18 + 7 * npl) + tables)
+        print(f"   {name}: L={dcfg.dof_lens_radius}, "
+              f"F={dcfg.dof_focus_distance}, work [slab tests, "
+              f"bounding-sphere tests] = {[mwork[0], nbs_tests]}; "
+              f"{ms:.4f} ms vs plain {plain:.4f} ms, bound {bnd:.6f} ms",
+              flush=True)
+        rows.append(dict(
+            name=name, source=src + "pixel_mask.cu", replaces=mkpy + line,
+            launches=dof_frames[key]["mask_dof"],
+            max_abs_err=record["dof_mask_err"], ms=ms, plain_ms=plain,
+            bound_ms=bnd, bound_by=by, **common))
+    return rows
+
+
 def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
                 record):
     """Each kernel at its bench frame: checks, times, bounds; the rows of
@@ -1424,7 +2075,8 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
     k1_bound, k1_by = bound(ops / n_k1,
                             o.shape[0] / n_k1 * (12 + 12 + 4 + 4 + 12))
     print(f"   K1: {o.shape[0]} lanes in {n_k1} launch(es), work [closest, "
-          f"hard, soft, sphere/plane tests, tri/box tests] = {work}, "
+          f"hard, soft, sphere/plane tests, tri/box tests, guards, "
+          f"flagged, undrawn soft rays] = {work}, "
           f"{ops:.4e} ops; per launch {k1_ms:.4f} ms, bound "
           f"{k1_bound:.4f} ms; plain over all lanes {k1_plain:.1f} ms",
           flush=True)

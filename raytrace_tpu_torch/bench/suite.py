@@ -1,7 +1,7 @@
 """Benchmark and check scenes of the port: a copy of the JAX package's
 ``bench/suite.py:ring_scene_dict`` (the benchmark sweep is not ported),
 the bvh-mode scenes that the tests and ``chip_smoke.py`` share, copies
-of two golden scenes of ``tests/make_goldens.py`` (``golden_scene_dict``),
+of five golden scenes of ``tests/make_goldens.py`` (``golden_scene_dict``),
 a scene of exact ties for the walks' order (``twin_scene_dict``), and
 copies of the JAX package's two stream-mode workloads of
 ``tools/tpu_stream_smoke.py`` (``grid_scene_dict``, ``icosphere_obj``,
@@ -125,7 +125,82 @@ def golden_scene_dict(name: str):
     "mesh_smooth_icosphere": an 80-face icosphere with vertex normals
     (assets/icosphere.obj, the goldens' own OBJ) and a ground sphere, 81
     primitives: bvh mode with the BVH that from_dict gives it, loop mode
-    without."""
+    without; "spheres_metal_glass", "cubes_dielectric_plane" and
+    "prism_perfectmirror": the unroll-mode goldens of spheres, boxes and a
+    plane, and a prism's triangles (K1-guard's occluder kinds)."""
+    if name == "spheres_metal_glass":
+        return {
+            "camera": {"position": [0, 0, 8], "aspectRatio": 1.3333},
+            "objects": [
+                {"type": "sphere", "position": [0, 0, 0], "radius": 1.0,
+                 "material": {"type": "metal", "color": [0.8, 0.8, 0.9],
+                              "roughness": 0.1, "metallic": 0.95}},
+                {"type": "sphere", "position": [-2, 0, 0], "radius": 0.7,
+                 "material": {"type": "glass", "color": [0.9, 0.5, 0.5],
+                              "refractionIndex": 1.5}},
+                {"type": "sphere", "position": [2, 0, 0], "radius": 0.7,
+                 "material": {"type": "shiny", "color": [0.4, 0.7, 0.4],
+                              "roughness": 0.2, "specular": 0.8}},
+                {"type": "sphere", "position": [0, -101, 0], "radius": 100.0,
+                 "material": {"type": "lambertian",
+                              "color": [0.6, 0.6, 0.55]}},
+                {"type": "sphere", "position": [0, 2.2, 0], "radius": 0.5,
+                 "material": {"type": "diffuselight",
+                              "color": [1, 0.9, 0.7]}},
+            ],
+            "lights": [
+                {"position": [5, 6, 5], "color": [1, 1, 1],
+                 "intensity": 40.0},
+                {"position": [-4, 3, 3], "color": [0.7, 0.8, 1.0],
+                 "intensity": 15.0},
+            ],
+        }, dict(max_depth=8, shadow_samples=8)
+    if name == "cubes_dielectric_plane":
+        return {
+            "camera": {"position": [0, 1, 7], "aspectRatio": 1.3333},
+            "objects": [
+                {"type": "cube", "position": [-1.2, 0, 0], "size": [1, 1, 1],
+                 "material": {"type": "metal", "color": [0.9, 0.3, 0.3],
+                              "roughness": 0.05}},
+                {"type": "cube", "position": [1.2, 0.2, -1],
+                 "size": [1.2, 1.4, 1.2],
+                 "material": {"type": "lambertian",
+                              "color": [0.3, 0.3, 0.9]}},
+                {"type": "sphere", "position": [0, 0.3, 1.5], "radius": 0.5,
+                 "material": {"type": "dielectric",
+                              "refractionIndex": 1.5}},
+                {"type": "plane", "position": [0, -0.7, 0],
+                 "normal": [0, 1, 0],
+                 "material": {"type": "lambertian",
+                              "color": [0.5, 0.5, 0.45]}},
+            ],
+            "lights": [
+                {"position": [4, 6, 4], "color": [1, 1, 1],
+                 "intensity": 50.0},
+            ],
+        }, dict(max_depth=6, shadow_samples=8)
+    if name == "prism_perfectmirror":
+        return {
+            "camera": {"position": [0, 0.5, 6], "aspectRatio": 1.3333},
+            "objects": [
+                {"type": "triangularPrism", "vertices": [
+                    [-1.0, -0.5, 0.5], [0.0, 1.0, 0.5], [1.0, -0.5, 0.5],
+                    [-1.0, -0.5, -0.5], [0.0, 1.0, -0.5],
+                    [1.0, -0.5, -0.5]],
+                 "material": {"type": "perfectmirror",
+                              "color": [0.95, 0.95, 0.98]}},
+                {"type": "sphere", "position": [2.2, 0, -1], "radius": 0.6,
+                 "material": {"type": "lambertian",
+                              "color": [0.8, 0.4, 0.8]}},
+                {"type": "sphere", "position": [0, -101, 0], "radius": 100.0,
+                 "material": {"type": "lambertian",
+                              "color": [0.55, 0.6, 0.5]}},
+            ],
+            "lights": [
+                {"position": [3, 5, 5], "color": [1, 1, 1],
+                 "intensity": 45.0},
+            ],
+        }, dict(max_depth=6, shadow_samples=8)
     if name == "extended_textured":
         return {
             "camera": {"position": [0, 1.0, 7], "aspectRatio": 1.3333},

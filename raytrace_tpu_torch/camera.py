@@ -3,14 +3,15 @@
 ``go_rays`` is the reference camera: a fixed viewport of height 2 and width
 2*aspectRatio at focal length 1 along -Z, ignoring lookAt/up/fov.
 ``lookat_rays`` honours them. Directions are not normalised (the Metal
-Fresnel term depends on their length). Thin-lens depth of field is not in
-this slice of the port (ROADMAP Queue 1 item 3).
+Fresnel term depends on their length). ``thin_lens_perturb`` moves either
+camera's rays onto a thin lens (depth of field).
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import rng
 from ._f32 import sqrt as _sqrt
 
 
@@ -60,3 +61,32 @@ def lookat_rays(camera, u: torch.Tensor, v: torch.Tensor):
                  + (2.0 * u[..., None] - 1.0) * half_w * right[None, :]
                  + (2.0 * v[..., None] - 1.0) * half_h * up[None, :])
     return camera.position.expand_as(direction), direction
+
+
+def thin_lens_perturb(camera, origin, direction, pix_id, samp_id, seed,
+                      lens_radius: float = 0.1,
+                      focus_distance: float = 10.0):
+    """Thin-lens depth of field (advanced.go:29-44): (origin, direction)
+    of rays through a lens point, aimed at the focal point.
+
+    The reference's quirks are kept: the offset basis is
+    ``Up * rd.x + normalize(LookAt x Up) * rd.y``, with LookAt the look-at
+    POINT, not a view direction (so the basis need not be orthonormal);
+    the output direction IS normalised, unlike primary rays. The disk
+    sample is the counter-based ``rng.unit_disk`` at the DOF_DISK site."""
+    rd = rng.unit_disk(pix_id, samp_id, rng.Streams.DOF_DISK, seed)
+    rd = rd * lens_radius
+    up = camera.up
+    cr = _cross(camera.look_at, up)  # LookAt x Up, the reference's basis
+    n = _norm(cr)
+    cr = torch.where(n > 0, cr / torch.where(n > 0, n, torch.ones_like(n)),
+                     cr)
+    offset = rd[..., 0:1] * up[None, :] + rd[..., 1:2] * cr[None, :]
+    new_origin = origin + offset
+    new_dir = direction * focus_distance - offset
+    nd = _sqrt(new_dir[..., 0] * new_dir[..., 0]
+               + new_dir[..., 1] * new_dir[..., 1]
+               + new_dir[..., 2] * new_dir[..., 2])[..., None]
+    new_dir = torch.where(nd > 0, new_dir / torch.where(
+        nd > 0, nd, torch.ones_like(nd)), new_dir)
+    return new_origin, new_dir

@@ -2,8 +2,8 @@
 
     python -m raytrace_tpu_torch.cli scene.json out.png W H --samples N
         [--max-depth D] [--seed S] [--no-soft-shadows]
-        [--no-recursive-reflections] [--lookat-camera] [--go-parity]
-        [--device cuda|cpu]
+        [--no-recursive-reflections] [--fast-mc] [--lookat-camera]
+        [--go-parity] [--ascii-preview] [--device cuda|cpu]
 
 Runs on the GPU unless ``--device cpu`` is given; without a GPU the
 default raises. Writes the PNG and ``benchmark_data.json`` beside it.
@@ -32,12 +32,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-soft-shadows", action="store_true")
     p.add_argument("--no-recursive-reflections", action="store_true")
+    p.add_argument("--fast-mc", action="store_true",
+                   help="expectation-preserving Monte Carlo accelerators: "
+                        "Russian roulette from bounce 8 and a throughput "
+                        "cutoff of 1e-4")
     p.add_argument("--lookat-camera", action="store_true",
                    help="honor lookAt/up/fov instead of the reference's "
                         "fixed-viewport camera")
     p.add_argument("--go-parity", action="store_true",
                    help="reproduce the reference loader (skip prisms and "
                         "planes, ignore the scene's renderer block)")
+    p.add_argument("--ascii-preview", action="store_true",
+                   help="print the image as ASCII art")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     return p
@@ -61,6 +67,7 @@ def main(argv=None) -> int:
         r.set_soft_shadows(False)
     if args.no_recursive_reflections:
         r.set_recursive_reflections(False)
+    r.fast_mc = args.fast_mc
     r.go_camera = not args.lookat_camera
 
     print(f"Rendering at {args.width}x{args.height} resolution...")
@@ -74,6 +81,8 @@ def main(argv=None) -> int:
     r.save_benchmark_data(os.path.join(os.path.dirname(out) or ".",
                                        "benchmark_data.json"))
     print("Benchmark data saved")
+    if args.ascii_preview:
+        r.print_ascii_preview(img)
     return 0
 
 

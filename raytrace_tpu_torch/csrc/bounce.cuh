@@ -11,6 +11,10 @@
 // column counts and table sizes are run-time values, so one build serves
 // flat and smooth, seven-kind and extended scenes alike.
 //
+// fast_mc (Run.rr_start, Run.tp_eps; the JAX kernel's :2392-2411) ends a
+// lane whose throughput falls below the cutoff and, from rr_start on,
+// plays Russian roulette after each scatter, boosting survivors by 1/q.
+//
 // The loop is resumable (K1-state, the start_bounce/end_bounce/
 // return_state variant of _make_kernel, :278-300, state writes
 // :2448-2459): it runs bounces [start_bounce, end_bounce) from a given
@@ -142,9 +146,16 @@ struct Lanes {
   int n;
 };
 
+// fast_mc (trace.py, the JAX kernel's :2392-2411): rr_start is the first
+// bounce of Russian roulette (-1: off), tp_eps the throughput below which
+// a lane dies (0: off). soft_guard switches K1-guard (brute_force.cuh) on;
+// only K1 reads it.
 struct Run {
   int start_bounce, end_bounce, shadow_samples, soft, recursive;
   uint32_t seed;
+  int rr_start;
+  float tp_eps;
+  int soft_guard;
 };
 
 // Does a launch resume or return lane state (the kState instantiation)?
@@ -511,6 +522,26 @@ RT_DEV void trace_lane(Geo& geo, const Tables& tb, V3 o, V3 d, V3 tp,
     if (run.recursive == 0) {
       alive = false;
       break;
+    }
+    // ---- fast_mc: throughput cutoff, then Russian roulette -------------
+    // A lane that dies here keeps the unboosted throughput in its state.
+    // The survivors' boost multiplies by 1/q, as the JAX kernel does (the
+    // JAX engine divides, which can round one ulp apart).
+    float tmax = fmaxf(tp.x, fmaxf(tp.y, tp.z));
+    if (run.tp_eps > 0.0f && !(tmax >= run.tp_eps)) {
+      alive = false;
+      break;
+    }
+    if (run.rr_start >= 0 && bounce >= run.rr_start) {
+      float q = fminf(fmaxf(tmax, 0.05f), 1.0f);
+      float u4rr[4];
+      uniform4(pix, samp, base + kRussianRoulette, seed, u4rr);
+      if (u4rr[0] >= q) {
+        alive = false;
+        break;
+      }
+      float inv_q = 1.0f / q;
+      tp = V3{tp.x * inv_q, tp.y * inv_q, tp.z * inv_q};
     }
   }
   rad[0] = r.x;

@@ -14,21 +14,112 @@
 // read-only cache (K7 past its shared-memory budget); otherwise they lie
 // in shared memory, where every thread of a warp reads the same row at
 // the same time (a broadcast).
+//
+// K1-guard (kGuard, K1 only; K7 stays unguarded, as the JAX loop mode
+// sets both guard functions to None, :1684-1685). Replaces soft_prim_sets_fn
+// (:1718) and soft_guard_fn (:1858) of raytrace_tpu/ops/megakernel.py and
+// their use in the unroll soft-shadow loop (:2040-2136). Before a lane
+// draws a light's soft-shadow rays, one conservative interval test per
+// occluder asks whether ANY ray of the light's jitter cone (asin 0.1;
+// 0.102 for margin) could put a root in [t_min, dist]: spheres by the
+// sphere quadratic, triangles and boxes by bounding spheres, planes by
+// |n.(q - p)| <= dist. The flags go into a bitmask in registers (at most
+// kGuardMax occluders: spheres + hit triangles + boxes + planes <= the 96
+// primitives of unroll mode, three 32-bit words). The sample-outer loop
+// then tests only the flagged occluders, with its early exit; a lane with
+// no flag counts every ray unblocked without drawing one. A skipped
+// occluder blocks no ray, so every verdict, and sf, is bit-identical to
+// the unguarded loop. The JAX kernel hoists all samples' directions and
+// ORs verdicts occluder by occluder under a per-block lax.cond, a form made
+// for (R,128) blocks; one thread per lane keeps the sample-outer order and
+// needs no hoisted directions. What it saves: the soft tests of occluders
+// out of the cone, at the price of one guard per (occluder, light) where
+// the unguarded loop pays one test per (occluder, sample).
 #pragma once
 
 #include "bounce.cuh"
 
 namespace rt {
 
-constexpr int kBruteCounters = 5;  // 3 from trace_lane + tests[2]
+// 3 from trace_lane + tests[5]
+constexpr int kBruteCounters = 8;
+constexpr int kGuardWords = 3;
+constexpr int kGuardMax = 32 * kGuardWords;
+
+// The soft-shadow guard of one bounding sphere, given the direction-free
+// terms of its test from p (oc = p - center, cc = |oc|^2 - r^2, by the
+// expressions of sphere_oc): can a ray of the cone around the unit light
+// direction ld put a root of t^2 + 2ut + cc = 0 in [t_min, dist]? Every
+// cone direction sd has |sd.oc - ld.oc| <= 0.10013 |oc| (the chord of
+// asin 0.1), so u = sd.oc lies in [u_lo, u_hi]; the largest root over that
+// interval is -u_lo + sqrt(u_lo^2 - cc). The slack eps_cc + 1e-6 |oc|^2 and
+// eps_t cover the rounding of the sample test (its a = |sd|^2 is 1 within
+// an ulp or two). The constants are the JAX kernel's.
+RT_DEV bool sphere_guard(V3 oc, float cc, float r, V3 ld, float dist) {
+  const float cone = 0.102f, eps_t = 1e-4f, eps_cc = 1e-4f;
+  float oc2 = cc + r * r;
+  float g = oc.x * ld.x + oc.y * ld.y + oc.z * ld.z;
+  float u_lo = g - cone * sqrtf(oc2);
+  float slack = eps_cc + 1e-6f * oc2;
+  float disc_lo = u_lo * u_lo - cc;
+  float root_max = -u_lo + sqrtf(fmaxf(disc_lo, 0.0f));
+  bool has = (cc <= slack) || ((u_lo <= 0.0f) && (disc_lo >= -slack));
+  // far bound: the center's projection on the light ray must fall within
+  // the inflated segment for any hit at t <= dist
+  float R = r + cone * dist + eps_cc;
+  return has && (root_max >= kTMin - eps_t) && (-g <= dist + R);
+}
+
+// The guard of triangle row tr = [v0, e1, e2, ...]: its bounding sphere
+// around the centroid v0 + (e1 + e2)/3 with the farthest vertex's radius.
+RT_DEV bool triangle_guard(V3 p, const float* tr, V3 ld, float dist) {
+  const float third = static_cast<float>(1.0 / 3.0);
+  float sx = p.x - tr[0], sy = p.y - tr[1], sz = p.z - tr[2];
+  float mx = (tr[3] + tr[6]) * third;
+  float my = (tr[4] + tr[7]) * third;
+  float mz = (tr[5] + tr[8]) * third;
+  float d0 = mx * mx + my * my + mz * mz;
+  float ax = tr[3] - mx, ay = tr[4] - my, az = tr[5] - mz;
+  float d1 = ax * ax + ay * ay + az * az;
+  float bx = tr[6] - mx, by = tr[7] - my, bz = tr[8] - mz;
+  float d2 = bx * bx + by * by + bz * bz;
+  float br = sqrtf(fmaxf(d0, fmaxf(d1, d2)));
+  V3 oc{sx - mx, sy - my, sz - mz};
+  float oc2 = oc.x * oc.x + oc.y * oc.y + oc.z * oc.z;
+  return sphere_guard(oc, oc2 - br * br, br, ld, dist);
+}
+
+// The guard of box bx = [min.xyz, max.xyz, ...]: its half-diagonal sphere.
+RT_DEV bool box_guard(V3 p, const float* bx, V3 ld, float dist) {
+  float ex = (bx[3] - bx[0]) * 0.5f;
+  float ey = (bx[4] - bx[1]) * 0.5f;
+  float ez = (bx[5] - bx[2]) * 0.5f;
+  float br = sqrtf(ex * ex + ey * ey + ez * ez);
+  V3 oc{p.x - (bx[0] + bx[3]) * 0.5f, p.y - (bx[1] + bx[4]) * 0.5f,
+        p.z - (bx[2] + bx[5]) * 0.5f};
+  float oc2 = oc.x * oc.x + oc.y * oc.y + oc.z * oc.z;
+  return sphere_guard(oc, oc2 - br * br, br, ld, dist);
+}
+
+// The guard of plane pl = [point, normal, ...]: a hit at t <= dist moves
+// at most dist along the normal, so |n.(point - p)| <= dist + eps_cc (the
+// numerator of plane_t, by its expression).
+RT_DEV bool plane_guard(V3 p, const float* pl, float dist) {
+  float num = (pl[0] - p.x) * pl[3] + (pl[1] - p.y) * pl[4] +
+              (pl[2] - p.z) * pl[5];
+  return fabsf(num) <= dist + 1e-4f;
+}
 
 // Work: occlusion tests of spheres and planes (tests[0]) and of triangles
-// and boxes (tests[1]).
-template <bool kLdg>
+// and boxes (tests[1]); K1-guard's guard evaluations (tests[2]), the
+// occluders they flagged (tests[3]) and the soft-shadow rays left undrawn
+// (tests[4]: the sample count for a lane whose mask was empty).
+template <bool kLdg, bool kGuard>
 struct BruteGeo {
   static constexpr int kSphMat = 4;  // sph row: center.xyz, radius, mat
   const Tables& tb;
-  int tests[2];
+  bool guard;  // run.soft_guard (K1 only)
+  int tests[5];
 
   RT_DEV const float* sphere_row(int i) const { return tb.sph + 5 * i; }
   RT_DEV const float* triangle_row(int i) const {
@@ -102,27 +193,111 @@ struct BruteGeo {
     return false;
   }
 
-  // One occlusion ray per soft-shadow sample, for any sample count.
+  // Occluder i of the guard's order [sph, tri, box, pln] (occluded's).
+  RT_DEV bool guard_one(int i, V3 p, V3 ld, float dist) {
+    float row[9];
+    if (i < tb.ns) {
+      load_row<kLdg>(tb.sph + 5 * i, 4, row);
+      V3 oc;
+      float cc = sphere_oc(p, row, &oc);
+      return sphere_guard(oc, cc, row[3], ld, dist);
+    }
+    i -= tb.ns;
+    if (i < tb.nt) {
+      load_row<kLdg>(tb.tri + tb.tri_cols * i, 9, row);
+      return triangle_guard(p, row, ld, dist);
+    }
+    i -= tb.nt;
+    if (i < tb.nb) {
+      load_row<kLdg>(tb.box + 7 * i, 6, row);
+      return box_guard(p, row, ld, dist);
+    }
+    load_row<kLdg>(tb.pln + 7 * (i - tb.nb), 6, row);
+    return plane_guard(p, row, dist);
+  }
+
+  // The occlusion test of the flagged occluders only, in occluded's order
+  // and with its early exit and counters.
+  RT_DEV bool occluded_flagged(V3 o, V3 d, float t_max,
+                               const uint32_t* can) {
+    float a = dot3(d, d);
+    float inv_a = 1.0f / a;
+    V3 inv = safe_inverse(d);
+    float row[9];
+    for (int w = 0; w < kGuardWords; ++w) {
+      uint32_t bits = can[w];
+      while (bits != 0u) {
+        int i = 32 * w + (ffs32(bits) - 1);
+        bits &= bits - 1u;
+        bool hit;
+        if (i < tb.ns) {
+          ++tests[0];
+          load_row<kLdg>(tb.sph + 5 * i, 4, row);
+          hit = sphere_t(o, d, a, inv_a, row, t_max) < kBig;
+        } else if ((i -= tb.ns) < tb.nt) {
+          ++tests[1];
+          load_row<kLdg>(tb.tri + tb.tri_cols * i, 9, row);
+          hit = triangle_blocked(o, d, row, t_max);
+        } else if ((i -= tb.nt) < tb.nb) {
+          ++tests[1];
+          load_row<kLdg>(tb.box + 7 * i, 6, row);
+          hit = box_blocked(o, inv, row, t_max);
+        } else {
+          ++tests[0];
+          load_row<kLdg>(tb.pln + 7 * (i - tb.nb), 6, row);
+          hit = plane_t(o, d, row, t_max) < kBig;
+        }
+        if (hit) return true;
+      }
+    }
+    return false;
+  }
+
+  // One occlusion ray per soft-shadow sample, for any sample count; with
+  // K1-guard, only against the occluders its guard flags.
   RT_DEV float soft_unblocked(V3 p, V3 ld, float dist, const SoftRays& rays) {
     float unblocked = 0.0f;
+    const int n_occl = tb.ns + tb.nt + tb.nb + tb.npl;
+    // (the wrapper refuses the guard past kGuardMax occluders)
+    if (!kGuard || !guard) {
+      for (int s = 0; s < rays.samples; ++s) {
+        V3 sd = soft_dir(rays, ld, s);
+        unblocked += occluded(p, sd, dist) ? 0.0f : 1.0f;
+      }
+      return unblocked;
+    }
+    uint32_t can[kGuardWords] = {0u, 0u, 0u};
+    uint32_t any = 0u;
+    for (int i = 0; i < n_occl; ++i) {
+      if (guard_one(i, p, ld, dist)) {
+        can[i >> 5] |= 1u << (i & 31);
+        ++tests[3];
+      }
+    }
+    tests[2] += n_occl;
+    for (int w = 0; w < kGuardWords; ++w) any |= can[w];
+    if (any == 0u) {  // nothing can block: every ray is unblocked
+      tests[4] += rays.samples;
+      return static_cast<float>(rays.samples);
+    }
     for (int s = 0; s < rays.samples; ++s) {
       V3 sd = soft_dir(rays, ld, s);
-      unblocked += occluded(p, sd, dist) ? 0.0f : 1.0f;
+      unblocked += occluded_flagged(p, sd, dist, can) ? 0.0f : 1.0f;
     }
     return unblocked;
   }
 
   RT_DEV void store_work(int32_t* out) {
-    out[0] = tests[0];
-    out[1] = tests[1];
+    for (int k = 0; k < 5; ++k) out[k] = tests[k];
   }
 };
 
-// One thread, one lane: the shared entry of K1 and K7 over the tables tb.
-template <bool kLdg, bool kState>
+// One thread, one lane: the shared entry of K1 (kGuard) and K7 over the
+// tables tb.
+template <bool kLdg, bool kState, bool kGuard>
 RT_DEV void brute_lane(const Tables& tb, const Lanes& io, const Run& run,
                        int lane) {
-  BruteGeo<kLdg> geo{tb, {0, 0}};
+  BruteGeo<kLdg, kGuard> geo{tb, run.soft_guard != 0, {0, 0, 0, 0, 0}};
   run_lane<kState>(geo, tb, io, run, lane, kBruteCounters);
 }
 

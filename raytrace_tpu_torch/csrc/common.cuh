@@ -40,6 +40,15 @@ RT_DEV int popc64(uint64_t x) {
 #endif
 }
 
+// 1 + the index of the lowest set bit, 0 for none.
+RT_DEV int ffs32(uint32_t x) {
+#ifndef RT_HOST_EMULATION
+  return __ffs(static_cast<int>(x));
+#else
+  return __builtin_ffs(static_cast<int>(x));
+#endif
+}
+
 // Copy n floats of a table row into registers; through the read-only
 // cache when the row lies in global memory (kLdg), plainly when it lies in
 // shared memory, where __ldg does not apply.
@@ -54,6 +63,7 @@ constexpr uint32_t kStreamsPerBounce = 512u;
 constexpr uint32_t kShadowBase = 8u;
 constexpr uint32_t kScatterBall = 1u;
 constexpr uint32_t kDielectric = 2u;
+constexpr uint32_t kRussianRoulette = 3u;
 
 // ---------------------------------------------------------------- RNG ----
 // pcg4d (Jarzynski & Olano 2020) in native uint32: rng.py:pcg4d.
@@ -155,12 +165,21 @@ RT_DEV V3 normalize3(V3 v) {
 }
 
 // ------------------------------------------------------- intersection ----
+// The direction-free terms of the sphere test: oc = o - center and
+// c = |oc|^2 - r^2 for s = [cx, cy, cz, r] (sphere_t and the soft-shadow
+// guard of brute_force.cuh, which must see the same c).
+RT_DEV float sphere_oc(V3 o, const float* s, V3* oc) {
+  float ocx = o.x - s[0], ocy = o.y - s[1], ocz = o.z - s[2];
+  *oc = V3{ocx, ocy, ocz};
+  return (ocx * ocx + ocy * ocy + ocz * ocz) - s[3] * s[3];
+}
+
 // ops/intersect.py:sphere_t for one sphere s = [cx, cy, cz, r]; a = |d|^2.
 RT_DEV float sphere_t(V3 o, V3 d, float a, float inv_a, const float* s,
                       float t_max) {
-  float ocx = o.x - s[0], ocy = o.y - s[1], ocz = o.z - s[2];
-  float half_b = ocx * d.x + ocy * d.y + ocz * d.z;
-  float c = (ocx * ocx + ocy * ocy + ocz * ocz) - s[3] * s[3];
+  V3 oc;
+  float c = sphere_oc(o, s, &oc);
+  float half_b = oc.x * d.x + oc.y * d.y + oc.z * d.z;
   float disc = half_b * half_b - a * c;
   if (!(disc >= 0.0f)) return kBig;
   float sq = sqrtf(disc);

@@ -28,10 +28,25 @@
 // could not hold at this scale), so it passes a superset of K6's pixels;
 // the extra ones trace to black.
 //
-// Thin-lens depth of field is not ported, so the DoF slack terms of the
-// TPU kernel are absent (the wrapper raises on DoF).
+// Thin-lens depth of field (the DoF branch of pixel_mask_pallas: bs_hit's
+// slack :2636-2646, pln_hit's lens terms :2649-2659, the camera rows
+// :2741-2762; the node pad :2774-2791 is the wrapper's, _mask_tree). A DoF
+// ray leaves o + e (|e| <= Le) toward o + F*d_j, so a point at distance s
+// from the camera lies within Le*|D - s|/(D - Le) of the jittered pinhole
+// ray (D = F*|d_j|). The bounding-sphere test takes that slack, times
+// (1 + k) for the cone, with s in [dist - r, dist + r] and D in
+// F*|d_c|*(1 -+ k): x = (s - Le)/(D - Le) is bounded by the numerators
+// dist - r - Le and dist + r + Le over c_lo = 1/(F(1+k) + Le) and
+// c_hi = 1/max(F(1-k) - Le, eps) (divided by |d_c| >= 1), a numerator
+// below zero over c_hi. This is a DEPARTURE from the JAX kernel, whose
+// leaf slack (x over F*|d_c|*(1 -+ k) alone, no (1 + k)) is not
+// conservative: the port's DoF mask holds every pixel the JAX mask holds
+// and those it drops. Planes keep the JAX kernel's kp = k + Le/(F - Le)
+// on the denominator and ll = Le*(1 + kp) on the numerator. Without DoF,
+// Le = ll = 0 and kp = k, and every test reduces to the pinhole form.
 //
-// cam: [origin.xyz, A.xyz, B.xyz, C.xyz, k] - direction = A + u*B + v*C.
+// cam: [origin.xyz, A.xyz, B.xyz, C.xyz, k, kp, ll, Le, c_lo, c_hi] -
+// direction = A + u*B + v*C.
 // bs:  [nbs][4] center.xyz, radius.   pln: [npl][7] point, normal, mat.
 // nodes: [n_nodes][9] min.xyz, max.xyz, skip, first, count; pidx: [P].
 #include "common.cuh"
@@ -39,7 +54,8 @@
 namespace rt {
 
 struct CenterRay {
-  float ox, oy, oz, dx, dy, dz, k, inv_a, sqa;
+  float ox, oy, oz, dx, dy, dz, k, inv_a, sqa, inv_sq;
+  float kp, ll, le, c_lo, c_hi;  // thin-lens terms (0, 0 and kp = k: none)
 };
 
 RT_DEV CenterRay center_ray(int p, int width, float inv_w, float inv_h,
@@ -54,13 +70,20 @@ RT_DEV CenterRay center_ray(int p, int width, float inv_w, float inv_h,
   c.dy = cam[4] + u * cam[7] + v * cam[10];
   c.dz = cam[5] + u * cam[8] + v * cam[11];
   c.k = cam[12];
+  c.kp = cam[13];
+  c.ll = cam[14];
+  c.le = cam[15];
+  c.c_lo = cam[16];
+  c.c_hi = cam[17];
   float a = c.dx * c.dx + c.dy * c.dy + c.dz * c.dz;
   c.inv_a = 1.0f / a;
   c.sqa = sqrtf(a);
+  c.inv_sq = 1.0f / c.sqa;
   return c;
 }
 
-// The cone-inflated bounding-sphere test s = [center.xyz, radius].
+// The cone-inflated bounding-sphere test s = [center.xyz, radius], with
+// the thin-lens slack dofl when Le > 0.
 RT_DEV bool bs_hit(const CenterRay& c, const float* s) {
   const float eps = 1e-3f;
   float ocx = s[0] - c.ox, ocy = s[1] - c.oy, ocz = s[2] - c.oz;
@@ -68,8 +91,17 @@ RT_DEV bool bs_hit(const CenterRay& c, const float* s) {
   float g = ocx * c.dx + ocy * c.dy + ocz * c.dz;
   float r = s[3];
   float dist = sqrtf(oc2);
-  float R = r + (dist + r) * c.k + eps;
-  return (oc2 - g * g * c.inv_a <= R * R) & (g >= -R * c.sqa);
+  float dofl = 0.0f;
+  if (c.le > 0.0f) {
+    float n_lo = dist - r - c.le;
+    float n_hi = dist + r + c.le;
+    float x_lo = n_lo * c.inv_sq * (n_lo >= 0.0f ? c.c_lo : c.c_hi);
+    float x_hi = n_hi * c.inv_sq * c.c_hi;
+    dofl = c.le * (1.0f + c.k) *
+           fmaxf(fabsf(1.0f - x_lo), fabsf(1.0f - x_hi));
+  }
+  float R = r + (dist + r) * c.k + dofl + eps;
+  return (oc2 - g * g * c.inv_a <= R * R) & (g >= -(R + c.ll) * c.sqa);
 }
 
 RT_DEV bool planes_hit(const CenterRay& c, const float* pln, int npl) {
@@ -80,8 +112,8 @@ RT_DEV bool planes_hit(const CenterRay& c, const float* pln, int npl) {
     float denom = c.dx * pl[3] + c.dy * pl[4] + c.dz * pl[5];
     float num = (pl[0] - c.ox) * pl[3] + (pl[1] - c.oy) * pl[4] +
                 (pl[2] - c.oz) * pl[5];
-    hit = hit | (fabsf(denom) <= c.k + eps) | (num * denom > 0.0f) |
-          (fabsf(num) <= eps);
+    hit = hit | (fabsf(denom) <= c.kp + eps) | (num * denom > 0.0f) |
+          (fabsf(num) <= c.ll + eps);
   }
   return hit;
 }

@@ -54,13 +54,15 @@ extern "C" int rt_trace_bvh(const float* origin, const float* direction,
                             int n_lanes, const float* tables, const int* dims,
                             int start_bounce, int end_bounce,
                             int shadow_samples, int soft, int recursive,
-                            uint32_t seed, void* stream) {
+                            uint32_t seed, int rr_start, float tp_eps,
+                            int soft_guard, void* stream) {
   const int threads = 128;
   rt::Dims d;
   memcpy(&d, dims, sizeof(d));
   rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
                                 alive_in, radiance, state, counters, n_lanes);
-  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive, seed};
+  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive,
+              seed, rr_start, tp_eps, soft_guard};
   if (n_lanes > 0) {
     int blocks = (n_lanes + threads - 1) / threads;
     auto kernel = rt::stateful(io, run) ? rt_trace_bvh_state_kernel

@@ -37,10 +37,10 @@ RT_DEV void trace_loop_body(const rt::Lanes& io, const float* tables,
   if (lane >= io.n) return;
   if (in_smem) {
     rt::Tables tb = rt::make_tables(smem, dims);
-    rt::brute_lane<false, kState>(tb, io, run, lane);
+    rt::brute_lane<false, kState, false>(tb, io, run, lane);
   } else {
     rt::Tables tb = rt::make_tables(tables, dims);
-    rt::brute_lane<true, kState>(tb, io, run, lane);
+    rt::brute_lane<true, kState, false>(tb, io, run, lane);
   }
 }
 
@@ -70,13 +70,15 @@ extern "C" int rt_trace_loop(const float* origin, const float* direction,
                              const float* tables, const int* dims,
                              int in_smem, int start_bounce, int end_bounce,
                              int shadow_samples, int soft, int recursive,
-                             uint32_t seed, void* stream) {
+                             uint32_t seed, int rr_start, float tp_eps,
+                             int soft_guard, void* stream) {
   const int threads = 128;
   rt::Dims d;
   memcpy(&d, dims, sizeof(d));
   rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
                                 alive_in, radiance, state, counters, n_lanes);
-  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive, seed};
+  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive,
+              seed, rr_start, tp_eps, soft_guard};
   size_t smem = in_smem ? static_cast<size_t>(rt::table_floats(d)) *
                               sizeof(float)
                         : 0;

@@ -99,13 +99,16 @@ extern "C" int rt_trace_stream(const float* origin, const float* direction,
                                const float* tables, const int* dims,
                                const float* rows, int start_bounce,
                                int end_bounce, int shadow_samples, int soft,
-                               int recursive, uint32_t seed, void* stream) {
+                               int recursive, uint32_t seed,
+                               int rr_start, float tp_eps, int soft_guard,
+                               void* stream) {
   const int threads = 128;
   rt::Dims d;
   memcpy(&d, dims, sizeof(d));
   rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
                                 alive_in, radiance, state, counters, n_lanes);
-  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive, seed};
+  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive,
+              seed, rr_start, tp_eps, soft_guard};
   if (n_lanes > 0) {
     int blocks = (n_lanes + threads - 1) / threads;
     auto kernel = rt::stateful(io, run) ? rt_trace_stream_state_kernel

@@ -14,7 +14,10 @@
 // per block into shared memory and tested by brute force (brute_force.cuh).
 // Depth, light, sample and primitive counts are run-time loop bounds, and
 // no loop waits on data. Occlusion tests stop at the first blocker, which
-// leaves the verdict unchanged. What bounds it: operations, not bytes -
+// leaves the verdict unchanged, and the soft-shadow loop runs behind
+// K1-guard (brute_force.cuh): a per-occluder cone test that skips the
+// occluders which cannot block any of a light's soft rays (Run.soft_guard,
+// 1 on the main path). What bounds it: operations, not bytes -
 // each lane reads 32 bytes and writes 12, but a bounce runs up to
 // 1 + lights * (1 + samples) rays against every primitive. Divergence
 // between lanes of a warp (a glass lane bouncing 50 times beside a dead
@@ -34,7 +37,7 @@ RT_DEV void trace_unroll_body(const rt::Lanes& io, const float* tables,
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= io.n) return;
   rt::Tables tb = rt::make_tables(smem, dims);
-  rt::brute_lane<false, kState>(tb, io, run, lane);
+  rt::brute_lane<false, kState, true>(tb, io, run, lane);
 }
 
 extern "C" __global__ void rt_trace_unroll_kernel(
@@ -62,13 +65,15 @@ extern "C" int rt_trace_unroll(const float* origin, const float* direction,
                                const float* tables, const int* dims,
                                int start_bounce, int end_bounce,
                                int shadow_samples, int soft, int recursive,
-                               uint32_t seed, void* stream) {
+                               uint32_t seed, int rr_start, float tp_eps,
+                               int soft_guard, void* stream) {
   const int threads = 128;
   rt::Dims d;
   memcpy(&d, dims, sizeof(d));
   rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
                                 alive_in, radiance, state, counters, n_lanes);
-  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive, seed};
+  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive,
+              seed, rr_start, tp_eps, soft_guard};
   size_t smem = static_cast<size_t>(rt::table_floats(d)) * sizeof(float);
   if (n_lanes > 0) {
     int blocks = (n_lanes + threads - 1) / threads;

@@ -103,15 +103,15 @@ def library() -> ctypes.CDLL:
     # origin, direction, pix, samp, tp_in, alive_in, radiance, state,
     # counters, n_lanes, tables, dims (bounce.cuh:Lanes, Dims)
     lanes = [p] * 9 + [i, p, dims]
+    f = ctypes.c_float
     # start_bounce, end_bounce, shadow_samples, soft, recursive, seed,
-    # stream (bounce.cuh:Run)
-    run = [i, i, i, i, i, u, p]
+    # rr_start, tp_eps, soft_guard, stream (bounce.cuh:Run)
+    run = [i, i, i, i, i, u, i, f, i, p]
     for name, extra in (("rt_trace_unroll", []), ("rt_trace_bvh", []),
                         ("rt_trace_stream", [p]), ("rt_trace_loop", [i])):
         fn = getattr(lib, name)
         fn.argtypes = lanes + extra + run
         fn.restype = i
-    f = ctypes.c_float
     head = [p, i, i, f, f, p]  # out, width, height, inv_w, inv_h, cam
     for name, args in (("rt_pixel_mask", [p, i, p, i, p]),
                        ("rt_pixel_mask_bvh", [p, p, i, p, p, i, p]),

@@ -330,15 +330,25 @@ def hit_from_tidx(geom, origin, direction, t, idx) -> Hit:
                front_face=front_face, mat_id=mat_id)
 
 
-def _any_sphere_triangle(geom, origin, direction, t_min, t_max, exact):
+def _any(hit, occluders, first):
+    """(B,) bool: any hit (B,N), of the occluders ``first``..``first+N`` of
+    the per-lane mask ``occluders`` (B,M) when one is given."""
+    if occluders is not None:
+        hit = hit & occluders[:, first:first + hit.shape[-1]]
+    return torch.any(hit, dim=-1)
+
+
+def _any_sphere_triangle(geom, origin, direction, t_min, t_max, exact,
+                         occluders=None):
     """(B,) bool: brute-force occlusion by the spheres and the hit
     triangles."""
     blocked = torch.zeros(origin.shape[:-1], dtype=torch.bool,
                           device=origin.device)
-    if geom.sph_center.shape[0]:
+    ns = geom.sph_center.shape[0]
+    if ns:
         t = sphere_t(origin, direction, geom.sph_center, geom.sph_radius,
                      t_min, t_max)
-        blocked |= torch.any(t < BIG, dim=-1)
+        blocked |= _any(t < BIG, occluders, 0)
     nt = geom.n_hit_tris
     if nt:
         v0 = geom.tri_v0[:nt]
@@ -350,11 +360,12 @@ def _any_sphere_triangle(geom, origin, direction, t_min, t_max, exact):
         else:
             hit = triangle_blocked(origin, direction, v0, e1, e2, t_min,
                                    t_max)
-        blocked |= torch.any(hit, dim=-1)
+        blocked |= _any(hit, occluders, ns)
     return blocked
 
 
-def any_hit(geom, origin, direction, t_min, t_max, accel=None, exact=False):
+def any_hit(geom, origin, direction, t_min, t_max, accel=None, exact=False,
+            occluders=None):
     """(B,) bool: does any primitive intersect with t in [t_min, t_max]?
 
     ``t_max`` may be per lane. ``exact=True`` tests triangles with the
@@ -363,19 +374,26 @@ def any_hit(geom, origin, direction, t_min, t_max, accel=None, exact=False):
     mask must never exclude a lane the closest hit would accept. With
     ``accel`` the spheres and triangles are tested by the early-exit tree
     walk (bvh.traverse_any); planes and boxes stay brute force.
+    ``occluders`` (B, spheres + hit triangles + boxes + planes) bool, in
+    that order, brute force only: each lane tests only its flagged
+    primitives (K1-guard's flags).
     """
     if accel is not None:
+        if occluders is not None:
+            raise ValueError("per-lane occluders are brute force only")
         from .. import bvh as bvh_mod
         blocked = bvh_mod.traverse_any(accel, geom, origin, direction, t_min,
                                        t_max, exact=exact)
     else:
         blocked = _any_sphere_triangle(geom, origin, direction, t_min, t_max,
-                                       exact)
+                                       exact, occluders)
+    first = geom.sph_center.shape[0] + geom.n_hit_tris
     if geom.box_min.shape[0]:
-        blocked |= torch.any(box_blocked(origin, direction, geom.box_min,
-                                         geom.box_max, t_min, t_max), dim=-1)
+        blocked |= _any(box_blocked(origin, direction, geom.box_min,
+                                    geom.box_max, t_min, t_max), occluders,
+                        first)
     if geom.pl_point.shape[0]:
         t = plane_t(origin, direction, geom.pl_point, geom.pl_normal, t_min,
                     t_max)
-        blocked |= torch.any(t < BIG, dim=-1)
+        blocked |= _any(t < BIG, occluders, first + geom.box_min.shape[0])
     return blocked

@@ -15,8 +15,9 @@ Port of the host side of ``raytrace_tpu/ops/megakernel.py``:
   bounce body of ``csrc/bounce.cuh`` with the extended features (K1-ext:
   smooth normals, material kinds 7-12, textures) and the resumable form
   (K1-state: ``start_bounce``/``end_bounce``, the initial throughput and
-  alive flags, and the state after the segment). In bvh and stream
-  modes the walks take the 4-wide layout where ``bvh.wide_walk`` says the
+  alive flags, and the state after the segment), and with fast_mc
+  (``cfg.russian_roulette_start``, ``cfg.throughput_epsilon``). In bvh and
+  stream modes the walks take the 4-wide layout where ``bvh.wide_walk`` says the
   JAX kernel would (K3-wide), else the binary tree. Plain version:
   ``trace.trace``, which in bvh and stream modes walks the tree once per
   ray (``bvh.traverse_closest_wide`` or ``traverse_closest``, and
@@ -26,15 +27,24 @@ Port of the host side of ``raytrace_tpu/ops/megakernel.py``:
   (K2, unroll and loop modes), a walk over cone-inflated node slabs with
   bounding-sphere tests at the leaves (K6, bvh mode), or the same walk
   that marks a pixel at the first leaf slab it reaches (K6-stream, stream
-  mode). CUDA source: ``csrc/pixel_mask.cu``. Plain version:
-  ``pixel_mask_plain``.
+  mode), each with a thin-lens branch for depth of field that takes the
+  corrected bound (``_mask_camera``). CUDA source: ``csrc/pixel_mask.cu``.
+  Plain version: ``pixel_mask_plain``.
+* K1-guard, in K1 (``csrc/brute_force.cuh``): the per-occluder cone guard
+  of the soft-shadow loop, on every main-path launch (``soft_guard``).
+  Plain versions: ``soft_guard_mask`` and ``shadow_factor_guarded``
+  (``shade.shadow_factor`` given the guard's flags), which the tests and
+  chip_smoke.py hold the kernel to; the plain engine itself
+  runs the unguarded loop, whose result is the same bit for bit.
 
 A wrapper takes its plain version only for a scene or tensor on the CPU;
 on a CUDA device it launches its kernel or raises - there is no fallback.
 Each wrapper counts its launches in ``LAUNCHES``, adding one where it
 launches its kernel and nowhere else; a trace launch that resumes or
-returns lane state also counts under ``trace_state`` (K1-state), and one
-whose walks take the 4-wide table under ``trace_wide`` (K3-wide).
+returns lane state also counts under ``trace_state`` (K1-state), one
+whose walks take the 4-wide table under ``trace_wide`` (K3-wide), a K1
+launch with its soft-shadow guard under ``trace_guard`` (K1-guard), and a
+mask launch with depth of field under ``mask_dof``.
 
 Past ``MAX_STREAM_KERNEL_PRIMS`` primitives the JAX package renders with
 its banded jnp engine, which is not ported: such scenes raise.
@@ -55,6 +65,7 @@ from .._f32 import sqrt as _sqrt
 from ..camera import lookat_basis
 from ..models import textures as tex_mod
 from . import _build
+from .shade import shadow_factor as _shadow_factor  # before any swap
 
 UNROLL_PRIM_LIMIT = 96
 UNROLL_PRIM_LIMIT_VN = scene_mod.UNROLL_PRIM_LIMIT_VN  # 48
@@ -69,7 +80,8 @@ STREAM_COLS_VN = 23
 # K7 copies its tables to shared memory up to this many bytes (the most a
 # block takes without opting in); past it they stay in global memory.
 LOOP_SMEM_BYTES = 48 * 1024
-COUNTERS = 5              # rt::kBruteCounters: per-lane work of K1 and K7
+COUNTERS = 8              # rt::kBruteCounters: per-lane work of K1 and K7
+GUARD_MAX = 96            # rt::kGuardMax: occluders K1-guard can flag
 BVH_COUNTERS = 10         # rt::kBvhCounters: per-lane work of K3+K4, K5
 STATE_COLS = 10           # resumable lane state: origin, direction,
                           # throughput, alive (trace.state_dict)
@@ -82,11 +94,13 @@ MASKS = {"unroll": "pixel_mask", "loop": "pixel_mask",
 
 # Kernel launches since the last reset_launches(), by kernel;
 # "trace_state" counts the trace launches that take or return lane state,
-# "trace_wide" those whose walks take the 4-wide table.
+# "trace_wide" those whose walks take the 4-wide table, "trace_guard" the
+# K1 launches with K1-guard on, "mask_dof" the mask launches with depth of
+# field.
 LAUNCHES = {"trace_unroll": 0, "trace_bvh": 0, "trace_stream": 0,
             "trace_loop": 0, "trace_state": 0, "trace_wide": 0,
-            "pixel_mask": 0,
-            "pixel_mask_bvh": 0, "pixel_mask_stream": 0}
+            "trace_guard": 0, "pixel_mask": 0,
+            "pixel_mask_bvh": 0, "pixel_mask_stream": 0, "mask_dof": 0}
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -288,61 +302,116 @@ def pack_bvh_tables(accel, inflate: float = 0.0):
     return nodes, accel.prim_index.to(torch.float32)
 
 
-def _mask_tree(scene, cam4, k):
+def _mask_camera(scene, width, height, cfg, go_camera) -> torch.Tensor:
+    """(18,) float32 camera row of the mask kernels: [origin.xyz, A.xyz,
+    B.xyz, C.xyz, k, kp, ll, Le, c_lo, c_hi] (``csrc/pixel_mask.cu``).
+
+    k is the jitter cone (``_cone_half_sin``). With thin-lens depth of
+    field, Le = lens radius * sqrt(|up|^2 + 1) bounds the lens offset
+    rd.x * up + rd.y * unit(LookAt x Up) (``camera.thin_lens_perturb``,
+    with the scene's up as given, not normalised; sqrt(2) * lens radius
+    for a unit up, the JAX kernel's); planes take the JAX kernel's
+    direction-cone bound kp = k + Le/(F - Le) and origin slack
+    ll = Le*(1 + kp) (pixel_mask_pallas :2741-2762); the bounding-sphere
+    test takes the corrected slack, over c_lo = 1/(F(1+k) + Le) and
+    c_hi = 1/max(F(1-k) - Le, eps) (see csrc/pixel_mask.cu). Without it
+    kp = k and the other four are 0."""
+    cam4 = _affine_camera(scene, go_camera)
+    k = _cone_half_sin(cam4, width, height)
+    zero = k * 0.0
+    if cfg.depth_of_field:
+        L = np.float32(cfg.dof_lens_radius)
+        F = np.float32(max(cfg.dof_focus_distance, 1e-6))
+        up = scene.camera.up.to(torch.float32)
+        le = float(L) * _sqrt(up[0] * up[0] + up[1] * up[1] + up[2] * up[2]
+                              + 1.0)
+        kp = k + le / torch.clamp(float(F) - le, min=1e-6)
+        ll = le * (1.0 + kp)
+        c_lo = 1.0 / (float(F) * (1.0 + k) + le)
+        c_hi = 1.0 / torch.clamp(float(F) * (1.0 - k) - le, min=1e-6)
+    else:
+        kp, ll, le, c_lo, c_hi = k, zero, zero, zero, zero
+    return torch.cat([cam4.reshape(-1)] + [
+        t.reshape(1) for t in (k, kp, ll, le, c_lo, c_hi)]).to(torch.float32)
+
+
+def _mask_tree(scene, cam, cfg):
     """K6's tables: (nodes (N,9), prim_index (P,)), every node slab grown
     by the jitter cone at its farthest corner, k * |origin - corner| +
     eps, plus the fp slack 1e-3 * extent + 1e-3 (the bvh branch of
-    pixel_mask_pallas, :2777)."""
+    pixel_mask_pallas, :2777). With depth of field the JAX kernel's
+    per-node pad over |d_j| in [1, dmax] (:2774-2791): k*s_hi +
+    Le*maxfac + eps, s_hi = d_far + Le."""
     eps = 1e-3
     nodes, pidx = pack_bvh_tables(scene.accel)
     nmin, nmax = nodes[:, 0:3], nodes[:, 3:6]
-    o = cam4[0]
+    o, k = cam[0:3], cam[12]
     far = torch.maximum(torch.abs(nmin - o), torch.abs(nmax - o))
     d_far = _sqrt(far[:, 0] * far[:, 0] + far[:, 1] * far[:, 1]
                   + far[:, 2] * far[:, 2])
-    padn = (k * d_far + eps)[:, None]
+    if cfg.depth_of_field:
+        le = cam[15]
+        near = torch.clamp(torch.maximum(nmin - o, o - nmax), min=0.0)
+        d_near = _sqrt(near[:, 0] * near[:, 0] + near[:, 1] * near[:, 1]
+                       + near[:, 2] * near[:, 2])
+        norm = lambda v: _sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+        dmax = norm(cam[3:6]) + norm(cam[6:9]) + norm(cam[9:12])
+        F = float(np.float32(max(cfg.dof_focus_distance, 1e-6)))
+        s_lo = torch.clamp(d_near - le, min=0.0)
+        s_hi = d_far + le
+        maxfac = torch.maximum(
+            torch.abs(1.0 - s_lo / (F * dmax + le)),
+            torch.abs(1.0 - s_hi / torch.clamp(F - le, min=1e-6)))
+        padn = (k * s_hi + le * maxfac + eps)[:, None]
+    else:
+        padn = (k * d_far + eps)[:, None]
     fp = 1e-3 * (nmax - nmin) + 1e-3
     return (torch.cat([nmin - padn - fp, nmax + padn + fp, nodes[:, 6:]],
                       1), pidx)
 
 
 def _mask_inputs(scene, width, height, cfg, go_camera):
-    """(mode, affine camera (4,3), cone bound k, bounding spheres (Nbs,4)
-    or None in stream mode, planes (Np,7), and in bvh and stream modes
-    the walk's (nodes, prim_index))."""
-    if cfg.depth_of_field:
-        raise NotImplementedError(
-            "the mask's thin-lens DoF slack is not ported yet (and the "
-            "JAX kernel's is not conservative): ROADMAP Queue 1 item 3 and "
-            "Queue 3")
+    """(mode, camera row (18,) of ``_mask_camera``, bounding spheres
+    (Nbs,4) or None in stream mode, planes (Np,7), and in bvh and stream
+    modes the walk's (nodes, prim_index))."""
     mode = require_mode(scene)
-    cam4 = _affine_camera(scene, go_camera)
-    k = _cone_half_sin(cam4, width, height)
+    cam = _mask_camera(scene, width, height, cfg, go_camera)
     g = scene.geometry
     pln = torch.cat([g.pl_point, g.pl_normal,
                      g.pl_mat[:, None].to(torch.float32)], 1)
-    tree = _mask_tree(scene, cam4, k) if mode in ("bvh", "stream") else None
+    tree = (_mask_tree(scene, cam, cfg) if mode in ("bvh", "stream")
+            else None)
     # stream scenes: the mask stops at the node slabs (node_only, :2597)
     bs = None if mode == "stream" else _bsphere_table(scene)
-    return mode, cam4, k, bs, pln, tree
+    return mode, cam, bs, pln, tree
 
 
 # ------------------------------------------------ K2, K6, K6-stream ----
 
-def _bs_hit(o, dx, dy, dz, inv_a, sqa, k, bs):
+def _bs_hit(o, dx, dy, dz, inv_a, sqa, inv_sq, cam, bs):
     """The cone-inflated bounding-sphere test of ``csrc/pixel_mask.cu``
-    (``bs_hit``): rows bs (..., 4) against center rays whose direction
-    components (and inv_a = 1/|d|^2, sqa = |d|) broadcast against them."""
+    (``bs_hit``), with its thin-lens slack: rows bs (..., 4) against center
+    rays whose direction components (and inv_a = 1/|d|^2, sqa = |d|,
+    inv_sq = 1/|d|) broadcast against them."""
+    k, ll, le, c_lo, c_hi = cam[12], cam[14], cam[15], cam[16], cam[17]
     oc = bs[..., :3] - o
     ocx, ocy, ocz = oc[..., 0], oc[..., 1], oc[..., 2]
     oc2 = ocx * ocx + ocy * ocy + ocz * ocz
     g = ocx * dx + ocy * dy + ocz * dz
     r = bs[..., 3]
-    R = r + (_sqrt(oc2) + r) * k + 1e-3
-    return (oc2 - g * g * inv_a <= R * R) & (g >= -R * sqa)
+    dist = _sqrt(oc2)
+    n_lo = dist - r - le
+    n_hi = dist + r + le
+    x_lo = n_lo * inv_sq * torch.where(n_lo >= 0.0, c_lo, c_hi)
+    x_hi = n_hi * inv_sq * c_hi
+    dofl = le * (1.0 + k) * torch.maximum(torch.abs(1.0 - x_lo),
+                                          torch.abs(1.0 - x_hi))
+    R = r + (dist + r) * k + dofl + 1e-3
+    return (oc2 - g * g * inv_a <= R * R) & (g >= -(R + ll) * sqa)
 
 
-def _mask_walk(o, d, inv_a, sqa, k, bs, nodes, pidx, leaf_size, work):
+def _mask_walk(o, d, inv_a, sqa, inv_sq, cam, bs, nodes, pidx, leaf_size,
+               work):
     """(P,) bool: K6's walk for every pixel's center ray. Skip walk over
     the inflated slabs (near clamped at 0); a boxed leaf runs the
     bounding-sphere test of its primitives, or, with ``bs`` None (K6-stream,
@@ -386,8 +455,8 @@ def _mask_walk(o, d, inv_a, sqa, k, bs, nodes, pidx, leaf_size, work):
                 dd = d[lane]
                 h[at] = torch.any(
                     _bs_hit(o, dd[:, 0:1], dd[:, 1:2], dd[:, 2:3],
-                            inv_a[lane], sqa[lane], k, rows) & valid,
-                    dim=-1)
+                            inv_a[lane], sqa[lane], inv_sq[lane], cam,
+                            rows) & valid, dim=-1)
         hit[act[h]] = True
         nxt = torch.where(boxed & ~leaf, cur + 1, skip[cur])
         nxt = torch.where(h, n, nxt)
@@ -402,8 +471,8 @@ def pixel_mask_plain(scene, *, width: int, height: int, cfg,
     K6-stream (stream mode): (H*W,) bool, the same float32 operations as
     ``csrc/pixel_mask.cu``, vectorised over pixels. ``work``: see
     _mask_walk (bvh and stream modes)."""
-    mode, cam4, k, bs, pln, tree = _mask_inputs(scene, width, height, cfg,
-                                                go_camera)
+    mode, cam, bs, pln, tree = _mask_inputs(scene, width, height, cfg,
+                                            go_camera)
     dev = scene.device
     eps = 1e-3
     inv_w = float(np.float32(1.0 / width))
@@ -411,27 +480,30 @@ def pixel_mask_plain(scene, *, width: int, height: int, cfg,
     pix = torch.arange(width * height, device=dev)
     u = ((pix % width).to(torch.float32) + 0.5) * inv_w
     v = ((pix // width).to(torch.float32) + 0.5) * inv_h
-    o = cam4[0]
-    d = cam4[1] + u[:, None] * cam4[2] + v[:, None] * cam4[3]   # (P,3)
+    o = cam[0:3]
+    d = cam[3:6] + u[:, None] * cam[6:9] + v[:, None] * cam[9:12]  # (P,3)
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     a = dx * dx + dy * dy + dz * dz
     inv_a = 1.0 / a
     sqa = _sqrt(a)
+    inv_sq = 1.0 / sqa
     hit = torch.zeros((width * height,), dtype=torch.bool, device=dev)
     if tree is not None:
-        hit |= _mask_walk(o, d, inv_a, sqa, k, bs, *tree,
+        hit |= _mask_walk(o, d, inv_a, sqa, inv_sq, cam, bs, *tree,
                           scene.accel.leaf_size, work)
     elif bs.shape[0]:
-        hit |= torch.any(_bs_hit(o, dx, dy, dz, inv_a, sqa, k, bs[None]),
-                         dim=-1)
+        hit |= torch.any(_bs_hit(o, dx, dy, dz, inv_a, sqa, inv_sq, cam,
+                                 bs[None]), dim=-1)
     if pln.shape[0]:
+        kp, ll = cam[13], cam[14]
         n = pln[None, :, 3:6]
         denom = dx * n[..., 0] + dy * n[..., 1] + dz * n[..., 2]
         pd = pln[None, :, 0:3] - o
         num = (pd[..., 0] * n[..., 0] + pd[..., 1] * n[..., 1]
                + pd[..., 2] * n[..., 2])
-        hit |= torch.any((torch.abs(denom) <= k + eps) | (num * denom > 0.0)
-                         | (torch.abs(num) <= eps), dim=-1)
+        hit |= torch.any((torch.abs(denom) <= kp + eps)
+                         | (num * denom > 0.0)
+                         | (torch.abs(num) <= ll + eps), dim=-1)
     return hit
 
 
@@ -444,10 +516,10 @@ def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
     dev = scene.device
     if dev.type != "cuda":
         raise RuntimeError(f"pixel_mask kernel: device {dev} is not CUDA")
-    mode, cam4, k, bs, pln, tree = _mask_inputs(scene, width, height, cfg,
-                                                go_camera)
+    mode, cam, bs, pln, tree = _mask_inputs(scene, width, height, cfg,
+                                            go_camera)
     name = MASKS[mode]
-    cam = torch.cat([cam4.reshape(-1), k.reshape(1)]).contiguous()
+    cam = cam.contiguous()
     pln = pln.contiguous()
     out = torch.empty((width * height,), dtype=torch.bool, device=dev)
     lib = _build.library()
@@ -473,6 +545,8 @@ def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
             for a in args), torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, name)
         LAUNCHES[name] += 1
+        if cfg.depth_of_field:
+            LAUNCHES["mask_dof"] += 1
 
     return out, launch
 
@@ -496,7 +570,6 @@ def _check_trace_inputs(scene, origin, direction, pix_id, samp_id, cfg,
                         init_throughput=None, init_alive=None):
     """Raises for inputs the trace kernels cannot take; returns the
     scene's kernel mode."""
-    trace_mod.check_supported(cfg)
     mode = require_mode(scene)
     n = origin.shape[0]
     for name, t, shape in (("origin", origin, (n, 3)),
@@ -561,7 +634,8 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
                   *, start_bounce: int = 0, end_bounce=None,
                   init_throughput=None, init_alive=None,
                   return_state: bool = False,
-                  counters: torch.Tensor | None = None):
+                  counters: torch.Tensor | None = None,
+                  soft_guard: bool = True):
     """The trace kernel's inputs on the card: returns (out, launch).
     ``launch()`` runs K1 (unroll mode), K3+K4 (bvh mode), K5 (stream mode)
     or K7 (loop mode) into ``out`` and counts the launch under the
@@ -573,10 +647,18 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
     (radiance, state) of ``trace.trace``. ``start_bounce``, ``end_bounce``,
     ``init_throughput`` and ``init_alive`` are those of ``trace.trace``.
 
+    ``cfg``'s fast_mc settings go to the kernel as ``rr_start`` (-1: off)
+    and ``tp_eps`` (``csrc/bounce.cuh:Run``). ``soft_guard`` (K1 only) runs
+    K1-guard, as every main-path launch does; False runs K1's unguarded
+    soft-shadow loop, which gives the same result (for comparisons on the
+    card; the JAX package's RT_SOFT_PRIM=0).
+
     ``counters`` (for operation counts; off on the main path) receives
     each lane's work. Unroll and loop modes, (B, COUNTERS) int32:
-    closest-hit rays, hard and soft shadow rays, and occlusion tests of
-    spheres+planes and of triangles+boxes. Bvh and stream modes, (B,
+    closest-hit rays, hard and soft shadow rays (the soft ones a lane
+    asked for), occlusion tests of spheres+planes and of triangles+boxes,
+    and K1-guard's guard evaluations, flagged occluders and undrawn soft
+    rays (0 in K7 and unguarded). Bvh and stream modes, (B,
     BVH_COUNTERS) int32: closest-hit, hard shadow and soft shadow rays,
     then node slab tests, sphere tests and triangle tests of the
     closest-hit and hard shadow walks, node slab tests and (sample,
@@ -609,6 +691,12 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
     ptr = lambda t: None if t is None else t.data_ptr()
     flat, dims, extra = trace_tables(scene, mode)
     wide = dims[12] > 0
+    guard = mode == "unroll" and bool(soft_guard)
+    if guard and sum(dims[0:4]) > GUARD_MAX:
+        raise ValueError(f"K1-guard flags at most {GUARD_MAX} occluders "
+                         f"(spheres, hit triangles, planes, boxes): {dims}")
+    rr_start = (-1 if cfg.russian_roulette_start is None
+                else int(cfg.russian_roulette_start))
     rad = torch.empty((n, 3), dtype=torch.float32, device=dev)
     if counters is not None and (
             tuple(counters.shape) != (n, n_counters)
@@ -635,6 +723,7 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
             start_bounce, end,
             cfg.shadow_samples, int(cfg.soft_shadows),
             int(cfg.recursive_reflections), cfg.seed & 0xFFFFFFFF,
+            rr_start, float(cfg.throughput_epsilon), int(guard),
             torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, kernel)
         LAUNCHES[kernel] += 1
@@ -642,6 +731,8 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
             LAUNCHES["trace_state"] += 1
         if wide:
             LAUNCHES["trace_wide"] += 1
+        if guard:
+            LAUNCHES["trace_guard"] += 1
 
     out = (rad, trace_mod.state_dict(state)) if return_state else rad
     return out, launch
@@ -673,3 +764,113 @@ def trace(scene, origin, direction, pix_id, samp_id, cfg, *,
                                 cfg, **kw)
     launch()
     return out
+
+
+# ------------------------------------------------ K1-guard, plain ----
+
+_CONE, _EPS_T, _EPS_CC = 0.102, np.float32(1e-4), 1e-4
+_GUARD_T = float(np.float32(1e-3) - _EPS_T)  # t_min - eps_t in float32
+
+
+def _sphere_guard(ocx, ocy, ocz, cc, r, ld, dist):
+    """``csrc/brute_force.cuh:sphere_guard``: (B,N) bool from the
+    direction-free terms of bounding spheres (oc = p - center,
+    cc = |oc|^2 - r^2) against the unit light direction ld (B,3) and
+    dist (B,)."""
+    ldx, ldy, ldz = (ld[:, i:i + 1] for i in range(3))
+    dist = dist[:, None]
+    oc2 = cc + r * r
+    g = ocx * ldx + ocy * ldy + ocz * ldz
+    u_lo = g - _CONE * _sqrt(oc2)
+    slack = _EPS_CC + 1e-6 * oc2
+    disc_lo = u_lo * u_lo - cc
+    root_max = -u_lo + _sqrt(torch.clamp(disc_lo, min=0.0))
+    has = (cc <= slack) | ((u_lo <= 0.0) & (disc_lo >= -slack))
+    R = r + _CONE * dist + _EPS_CC
+    return has & (root_max >= _GUARD_T) & (-g <= dist + R)
+
+
+def _bounding_guard(center_off, br, ld, dist):
+    """The guard of bounding spheres given p - center as (B,N) components
+    and radii br (N,)."""
+    ocx, ocy, ocz = center_off
+    oc2 = ocx * ocx + ocy * ocy + ocz * ocz
+    return _sphere_guard(ocx, ocy, ocz, oc2 - br * br, br, ld, dist)
+
+
+def soft_guard_mask(tables, p, ld, dist, need) -> torch.Tensor:
+    """K1-guard's plain version: (B, occluders) bool in the kernel's order
+    [spheres, hit triangles, boxes, planes] - can any ray of the light's
+    soft-shadow cone from p (B,3) around the unit direction ld (B,3) hit
+    this occluder in [t_min, dist (B,)]? False where ``need`` (B,) bool is
+    False. ``tables``: ``pack_tables``'s dict, or ``occluder_tables``'s
+    (the columns read are the leading ones). The float32 operations are
+    those of ``csrc/brute_force.cuh``."""
+    px, py, pz = (p[:, i:i + 1] for i in range(3))
+    parts = []
+    sph = tables["sph"]
+    if sph.shape[0]:
+        ocx, ocy, ocz = px - sph[:, 0], py - sph[:, 1], pz - sph[:, 2]
+        r = sph[:, 3]
+        cc = (ocx * ocx + ocy * ocy + ocz * ocz) - r * r
+        parts.append(_sphere_guard(ocx, ocy, ocz, cc, r, ld, dist))
+    tri = tables["tri"]
+    if tri.shape[0]:
+        third = float(np.float32(1.0 / 3.0))
+        e1, e2 = tri[:, 3:6], tri[:, 6:9]
+        m = (e1 + e2) * third
+        sq = lambda v: v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1] + v[:, 2] * v[:, 2]
+        br = _sqrt(torch.maximum(sq(m), torch.maximum(sq(e1 - m),
+                                                      sq(e2 - m))))
+        off = tuple((pc - tri[:, i]) - m[:, i]
+                    for i, pc in enumerate((px, py, pz)))
+        parts.append(_bounding_guard(off, br, ld, dist))
+    box = tables["box"]
+    if box.shape[0]:
+        e = (box[:, 3:6] - box[:, 0:3]) * 0.5
+        br = _sqrt(e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2])
+        off = tuple(pc - (box[:, i] + box[:, 3 + i]) * 0.5
+                    for i, pc in enumerate((px, py, pz)))
+        parts.append(_bounding_guard(off, br, ld, dist))
+    pln = tables["pln"]
+    if pln.shape[0]:
+        num = ((pln[:, 0] - px) * pln[:, 3] + (pln[:, 1] - py) * pln[:, 4]
+               + (pln[:, 2] - pz) * pln[:, 5])
+        parts.append(torch.abs(num) <= dist[:, None] + _EPS_CC)
+    if not parts:
+        return torch.zeros((p.shape[0], 0), dtype=torch.bool,
+                           device=p.device)
+    return torch.cat(parts, 1) & need[:, None]
+
+
+def occluder_tables(geom) -> dict:
+    """The occluders of the brute-force soft-shadow loop as ``pack_tables``
+    lays them out (leading columns): sph [center, r], tri [v0, e1, e2]
+    (hit triangles), pln [point, normal], box [min, max]."""
+    nt = geom.n_hit_tris
+    v0 = geom.tri_v0[:nt]
+    return dict(
+        sph=torch.cat([geom.sph_center, geom.sph_radius[:, None]], 1),
+        tri=torch.cat([v0, geom.tri_v1[:nt] - v0, geom.tri_v2[:nt] - v0], 1),
+        pln=torch.cat([geom.pl_point, geom.pl_normal], 1),
+        box=torch.cat([geom.box_min, geom.box_max], 1))
+
+
+def shadow_factor_guarded(geom, point, light_dist, light_dir, pix_id,
+                          samp_id, bounce, light_index, *, soft_shadows=True,
+                          shadow_samples=16, seed=0, accel=None):
+    """``shade.shadow_factor`` with K1-guard: each soft ray tested only
+    against the occluders that ``soft_guard_mask`` flags (1 where nothing
+    is flagged): the plain version of K1's guarded shadow factor, equal to
+    the unguarded one bit for bit. ``accel`` must be None (K1-guard is
+    unroll mode's)."""
+    if accel is not None:
+        raise ValueError("K1-guard is the brute-force (unroll) soft loop")
+    need = torch.ones_like(light_dist, dtype=torch.bool)
+    can = soft_guard_mask(occluder_tables(geom), point, light_dir,
+                          light_dist, need) if soft_shadows else None
+    return _shadow_factor(geom, point, light_dist, light_dir, pix_id,
+                          samp_id, bounce, light_index,
+                          soft_shadows=soft_shadows,
+                          shadow_samples=shadow_samples, seed=seed,
+                          occluders=can)

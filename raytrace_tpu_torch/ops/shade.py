@@ -70,11 +70,13 @@ SOFT_BATCH_LANES = 1 << 18
 
 def shadow_factor(geom, point, light_dist, light_dir, pix_id, samp_id,
                   bounce, light_index, *, soft_shadows=True,
-                  shadow_samples=16, seed=0, accel=None):
+                  shadow_samples=16, seed=0, accel=None, occluders=None):
     """(B,) shadow factor in [0, 1]. Each soft sample is its own
     occlusion ray (with ``accel``, its own tree walk); samples are drawn
     and tested together, in wavefronts of up to SOFT_BATCH_LANES lanes,
-    which changes no draw and no verdict."""
+    which changes no draw and no verdict. ``occluders`` (B, N) bool: the
+    primitives each lane's soft rays test (``intersect.any_hit``'s
+    order; K1-guard's flags), all of them when None."""
     hard = intersect.any_hit(geom, point, light_dir, 1e-3, light_dist,
                              accel=accel)
     if not soft_shadows:
@@ -92,7 +94,8 @@ def shadow_factor(geom, point, light_dist, light_dir, pix_id, samp_id,
         dirs = _normalize(light_dir.repeat(k, 1) + 0.1 * ball)
         blocked = intersect.any_hit(
             geom, point.repeat(k, 1), dirs, 1e-3, light_dist.repeat(k),
-            accel=accel).reshape(k, n)
+            accel=accel, occluders=None if occluders is None
+            else occluders.repeat(k, 1)).reshape(k, n)
         # a count of unblocked rays: exact in float32, so any order
         unblocked += (~blocked).sum(0).to(unblocked.dtype)
     return torch.where(hard, 0.0, _div(unblocked, float(shadow_samples)))

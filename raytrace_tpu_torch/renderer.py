@@ -44,11 +44,14 @@ import numpy as np
 import torch
 
 from . import _device
+from . import atmosphere as atmo_mod
 from . import camera as cam_mod
+from . import effects as fx
 from . import rng
 from . import trace as trace_mod
+from ._f32 import sqrt as _sqrt
 from .models import materials as mat_mod
-from .ops import megakernel, tonemap
+from .ops import intersect, megakernel, tonemap
 from .utils import image as image_util
 
 
@@ -89,8 +92,8 @@ def _lane_ids(pixels: torch.Tensor, samples: int):
 def _lane_rays(scene, pix_id, samp_id, *, width: int, height: int,
                cfg: trace_mod.TraceConfig, go_camera: bool):
     """Camera rays of (pixel, sample) lanes: sub-pixel jitter from the
-    counter RNG, then the camera."""
-    trace_mod.check_supported(cfg)
+    counter RNG, then the camera, then with depth of field the thin lens
+    (raytrace_tpu/renderer.py:164-170)."""
     ju, jv, _, _ = rng.uniform4(pix_id, samp_id, rng.Streams.CAMERA_JITTER,
                                 cfg.seed)
     x = (pix_id % width).to(torch.float32)
@@ -98,7 +101,12 @@ def _lane_rays(scene, pix_id, samp_id, *, width: int, height: int,
     u = (x + ju) / width
     v = (y + jv) / height
     rays = cam_mod.go_rays if go_camera else cam_mod.lookat_rays
-    return rays(scene.camera, u, v)
+    origin, direction = rays(scene.camera, u, v)
+    if cfg.depth_of_field:
+        origin, direction = cam_mod.thin_lens_perturb(
+            scene.camera, origin, direction, pix_id, samp_id, cfg.seed,
+            cfg.dof_lens_radius, cfg.dof_focus_distance)
+    return origin, direction
 
 
 def lane_radiance(scene, pix_id, samp_id, *, width: int, height: int,
@@ -379,9 +387,6 @@ def render_wavefront(scene, *, width: int, height: int, samples: int,
     return img
 
 
-_EFFECT_BLOCKS = ("atmospheric", "volumetric", "fog")
-
-
 class Renderer:
     """Drop-in equivalent of the reference's ParallelRenderer.
 
@@ -451,7 +456,6 @@ class Renderer:
                              height: int) -> torch.Tensor:
         """(H,W,3) mean linear radiance as a tensor on the device."""
         cfg = self.trace_config()
-        trace_mod.check_supported(cfg)
         return render_wavefront(scene.to(self.device), width=width,
                                 height=height, samples=self.samples,
                                 cfg=cfg, go_camera=self.go_camera)
@@ -464,22 +468,88 @@ class Renderer:
                scene_config=None) -> np.ndarray:
         """Render to an (H,W,3) uint8 image and fill benchmark data.
 
-        The scene config's renderer block (samples, maxDepth, ...) is
-        honoured; its post effects are not ported yet (the post-effects
-        slice, ROADMAP Queue 1 item 2) and raise when enabled."""
+        With a scene config, its renderer block (samples, maxDepth, ...) is
+        honoured, and its atmospheric, fog, volumetric and post-FX blocks
+        run on the linear image (``_apply_scene_effects``) before the tone
+        map, as in the JAX package's ``Renderer.render``."""
         self._apply_renderer_block(scene_config)
-        if scene_config is not None:
-            blocks = [scene_config.atmospheric, scene_config.volumetric,
-                      scene_config.fog] + list(scene_config.effects.values())
-            if any((b or {}).get("enabled") for b in blocks):
-                raise NotImplementedError(
-                    "scene post effects (atmosphere, fog, volumetric, "
-                    "bloom, ...) are not ported yet: the post-effects "
-                    "slice, ROADMAP Queue 1 item 2")
         t0 = time.perf_counter()
         linear = self.render_linear_device(scene, width, height)
+        if scene_config is not None:
+            linear = self._apply_scene_effects(scene, linear, width, height,
+                                               scene_config)
         img = tonemap.tonemap_rgb8(linear).cpu().numpy()
         self._fill_benchmark(scene, width, height, time.perf_counter() - t0)
+        return img
+
+    def _primary_depth(self, scene, width: int,
+                       height: int) -> torch.Tensor:
+        """(H,W) distance to each pixel's center-ray closest hit (BIG on a
+        miss), for fog and the depth-of-field blur: t * |d|, the directions
+        being unnormalised. With a scene BVH the closest hit walks it."""
+        scene = scene.to(self.device)
+        o, d = atmo_mod.center_rays(scene, width, height, self.go_camera)
+        chunk = atmo_mod.center_chunk(scene)
+        dist = []
+        for i in range(0, o.shape[0], chunk):
+            oc, dc = o[i:i + chunk], d[i:i + chunk]
+            hit = intersect.closest_hit(scene.geometry, oc, dc, t_min=1e-3,
+                                        accel=scene.accel)
+            n = _sqrt(dc[:, 0] * dc[:, 0] + dc[:, 1] * dc[:, 1]
+                      + dc[:, 2] * dc[:, 2])
+            dist.append(torch.where(hit.hit, hit.t * n,
+                                    torch.full_like(n, intersect.BIG)))
+        return torch.cat(dist).reshape(height, width)
+
+    def _apply_scene_effects(self, scene, linear, width: int, height: int,
+                             scene_config, hook=_no_hook) -> torch.Tensor:
+        """The atmospheric, fog, volumetric and post-FX blocks of a scene
+        config on a linear (H,W,3) image, on the device, in the JAX
+        package's order (raytrace_tpu/renderer.py:1095-1155): sky into the
+        miss pixels, fog by the primary depth, the volumetric in-scatter
+        along the center rays, then the post-FX blocks. ``hook(stage,
+        **values)`` is called after each stage that runs ("depth", "sky",
+        "fog", "volumetric", "config_effects")."""
+        scene = scene.to(self.device)
+        blocks = dict(scene_config.effects or {})
+        atmo_blk = scene_config.atmospheric or {}
+        fog_blk = scene_config.fog or {}
+        vol_blk = scene_config.volumetric or {}
+        need_depth = (fog_blk.get("enabled")
+                      or (blocks.get("depthOfField") or {}).get("enabled"))
+        img = linear.to(self.device, torch.float32)
+        depth = None
+        if need_depth:
+            depth = self._primary_depth(scene, width, height)
+            hook("depth", depth=depth)
+        if atmo_blk.get("enabled"):
+            img = atmo_mod.apply_sky_to_image(
+                scene, img, width, height,
+                atmo_mod.settings_from_config(atmo_blk),
+                go_camera=self.go_camera)
+            hook("sky", img=img)
+        if fog_blk.get("enabled"):
+            img = fx.apply_fog(
+                img, torch.clamp(depth, max=1e4),
+                fog_color=tuple(fog_blk.get("color", (0.75, 0.78, 0.82))),
+                mode=str(fog_blk.get("mode", "exp")),
+                density=float(fog_blk.get("density", 0.02)),
+                start=float(fog_blk.get("start", 0.0)),
+                end=float(fog_blk.get("end", 100.0)))
+            hook("fog", img=img)
+        if vol_blk.get("enabled"):
+            o, d = atmo_mod.center_rays(scene, width, height, self.go_camera)
+            vol = fx.volumetric_light(
+                o, d, torch.full((o.shape[0],),
+                                 float(vol_blk.get("maxDist", 20.0)),
+                                 device=img.device),
+                scene.lights, steps=int(vol_blk.get("steps", 64)),
+                density=float(vol_blk.get("density", 0.02)),
+                scattering=float(vol_blk.get("scattering", 0.5)))
+            img = img + vol.reshape(height, width, 3)
+            hook("volumetric", img=img)
+        img = fx.apply_config_effects(img, blocks, depth=depth)
+        hook("config_effects", img=img)
         return img
 
     def _apply_renderer_block(self, scene_config) -> None:
@@ -518,3 +588,21 @@ class Renderer:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
             f.write(self.benchmark_data.to_json())
+
+    def print_ascii_preview(self, img: np.ndarray):
+        """PrintASCIIPreview (renderer.go:453-471): every second row, one
+        character a pixel by its brightness."""
+        chars = " .:-=+*#%@"
+        h, w = img.shape[:2]
+        lines = []
+        for y in range(0, h, 2):
+            row = []
+            for x in range(w):
+                # Go reads 16-bit RGBA and averages (renderer.go:461-462)
+                r, g, b = (int(v) * 257 for v in img[y, x][:3])
+                brightness = (r + g + b) / 3.0
+                ci = min(int(brightness * (len(chars) - 1) / 65535.0),
+                         len(chars) - 1)
+                row.append(chars[ci])
+            lines.append("".join(row))
+        print("\n".join(lines))

@@ -18,9 +18,15 @@ scatter and direct light alike. Each bounce works only on the lanes still alive:
 lane's state never changes, so dropping it gives the same per-lane result
 as the JAX package's masked loop and keeps the eager engine cheap.
 
-Not in this slice of the port: thin-lens depth of field (ROADMAP Queue 1
-item 3) and the ``fast_mc`` accelerators, Russian roulette and the
-throughput epsilon (ROADMAP Queue 1 item 4, "fast_mc").
+Two options of the JAX engine ride on the same loop. Thin-lens depth of
+field (``dof_lens_radius``, ``dof_focus_distance``) perturbs the camera
+rays before the trace (``camera.thin_lens_perturb``, applied by the
+renderer's ray generation). ``fast_mc`` - a throughput cutoff and Russian
+roulette from ``russian_roulette_start`` on - ends dim lanes early and
+boosts the survivors by 1/q (``fast_mc``). The boost multiplies by the
+reciprocal, as the JAX kernel does and as the trace kernels do, so the
+plain version and the kernels agree bit for bit; the JAX engine divides,
+which can round one ulp apart and move a later roulette verdict.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import rng
@@ -45,21 +52,44 @@ class TraceConfig:
     shadow_samples: int = 16
     recursive_reflections: bool = True
     seed: int = 0
+    # thin-lens depth of field, applied to the camera rays
+    # (camera.thin_lens_perturb; the Go defaults, advanced.go:34-35)
     depth_of_field: bool = False
+    dof_lens_radius: float = 0.1
+    dof_focus_distance: float = 10.0
+    # fast_mc: Russian roulette from this bounce on (None: off) and the
+    # throughput below which a lane dies (0: off)
     russian_roulette_start: Optional[int] = None
     throughput_epsilon: float = 0.0
 
 
-def check_supported(cfg: TraceConfig) -> None:
-    """Raise on the trace options this slice of the port does not carry."""
-    if cfg.depth_of_field:
-        raise NotImplementedError(
-            "thin-lens depth of field is not ported yet: ROADMAP Queue 1 "
-            "item 3 (thin_lens_perturb) and the DoF slack of the mask")
-    if cfg.russian_roulette_start is not None or cfg.throughput_epsilon:
-        raise NotImplementedError(
-            "fast_mc (Russian roulette, throughput epsilon) is not ported "
-            "yet: ROADMAP Queue 1 item 4, fast_mc")
+def fast_mc(cfg: TraceConfig, bounce: int, pix, samp, tp):
+    """The fast_mc step after a bounce's throughput update, for lanes that
+    scattered: (survivors (B,) bool, or None when neither part is on at
+    this bounce; throughput with the survivors' roulette boost).
+
+    A lane whose brightest channel is below ``throughput_epsilon`` dies;
+    from ``russian_roulette_start`` on, a lane survives with probability
+    q = clip(max(tp), 0.05, 1) (one draw of the RUSSIAN_ROULETTE site) and
+    a survivor's throughput is multiplied by 1/q."""
+    rr = (cfg.russian_roulette_start is not None
+          and bounce >= cfg.russian_roulette_start)
+    if cfg.throughput_epsilon <= 0.0 and not rr:
+        return None, tp
+    tmax = torch.amax(tp, dim=-1)
+    go = torch.ones_like(tmax, dtype=torch.bool)
+    if cfg.throughput_epsilon > 0.0:
+        go = tmax >= float(np.float32(cfg.throughput_epsilon))
+    if rr:
+        q = torch.clamp(tmax, min=0.05, max=1.0)
+        u = rng.uniform4(pix, samp,
+                         rng.bounce_stream(bounce,
+                                           rng.Streams.RUSSIAN_ROULETTE),
+                         cfg.seed)[0]
+        go = go & ~(u >= q)
+        inv_q = torch.ones_like(q) / q
+        tp = torch.where(go[:, None], tp * inv_q[:, None], tp)
+    return go, tp
 
 
 def _bounce(scene, pix, samp, cfg, bounce, origin, direction, throughput):
@@ -146,7 +176,6 @@ def trace(scene, origin, direction, pix_id, samp_id, cfg: TraceConfig, *,
     Draws key off the absolute bounce index, so [0,b) and then [b,D) from
     the state sum to the [0,D) radiance up to one float add.
     """
-    check_supported(cfg)
     n = origin.shape[0]
     radiance = torch.zeros_like(direction)
     tp_all = (torch.ones_like(direction) if init_throughput is None
@@ -186,6 +215,13 @@ def trace(scene, origin, direction, pix_id, samp_id, cfg: TraceConfig, *,
             state[lanes, 6:9] = tp
         if not cfg.recursive_reflections:
             break
+        go, tp = fast_mc(cfg, bounce, pix, samp, tp)
+        if go is not None:
+            keep_go = go.nonzero()[:, 0]
+            lanes, pix, samp = lanes[keep_go], pix[keep_go], samp[keep_go]
+            o, d, tp = o[keep_go], d[keep_go], tp[keep_go]
+            if state is not None:
+                state[lanes, 6:9] = tp
         if state is not None:
             state[lanes, 9] = 1.0
     if state is None:

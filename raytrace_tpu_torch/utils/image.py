@@ -2,7 +2,8 @@
 
 Port of ``raytrace_tpu/utils/image.py`` without its optional native Paeth
 filter: scanlines use filter type 0 (None), which every PNG reader
-accepts.
+accepts. ``write_ppm`` and ``write_ppm_float`` write the reference's ASCII
+PPM.
 """
 
 from __future__ import annotations
@@ -94,3 +95,21 @@ def read_png(path: str) -> np.ndarray:
         else:
             raise ValueError(f"unknown PNG filter {f}")
     return out.reshape(h, w, bpp)
+
+
+def write_ppm(path: str, img: np.ndarray) -> None:
+    """P3 ASCII PPM from a uint8 (H,W,3) image (ppm.go:11-45)."""
+    h, w = img.shape[:2]
+    with open(path, "w") as f:
+        f.write(f"P3\n{w} {h}\n255\n")
+        for y in range(h):
+            f.write(" ".join(
+                f"{img[y, x, 0]} {img[y, x, 1]} {img[y, x, 2]}"
+                for x in range(w)) + "\n")
+
+
+def write_ppm_float(path: str, img: np.ndarray, gamma: float = 1.0) -> None:
+    """PPM from an (H,W,3) linear float image, with an optional gamma
+    (ppm.go:119-156)."""
+    x = np.clip(img, 0.0, 1.0) ** (1.0 / gamma)
+    write_ppm(path, (x * 255).astype(np.uint8))

@@ -367,3 +367,90 @@ def test_stream_main_path_launches_k6s_k5_and_state(cuda, monkeypatch):
     dense = trender.render_band(s, 0, width=48, height=36, band_h=36,
                                 samples=2, cfg=cfg)
     gate(img, dense)
+
+
+GUARD_SCENES = {"bench": lambda: scene_dict(SCENES[0]),
+                "spheres": lambda: golden_scene_dict("spheres_metal_glass")[0],
+                "cubes": lambda: golden_scene_dict(
+                    "cubes_dielectric_plane")[0],
+                "prism": lambda: golden_scene_dict("prism_perfectmirror")[0]}
+
+
+@pytest.mark.parametrize("name", list(GUARD_SCENES))
+def test_k1_guard_equals_unguarded(cuda, name):
+    """K1-guard skips occluders that cannot block: K1 with the guard
+    equals K1 without it bit for bit, on both entries, and skips some
+    (lane, light, occluder) triples."""
+    s = tscene.from_dict(GUARD_SCENES[name](), device=cuda)[0]
+    assert tmk._kernel_mode(s) == "unroll"
+    cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
+    lanes = main_path_lanes(s, 48, 36, 2, cfg)
+    outs = {}
+    for guard in (True, False):
+        cnt = torch.zeros((lanes[0].shape[0], tmk.COUNTERS),
+                          dtype=torch.int32, device=cuda)
+        out, launch = tmk.prepare_trace(s, *lanes, cfg, soft_guard=guard,
+                                        counters=cnt)
+        launch()
+        st_out, st_launch = tmk.prepare_trace(
+            s, *lanes, cfg, soft_guard=guard, end_bounce=3,
+            return_state=True)
+        st_launch()
+        outs[guard] = (out, st_out, cnt.sum(0))
+    assert torch.equal(outs[True][0], outs[False][0])
+    for k in ("origin", "direction", "throughput", "alive"):
+        assert torch.equal(outs[True][1][1][k], outs[False][1][1][k])
+    assert torch.equal(outs[True][1][0], outs[False][1][0])
+    c = outs[True][2]
+    assert int(c[5]) > 0 and int(c[6]) < int(c[5])  # guards, flagged
+    assert int(outs[False][2][5]) == 0
+
+
+DOF_CASES = (("unroll", lambda: scene_dict(SCENES[0])),
+             ("bvh", lambda: bvh_scene_dict("mixed-noground")),
+             ("stream", lambda: bvh_scene_dict("mixed-noground")))
+
+
+@pytest.mark.parametrize("mode,make", DOF_CASES, ids=[c[0] for c in DOF_CASES])
+def test_dof_masks_equal_plain(cuda, mode, make, monkeypatch):
+    """K2, K6 and K6-stream with thin-lens depth of field equal their plain
+    version."""
+    if mode == "stream":
+        s = forced_stream(make(), cuda, monkeypatch)
+    else:
+        s = tscene.from_dict(make(), device=cuda)[0]
+    assert tmk._kernel_mode(s) == mode
+    for L, F in ((0.1, 10.0), (0.25, 5.0)):
+        cfg = ttrace.TraceConfig(depth_of_field=True, dof_lens_radius=L,
+                                 dof_focus_distance=F)
+        got = tmk.pixel_mask(s, width=200, height=150, cfg=cfg)
+        want = tmk.pixel_mask_plain(s, width=200, height=150, cfg=cfg)
+        assert want.any() and (~want).any()
+        assert torch.equal(got, want)
+
+
+FAST_MC_SCENES = {"unroll": lambda: golden_scene_dict(
+                      "spheres_metal_glass")[0],
+                  "bvh": lambda: bvh_scene_dict("mixed"),
+                  "stream": lambda: bvh_scene_dict("mixed"),
+                  "loop": icosphere_dict}
+
+
+@pytest.mark.parametrize("mode", list(FAST_MC_SCENES))
+def test_fast_mc_equals_plain(cuda, mode, monkeypatch):
+    """Russian roulette and the throughput cutoff in the shared bounce
+    body: each trace kernel equals its plain version lane for lane."""
+    d = FAST_MC_SCENES[mode]()
+    if mode == "stream":
+        s = forced_stream(d, cuda, monkeypatch)
+    else:
+        s = tscene.from_dict(d, device=cuda,
+                             build_accel=False if mode == "loop" else None)[0]
+    assert tmk._kernel_mode(s) == mode
+    cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16,
+                             russian_roulette_start=2,
+                             throughput_epsilon=1e-4)
+    lanes = main_path_lanes(s, 32, 24, 2, cfg)
+    got = tmk.trace(s, *lanes, cfg)
+    want = ttrace.trace(s, *lanes, cfg)
+    assert float((got - want).abs().max()) == 0.0

@@ -176,9 +176,18 @@ def test_large_scenes_raise():
     assert float(np.abs(wf - dense).mean()) < 1e-4
 
 
-def test_mask_dof_raises():
-    ts = tscene.from_dict(golden_dict("prism_perfectmirror"),
+def test_mask_dof_covers_pinhole_mask():
+    """The mask takes depth of field (its thin-lens branch, on the CPU the
+    plain version): a superset of the pinhole mask that grows with the
+    lens."""
+    ts = tscene.from_dict(asset_dict("sphere_reflections_light"),
                           device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="DoF"):
-        tmk.pixel_mask(ts, width=4, height=4,
-                       cfg=ttrace.TraceConfig(depth_of_field=True))
+    kw = dict(width=40, height=30)
+    pin = tmk.pixel_mask(ts, cfg=ttrace.TraceConfig(), **kw)
+    small = tmk.pixel_mask(ts, cfg=ttrace.TraceConfig(depth_of_field=True),
+                           **kw)
+    big = tmk.pixel_mask(ts, cfg=ttrace.TraceConfig(
+        depth_of_field=True, dof_lens_radius=0.25, dof_focus_distance=5.0),
+        **kw)
+    assert not (pin & ~small).any() and not (small & ~big).any()
+    assert int(big.sum()) > int(pin.sum())

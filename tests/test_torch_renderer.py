@@ -27,6 +27,7 @@ from raytrace_tpu import scene as jscene
 from raytrace_tpu.ops import tonemap as jtonemap
 from raytrace_tpu_torch import camera as tcam
 from raytrace_tpu_torch import cli
+from raytrace_tpu_torch import effects as tfx
 from raytrace_tpu_torch import renderer as trender
 from raytrace_tpu_torch import scene as tscene
 from raytrace_tpu_torch import trace as ttrace
@@ -126,9 +127,14 @@ def test_scene_config_renderer_block_and_effects():
     img = r.render(ts, 16, 12, scene_config=cfg)
     assert img.shape == (12, 16, 3)
     assert (r.samples, r.max_depth, r.soft_shadows) == (1, 2, False)
+    # the effects run on the linear image before the tone map
     cfg.fog = {"enabled": True}
-    with pytest.raises(NotImplementedError, match="post-effects slice"):
-        r.render(ts, 16, 12, scene_config=cfg)
+    img = r.render(ts, 16, 12, scene_config=cfg)
+    lin = r.render_linear_device(ts, 16, 12)
+    depth = r._primary_depth(ts, 16, 12)
+    want = ttonemap.tonemap_rgb8(tfx.apply_fog(lin, depth.clamp(max=1e4)))
+    assert np.array_equal(img, want.numpy())
+    assert not np.array_equal(img, ttonemap.tonemap_rgb8(lin).numpy())
 
 
 def test_no_device_means_cuda():
@@ -141,15 +147,23 @@ def test_no_device_means_cuda():
                   "unused.png", "8", "6"])
 
 
-def test_out_of_slice_renderer_settings_raise():
+def test_fast_mc_and_dof_renderer_settings_render():
+    """The Renderer's fast_mc and depth-of-field settings render through
+    the main path, with the trace settings of the JAX Renderer."""
     ts = tscene.from_dict(asset_dict("two_red_cubes_scene"),
                           device="cpu")[0]
     r = trender.Renderer(device="cpu")
     r.set_samples(1)
     r.fast_mc = True
-    with pytest.raises(NotImplementedError, match="fast_mc"):
-        r.render(ts, 8, 6)
+    cfg = r.trace_config()
+    assert (cfg.russian_roulette_start, cfg.throughput_epsilon) == (8, 1e-4)
+    img = r.render(ts, 8, 6)
+    assert img.shape == (6, 8, 3) and img.dtype == np.uint8
     r.fast_mc = False
     r.set_depth_of_field(True)
-    with pytest.raises(NotImplementedError, match="depth of field"):
-        r.render(ts, 8, 6)
+    cfg = r.trace_config()
+    assert cfg.depth_of_field
+    lin = r.render_linear(ts, 8, 6)
+    want = trender.render_wavefront(ts, width=8, height=6, samples=1,
+                                    cfg=cfg).numpy()
+    assert np.array_equal(lin, want) and np.isfinite(lin).all()

@@ -257,33 +257,40 @@ def test_scene_from_numpy_traces_the_same(name):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("feature", ["post effects", "depth of field",
-                                     "stream tier"])
-def test_out_of_slice_features_raise(feature, monkeypatch):
-    """What the port still leaves out raises, naming where it is queued.
-    In the stream tier that is a scene past MAX_STREAM_KERNEL_PRIMS, which
-    the JAX package renders with its band route (the cap is lowered here
-    below the scene's 4,097 primitives)."""
+@pytest.mark.parametrize("feature", ["post effects", "depth of field"])
+def test_scene_config_features_render(feature):
+    """Scene-config and camera features render: atmosphere_demo.json's
+    atmospheric, fog and volumetric blocks, and depth of field."""
     r = trender.Renderer(device="cpu")
     r.set_samples(1)
     if feature == "post effects":
         path = os.path.join(ASSETS, "atmosphere_demo.json")
         ts, cfg = tscene.load(path, device="cpu")
-        with pytest.raises(NotImplementedError, match="post-effects slice"):
-            r.render(ts, 8, 6, scene_config=cfg)
-    elif feature == "depth of field":
+        img = r.render(ts, 8, 6, scene_config=cfg)
+        plain = r.render(ts, 8, 6)
+        # the go camera sees only sky, which the atmosphere paints in
+        assert plain.max() == 0 and img.min() > 0
+    else:
         ts = tscene.from_dict(golden_dict("prism_perfectmirror"),
                               device="cpu")[0]
         r.set_depth_of_field(True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            r.render(ts, 8, 6)
-    else:
-        d = {"objects": [{"type": "sphere", "position": [i % 64, i // 64, -5],
-                          "radius": 0.2} for i in range(4097)]}
-        ts = tscene.from_dict(d, device="cpu")[0]
-        monkeypatch.setattr(tmk, "MAX_STREAM_KERNEL_PRIMS", 4096)
-        with pytest.raises(NotImplementedError, match="band route"):
-            r.render(ts, 4, 3)
+        img = r.render(ts, 8, 6)
+        assert img.shape == (6, 8, 3) and img.any()
+
+
+def test_out_of_slice_features_raise(monkeypatch):
+    """What the port still leaves out raises, naming where it is queued:
+    a scene past MAX_STREAM_KERNEL_PRIMS, which the JAX package renders
+    with its band route (the cap is lowered here below the scene's 4,097
+    primitives)."""
+    r = trender.Renderer(device="cpu")
+    r.set_samples(1)
+    d = {"objects": [{"type": "sphere", "position": [i % 64, i // 64, -5],
+                      "radius": 0.2} for i in range(4097)]}
+    ts = tscene.from_dict(d, device="cpu")[0]
+    monkeypatch.setattr(tmk, "MAX_STREAM_KERNEL_PRIMS", 4096)
+    with pytest.raises(NotImplementedError, match="band route"):
+        r.render(ts, 4, 3)
 
 
 def test_default_device_is_cuda():

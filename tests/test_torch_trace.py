@@ -208,15 +208,25 @@ def test_any_hit_matches(mixed_scene, exact):
     np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
 
 
-def test_out_of_slice_trace_options_raise(mixed_scene):
+def test_trace_options_fast_mc_and_dof(mixed_scene):
+    """The trace options that rode on later slices run: depth of field
+    (applied to the camera rays, so the trace itself is unchanged) and
+    both parts of fast_mc, which end lanes early."""
     _, ts = mixed_scene
-    z = torch.zeros((1, 3))
-    i = torch.zeros(1, dtype=torch.int64)
-    for cfg in (ttrace.TraceConfig(depth_of_field=True),
-                ttrace.TraceConfig(russian_roulette_start=8),
-                ttrace.TraceConfig(throughput_epsilon=1e-4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrace.trace(ts, z, z + 1.0, i, i, cfg)
+    o, d = random_rays(512, 11)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    i = torch.arange(512)
+    base = ttrace.TraceConfig(max_depth=6, shadow_samples=2)
+    ref = ttrace.trace(ts, o, d, i, i, base)
+    got = ttrace.trace(ts, o, d, i, i, ttrace.TraceConfig(
+        max_depth=6, shadow_samples=2, depth_of_field=True))
+    assert torch.equal(got, ref)
+    for cfg in (ttrace.TraceConfig(max_depth=6, shadow_samples=2,
+                                   russian_roulette_start=1),
+                ttrace.TraceConfig(max_depth=6, shadow_samples=2,
+                                   throughput_epsilon=0.2)):
+        got = ttrace.trace(ts, o, d, i, i, cfg)
+        assert torch.isfinite(got).all() and not torch.equal(got, ref)
 
 
 def test_render_wavefront_meets_bvh_golden():
