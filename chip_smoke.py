@@ -7,8 +7,15 @@ the port builds, runs and agrees with itself on the card.
 Phases, in order (each prints a line before and after, with its seconds):
 
   env               card name and power limit, torch and CUDA versions
-  build             one nvcc call for every kernel; registers, shared
+  build             one nvcc process for each source, all started
+                    together, linked into one library; registers, shared
                     memory and spills from -Xptxas -v
+  dma_probe         P1 (the dependent-row copy probe) through its tool's
+                    measurement: the ld, cp_async and tma variants at the
+                    TPU tool's shape (8192 x 128 floats, 2,000 steps), at
+                    32-row leaf blocks of 23-float rows in the L2 and past
+                    it, each equal to the plain chain bit for bit; ns a
+                    step
   k2_check          K2 (pixel mask, brute force) against its plain version
                     at 800x600 on the three demo scenes: masks equal
   k1_check          K1 (bounce megakernel, unroll mode) against its plain
@@ -47,8 +54,10 @@ Phases, in order (each prints a line before and after, with its seconds):
                     scene, K3+K4 on smooth_shading_demo; image gate, with
                     the max lane error printed
   bounds_check      max_depth 100, 20 lights and 80 soft-shadow samples on
-                    K1, K3+K4 and K7 (a few hundred lanes each) against the
-                    plain version: max lane error 0 or the image gate
+                    K1, K3+K4, K7 and K5 (grid-5833, where K5 must also
+                    equal its per-thread walk) (a few hundred lanes each)
+                    against the plain version: max lane error 0 or the
+                    image gate
   k6s_check         K6-stream (pixel mask, node-only walk, stream mode)
                     against its plain version at 800x600 on grid-5833 and
                     ico-10241, and on ring-1000 (and without its ground)
@@ -59,7 +68,14 @@ Phases, in order (each prints a line before and after, with its seconds):
                     frame, 4 spp, depth 50, on grid-5833 and ico-10241
                     (max lane error 0 or the image gate), and bit-equal to
                     K3+K4 on every lane of the same frame of ring-1000 and
-                    the mixed scene forced into stream mode (same tree)
+                    the mixed scene forced into stream mode (same tree);
+                    its group closest-hit walk (the main path's) equal to
+                    the per-thread walk, output and work counters, on
+                    those subsets, on grid-5833 rebuilt with leaves of 128
+                    rows,
+                    on a lane count that is not a multiple of 32 and on a
+                    segment resumed with every other lane dead (each also
+                    against the plain version)
   kstate_check      K1-state: K1, K3+K4, K5 and K7 each run bounces [0,4)
                     with state and then [4,50) from it, on a few thousand
                     lanes: alive flags and the state of alive lanes equal
@@ -152,7 +168,9 @@ Phases, in order (each prints a line before and after, with its seconds):
                     launch over the frame's own ladder segments (inputs
                     read through the stage hook), the ladder's summed
                     segment times beside one unsplit launch per chunk
-                    over the same lanes, and the plain version on a
+                    over the same lanes, both also on the per-thread walk
+                    (the previous K5, in turns; its work counters must
+                    equal the group walk's), and the plain version on a
                     strided subset of about K5_SUBSET lanes, and
                     K1-state's two segments against the plain version's
                     on a strided subset of about STATE_SUBSET of the
@@ -160,8 +178,10 @@ Phases, in order (each prints a line before and after, with its seconds):
                     launches on the 4-wide walk beside the same launches
                     on the binary walk; K1-guard (K1 guarded and
                     unguarded at the bench frame's lanes, both bounds) and
-                    the DoF masks at the DoF frames; registers, stack and
-                    spills of every kernel from the build
+                    the DoF masks at the DoF frames; P1's three variants
+                    (ms at the TPU tool's shape, launches from dma_probe,
+                    P1's main path); registers, stack and spills of every
+                    kernel from the build
 
 The image gate is the goldens gate of tests/test_goldens.py: at most 0.1%
 of pixels off by more than 1e-3 and a mean absolute error below 1e-4.
@@ -211,6 +231,7 @@ K3_SUBSET = 20000   # lanes of the bench frame checked against the plain
 # The plain versions run on the host's clock, which varies by 1.5x between
 # machines; these subsets keep the script well inside its watchdog.
 K5_SUBSET = 2000    # lanes of a stream frame checked against the plain
+PARTIAL_LANES = 500   # about this many for K5 on partial warps
 SMOOTH_SUBSET = 2500  # the same for the smooth frame, whose plain version
                       # tests some 50 triangles a soft-shadow ray
 STATE_SUBSET = 500    # lanes of a stream frame for K1-state's plain time
@@ -323,31 +344,6 @@ def plain_trace(scene, o, d, pix, samp, cfg):
                                                for t in (o, d, pix, samp)),
                                       cfg)
                       for i in range(0, o.shape[0], PLAIN_CHUNK)])
-
-
-def ptxas_kernels(lines):
-    """{kernel entry: (registers, stack bytes, spill bytes)} from the
-    build's -Xptxas -v report."""
-    import re
-    out, cur = {}, None
-    for ln in lines:
-        m = re.search(r"(?:entry function|Function properties for) '?"
-                      r"([A-Za-z_]\w*)", ln)
-        if m:
-            cur = m.group(1)
-            out.setdefault(cur, [None, 0, 0])
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", ln)
-        if m:
-            out[cur][1] = int(m.group(1))
-            out[cur][2] = int(m.group(2)) + int(m.group(3))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            out[cur][0] = int(m.group(1))
-    return {k: tuple(v) for k, v in out.items()}
 
 
 def cuda_ms(fn, reps):
@@ -601,6 +597,25 @@ def main():
                 print(f"   {ln}", flush=True)
         _build.library()
 
+    with Phase("dma_probe"):
+        # P1 through its tool's own measurement (its main path): every
+        # variant at every shape equal to the plain chain bit for bit
+        from raytrace_tpu_torch.tools import measure_dma_stream as p1
+        p1.reset_launches()
+        probe = p1.measure()
+        p1_launches = dict(p1.LAUNCHES)
+        for r in probe:
+            print(f"   {r['shape']} ({r['rows']} x {r['row_bytes']} B, L2 "
+                  f"{r['l2']}) {r['variant']}: equal {r['ok']}, "
+                  f"{r['ms']:.4f} ms, {r['ns_per_step']:.1f} ns a step; "
+                  f"plain {r['plain_ms']:.1f} ms", flush=True)
+            if not r["ok"]:
+                raise AssertionError(f"P1 {r['variant']} differs from its "
+                                     f"plain version at {r['shape']}")
+        if any(v < 1 for v in p1_launches.values()):
+            raise AssertionError(f"P1 did not launch every variant: "
+                                 f"{p1_launches}")
+
     cfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT, seed=0)
     scenes = {n: load_scene(n, dev) for n in SCENES}
     bvh_scenes = {n: bvh_scene(n, dev) for n in MASK_SCENES}
@@ -758,15 +773,25 @@ def main():
                        pixel_image(px, want, 64, 48, 4), f"K1-ext {name}")
             record.setdefault("k1ext_check_err", []).append(err)
 
+    obj_dir = tempfile.TemporaryDirectory()
+    stream_scenes = {"grid5833": stream_scene("grid", dev),
+                     "ico10241": stream_scene("mesh", dev, obj_dir.name)}
+
     with Phase("bounds_check"):
         bcfg = trace_mod.TraceConfig(max_depth=100, shadow_samples=80,
                                      seed=0)
         for name, s in (("unroll", scenes[SCENES[2]]),
                         ("bvh", bvh_scenes["mixed"]),
-                        ("loop", loop_scenes["icosphere"])):
+                        ("loop", loop_scenes["icosphere"]),
+                        ("stream", stream_scenes["grid5833"])):
             s = with_lights(s, 20)
-            px, o, d, pix, samp = lanes_of(s, 12, 9, 2, bcfg)
-            got = mk.trace(s, o, d, pix, samp, bcfg)
+            # the stream scene's plain version is slow at these bounds
+            w, h = (6, 5) if name == "stream" else (12, 9)
+            px, o, d, pix, samp = lanes_of(s, w, h, 2, bcfg)
+            if name == "stream":
+                got = k5_both(mk, s, (o, d, pix, samp), bcfg)
+            else:
+                got = mk.trace(s, o, d, pix, samp, bcfg)
             want = trace_mod.trace(s, o, d, pix, samp, bcfg)
             err = float((got - want).abs().max())
             print(f"   {name}: depth 100, 20 lights, 80 soft rays, "
@@ -775,9 +800,6 @@ def main():
                 image_gate(got, want, f"run-time bounds, {name}")
 
     with Phase("k6s_check"):
-        obj_dir = tempfile.TemporaryDirectory()
-        stream_scenes = {"grid5833": stream_scene("grid", dev),
-                         "ico10241": stream_scene("mesh", dev, obj_dir.name)}
         for name, s in stream_scenes.items():
             if mk._kernel_mode(s) != "stream":
                 raise AssertionError(f"{name} is not a stream-mode scene")
@@ -818,6 +840,8 @@ def main():
             got = mk.trace(s, *sub, cfg)
             if mk.LAUNCHES["trace_stream"] != 1:
                 raise AssertionError(f"K5 was not launched: {mk.LAUNCHES}")
+            if not torch.equal(got, k5_both(mk, s, sub, cfg)):
+                raise AssertionError(f"K5 is not deterministic on {name}")
             want = plain_trace(s, *sub, cfg)
             err = float((got - want).abs().max())
             print(f"   {name}: {idx.numel()} of {o.shape[0]} lanes, max lane "
@@ -839,6 +863,41 @@ def main():
                   f"{float((k5 - k3).abs().max()):.3e}", flush=True)
             if not torch.equal(k5, k3):
                 raise AssertionError(f"K5 differs from K3+K4 on {name}")
+        # the group walk on leaves of 128 rows (a group loops over more
+        # rows than it has threads), then on partial warps: a lane count
+        # that is not a multiple of 32, and a segment resumed with every
+        # other lane dead
+        from raytrace_tpu_torch import scene as scene_mod
+        g128 = scene_mod.with_accel(stream_scenes["grid5833"], leaf_size=128)
+        px, o, d, pix, samp = lanes_of(g128, 64, 48, 4, cfg)
+        idx = torch.arange(0, o.shape[0], max(1, o.shape[0] // K5_SUBSET),
+                           device=dev)
+        cases = [("grid5833, leaves of 128 rows", g128,
+                  tuple(t[idx] for t in (o, d, pix, samp)), {})]
+        n_part = 32 * (PARTIAL_LANES // 32) + 19
+        part = tuple(t[idx[:n_part]] for t in (o, d, pix, samp))
+        grid = stream_scenes["grid5833"]
+        cases.append((f"grid5833, {n_part} lanes", grid, part, {}))
+        _, st = mk.trace(grid, *part, cfg, end_bounce=2, return_state=True)
+        alive = st["alive"].clone()
+        alive[::2] = 0.0
+        kw = dict(start_bounce=2, init_throughput=st["throughput"],
+                  init_alive=alive)
+        cases.append((f"grid5833, {n_part} lanes from bounce 2, every other "
+                      "lane dead", grid,
+                      (st["origin"], st["direction"]) + part[2:], kw))
+        for name, s, lanes, kw in cases:
+            got = k5_both(mk, s, lanes, cfg, **kw)
+            want = trace_mod.trace(s, *lanes, cfg, **kw)
+            err = float((got - want).abs().max())
+            print(f"   {name}: {lanes[0].shape[0]} lanes, equal to the "
+                  f"per-thread walks (work counters too); max lane error "
+                  f"vs plain {err:.3e}", flush=True)
+            if err > 0.0:
+                image_gate(got, want, f"K5 {name} (lanes as pixels)")
+            if kw and got[::2].any():
+                raise AssertionError("K5 gave radiance to dead lanes")
+            record["k5_check_err"].append(err)
 
     with Phase("kstate_check"):
         for name, s, kernel in (
@@ -1070,11 +1129,12 @@ def main():
                              dof_frames, record)
         kernels += slice_rows(mk, scenes, frames, cfg, record)
         kernels += stream_rows(mk, frames, cfg, record)
+        kernels += p1_rows(probe, p1_launches)
         for row in kernels:   # K3-wide in K5: the stream frames, unsplit
             if row["name"].startswith("K3-wide"):
                 row.update(record["k3wide_stream"])
         obj_dir.cleanup()
-        regs = ptxas_kernels(res.ptxas)
+        regs = _build.kernel_resources(res.ptxas)
         entry = {"K1": "rt_trace_unroll_kernel", "K2": "rt_pixel_mask_kernel",
                  "K3": "rt_trace_bvh_kernel", "K4": "rt_trace_bvh_kernel",
                  "K6": "rt_pixel_mask_bvh_kernel",
@@ -1089,7 +1149,7 @@ def main():
                  "K6-dof": "rt_pixel_mask_bvh_kernel",
                  "K6-stream-dof": "rt_pixel_mask_stream_kernel"}
         for row in kernels:
-            fn = entry[row["name"].split()[0]]
+            fn = row.pop("entry", None) or entry[row["name"].split()[0]]
             r_, stack, spill = regs.get(fn, (None, None, None))
             row.update(registers=r_, stack_bytes=stack, spill_bytes=spill)
             if row["name"].startswith("K5"):
@@ -1294,6 +1354,36 @@ def render_check_stream(mk, rmod, trace_mod, scene, w=160, h=120, spp=4):
                              "unsplit")
 
 
+def same(a, b):
+    """Are two trace outputs (radiance, or radiance and state) equal?"""
+    import torch
+    if isinstance(a, tuple):
+        return torch.equal(a[0], b[0]) and all(
+            torch.equal(a[1][k], b[1][k]) for k in a[1])
+    return torch.equal(a, b)
+
+
+def k5_both(mk, scene, lanes, cfg, **kw):
+    """K5 with its group closest-hit walk and with the per-thread walk on
+    the same lanes (``kw``: more arguments of prepare_trace); raises unless
+    their outputs and work counters are equal. Returns the group walk's
+    output."""
+    import torch
+    outs, cnts = [], []
+    for group in (True, False):
+        cnt = torch.zeros((lanes[0].shape[0], mk.BVH_COUNTERS),
+                          dtype=torch.int32, device=lanes[0].device)
+        out, launch = mk.prepare_trace(scene, *lanes, cfg, counters=cnt,
+                                       leaf_group=group, **kw)
+        launch()
+        outs.append(out)
+        cnts.append(cnt)
+    if not (same(*outs) and torch.equal(*cnts)):
+        raise AssertionError("K5's group walk differs from the per-thread "
+                             "walk (output or work counters)")
+    return outs[0]
+
+
 def ladder_frame(mk, scene, cfg, launches, what):
     """K5 with K1-state at a stream bench frame: every segment launch of
     the frame's ladder re-run from its own inputs (read through the stage
@@ -1315,14 +1405,15 @@ def ladder_frame(mk, scene, cfg, launches, what):
     rmod.render_wavefront(scene, width=W, height=H, samples=SPP, cfg=cfg,
                           hook=hook)
 
-    def prepare(v, counters=None):
+    def prepare(v, counters=None, leaf_group=True):
         last = v["b1"] >= cfg.max_depth
         kw = dict(start_bounce=v["b0"], return_state=not last,
                   end_bounce=None if last else v["b1"])
         if v["b0"] > 0:
             kw.update(init_throughput=v["throughput"], init_alive=v["alive"])
         return mk.prepare_trace(scene, v["origin"], v["direction"], v["pix"],
-                                v["samp"], cfg, counters=counters, **kw)
+                                v["samp"], cfg, counters=counters,
+                                leaf_group=leaf_group, **kw)
 
     n_launch = len(segs)
     if not (n_launch == launches["trace_stream"] == launches["trace_state"]):
@@ -1330,6 +1421,14 @@ def ladder_frame(mk, scene, cfg, launches, what):
                              f"bench frame launched {launches}")
     prepared = [prepare(v)[1] for v in segs]
     ladder_ms = cuda_ms(lambda: [f() for f in prepared], 1)
+    # the same segments on K3+K4's per-thread walk (the previous K5), in
+    # turns with the group walk
+    serial = [prepare(v, leaf_group=False)[1] for v in segs]
+    serial_ladder_ms = cuda_ms(lambda: [f() for f in serial], 1)
+    ladder_ms = min(ladder_ms, cuda_ms(lambda: [f() for f in prepared], 1))
+    serial_ladder_ms = min(serial_ladder_ms,
+                           cuda_ms(lambda: [f() for f in serial], 1))
+    del serial
     # each level's launches on their own: where the ladder's time goes
     level_ms = {}
     for v, f in zip(segs, prepared):
@@ -1349,6 +1448,10 @@ def ladder_frame(mk, scene, cfg, launches, what):
     unsplit = [mk.prepare_trace(scene, c["origin"], c["direction"],
                                 c["pix"], c["samp"], cfg)[1] for c in chunks]
     unsplit_ms = cuda_ms(lambda: [f() for f in unsplit], 1)
+    unsplit = [mk.prepare_trace(scene, c["origin"], c["direction"],
+                                c["pix"], c["samp"], cfg,
+                                leaf_group=False)[1] for c in chunks]
+    serial_unsplit_ms = cuda_ms(lambda: [f() for f in unsplit], 1)
     # the same launches on the binary walk (K3-wide against it)
     binary = without_wide(scene)
     unsplit = [mk.prepare_trace(binary, c["origin"], c["direction"],
@@ -1364,12 +1467,23 @@ def ladder_frame(mk, scene, cfg, launches, what):
                   + scene.accel.stream_tab.numel())
     for v in segs:
         n = v["origin"].shape[0]
-        cnt = torch.zeros((n, mk.BVH_COUNTERS), dtype=torch.int32,
-                          device=v["origin"].device)
-        prepare(v, cnt)[1]()
+        cnt, cnt_serial = (torch.zeros((n, mk.BVH_COUNTERS),
+                                       dtype=torch.int32,
+                                       device=v["origin"].device)
+                           for _ in range(2))
+        out, counted = prepare(v, cnt)
+        counted()
+        out_serial, counted = prepare(v, cnt_serial, leaf_group=False)
+        counted()
+        if not (torch.equal(cnt, cnt_serial) and same(out, out_serial)):
+            raise AssertionError(f"{what}: K5's group walk differs from the "
+                                 "per-thread walk (radiance or work "
+                                 f"counters) at the segment from bounce "
+                                 f"{v['b0']}")
         o_, _, w_ = k3_ops(cnt)
         ops += o_
         work = [a + b for a, b in zip(work, w_)]
+        del out, out_serial, cnt_serial
         n_bytes += tables + n * (12 + 12 + 4 + 4 + 12) + (
             n * 16 if v["b0"] > 0 else 0) + (
             n * 40 if v["b1"] < cfg.max_depth else 0)
@@ -1426,7 +1540,9 @@ def ladder_frame(mk, scene, cfg, launches, what):
           f"chunk(s), {sum(v['origin'].shape[0] for v in segs)} segment "
           f"lanes; work {work}, {ops:.4e} ops; ladder {ladder_ms:.3f} ms "
           f"({ladder_ms / n_launch:.4f} ms a launch) vs one unsplit launch "
-          f"a chunk {unsplit_ms:.3f} ms; bound per launch {bnd:.4f} ms "
+          f"a chunk {unsplit_ms:.3f} ms; on the per-thread walk: ladder "
+          f"{serial_ladder_ms:.3f} ms, unsplit {serial_unsplit_ms:.3f} ms "
+          f"(work counters equal); bound per launch {bnd:.4f} ms "
           f"({by}); on {idx.numel()} lanes: kernel {sub_ms:.3f} ms vs "
           f"plain {plain_ms:.1f} ms; on {sidx.numel()} lanes as two "
           f"segments {state_sub_ms:.3f} ms vs plain {plain_state_ms:.1f} ms "
@@ -1436,6 +1552,9 @@ def ladder_frame(mk, scene, cfg, launches, what):
           f"{tables_ms:.3f} ms a segment", flush=True)
     return dict(launches=n_launch, ms=ladder_ms / n_launch,
                 ladder_ms=ladder_ms, unsplit_ms=unsplit_ms,
+                serial_ms=serial_ladder_ms / n_launch,
+                serial_ladder_ms=serial_ladder_ms,
+                serial_unsplit_ms=serial_unsplit_ms,
                 unsplit_binary_ms=unsplit_binary_ms, tables_ms=tables_ms,
                 state_err=state_err,
                 level_ms={str(b): v for b, v in sorted(level_ms.items())},
@@ -1470,7 +1589,11 @@ def stream_rows(mk, frames, cfg, record):
     g = ladder_frame(mk, grid, cfg, g_launches, "grid-5833 frame (K5)")
     m = ladder_frame(mk, mesh, cfg, m_launches, "ico-10241 frame (K5)")
     common = dict(route="cuda", library_ms=None)
-    mesh_keys = dict(mesh_ms=m["ms"], mesh_launches=m["launches"],
+    mesh_keys = dict(mesh_ms=m["ms"], mesh_serial_ms=m["serial_ms"],
+                     mesh_unsplit_entry_ms=m["unsplit_ms"] / m["chunks"],
+                     mesh_serial_unsplit_entry_ms=(m["serial_unsplit_ms"]
+                                                   / m["chunks"]),
+                     mesh_launches=m["launches"],
                      mesh_bound_ms=m["bound"], mesh_plain_ms=m["plain"],
                      mesh_plain_lanes=m["plain_lanes"],
                      mesh_ms_plain_lanes=m["ms_plain_lanes"])
@@ -1489,6 +1612,8 @@ def stream_rows(mk, frames, cfg, record):
              bound_by=g["by"], plain_lanes=g["plain_lanes"],
              ms_plain_lanes=g["ms_plain_lanes"], chunks=g["chunks"],
              unsplit_entry_ms=g["unsplit_ms"] / g["chunks"],
+             serial_ms=g["serial_ms"],
+             serial_unsplit_entry_ms=g["serial_unsplit_ms"] / g["chunks"],
              tables_host_ms=g["tables_ms"],
              **mesh_keys, **common),
         dict(name="K6-stream pixel_mask_stream", source=src + "pixel_mask.cu",
@@ -1509,6 +1634,28 @@ def stream_rows(mk, frames, cfg, record):
              mesh_unsplit_ms=m["unsplit_ms"], mesh_level_ms=m["level_ms"],
              **common),
     ]
+
+
+def p1_rows(probe, launches):
+    """P1's rows, one a variant: ms, plain ms and bound at the TPU tool's
+    shape, ns a step at every shape."""
+    rows = []
+    for variant in dict.fromkeys(r["variant"] for r in probe):
+        mine = [r for r in probe if r["variant"] == variant]
+        tool = mine[0]
+        rows.append(dict(
+            name=f"P1 dma_probe {variant}", route="cuda",
+            source="raytrace_tpu_torch/csrc/dma_probe.cu",
+            replaces="tools/measure_dma_stream.py:67",
+            entry=f"rt_dma_probe_{variant}_kernel",
+            main_path="python -m raytrace_tpu_torch.tools.measure_dma_stream",
+            launches=launches[variant],
+            max_abs_err=max(abs(r["got"] - r["want"]) for r in mine),
+            ms=tool["ms"], plain_ms=tool["plain_ms"],
+            bound_ms=tool["bound_ms"], bound_by="bytes", library_ms=None,
+            n_steps=tool["n_steps"],
+            ns_per_step={r["shape"]: r["ns_per_step"] for r in mine}))
+    return rows
 
 
 class plain_guarded:

@@ -51,8 +51,8 @@
 //     per leaf slot (id < ns: sphere, else triangle id - ns; triangles past
 //     the hit table, the cube faces, are skipped: their boxes are the hit
 //     form), into the sphere and triangle tables;
-//   RowLeaves (stream mode, K5, trace_stream.cu): the unified rows of the
-//     stream table, one per leaf slot, read in place (see there).
+//   RowLeaves (stream mode, K5, stream_walk.cuh): the unified rows of the
+//     stream table, one per leaf slot, read in place (trace_stream.cu).
 // The hit's attributes (the smooth normal of a triangle winner, K1-ext,
 // included) are read from the row that the closest-hit walk returns.
 #pragma once
@@ -140,6 +140,29 @@ RT_DEV bool slab_hit(V3 lo, V3 hi, V3 o, V3 inv, float t_max) {
   return near <= far;
 }
 
+// K4's node test: the slab of the central light direction (inverse iv)
+// against the box grown by _node_delta, the cone's reach at the box's
+// farthest corner, near-clamped at 0.9949 * t_min.
+RT_DEV bool cone_slab_hit(V3 lo, V3 hi, V3 p, V3 iv, float dist) {
+  const float cone = 0.102f;
+  const float tminc = 0.9949f * kTMin;
+  float fx = fmaxf((lo.x - p.x) * (lo.x - p.x), (hi.x - p.x) * (hi.x - p.x));
+  float fy = fmaxf((lo.y - p.y) * (lo.y - p.y), (hi.y - p.y) * (hi.y - p.y));
+  float fz = fmaxf((lo.z - p.z) * (lo.z - p.z), (hi.z - p.z) * (hi.z - p.z));
+  float delta = cone * fminf(sqrtf(fx + fy + fz), dist);
+  float t0x = (lo.x - delta - p.x) * iv.x;
+  float t1x = (hi.x + delta - p.x) * iv.x;
+  float t0y = (lo.y - delta - p.y) * iv.y;
+  float t1y = (hi.y + delta - p.y) * iv.y;
+  float t0z = (lo.z - delta - p.z) * iv.z;
+  float t1z = (hi.z + delta - p.z) * iv.z;
+  float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                     fmaxf(fminf(t0z, t1z), tminc));
+  float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                    fminf(fmaxf(t0z, t1z), dist));
+  return near <= far;
+}
+
 // One ray's walk of the tree, in the 4-wide order when the tables hold the
 // 4-wide view (n_wide > 0), else the binary order. enter(lo, hi): is a box
 // entered (its slab test, with the walk's current state); leaf(first,
@@ -221,14 +244,8 @@ struct BvhGeo {
     float a = dot3(d, d);
     float inv_a = 1.0f / a;
     V3 inv = safe_inverse(d);
-    // boxes first: their winner seeds the walk
-    float t_box = kBig;
-    int b_idx = 0;
-    for (int j = 0; j < tb.nb; ++j) {
-      ++work[6];
-      float tj = box_t(o, inv, tb.box + 7 * j, kBig);
-      if (tj < t_box) { t_box = tj; b_idx = j; }
-    }
+    int b_idx;
+    float t_box = closest_boxes(o, inv, &b_idx);  // seeds the walk
     float t_best = t_box;
     int best_kind = -1, best_id = 0;
     walk_tree(
@@ -263,6 +280,27 @@ struct BvhGeo {
           }
           return false;
         });
+    closest_merge(o, d, t_best, best_kind, best_id, t_box, b_idx, t_out,
+                  kind_out, idx_out);
+  }
+
+  // The boxes' closest hit, before the walk (b_idx: its box).
+  RT_DEV float closest_boxes(V3 o, V3 inv, int* b_idx) {
+    float t_box = kBig;
+    *b_idx = 0;
+    for (int j = 0; j < tb.nb; ++j) {
+      ++work[6];
+      float tj = box_t(o, inv, tb.box + 7 * j, kBig);
+      if (tj < t_box) { t_box = tj; *b_idx = j; }
+    }
+    return t_box;
+  }
+
+  // After the walk (best_kind -1: no hit in the tree): the walk's hit,
+  // then the boxes', then the planes'.
+  RT_DEV void closest_merge(V3 o, V3 d, float t_best, int best_kind,
+                            int best_id, float t_box, int b_idx,
+                            float* t_out, int* kind_out, int* idx_out) {
     float t = kBig;
     int kind = -1, idx = 0;
     if (best_kind >= 0) {
@@ -329,6 +367,23 @@ struct BvhGeo {
     return blocked;
   }
 
+  // The planes and boxes of one soft-shadow ray sd, before the walk.
+  RT_DEV bool soft_brute(V3 p, V3 sd, float dist) {
+    bool hit = false;
+    for (int j = 0; j < tb.npl && !hit; ++j) {
+      ++work[6];
+      hit = plane_t(p, sd, tb.pln + 7 * j, dist) < kBig;
+    }
+    if (!hit && tb.nb > 0) {
+      V3 inv = safe_inverse(sd);
+      for (int j = 0; j < tb.nb && !hit; ++j) {
+        ++work[6];
+        hit = box_blocked(p, inv, tb.box + 7 * j, dist);
+      }
+    }
+    return hit;
+  }
+
   // K4: all soft-shadow rays of one (lane, light), in one walk for each
   // block of up to 64 of them.
   RT_DEV float soft_unblocked(V3 p, V3 ld, float dist, const SoftRays& rays) {
@@ -355,49 +410,15 @@ struct BvhGeo {
         S >= 64 ? ~0ull : ((1ull << static_cast<uint64_t>(S)) - 1ull);
     uint64_t bm = 0;  // bit s: ray s0 + s is blocked
     // planes and boxes outside the tree, every ray
-    for (int s = 0; s < S; ++s) {
-      V3 sd{sx[s], sy[s], sz[s]};
-      bool hit = false;
-      for (int j = 0; j < tb.npl && !hit; ++j) {
-        ++work[6];
-        hit = plane_t(p, sd, tb.pln + 7 * j, dist) < kBig;
-      }
-      if (!hit && tb.nb > 0) {
-        V3 inv = safe_inverse(sd);
-        for (int j = 0; j < tb.nb && !hit; ++j) {
-          ++work[6];
-          hit = box_blocked(p, inv, tb.box + 7 * j, dist);
-        }
-      }
-      if (hit) bm |= 1ull << s;
-    }
-    const float cone = 0.102f;
-    const float tminc = 0.9949f * kTMin;
+    for (int s = 0; s < S; ++s)
+      if (soft_brute(p, V3{sx[s], sy[s], sz[s]}, dist)) bm |= 1ull << s;
     V3 iv = safe_inverse(ld);
     if (bm == full) return popc64(bm);
     walk_tree(
         bvh,
         [&](V3 lo, V3 hi) {
           ++work[3];
-          // _node_delta: the cone's reach at the box's farthest corner
-          float fx = fmaxf((lo.x - p.x) * (lo.x - p.x),
-                           (hi.x - p.x) * (hi.x - p.x));
-          float fy = fmaxf((lo.y - p.y) * (lo.y - p.y),
-                           (hi.y - p.y) * (hi.y - p.y));
-          float fz = fmaxf((lo.z - p.z) * (lo.z - p.z),
-                           (hi.z - p.z) * (hi.z - p.z));
-          float delta = cone * fminf(sqrtf(fx + fy + fz), dist);
-          float t0x = (lo.x - delta - p.x) * iv.x;
-          float t1x = (hi.x + delta - p.x) * iv.x;
-          float t0y = (lo.y - delta - p.y) * iv.y;
-          float t1y = (hi.y + delta - p.y) * iv.y;
-          float t0z = (lo.z - delta - p.z) * iv.z;
-          float t1z = (hi.z + delta - p.z) * iv.z;
-          float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                             fmaxf(fminf(t0z, t1z), tminc));
-          float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                            fminf(fmaxf(t0z, t1z), dist));
-          return near <= far;
+          return cone_slab_hit(lo, hi, p, iv, dist);
         },
         [&](int first, int count) {
           for (int j = 0; j < bvh.leaf_size && j < count && bm != full;

@@ -24,41 +24,32 @@
 //
 // Design for Hopper. The TPU kernel copies each visited leaf's rows from
 // HBM into a scalar-memory scratch because its node table fills most of
-// that memory; here one thread walks for one lane and reads the leaf's
-// rows in place from global memory through the read-only cache (__ldg),
-// as K3 reads its tables. Leaves hold 32-512 rows; no loop keeps a
-// per-leaf array. At the 262,144-primitive cap the node table is about
-// 590 KB and the rows 24 MB (at 23 floats): both stay in global memory,
-// and a warp's lanes share the L2-resident top of the tree. What bounds
-// it: operations (slab and primitive tests); divergence between the walks
-// of a warp's lanes is the cost this simple design accepts.
-#include "bvh_walk.cuh"
+// that memory. Here the node walks stay per lane and each leaf's rows are
+// read in place from global memory through the read-only cache. The
+// closest-hit walk tests a leaf with the lanes of the warp that are in
+// the same walk, one row a thread, and reduces to the least (t, slot)
+// (stream_walk.cuh): a 32-row leaf is 1,792 or 2,944 contiguous bytes, so
+// the group's loads coalesce, and lanes that hold no leaf help those that
+// do. The hard-shadow and fused soft-shadow walks stay per thread, as in
+// K3+K4 (their group forms lost on the H100; PERF.md), the soft walk with
+// its rays packed two loads a test. Rows are not staged
+// in shared memory: P1 (dma_probe.cu) measured a dependent row read
+// through the read-only cache at 212 ns a step from the L2 on the H100,
+// against 288-374 ns for a warp's cp.async copy and 272-304 ns for a bulk
+// copy on an mbarrier, and shared memory's carve-out takes L1 from the
+// rows and the walk stacks (PERF.md). At the 262,144-primitive cap the node table
+// is about 590 KB and the rows 24 MB (at 23 floats): both stay in global
+// memory, inside the 50 MB L2. What bounds it: the latency of dependent
+// loads and the divergence of the walks (a lane's next node depends on
+// its last slab test); it is measured against its operations
+// (chip_smoke.py).
+//
+// The per-thread walks of K3+K4 (bvh_walk.cuh:BvhGeo over RowLeaves, the
+// previous K5) are a second pair of entries, rt_trace_stream_serial: the
+// same function and work counters, kept to compare against on the card.
+#include "stream_walk.cuh"
 
-namespace rt {
-
-// Leaf slots as rows of the stream table.
-struct RowLeaves {
-  static constexpr int kSphMat = 12;  // (row + 1)[12] is col 13
-  const float* rows;
-  int cols;
-
-  // As TreeLeaves::prim; *id is the row, *row its cols 1...
-  RT_DEV int prim(int slot, int* id, const float** row) const {
-    const float* r = rows + cols * slot;
-    int tag = static_cast<int>(ldg(r));
-    *id = slot;
-    *row = r + 1;
-    return tag == 0 ? 0 : (tag == 1 ? 1 : -1);
-  }
-  RT_DEV const float* sphere_row(int i) const { return rows + cols * i + 1; }
-  RT_DEV const float* triangle_row(int i) const {
-    return rows + cols * i + 1;
-  }
-};
-
-}  // namespace rt
-
-template <bool kState>
+template <bool kState, bool kGroup>
 RT_DEV void trace_stream_body(const rt::Lanes& io, const float* tables,
                               const rt::Dims& dims, const float* rows,
                               const rt::Run& run) {
@@ -68,14 +59,20 @@ RT_DEV void trace_stream_body(const rt::Lanes& io, const float* tables,
   rt::Bvh bvh;
   rt::bvh_tables(tables, dims, &bvh);
   rt::RowLeaves lv{rows, dims.tri_cols + 1};
-  rt::BvhGeo<rt::RowLeaves> geo{tb, lv, bvh, {0, 0, 0, 0, 0, 0, 0}};
-  rt::run_lane<kState>(geo, tb, io, run, lane, rt::kBvhCounters);
+  if constexpr (kGroup) {
+    rt::StreamGeo geo{{tb, lv, bvh, {0, 0, 0, 0, 0, 0, 0}},
+                      io.counters != nullptr};
+    rt::run_lane<kState>(geo, tb, io, run, lane, rt::kBvhCounters);
+  } else {
+    rt::BvhGeo<rt::RowLeaves> geo{tb, lv, bvh, {0, 0, 0, 0, 0, 0, 0}};
+    rt::run_lane<kState>(geo, tb, io, run, lane, rt::kBvhCounters);
+  }
 }
 
 extern "C" __global__ void rt_trace_stream_kernel(
     rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
     const float* __restrict__ rows, rt::Run run) {
-  trace_stream_body<false>(io, tables, dims, rows, run);
+  trace_stream_body<false, true>(io, tables, dims, rows, run);
 }
 
 // K1-state: the same with lane state in or out (every launch of the split
@@ -83,10 +80,55 @@ extern "C" __global__ void rt_trace_stream_kernel(
 extern "C" __global__ void rt_trace_stream_state_kernel(
     rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
     const float* __restrict__ rows, rt::Run run) {
-  trace_stream_body<true>(io, tables, dims, rows, run);
+  trace_stream_body<true, true>(io, tables, dims, rows, run);
+}
+
+// The per-thread walks (K3+K4's), both forms.
+extern "C" __global__ void rt_trace_stream_serial_kernel(
+    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
+    const float* __restrict__ rows, rt::Run run) {
+  trace_stream_body<false, false>(io, tables, dims, rows, run);
+}
+
+extern "C" __global__ void rt_trace_stream_serial_state_kernel(
+    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
+    const float* __restrict__ rows, rt::Run run) {
+  trace_stream_body<true, false>(io, tables, dims, rows, run);
 }
 
 #ifndef RT_HOST_EMULATION
+namespace {
+
+int launch_stream(bool group, const float* origin, const float* direction,
+                  const int32_t* pix, const int32_t* samp,
+                  const float* tp_in, const float* alive_in, float* radiance,
+                  float* state, int32_t* counters, int n_lanes,
+                  const float* tables, const int* dims, const float* rows,
+                  int start_bounce, int end_bounce, int shadow_samples,
+                  int soft, int recursive, uint32_t seed, int rr_start,
+                  float tp_eps, int soft_guard, void* stream) {
+  const int threads = 128;
+  rt::Dims d;
+  memcpy(&d, dims, sizeof(d));
+  rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
+                                alive_in, radiance, state, counters, n_lanes);
+  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive,
+              seed, rr_start, tp_eps, soft_guard};
+  if (n_lanes > 0) {
+    int blocks = (n_lanes + threads - 1) / threads;
+    bool st = rt::stateful(io, run);
+    auto kernel = group ? (st ? rt_trace_stream_state_kernel
+                              : rt_trace_stream_kernel)
+                        : (st ? rt_trace_stream_serial_state_kernel
+                              : rt_trace_stream_serial_kernel);
+    kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        io, tables, d, rows, run);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // Launch K5 on `stream`; dims: the table sizes (bounce.cuh:Dims) as ints,
 // with ns = nt = 0; rows: the stream table; tp_in, alive_in, state and
 // counters may be null (bounce.cuh:Lanes). Returns cudaGetLastError()
@@ -102,20 +144,24 @@ extern "C" int rt_trace_stream(const float* origin, const float* direction,
                                int recursive, uint32_t seed,
                                int rr_start, float tp_eps, int soft_guard,
                                void* stream) {
-  const int threads = 128;
-  rt::Dims d;
-  memcpy(&d, dims, sizeof(d));
-  rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
-                                alive_in, radiance, state, counters, n_lanes);
-  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive,
-              seed, rr_start, tp_eps, soft_guard};
-  if (n_lanes > 0) {
-    int blocks = (n_lanes + threads - 1) / threads;
-    auto kernel = rt::stateful(io, run) ? rt_trace_stream_state_kernel
-                                        : rt_trace_stream_kernel;
-    kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        io, tables, d, rows, run);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_stream(true, origin, direction, pix, samp, tp_in, alive_in,
+                       radiance, state, counters, n_lanes, tables, dims,
+                       rows, start_bounce, end_bounce, shadow_samples, soft,
+                       recursive, seed, rr_start, tp_eps, soft_guard, stream);
+}
+
+// The same with the per-thread walks.
+extern "C" int rt_trace_stream_serial(
+    const float* origin, const float* direction, const int32_t* pix,
+    const int32_t* samp, const float* tp_in, const float* alive_in,
+    float* radiance, float* state, int32_t* counters, int n_lanes,
+    const float* tables, const int* dims, const float* rows,
+    int start_bounce, int end_bounce, int shadow_samples, int soft,
+    int recursive, uint32_t seed, int rr_start, float tp_eps, int soft_guard,
+    void* stream) {
+  return launch_stream(false, origin, direction, pix, samp, tp_in, alive_in,
+                       radiance, state, counters, n_lanes, tables, dims,
+                       rows, start_bounce, end_bounce, shadow_samples, soft,
+                       recursive, seed, rr_start, tp_eps, soft_guard, stream);
 }
 #endif

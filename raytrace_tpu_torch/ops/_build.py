@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
-All sources under ``raytrace_tpu_torch/csrc`` go to ONE nvcc call that
-links a shared library with a plain C interface: no PyTorch headers, so the
-build takes seconds, not minutes. The library lands in
+Every ``.cu`` under ``raytrace_tpu_torch/csrc`` is compiled by its own nvcc
+process, all started together, and the objects are linked into one shared
+library with a plain C interface: no PyTorch headers, so the build takes
+seconds, not minutes. The library lands in
 ``raytrace_tpu_torch/_build/`` (listed in .gitignore) under a name keyed by
 a hash of the sources and flags, so the first use in a fresh checkout
 builds it and later uses load it. Nothing is built at import.
@@ -20,6 +21,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,8 +31,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,15 +79,36 @@ def build() -> BuildResult:
         ptxas = open(log).read().splitlines() if os.path.exists(log) else []
         return BuildResult(lib, False, 0.0, ptxas)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp]
-           + [s for s in _sources() if s.endswith(".cu")])
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    procs = [subprocess.Popen([_nvcc()] + NVCC_FLAGS + ["-c", "-o", o, s],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    report = []
+    try:
+        for src, proc in zip(srcs, procs):
+            text = proc.communicate(timeout=600)[0]
+            report.append(text)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                   f"({proc.returncode}):\n{text}")
+        link = subprocess.run([_nvcc(), "-shared", "-o", tmp] + objs,
+                              capture_output=True, text=True, timeout=600)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+    ptxas = [ln.strip() for ln in "".join(report).splitlines()
              if "ptxas" in ln or "spill" in ln]
     with open(log, "w") as f:
         f.write("\n".join(ptxas))
@@ -108,11 +130,16 @@ def library() -> ctypes.CDLL:
     # rr_start, tp_eps, soft_guard, stream (bounce.cuh:Run)
     run = [i, i, i, i, i, u, i, f, i, p]
     for name, extra in (("rt_trace_unroll", []), ("rt_trace_bvh", []),
-                        ("rt_trace_stream", [p]), ("rt_trace_loop", [i])):
+                        ("rt_trace_stream", [p]),
+                        ("rt_trace_stream_serial", [p]),
+                        ("rt_trace_loop", [i])):
         fn = getattr(lib, name)
         fn.argtypes = lanes + extra + run
         fn.restype = i
     head = [p, i, i, f, f, p]  # out, width, height, inv_w, inv_h, cam
+    # P1: table, n_rows, row_floats, n_steps, seed, variant, out, stream
+    lib.rt_dma_probe.argtypes = [p, i, i, i, i, i, p, p]
+    lib.rt_dma_probe.restype = i
     for name, args in (("rt_pixel_mask", [p, i, p, i, p]),
                        ("rt_pixel_mask_bvh", [p, p, i, p, p, i, p]),
                        ("rt_pixel_mask_stream", [p, i, p, i, p])):
@@ -120,6 +147,30 @@ def library() -> ctypes.CDLL:
         fn.argtypes = head + args
         fn.restype = i
     return lib
+
+
+def kernel_resources(lines) -> dict:
+    """{kernel entry: (registers, stack bytes, spill bytes)} from a
+    ``-Xptxas -v`` report (``BuildResult.ptxas``)."""
+    out, cur = {}, None
+    for ln in lines:
+        m = re.search(r"(?:entry function|Function properties for) '?"
+                      r"([A-Za-z_]\w*)", ln)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, [None, 0, 0])
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[cur][1] = int(m.group(1))
+            out[cur][2] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def check(err: int, what: str) -> None:

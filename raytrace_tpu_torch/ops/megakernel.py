@@ -9,7 +9,9 @@ Port of the host side of ``raytrace_tpu/ops/megakernel.py``:
   closest-hit and hard-shadow tree walks, K3, and the fused soft-shadow
   walk, K4, in one launch; ``csrc/trace_bvh.cu``), K5 in ``stream`` mode
   (4097-262,144 primitives with a scene BVH: the same walks over the
-  unified leaf rows of ``pack_stream_table``; ``csrc/trace_stream.cu``),
+  unified leaf rows of ``pack_stream_table``, the closest-hit walk testing
+  each leaf with the warp's lanes in the same walk;
+  ``csrc/trace_stream.cu`` and ``csrc/stream_walk.cuh``),
   or K7 in ``loop`` mode (past the unroll limit without a BVH: brute force
   over tables of any size; ``csrc/trace_loop.cu``). All four run the one
   bounce body of ``csrc/bounce.cuh`` with the extended features (K1-ext:
@@ -635,7 +637,7 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
                   init_throughput=None, init_alive=None,
                   return_state: bool = False,
                   counters: torch.Tensor | None = None,
-                  soft_guard: bool = True):
+                  soft_guard: bool = True, leaf_group: bool = True):
     """The trace kernel's inputs on the card: returns (out, launch).
     ``launch()`` runs K1 (unroll mode), K3+K4 (bvh mode), K5 (stream mode)
     or K7 (loop mode) into ``out`` and counts the launch under the
@@ -651,7 +653,12 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
     and ``tp_eps`` (``csrc/bounce.cuh:Run``). ``soft_guard`` (K1 only) runs
     K1-guard, as every main-path launch does; False runs K1's unguarded
     soft-shadow loop, which gives the same result (for comparisons on the
-    card; the JAX package's RT_SOFT_PRIM=0).
+    card; the JAX package's RT_SOFT_PRIM=0). ``leaf_group`` (K5 only)
+    runs the closest-hit walk that tests each leaf with the group of lanes
+    in the same walk (``csrc/stream_walk.cuh``), as every main-path launch
+    does; False runs K3+K4's per-thread walk over the same rows
+    (``rt_trace_stream_serial``, the previous K5), which gives the same
+    result and the same work counters (for comparisons on the card).
 
     ``counters`` (for operation counts; off on the main path) receives
     each lane's work. Unroll and loop modes, (B, COUNTERS) int32:
@@ -705,7 +712,8 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
         raise ValueError(f"counters must be a contiguous (B,{n_counters}) "
                          "int32 tensor on the scene's device")
     lib = _build.library()
-    entry = getattr(lib, "rt_" + kernel)
+    serial = mode == "stream" and not leaf_group
+    entry = getattr(lib, "rt_" + kernel + ("_serial" if serial else ""))
     dims_c = (ctypes.c_int * len(dims))(*dims)
     if mode == "loop":
         extra_args = (int(extra),)

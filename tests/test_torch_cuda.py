@@ -13,7 +13,10 @@ equal their plain version under the goldens image gate (<= 0.1% of pixels
 off by > 1e-3, mean abs error < 1e-4), which admits the rare lane that a
 one-ulp difference of a library pow or sin sends down another branch. K5
 must equal K3+K4 on the same tree bit for bit (the same walks over the
-same floats). K3-wide (the 4-wide walk of K3+K4 and K5) must take its
+same floats), and its group closest-hit walk must equal its per-thread
+walk, work counters too, on leaves of 32 and 128 rows, on partial warps
+and at depth 100 with 20 lights and 80 soft rays. P1's three variants
+must equal the plain chain bit for bit. K3-wide (the 4-wide walk of K3+K4 and K5) must take its
 plain version's hits where primitives tie exactly in t. K1-state's two
 segments must give the alive flags of the plain version exactly, its
 state on the lanes still alive, and the unsplit launch's radiance under
@@ -37,6 +40,7 @@ from raytrace_tpu_torch.bench.suite import (bvh_scene_dict,
                                              ring_scene_dict,
                                              twin_scene_dict)
 from raytrace_tpu_torch.ops import megakernel as tmk
+from raytrace_tpu_torch.tools import measure_dma_stream as p1
 
 # The scenes of the extended body: (asset, kernel); the assets run with
 # their own look-at camera.
@@ -267,15 +271,15 @@ def test_loop_main_path_launches_k2_and_k7(cuda):
     gate(img, dense)
 
 
-def forced_stream(d, device, monkeypatch):
+def forced_stream(d, device, monkeypatch, leaf_size=4):
     """A small scene in stream mode (MAX_BVH_KERNEL_PRIMS patched below
     its size before it is built, so its accel carries the stream table),
-    on a leaf-size-4 tree."""
+    on a tree of leaf_size (4 unless asked)."""
     monkeypatch.setattr(tmk, "UNROLL_PRIM_LIMIT", 4)
     monkeypatch.setattr(tmk, "MAX_BVH_KERNEL_PRIMS", 8)
     s = tscene.with_accel(tscene.from_dict(d, device=device,
                                            build_accel=False)[0],
-                          leaf_size=4)
+                          leaf_size=leaf_size)
     assert tmk._kernel_mode(s) == "stream"
     assert s.accel.stream_tab is not None
     return s
@@ -454,3 +458,91 @@ def test_fast_mc_equals_plain(cuda, mode, monkeypatch):
     got = tmk.trace(s, *lanes, cfg)
     want = ttrace.trace(s, *lanes, cfg)
     assert float((got - want).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("variant", p1.VARIANTS)
+@pytest.mark.parametrize("rows,floats", [(8192, 128), (1024, 32 * 23)])
+def test_dma_probe_equals_plain(cuda, variant, rows, floats):
+    """P1: every variant returns the plain chain's acc bit for bit."""
+    tab = p1.make_table(rows, floats).to(cuda)
+    p1.reset_launches()
+    got = p1.chain(tab, 300, seed=5, variant=variant)
+    assert p1.LAUNCHES[variant] == 1
+    assert torch.equal(got, p1.chain_plain(tab, 300, seed=5))
+
+
+def k5_both(s, lanes, cfg, **kw):
+    """K5 with its group closest-hit walk and with the per-thread walk on
+    the same lanes: (radiance, work counters) of each."""
+    out = []
+    for group in (True, False):
+        cnt = torch.zeros((lanes[0].shape[0], tmk.BVH_COUNTERS),
+                          dtype=torch.int32, device=lanes[0].device)
+        rad, launch = tmk.prepare_trace(s, *lanes, cfg, counters=cnt,
+                                        leaf_group=group, **kw)
+        launch()
+        out.append((rad, cnt))
+    return out
+
+
+@pytest.mark.parametrize("leaf", [32, 128])
+def test_k5_group_walk_equals_k3_and_plain(cuda, leaf, monkeypatch):
+    """K5's group leaf tests on leaves of 32 rows (one a thread) and 128
+    (four rows a thread in a full group): equal to the per-thread walk
+    (work counters too), to K3+K4 on the same tree, and to the plain
+    version under the image gate."""
+    s = forced_stream(bvh_scene_dict("mixed"), cuda, monkeypatch,
+                      leaf_size=leaf)
+    cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
+    lanes = main_path_lanes(s, 32, 24, 2, cfg)
+    (k5, cnt), (serial, cnt_serial) = k5_both(s, lanes, cfg)
+    assert torch.equal(k5, serial)
+    assert torch.equal(cnt, cnt_serial)
+    gate(k5, ttrace.trace(s, *lanes, cfg))
+    monkeypatch.setattr(tmk, "MAX_BVH_KERNEL_PRIMS", 4096)
+    tree = dataclasses.replace(s, accel=dataclasses.replace(
+        s.accel, stream_tab=None))
+    assert tmk._kernel_mode(tree) == "bvh"
+    assert torch.equal(k5, tmk.trace(tree, *lanes, cfg))
+
+
+def test_k5_partial_warps(cuda, monkeypatch):
+    """Groups of every size: a lane count that is not a multiple of 32,
+    and a resumed segment with every other lane dead; against the
+    per-thread walk, the plain version and K3+K4 on the same tree."""
+    s = forced_stream(bvh_scene_dict("mixed"), cuda, monkeypatch,
+                      leaf_size=32)
+    cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
+    lanes = tuple(t[:1001] for t in main_path_lanes(s, 32, 24, 2, cfg))
+    (k5, cnt), (serial, cnt_serial) = k5_both(s, lanes, cfg)
+    assert torch.equal(k5, serial) and torch.equal(cnt, cnt_serial)
+    gate(k5, ttrace.trace(s, *lanes, cfg))
+    tree = dataclasses.replace(s, accel=dataclasses.replace(
+        s.accel, stream_tab=None))
+    with monkeypatch.context() as m:
+        m.setattr(tmk, "MAX_BVH_KERNEL_PRIMS", 4096)
+        assert tmk._kernel_mode(tree) == "bvh"
+        assert torch.equal(k5, tmk.trace(tree, *lanes, cfg))
+    _, st = tmk.trace(s, *lanes, cfg, end_bounce=2, return_state=True)
+    alive = st["alive"].clone()
+    alive[::2] = 0.0
+    seg = (st["origin"], st["direction"]) + lanes[2:]
+    kw = dict(start_bounce=2, init_throughput=st["throughput"],
+              init_alive=alive)
+    (k5, cnt), (serial, cnt_serial) = k5_both(s, seg, cfg, **kw)
+    assert torch.equal(k5, serial) and torch.equal(cnt, cnt_serial)
+    assert not k5[::2].any()
+    gate(k5, ttrace.trace(s, *seg, cfg, **kw))
+
+
+def test_k5_run_time_bounds_match_plain(cuda, monkeypatch):
+    """max_depth 100, 20 lights and 80 soft-shadow rays on K5 (its soft
+    walk in two blocks of rays, 64 and 16), group and per-thread walks
+    alike."""
+    s = forced_stream(with_lights(bvh_scene_dict("mixed"), 20), cuda,
+                      monkeypatch, leaf_size=32)
+    cfg = ttrace.TraceConfig(max_depth=100, shadow_samples=80)
+    lanes = main_path_lanes(s, 16, 12, 1, cfg)
+    (k5, cnt), (serial, cnt_serial) = k5_both(s, lanes, cfg)
+    assert torch.equal(k5, serial) and torch.equal(cnt, cnt_serial)
+    gate(k5, ttrace.trace(s, *lanes, cfg))
