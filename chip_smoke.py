@@ -31,7 +31,12 @@ Phases, in order (each prints a line before and after, with its seconds):
   k3_check          K3+K4 (bounce megakernel, bvh mode) against its plain
                     version on the lanes of a 64x48 frame, 4 spp, depth 50,
                     ring-1000 and the mixed scene: max lane error 0 or the
-                    image gate
+                    image gate; here and in every phase below that runs
+                    K3+K4 (k3wide_check, k1ext_check, bounds_check,
+                    kstate_check, fast_mc) the main path's K3+K4 (the walk
+                    table in persistent blocks) must also equal the
+                    previous design, rt_trace_bvh_global, bit for bit,
+                    radiance and work counters
   k3wide_check      K3-wide (the 4-wide stack walk of K3+K4 and K5) on the
                     lanes of a 64x48 frame, 4 spp, depth 50: K3+K4 on the
                     4-wide walk and on the binary walk (the same scene
@@ -40,6 +45,15 @@ Phases, in order (each prints a line before and after, with its seconds):
                     ring-1000 and the mixed scene (where the two walks
                     must also pass the image gate against each other) and
                     on the twin scene, whose exact ties must split them
+  k3walk_check      K3+K4's walk table: ico-2561 (two smooth icospheres
+                    of 1,280 triangles over a plane, a 135 KB table) on
+                    a strided subset of the lanes of a 64x48, 4 spp frame;
+                    the mixed scene with the budget lowered
+                    (megakernel.BVH_SMEM_BYTES) so the table is read in
+                    place; 1,001 lanes (not a multiple of 32); a segment
+                    resumed with every other lane dead: each equal to the
+                    previous design (work counters too) and to the plain
+                    version (error 0 or the image gate)
   render_check_bvh  the main path (K6, compaction, K3+K4) against the
                     dense plain path at 160x120, 4 spp, depth 50 on
                     ring-1000, under the image gate
@@ -124,6 +138,9 @@ Phases, in order (each prints a line before and after, with its seconds):
                     through K2 and K1-ext
   bench_smooth      the same on smooth_shading_demo (its look-at camera)
                     through K6 and K3+K4 with vertex normals
+  bench_ico2561     the same on ico-2561 through K6 and K3+K4 (a 135 KB
+                    walk table); every bvh frame must launch K3+K4 over
+                    its walk table and never the previous design
   bench_loop        the same on the icosphere golden scene without its BVH
                     (the go camera) through K2 and K7
   bench_stream_grid the same on grid-5833 through K6-stream and the
@@ -155,7 +172,12 @@ Phases, in order (each prints a line before and after, with its seconds):
   kernels           K1 and K3+K4 against their plain versions on the bench
                     frames' own lanes (all of them for K1, a strided subset
                     of about 20k for K3+K4, whose main-path launches must
-                    give the same lanes); each kernel's time per launch at
+                    give the same lanes); K3+K4 at ring-1000, smooth and
+                    ico-2561 beside the previous design in turns, each
+                    with soft shadows, hard only and without lights (the
+                    split of its walks), with both designs' registers,
+                    stack, spills and the walk table's shared memory;
+                    each kernel's time per launch at
                     the main path's own shapes (CUDA events; the trace runs
                     in chunks of TRACE_LANES lanes, so ms x launches is a
                     frame's kernel time) beside its plain version's and
@@ -683,10 +705,14 @@ def main():
             s = bvh_scenes[name]
             px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
             got = mk.trace(s, o, d, pix, samp, cfg)
+            if not torch.equal(got, k3_both(mk, s, (o, d, pix, samp), cfg)):
+                raise AssertionError(f"{name}: the main path's K3+K4 launch "
+                                     "differs from k3_both's walk-table "
+                                     "launch")
             want = trace_mod.trace(s, o, d, pix, samp, cfg)
             err = float((got - want).abs().max())
-            print(f"   {name}: {o.shape[0]} lanes, max lane error "
-                  f"{err:.3e}", flush=True)
+            print(f"   {name}: {o.shape[0]} lanes, equal to the previous "
+                  f"design; max lane error {err:.3e}", flush=True)
             if err > 0.0:
                 image_gate(pixel_image(px, got, 64, 48, 4),
                            pixel_image(px, want, 64, 48, 4), f"K3 {name}")
@@ -765,6 +791,11 @@ def main():
             got = mk.trace(s, o, d, pix, samp, cfg)
             if mk.LAUNCHES[kernel] != 1:
                 raise AssertionError(f"{name}: {kernel} was not launched")
+            if kernel == "trace_bvh" and not torch.equal(
+                    got, k3_both(mk, s, (o, d, pix, samp), cfg)):
+                raise AssertionError(f"{name}: the main path's K3+K4 launch "
+                                     "differs from k3_both's walk-table "
+                                     "launch")
             want = trace_mod.trace(s, o, d, pix, samp, cfg)
             err = float((got - want).abs().max())
             print(f"   {name} ({kernel}): {o.shape[0]} lanes, max lane "
@@ -776,6 +807,12 @@ def main():
     obj_dir = tempfile.TemporaryDirectory()
     stream_scenes = {"grid5833": stream_scene("grid", dev),
                      "ico10241": stream_scene("mesh", dev, obj_dir.name)}
+    ico2561 = ico2561_scene(dev, obj_dir.name)
+
+    with Phase("k3walk_check"):
+        k3walk_check(mk, trace_mod, {"ico2561": ico2561,
+                                     "mixed": bvh_scenes["mixed"]}, cfg,
+                     record)
 
     with Phase("bounds_check"):
         bcfg = trace_mod.TraceConfig(max_depth=100, shadow_samples=80,
@@ -790,6 +827,8 @@ def main():
             px, o, d, pix, samp = lanes_of(s, w, h, 2, bcfg)
             if name == "stream":
                 got = k5_both(mk, s, (o, d, pix, samp), bcfg)
+            elif name == "bvh":
+                got = k3_both(mk, s, (o, d, pix, samp), bcfg)
             else:
                 got = mk.trace(s, o, d, pix, samp, bcfg)
             want = trace_mod.trace(s, o, d, pix, samp, bcfg)
@@ -907,6 +946,15 @@ def main():
                 ("K7", loop_scenes["icosphere"], "trace_loop")):
             err = state_check(mk, trace_mod, s, kernel, cfg, name)
             record.setdefault("kstate_err", []).append(err)
+        px, o, d, pix, samp = lanes_of(bvh_scenes["mixed"], 64, 48, 4, cfg)
+        _, st = k3_both(mk, bvh_scenes["mixed"], (o, d, pix, samp), cfg,
+                        end_bounce=4, return_state=True)
+        k3_both(mk, bvh_scenes["mixed"], (st["origin"], st["direction"],
+                                          pix, samp), cfg, start_bounce=4,
+                init_throughput=st["throughput"], init_alive=st["alive"])
+        print("   K3+K4's state entry: [0,4) with state and [4,50) from it "
+              "equal to the previous design (work counters too)",
+              flush=True)
 
     with Phase("render_check_stream"):
         render_check_stream(mk, rmod, trace_mod, stream_scenes["grid5833"])
@@ -998,6 +1046,11 @@ def main():
                 if mk.LAUNCHES[kernel] != 1:
                     raise AssertionError(f"{name}: {kernel} was not "
                                          "launched")
+                if kernel == "trace_bvh" and not torch.equal(
+                        got, k3_both(mk, s, (o, d, pix, samp), c)):
+                    raise AssertionError(f"{name}: the main path's K3+K4 "
+                                         "launch with fast_mc differs from "
+                                         "k3_both's walk-table launch")
                 want = plain_trace(s, o, d, pix, samp, c)
                 err = float((got - want).abs().max())
                 print(f"   {name} ({kernel}), roulette from bounce "
@@ -1037,12 +1090,17 @@ def main():
                 raise AssertionError(f"the bvh main path never launched {k}")
         if launches_bvh["trace_wide"] != launches_bvh["trace_bvh"]:
             raise AssertionError("the bvh main path did not walk 4-wide")
+        if launches_bvh["trace_bvh_global"] or launches_bvh["trace_bvh_ldg"]:
+            raise AssertionError("the bvh main path left the walk table in "
+                                 f"shared memory: {launches_bvh}")
 
     frames = {}
     for phase, key, s, go, kernels_used in (
             ("bench_textured", "textured", ext[0][1], False,
              ("trace_unroll", "pixel_mask")),
             ("bench_smooth", "smooth", ext[2][1], False,
+             ("trace_bvh", "pixel_mask_bvh")),
+            ("bench_ico2561", "ico2561", ico2561, True,
              ("trace_bvh", "pixel_mask_bvh")),
             ("bench_loop", "loop", loop_scenes["icosphere"], True,
              ("trace_loop", "pixel_mask"))):
@@ -1052,6 +1110,9 @@ def main():
                 if got[k] < 1:
                     raise AssertionError(f"the {phase} frame never "
                                          f"launched {k}")
+            if got["trace_bvh_global"] or got["trace_bvh_ldg"]:
+                raise AssertionError(f"the {phase} frame left the walk "
+                                     f"table in shared memory: {got}")
             frames[key] = (s, go, got)
 
     for phase, key in (("bench_stream_grid", "grid5833"),
@@ -1133,6 +1194,14 @@ def main():
         for row in kernels:   # K3-wide in K5: the stream frames, unsplit
             if row["name"].startswith("K3-wide"):
                 row.update(record["k3wide_stream"])
+            if row["name"].startswith("K3 "):   # K3+K4's other frames
+                for key, f in record["k3_frames"].items():
+                    row.update({f"{key}_{k}": f[k] for k in (
+                        "ms", "launches", "bound", "plain", "plain_lanes",
+                        "split", "walk_smem_bytes")})
+                    row[f"{key}_prev_ms"] = f["split"]["prev"]["soft"]
+                    row[f"{key}_frame_launches"] = frames[key][2][
+                        "trace_bvh"]
         obj_dir.cleanup()
         regs = _build.kernel_resources(res.ptxas)
         entry = {"K1": "rt_trace_unroll_kernel", "K2": "rt_pixel_mask_kernel",
@@ -1155,9 +1224,20 @@ def main():
             if row["name"].startswith("K5"):
                 row["unsplit_entry_registers"] = regs.get(
                     "rt_trace_stream_kernel", (None,))[0]
+            if row["name"].startswith("K3 "):
+                for key, fn_ in (("state", "rt_trace_bvh_state_kernel"),
+                                 ("prev", "rt_trace_bvh_global_kernel"),
+                                 ("prev_state",
+                                  "rt_trace_bvh_global_state_kernel")):
+                    r2, st2, sp2 = regs.get(fn_, (None, None, None))
+                    row.update({f"{key}_registers": r2,
+                                f"{key}_stack_bytes": st2,
+                                f"{key}_spill_bytes": sp2})
             print(f"   {row['name']}: {fn} {r_} registers, {stack} B stack, "
                   f"{spill} B spills", flush=True)
         for fn in ("rt_trace_unroll_state_kernel", "rt_trace_bvh_state_kernel",
+                   "rt_trace_bvh_global_kernel",
+                   "rt_trace_bvh_global_state_kernel",
                    "rt_trace_loop_state_kernel"):
             print(f"   {fn}: {regs.get(fn)} (registers, stack bytes, "
                   "spill bytes)", flush=True)
@@ -1193,6 +1273,7 @@ def wide_check(mk, trace_mod, scene, cfg, what):
     walk against its plain version, and the same launch on the binary walk
     against its own; returns (the larger max lane error, the lanes on
     which the two walks differ by more than 1e-3)."""
+    import torch
     px, o, d, pix, samp = lanes_of(scene, 64, 48, 4, cfg)
     lanes = (o, d, pix, samp)
     binary = without_wide(scene)
@@ -1202,6 +1283,10 @@ def wide_check(mk, trace_mod, scene, cfg, what):
     if (mk.LAUNCHES["trace_bvh"], mk.LAUNCHES["trace_wide"]) != (2, 1):
         raise AssertionError(f"{what}: K3 was not launched once with and "
                              f"once without the 4-wide walk: {mk.LAUNCHES}")
+    for got, s in ((wide, scene), (walk2, binary)):
+        if not torch.equal(got, k3_both(mk, s, lanes, cfg)):
+            raise AssertionError(f"{what}: the main path's K3+K4 launch "
+                                 "differs from k3_both's walk-table launch")
     errs = []
     for got, s, walk in ((wide, scene, "4-wide"), (walk2, binary, "binary")):
         want = trace_mod.trace(s, *lanes, cfg)
@@ -1382,6 +1467,134 @@ def k5_both(mk, scene, lanes, cfg, **kw):
         raise AssertionError("K5's group walk differs from the per-thread "
                              "walk (output or work counters)")
     return outs[0]
+
+
+def k3_both(mk, scene, lanes, cfg, **kw):
+    """K3+K4 over its walk table (the main path's) and the previous design
+    (rt_trace_bvh_global) on the same lanes (``kw``: more arguments of
+    prepare_trace); raises unless their outputs and work counters are
+    equal. Returns the main path's output."""
+    import torch
+    outs, cnts = [], []
+    for smem in (True, False):
+        cnt = torch.zeros((lanes[0].shape[0], mk.BVH_COUNTERS),
+                          dtype=torch.int32, device=lanes[0].device)
+        out, launch = mk.prepare_trace(scene, *lanes, cfg, counters=cnt,
+                                       bvh_smem=smem, **kw)
+        launch()
+        outs.append(out)
+        cnts.append(cnt)
+    if not (same(*outs) and torch.equal(*cnts)):
+        raise AssertionError("K3+K4 over its walk table differs from the "
+                             "previous design (output or work counters)")
+    return outs[0]
+
+
+class lowered_budget:
+    """Within the block, K3+K4 reads every walk table in place from
+    global memory (megakernel.BVH_SMEM_BYTES lowered to 0)."""
+
+    def __init__(self, mk):
+        self.mk = mk
+
+    def __enter__(self):
+        self.old = self.mk.BVH_SMEM_BYTES
+        self.mk.BVH_SMEM_BYTES = 0
+
+    def __exit__(self, *exc):
+        self.mk.BVH_SMEM_BYTES = self.old
+        return False
+
+
+def ico2561_scene(device, tmpdir):
+    """Two smooth icospheres of 1,280 triangles over a plane
+    (bench/suite.py:mesh_scene_dict at subdivision 3): 2,561 primitives,
+    bvh mode."""
+    from raytrace_tpu_torch import scene as scene_mod
+    from raytrace_tpu_torch.bench import suite
+    return scene_mod.from_dict(suite.mesh_scene_dict(tmpdir, subdiv=3),
+                               device=device)[0]
+
+
+def k3walk_check(mk, trace_mod, scenes, cfg, record):
+    """The k3walk_check phase (see the module docstring)."""
+    import torch
+    ico, mixed = scenes["ico2561"], scenes["mixed"]
+    walk = mk.pack_walk_table(ico)
+    if mk._kernel_mode(ico) != "bvh" or not mk.walk_table_in_smem(walk):
+        raise AssertionError("ico-2561 must be a bvh-mode scene whose walk "
+                             "table fits shared memory")
+    px, o, d, pix, samp = lanes_of(ico, 64, 48, 4, cfg)
+    idx = torch.arange(0, o.shape[0], max(1, o.shape[0] // K5_SUBSET),
+                       device=o.device)
+    cases = [("ico-2561", ico, tuple(t[idx] for t in (o, d, pix, samp)), {},
+              False)]
+    px, o, d, pix, samp = lanes_of(mixed, 64, 48, 4, cfg)
+    cases.append(("mixed, walk table read in place", mixed,
+                  (o, d, pix, samp), {}, True))
+    part = tuple(t[:1001] for t in (o, d, pix, samp))
+    cases.append(("mixed, 1001 lanes", mixed, part, {}, False))
+    _, st = mk.trace(mixed, *part, cfg, end_bounce=2, return_state=True)
+    alive = st["alive"].clone()
+    alive[::2] = 0.0
+    kw = dict(start_bounce=2, init_throughput=st["throughput"],
+              init_alive=alive)
+    cases.append(("mixed, 1001 lanes from bounce 2, every other lane dead",
+                  mixed, (st["origin"], st["direction"]) + part[2:], kw,
+                  False))
+    for name, s, lanes, kw, in_place in cases:
+        mk.reset_launches()
+        if in_place:
+            with lowered_budget(mk):
+                got = k3_both(mk, s, lanes, cfg, **kw)
+        else:
+            got = k3_both(mk, s, lanes, cfg, **kw)
+        if (mk.LAUNCHES["trace_bvh"], mk.LAUNCHES["trace_bvh_ldg"]) != (
+                1, int(in_place)):
+            raise AssertionError(f"{name}: K3+K4 launched {mk.LAUNCHES}")
+        want = plain_trace(s, *lanes, cfg) if not kw else trace_mod.trace(
+            s, *lanes, cfg, **kw)
+        err = float((got - want).abs().max())
+        print(f"   {name}: {lanes[0].shape[0]} lanes, walk table "
+              f"{4 * mk.pack_walk_table(s).numel()} B "
+              f"{'in place' if in_place else 'in shared memory'}; equal to "
+              f"the previous design (work counters too); max lane error vs "
+              f"plain {err:.3e}", flush=True)
+        if err > 0.0:
+            image_gate(got, want, f"K3+K4 {name} (lanes as pixels)")
+        if kw and got[::2].any():
+            raise AssertionError("K3+K4 gave radiance to dead lanes")
+        record.setdefault("k3walk_err", []).append(err)
+
+
+def k3_split(mk, scene, lanes, sizes, cfg):
+    """K3+K4 at a bench frame's own chunks, ms per launch, over its walk
+    table ("ms") and in the previous design ("prev"), each with soft
+    shadows, hard shadows only and without lights, timed in turns."""
+    import dataclasses
+    import torch
+    from raytrace_tpu_torch import scene as scene_mod
+    dev = scene.device
+    dark = dataclasses.replace(scene, lights=scene_mod.Lights(
+        position=torch.zeros((0, 3), device=dev),
+        color=torch.zeros((0, 3), device=dev),
+        intensity=torch.zeros((0,), device=dev)))
+    hard = dataclasses.replace(cfg, soft_shadows=False)
+    runs = {(smem, name): chunk_launches(mk, s, lanes, sizes, c,
+                                         bvh_smem=smem)[1]
+            for smem in (True, False)
+            for name, s, c in (("soft", scene, cfg), ("hard", scene, hard),
+                               ("none", dark, cfg))}
+    times = {k: [] for k in runs}
+    for order in ((True, False), (False, True)):
+        for smem in order:
+            for name in ("soft", "hard", "none"):
+                times[(smem, name)].append(
+                    cuda_ms(runs[(smem, name)], 1) / len(sizes))
+    return {("ms" if smem else "prev"): {
+        name: sum(times[(smem, name)]) / 2 for name in ("soft", "hard",
+                                                        "none")}
+        for smem in (True, False)}
 
 
 def ladder_frame(mk, scene, cfg, launches, what):
@@ -2018,9 +2231,17 @@ def frame_kernel(mk, scene, cfg, go_camera, what, subset=K3_SUBSET):
           f"{ops:.4e} ops; per launch {ms:.4f} ms, bound {bnd:.4f} ms "
           f"({by}); kernel on {idx.numel()} lanes {sub_ms:.3f} ms vs plain "
           f"{plain:.1f} ms", flush=True)
-    return dict(launches=n_launch, err=err, ms=ms, plain=plain, bound=bnd,
-                by=by, plain_lanes=int(idx.numel()), ms_plain_lanes=sub_ms,
-                lanes_per_frame=n)
+    out = dict(launches=n_launch, err=err, ms=ms, plain=plain, bound=bnd,
+               by=by, plain_lanes=int(idx.numel()), ms_plain_lanes=sub_ms,
+               lanes_per_frame=n)
+    if mode == "bvh":
+        out["split"] = k3_split(mk, scene, lanes, sizes, cfg)
+        out["walk_smem_bytes"] = 4 * mk.pack_walk_table(scene).numel()
+        print(f"   {what}: K3+K4 ms a launch over its walk table "
+              f"({out['walk_smem_bytes']} B) vs the previous design, in "
+              f"turns (soft shadows, hard only, no lights): "
+              f"{out['split']}", flush=True)
+    return out
 
 
 def slice_rows(mk, scenes, frames, cfg, record):
@@ -2033,6 +2254,7 @@ def slice_rows(mk, scenes, frames, cfg, record):
     got = {}
     for key, kernel, subset in (("textured", "trace_unroll", K3_SUBSET),
                                 ("smooth", "trace_bvh", SMOOTH_SUBSET),
+                                ("ico2561", "trace_bvh", SMOOTH_SUBSET),
                                 ("loop", "trace_loop", K3_SUBSET)):
         s, go, launches = frames[key]
         got[key] = frame_kernel(mk, s, cfg, go, f"{key} frame ({kernel})",
@@ -2042,6 +2264,7 @@ def slice_rows(mk, scenes, frames, cfg, record):
                                  f"{launches[kernel]} times, not its chunk "
                                  f"count {got[key]['launches']}")
     t, sm, lp = got["textured"], got["smooth"], got["loop"]
+    record["k3_frames"] = {k: got[k] for k in ("smooth", "ico2561")}
     # K2, the loop frame's mask
     _, k2_launch = mk.prepare_pixel_mask(frames["loop"][0], width=W,
                                          height=H, cfg=cfg)
@@ -2289,6 +2512,11 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
     ops, k4_ops, work = k3_ops(cnt)
     k3_bound, k3_by = bound(ops / n_k3, n / n_k3 * (12 + 12 + 4 + 4 + 12))
     k4_bound, k4_by = bound(k4_ops / n_k3, 0)
+    split = k3_split(mk, ring, lanes, sizes, cfg)
+    walk_bytes = 4 * mk.pack_walk_table(ring).numel()
+    print(f"   K3+K4: ms a launch over its walk table ({walk_bytes} B) vs "
+          f"the previous design, in turns (soft shadows, hard only, no "
+          f"lights): {split}", flush=True)
     print(f"   K3+K4: {n} lanes in {n_k3} launches, work [closest, hard, "
           f"soft, slab, sphere, triangle, fused slab, fused (ray, sphere), "
           f"fused (ray, triangle), plane/box] = {work}, {ops:.4e} ops of "
@@ -2327,11 +2555,14 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
             launches["pixel_mask"], record["k2_err"], k2_ms, k2_plain,
             k2_bound, k2_by),
         row("K3 trace_bvh", src + "trace_bvh.cu", mkpy + "954",
-            launches_bvh["trace_bvh"], k3_err, k3_ms, plain_ms, k3_bound,
-            k3_by, **subset),
+            launches_bvh["trace_bvh"], max([k3_err] + record["k3walk_err"]),
+            k3_ms, plain_ms, k3_bound, k3_by, prev_ms=split["prev"]["soft"],
+            split=split, walk_smem_bytes=walk_bytes, **subset),
         row("K4 trace_bvh soft walk", src + "bvh_walk.cuh", mkpy + "1308",
             launches_bvh["trace_bvh"], k3_err, k3_ms - hard_ms,
-            plain_ms - plain_hard_ms, k4_bound, k4_by, **subset),
+            plain_ms - plain_hard_ms, k4_bound, k4_by,
+            prev_ms=split["prev"]["soft"] - split["prev"]["hard"],
+            **subset),
         row("K6 pixel_mask_bvh", src + "pixel_mask.cu", mkpy + "2661",
             launches_bvh["pixel_mask_bvh"], record["k6_err"], k6_ms,
             k6_plain, k6_bound, k6_by),

@@ -23,7 +23,14 @@ closest-hit, hard-shadow and soft-shadow walks take by default
 closest-hit walk: a per-lane stack in the JAX kernel's order, so it
 differs from the binary walk only in which of two hits at exactly equal
 ``t`` wins. (The shadow walks' verdicts do not depend on the order: their
-plain versions stay ``traverse_any``.)
+plain versions stay ``traverse_any``; ``traverse_any_wide`` takes the
+4-wide order, for the walk table below.)
+
+Every walk takes its leaf reads from the tree's own tables unless it is
+given ``leaves``: ``WalkLeaves`` reads the rows of K3+K4's walk table
+(``megakernel.pack_walk_table``), and ``walk_view`` gives the tree that
+such a table holds, so the walks run over the table alone (its plain
+version, ``megakernel.walk_table_plain``).
 
 Not ported: SAH, the Octree and the KD-tree (ROADMAP).
 """
@@ -367,16 +374,89 @@ class _RowLeaves:
         return torch.where(tag == 0, hs, ht & (tag == 1))
 
 
-def _leaves(bvh: FlatBVH, geom):
-    """The walk's leaf reads: the stream table's rows when the tree
-    carries one (stream mode), else the scene tables by primitive id."""
+class WalkLeaves:
+    """The same gathers from the leaf rows of K3+K4's walk table
+    (``megakernel.pack_walk_table``): a (P, 12) float32 table, row r the
+    primitive of leaf slot r - v0, e1, e2 (a sphere: center, radius in
+    col 3), tag (0 sphere, 1 triangle, 2 cube face, which no test takes),
+    id (its row in the sphere or triangle table), 0. A slot's key is its
+    row; prim_id gives the tree's primitive id (spheres first, then
+    ``ns`` + triangle)."""
+
+    def __init__(self, rows: torch.Tensor, leaf_size: int, ns: int):
+        self.rows = rows
+        self.ns = ns
+        self.slots = torch.arange(leaf_size, device=rows.device)
+
+    def gather(self, first, count):
+        key = torch.clamp(first[:, None] + self.slots,
+                          max=self.rows.shape[0] - 1)
+        return key, self.slots < count[:, None]
+
+    def prim_id(self, key):
+        r = self.rows[key]
+        return torch.where(r[..., 9] == 0, r[..., 10],
+                           self.ns + r[..., 10]).to(torch.int64)
+
+    def _split(self, key):
+        r = self.rows[key]                                   # (A,L,12)
+        return r[..., 9], r[..., 0:3], r[..., 3:6], r[..., 6:9]
+
+    def closest_t(self, o, d, key, t_min, t_max):
+        tag, v0, e1, e2 = self._split(key)
+        ts = intersect.sphere_t(o, d, v0, e1[..., 0], t_min, t_max)
+        tt = intersect.triangle_t(o, d, v0, e1, e2, t_min, t_max)
+        return torch.where(tag == 0, ts,
+                           torch.where(tag == 1, tt, intersect.BIG))
+
+    def blocked(self, o, d, key, t_min, t_max, exact):
+        tag, v0, e1, e2 = self._split(key)
+        hs = intersect.sphere_t(o, d, v0, e1[..., 0], t_min,
+                                t_max) < intersect.BIG
+        args = (o, d, v0, e1, e2, t_min, t_max)
+        if exact:
+            ht = intersect.triangle_t(*args) < intersect.BIG
+        else:
+            ht = intersect.triangle_blocked(*args)
+        return torch.where(tag == 0, hs, ht & (tag == 1))
+
+
+def walk_view(nodes: torch.Tensor, n_nodes: int, n_wide: int,
+              leaf_size: int) -> FlatBVH:
+    """The tree of a walk table's node part: (W,36) 4-wide rows when
+    n_wide > 0 (the binary fields are then empty), else (N,9) binary rows
+    [min.xyz, max.xyz, skip, first, count]."""
+    dev = nodes.device
+    if n_wide > 0:
+        empty = torch.zeros((0,), dtype=torch.int32, device=dev)
+        return FlatBVH(node_min=torch.zeros((n_nodes, 3), device=dev),
+                       node_max=torch.zeros((n_nodes, 3), device=dev),
+                       node_skip=empty, node_first=empty, node_count=empty,
+                       prim_index=empty, leaf_size=leaf_size,
+                       wide4=nodes.reshape(n_wide, 36),
+                       wide_stack=WIDE_STACK - 4)
+    nd = nodes.reshape(n_nodes, 9)
+    col = lambda c: nd[:, c].to(torch.int32)
+    return FlatBVH(node_min=nd[:, 0:3], node_max=nd[:, 3:6],
+                   node_skip=col(6), node_first=col(7), node_count=col(8),
+                   prim_index=torch.zeros((0,), dtype=torch.int32,
+                                          device=dev),
+                   leaf_size=leaf_size)
+
+
+def _leaves(bvh: FlatBVH, geom, leaves=None):
+    """The walk's leaf reads: ``leaves`` when given, the stream table's
+    rows when the tree carries one (stream mode), else the scene tables by
+    primitive id."""
+    if leaves is not None:
+        return leaves
     if bvh.stream_tab is not None:
         return _RowLeaves(bvh)
     return _Leaves(bvh, geom)
 
 
 def traverse_closest(bvh: FlatBVH, geom, origin, direction, t_min=1e-3,
-                     t_max=intersect.BIG):
+                     t_max=intersect.BIG, leaves=None):
     """Closest hit over the tree's spheres and triangles: (t, pid) with
     t = BIG and pid = -1 where nothing beats t_max.
 
@@ -394,7 +474,7 @@ def traverse_closest(bvh: FlatBVH, geom, origin, direction, t_min=1e-3,
                          max=intersect.BIG).clone()
     best = torch.full((B,), -1, dtype=torch.int64, device=dev)
     cursor = torch.zeros(B, dtype=torch.int64, device=dev)
-    leaves = _leaves(bvh, geom)
+    leaves = _leaves(bvh, geom, leaves)
     act = torch.arange(B, device=dev)
     while act.numel():
         cur = cursor[act]
@@ -422,7 +502,7 @@ def traverse_closest(bvh: FlatBVH, geom, origin, direction, t_min=1e-3,
 
 
 def traverse_closest_wide(bvh: FlatBVH, geom, origin, direction,
-                          t_min=1e-3, t_max=intersect.BIG):
+                          t_min=1e-3, t_max=intersect.BIG, leaves=None):
     """``traverse_closest`` over the 4-wide layout: the plain version of
     K3-wide's closest-hit walk (``closest_fn_wide`` :1000), in its order.
 
@@ -444,7 +524,7 @@ def traverse_closest_wide(bvh: FlatBVH, geom, origin, direction,
     stack = torch.zeros((B, bvh.wide_stack + 4), dtype=torch.int64,
                         device=dev)
     sp = torch.ones(B, dtype=torch.int64, device=dev)
-    leaves = _leaves(bvh, geom)
+    leaves = _leaves(bvh, geom, leaves)
     L = bvh.leaf_size
     act = torch.arange(B, device=dev)
     while act.numel():
@@ -481,7 +561,7 @@ def traverse_closest_wide(bvh: FlatBVH, geom, origin, direction,
 
 
 def traverse_any(bvh: FlatBVH, geom, origin, direction, t_min, t_max,
-                 exact: bool = False):
+                 exact: bool = False, leaves=None):
     """(B,) bool: does a tree primitive block [t_min, t_max]? A blocked
     lane ends its walk at once. ``exact`` tests triangles with the
     closest-hit expressions (see intersect.any_hit)."""
@@ -492,7 +572,7 @@ def traverse_any(bvh: FlatBVH, geom, origin, direction, t_min, t_max,
     tm = torch.as_tensor(t_max, dtype=origin.dtype, device=dev).expand(B)
     blocked = torch.zeros(B, dtype=torch.bool, device=dev)
     cursor = torch.zeros(B, dtype=torch.int64, device=dev)
-    leaves = _leaves(bvh, geom)
+    leaves = _leaves(bvh, geom, leaves)
     act = torch.arange(B, device=dev)
     while act.numel():
         cur = cursor[act]
@@ -513,4 +593,55 @@ def traverse_any(bvh: FlatBVH, geom, origin, direction, t_min, t_max,
         nxt = torch.where(hit, n, nxt)
         cursor[act] = nxt
         act = act[nxt < n]
+    return blocked
+
+
+def traverse_any_wide(bvh: FlatBVH, geom, origin, direction, t_min, t_max,
+                      exact: bool = False, leaves=None):
+    """``traverse_any`` over the 4-wide layout, in the order of the
+    kernels' 4-wide shadow walks: each lane pops a wide node, slab-tests
+    its 4 slots, tests the boxed leaf slots' primitives and pushes the
+    boxed inner slots; a blocked lane ends its walk. The same verdicts as
+    ``traverse_any``."""
+    B = origin.shape[0]
+    dev = origin.device
+    inv_d = _safe_inverse(direction)
+    tm = torch.as_tensor(t_max, dtype=origin.dtype, device=dev).expand(B)
+    blocked = torch.zeros(B, dtype=torch.bool, device=dev)
+    w = bvh.wide4.view(-1, 4, 9)
+    lo, hi = w[..., 0:3], w[..., 3:6]
+    child, first, count = (w[..., c].to(torch.int64) for c in (6, 7, 8))
+    stack = torch.zeros((B, bvh.wide_stack + 4), dtype=torch.int64,
+                        device=dev)
+    sp = torch.ones(B, dtype=torch.int64, device=dev)
+    leaves = _leaves(bvh, geom, leaves)
+    L = bvh.leaf_size
+    act = torch.arange(B, device=dev)
+    while act.numel():
+        sa = sp[act] - 1
+        cur = stack[act, sa]
+        o, d, tma = origin[act], direction[act], tm[act]
+        box = _box_hit(lo[cur], hi[cur], o[:, None], inv_d[act][:, None],
+                       t_min, tma[:, None])                        # (A,4)
+        leaf = box & (count[cur] > 0)
+        at = leaf.any(dim=-1).nonzero()[:, 0]
+        hit = torch.zeros(act.shape[0], dtype=torch.bool, device=dev)
+        if at.numel():
+            c = cur[at]
+            key, valid = leaves.gather(first[c].clamp(min=0).reshape(-1),
+                                       count[c].reshape(-1))
+            key = key.view(-1, 4 * L)
+            valid = (valid.view(-1, 4, L) & leaf[at][..., None]).view(
+                -1, 4 * L)
+            h = leaves.blocked(o[at], d[at], key, t_min, tma[at], exact)
+            hit[at] = torch.any(h & valid, dim=-1)
+        blocked[act[hit]] = True
+        for s in range(4):
+            push = box[:, s] & (child[cur, s] >= 0)
+            stack[act, sa] = torch.where(push, child[cur, s],
+                                         stack[act, sa])
+            sa = sa + push.to(torch.int64)
+        sa = torch.where(hit, torch.zeros_like(sa), sa)
+        sp[act] = sa
+        act = act[sa > 0]
     return blocked

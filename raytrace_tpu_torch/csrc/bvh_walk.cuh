@@ -37,24 +37,29 @@
 // yet blocked with exactly the per-ray arithmetic, so every verdict is
 // that of its own walk. Blocked rays are bits of a 64-bit mask; the walk
 // ends when the mask is full. Past 64 samples the fused walk runs once
-// per block of 64 rays, so any sample count takes the same verdicts.
-//
-// The tree and the sphere and triangle tables stay in global memory
-// (4096 triangles x 13 floats outgrow the 48 KB of static shared memory)
-// and are read through the read-only cache.
+// per block of 64 rays, so any sample count takes the same verdicts. Each
+// soft ray is packed as {x, y, z, |d|^2} and 1/|d|^2: two local loads a
+// (row, ray) test instead of five.
 //
 // Node table: [n_nodes][9] min.xyz, max.xyz, skip, first, count (floats,
 // exact integers); 4-wide table: [n_wide][4][9] min.xyz, max.xyz, child,
-// first, count per slot (bvh.py:widen4). Where a leaf's primitives come
-// from is the Leaves policy of the walks:
-//   TreeLeaves (bvh mode, K3+K4): prim_index [P] floats, a primitive id
-//     per leaf slot (id < ns: sphere, else triangle id - ns; triangles past
-//     the hit table, the cube faces, are skipped: their boxes are the hit
-//     form), into the sphere and triangle tables;
+// first, count per slot (bvh.py:widen4). The walks read them, and the
+// leaf rows, through the read-only cache (kLdg) from global memory, or
+// plainly from shared memory (K3+K4's walk table, trace_bvh.cu). Where a
+// leaf's primitives come from is the Leaves policy of the walks:
+//   WalkLeaves (bvh mode, K3+K4): the rows of the walk table
+//     (megakernel.pack_walk_table), one 16-byte aligned row of 12 floats
+//     per leaf slot, prim_index resolved when it was packed;
+//   TreeLeaves (bvh mode, rt_trace_bvh_global, the previous K3+K4):
+//     prim_index [P] floats, a primitive id per leaf slot (id < ns:
+//     sphere, else triangle id - ns; triangles past the hit table, the
+//     cube faces, are skipped: their boxes are the hit form), into the
+//     sphere and triangle tables;
 //   RowLeaves (stream mode, K5, stream_walk.cuh): the unified rows of the
 //     stream table, one per leaf slot, read in place (trace_stream.cu).
 // The hit's attributes (the smooth normal of a triangle winner, K1-ext,
-// included) are read from the row that the closest-hit walk returns.
+// included) are read from the scene tables (bvh mode) or the stream row
+// (stream mode) by the id that the closest-hit walk returns.
 #pragma once
 
 #include "bounce.cuh"
@@ -82,6 +87,21 @@ RT_DEV const float* bvh_tables(const float* tables, const Dims& dims,
   bvh->wide = bvh->nodes + 9 * dims.n_nodes;
   bvh->n_wide = dims.n_wide;
   return bvh->wide + 36 * dims.n_wide;
+}
+
+// K3+K4's walk table (megakernel.pack_walk_table): the tree that the walks
+// take - the 4-wide table when n_wide > 0, else the binary node table,
+// padded to a multiple of 4 floats - then the leaf rows; returns the
+// rows.
+RT_DEV const float* walk_tables(const float* walk, const Dims& dims,
+                                Bvh* bvh) {
+  bvh->nodes = walk;
+  bvh->n_nodes = dims.n_nodes;
+  bvh->leaf_size = dims.leaf_size;
+  bvh->wide = walk;
+  bvh->n_wide = dims.n_wide;
+  int n = dims.n_wide > 0 ? 36 * dims.n_wide : 9 * dims.n_nodes;
+  return walk + ((n + 3) & ~3);
 }
 
 // Leaf slots as indices into the scene's sphere and triangle tables.
@@ -112,19 +132,73 @@ struct TreeLeaves {
   }
 };
 
+// Leaf slots as rows of the walk table: 12 floats a slot, 16-byte
+// aligned - v0.xyz, e1.xyz, e2.xyz (a sphere: center.xyz, radius, then
+// zeros), tag (0 sphere, 1 triangle, 2 cube face), id (into the sphere or
+// the triangle table), 0 - read from shared memory, or in place from
+// global memory (kLdg). The hit's attributes come from the scene tables.
+constexpr int kWalkRow = 12;
+
+template <bool kLdg>
+struct WalkLeaves {
+  static constexpr int kSphMat = 4;  // sph row: center.xyz, radius, mat
+  const Tables& tb;
+  const float* rows;
+
+  // As TreeLeaves::prim; *row is the slot's row.
+  RT_DEV int prim(int slot, int* id, const float** row) const {
+    const float* r = rows + kWalkRow * slot;
+    F4 c = ld4<kLdg>(r + 8);  // e2.z, tag, id, 0
+    *id = static_cast<int>(c.z);
+    *row = r;
+    return c.y == 0.0f ? 0 : (c.y == 1.0f ? 1 : -1);
+  }
+  RT_DEV const float* sphere_row(int i) const { return tb.sph + 5 * i; }
+  RT_DEV const float* triangle_row(int i) const {
+    return tb.tri + tb.tri_cols * i;
+  }
+};
+
+// The first n floats (4: a sphere, 9: a triangle) of a leaf slot's row
+// (Leaves::prim's *row).
+template <bool kLdg, class Leaves>
+RT_DEV void leaf_row(const Leaves&, const float* row, int n, float* dst) {
+  load_row<kLdg>(row, n, dst);
+}
+
+// The same from a walk-table row, in 16-byte loads.
+template <bool kLdg, bool kRowsLdg>
+RT_DEV void leaf_row(const WalkLeaves<kRowsLdg>&, const float* row, int n,
+                     float* dst) {
+  F4 a = ld4<kLdg>(row);
+  dst[0] = a.x;
+  dst[1] = a.y;
+  dst[2] = a.z;
+  dst[3] = a.w;
+  if (n > 4) {
+    F4 b = ld4<kLdg>(row + 4);
+    dst[4] = b.x;
+    dst[5] = b.y;
+    dst[6] = b.z;
+    dst[7] = b.w;
+    dst[8] = ld4<kLdg>(row + 8).x;
+  }
+}
+
 struct NodeBox {
   V3 lo, hi;
   int skip, first, count;
 };
 
+template <bool kLdg = true>
 RT_DEV NodeBox load_node(const Bvh& bvh, int i) {
   const float* nd = bvh.nodes + 9 * i;
   NodeBox b;
-  b.lo = V3{ldg(nd), ldg(nd + 1), ldg(nd + 2)};
-  b.hi = V3{ldg(nd + 3), ldg(nd + 4), ldg(nd + 5)};
-  b.skip = static_cast<int>(ldg(nd + 6));
-  b.first = static_cast<int>(ldg(nd + 7));
-  b.count = static_cast<int>(ldg(nd + 8));
+  b.lo = V3{ld<kLdg>(nd), ld<kLdg>(nd + 1), ld<kLdg>(nd + 2)};
+  b.hi = V3{ld<kLdg>(nd + 3), ld<kLdg>(nd + 4), ld<kLdg>(nd + 5)};
+  b.skip = static_cast<int>(ld<kLdg>(nd + 6));
+  b.first = static_cast<int>(ld<kLdg>(nd + 7));
+  b.count = static_cast<int>(ld<kLdg>(nd + 8));
   return b;
 }
 
@@ -168,11 +242,12 @@ RT_DEV bool cone_slab_hit(V3 lo, V3 hi, V3 p, V3 iv, float dist) {
 // entered (its slab test, with the walk's current state); leaf(first,
 // count): run a boxed leaf, returning true to end the walk. A wide node's
 // four slots are tested before any of them runs, as in closest_fn_wide.
-// Both orders are in every kernel entry (K3+K4 takes 155 registers, 122
-// with the binary walk alone): entries of one order each were slower on
-// the stream frames' ladder segments in a same-call A/B on the H100,
-// although they took fewer registers (PERF.md).
-template <class Enter, class Leaf>
+// Both orders are in every kernel entry (the previous K3+K4 took 155
+// registers, 122 with the binary walk alone): entries of one order each
+// were slower on the stream frames' ladder segments in a same-call A/B on
+// the H100, although they took fewer registers (PERF.md). kLdg: the tree
+// lies in global memory (else in shared memory).
+template <bool kLdg = true, class Enter, class Leaf>
 RT_DEV void walk_tree(const Bvh& bvh, Enter&& enter, Leaf&& leaf) {
   if (bvh.n_wide > 0) {
     int stack[kWideStack];
@@ -183,8 +258,9 @@ RT_DEV void walk_tree(const Bvh& bvh, Enter&& enter, Leaf&& leaf) {
       bool boxed[4];
       for (int s = 0; s < 4; ++s) {
         const float* b = w + 9 * s;
-        boxed[s] = enter(V3{ldg(b), ldg(b + 1), ldg(b + 2)},
-                         V3{ldg(b + 3), ldg(b + 4), ldg(b + 5)});
+        boxed[s] = enter(V3{ld<kLdg>(b), ld<kLdg>(b + 1), ld<kLdg>(b + 2)},
+                         V3{ld<kLdg>(b + 3), ld<kLdg>(b + 4),
+                            ld<kLdg>(b + 5)});
       }
       // A leaf that ends the walk ends it after the node's four slots, as
       // the JAX body sets sp = 0 after them. (A return from inside this
@@ -195,10 +271,10 @@ RT_DEV void walk_tree(const Bvh& bvh, Enter&& enter, Leaf&& leaf) {
       for (int s = 0; s < 4; ++s) {
         if (!boxed[s]) continue;
         const float* m = w + 9 * s + 6;
-        int child = static_cast<int>(ldg(m));
-        int count = static_cast<int>(ldg(m + 2));
+        int child = static_cast<int>(ld<kLdg>(m));
+        int count = static_cast<int>(ld<kLdg>(m + 2));
         if (count > 0 && !done)
-          done = leaf(static_cast<int>(ldg(m + 1)), count);
+          done = leaf(static_cast<int>(ld<kLdg>(m + 1)), count);
         // wide_walk admits a tree only when its stack bound fits
         if (child >= 0 && sp < kWideStack) stack[sp++] = child;
       }
@@ -207,7 +283,7 @@ RT_DEV void walk_tree(const Bvh& bvh, Enter&& enter, Leaf&& leaf) {
   } else {
     int cur = 0;
     for (int step = 0; step < bvh.n_nodes && cur < bvh.n_nodes; ++step) {
-      NodeBox b = load_node(bvh, cur);
+      NodeBox b = load_node<kLdg>(bvh, cur);
       if (!enter(b.lo, b.hi)) {
         cur = b.skip;
         continue;
@@ -222,7 +298,9 @@ RT_DEV void walk_tree(const Bvh& bvh, Enter&& enter, Leaf&& leaf) {
   }
 }
 
-template <class Leaves>
+// The geometry policy of bounce.cuh over a tree: kLdg, the tree and the
+// leaf rows lie in global memory (else in shared memory).
+template <class Leaves, bool kLdg = true>
 struct BvhGeo {
   static constexpr int kSphMat = Leaves::kSphMat;
   const Tables& tb;
@@ -248,7 +326,7 @@ struct BvhGeo {
     float t_box = closest_boxes(o, inv, &b_idx);  // seeds the walk
     float t_best = t_box;
     int best_kind = -1, best_id = 0;
-    walk_tree(
+    walk_tree<kLdg>(
         bvh,
         [&](V3 lo, V3 hi) {
           ++work[0];
@@ -264,12 +342,12 @@ struct BvhGeo {
             if (k == 0) {
               ++work[1];
               float s[4];
-              load_row<true>(row, 4, s);
+              leaf_row<kLdg>(lv, row, 4, s);
               tj = sphere_t(o, d, a, inv_a, s, t_best);
             } else {
               ++work[2];
               float tr[9];
-              load_row<true>(row, 9, tr);
+              leaf_row<kLdg>(lv, row, 9, tr);
               tj = triangle_t(o, d, tr, t_best);
             }
             if (tj < t_best) {
@@ -337,7 +415,7 @@ struct BvhGeo {
     float a = dot3(d, d);
     float inv_a = 1.0f / a;
     bool blocked = false;
-    walk_tree(
+    walk_tree<kLdg>(
         bvh,
         [&](V3 lo, V3 hi) {
           ++work[0];
@@ -352,12 +430,12 @@ struct BvhGeo {
             if (k == 0) {
               ++work[1];
               float s[4];
-              load_row<true>(row, 4, s);
+              leaf_row<kLdg>(lv, row, 4, s);
               blocked = sphere_t(o, d, a, inv_a, s, t_max) < kBig;
             } else {
               ++work[2];
               float tr[9];
-              load_row<true>(row, 9, tr);
+              leaf_row<kLdg>(lv, row, 9, tr);
               blocked = triangle_blocked(o, d, tr, t_max);
             }
             if (blocked) return true;
@@ -397,24 +475,24 @@ struct BvhGeo {
   // The fused walk for soft rays [s0, s0 + S): how many are blocked.
   RT_DEV int soft_block(V3 p, V3 ld, float dist, const SoftRays& rays,
                         int s0, int S) {
-    float sx[64], sy[64], sz[64], sa[64], sia[64];
+    F4 sd4[64];     // direction, |d|^2
+    float sia[64];  // 1 / |d|^2
     for (int s = 0; s < S; ++s) {
       V3 sd = soft_dir(rays, ld, s0 + s);
-      sx[s] = sd.x;
-      sy[s] = sd.y;
-      sz[s] = sd.z;
-      sa[s] = dot3(sd, sd);
-      sia[s] = 1.0f / sa[s];
+      float a = dot3(sd, sd);
+      sd4[s] = F4{sd.x, sd.y, sd.z, a};
+      sia[s] = 1.0f / a;
     }
     const uint64_t full =
         S >= 64 ? ~0ull : ((1ull << static_cast<uint64_t>(S)) - 1ull);
     uint64_t bm = 0;  // bit s: ray s0 + s is blocked
     // planes and boxes outside the tree, every ray
     for (int s = 0; s < S; ++s)
-      if (soft_brute(p, V3{sx[s], sy[s], sz[s]}, dist)) bm |= 1ull << s;
+      if (soft_brute(p, V3{sd4[s].x, sd4[s].y, sd4[s].z}, dist))
+        bm |= 1ull << s;
     V3 iv = safe_inverse(ld);
     if (bm == full) return popc64(bm);
-    walk_tree(
+    walk_tree<kLdg>(
         bvh,
         [&](V3 lo, V3 hi) {
           ++work[3];
@@ -429,22 +507,24 @@ struct BvhGeo {
             if (k < 0) continue;
             if (k == 0) {
               float s[4];
-              load_row<true>(row, 4, s);
+              leaf_row<kLdg>(lv, row, 4, s);
               for (int r = 0; r < S; ++r) {
                 if (bm >> r & 1ull) continue;
                 ++work[4];
-                if (sphere_t(p, V3{sx[r], sy[r], sz[r]}, sa[r], sia[r], s,
-                             dist) < kBig)
+                F4 q = sd4[r];
+                if (sphere_t(p, V3{q.x, q.y, q.z}, q.w, sia[r], s, dist) <
+                    kBig)
                   bm |= 1ull << r;
               }
             } else {
               float tr[9];
-              load_row<true>(row, 9, tr);
+              leaf_row<kLdg>(lv, row, 9, tr);
               TriPre T = tri_pre(p, tr);
               for (int r = 0; r < S; ++r) {
                 if (bm >> r & 1ull) continue;
                 ++work[5];
-                if (tri_blocked_pre(T, V3{sx[r], sy[r], sz[r]}, dist))
+                F4 q = sd4[r];
+                if (tri_blocked_pre(T, V3{q.x, q.y, q.z}, dist))
                   bm |= 1ull << r;
               }
             }

@@ -34,10 +34,9 @@
 // The hard-shadow and fused soft-shadow walks stay per thread: the group
 // form of each was slower on the stream frames in a same-call A/B on the
 // H100, and a group hard-shadow walk made the per-thread soft walk after
-// it slower too (PERF.md). The hard-shadow walk is BvhGeo's; the
-// fused soft walk is BvhGeo's with each soft ray packed as {x, y, z,
-// |d|^2} and 1/|d|^2, two local loads a (row, ray) test instead of five,
-// which ran K5 1-5% faster on both stream frames in the same A/B.
+// it slower too (PERF.md). The hard-shadow and fused soft walks are
+// BvhGeo's (the soft rays packed two local loads a (row, ray) test, which
+// ran K5 1-5% faster on both stream frames in a same-call A/B).
 //
 // The work counters keep counting the per-thread walk's work, which is
 // what these inputs need: every valid row of a visited leaf, summed over
@@ -197,16 +196,8 @@ RT_DEV void walk_group(const Bvh& bvh, const Group& g, Enter&& enter,
   }
 }
 
-#ifndef RT_HOST_EMULATION
-using F4 = float4;
-#else
-struct alignas(16) F4 {
-  float x, y, z, w;
-};
-#endif
-
 // K5's geometry: BvhGeo over the stream rows, with the group closest-hit
-// walk and the packed soft rays.
+// walk.
 struct StreamGeo : BvhGeo<RowLeaves> {
   bool count;  // a launch with counters: count the per-thread walk's work
 
@@ -302,78 +293,6 @@ struct StreamGeo : BvhGeo<RowLeaves> {
         });
     closest_merge(o, d, t_best, best_kind, best_id, t_box, b_idx, t_out,
                   kind_out, idx_out);
-  }
-
-  // K4 (BvhGeo::soft_unblocked) over the packed rays.
-  RT_DEV float soft_unblocked(V3 p, V3 ld, float dist, const SoftRays& rays) {
-    int blocked = 0;
-    for (int s0 = 0; s0 < rays.samples; s0 += 64)
-      blocked += soft_block(p, ld, dist, rays, s0,
-                            rays.samples - s0 < 64 ? rays.samples - s0 : 64);
-    return static_cast<float>(rays.samples - blocked);
-  }
-
-  // BvhGeo::soft_block with the rays packed: how many of soft rays
-  // [s0, s0 + S) are blocked.
-  RT_DEV int soft_block(V3 p, V3 ld, float dist, const SoftRays& rays,
-                        int s0, int S) {
-    F4 sd4[64];     // direction, |d|^2
-    float sia[64];  // 1 / |d|^2
-    for (int s = 0; s < S; ++s) {
-      V3 sd = soft_dir(rays, ld, s0 + s);
-      float a = dot3(sd, sd);
-      sd4[s] = F4{sd.x, sd.y, sd.z, a};
-      sia[s] = 1.0f / a;
-    }
-    const uint64_t full =
-        S >= 64 ? ~0ull : ((1ull << static_cast<uint64_t>(S)) - 1ull);
-    uint64_t bm = 0;  // bit s: ray s0 + s is blocked
-    // planes and boxes outside the tree, every ray
-    for (int s = 0; s < S; ++s)
-      if (soft_brute(p, V3{sd4[s].x, sd4[s].y, sd4[s].z}, dist))
-        bm |= 1ull << s;
-    V3 iv = safe_inverse(ld);
-    if (bm == full) return popc64(bm);
-    walk_tree(
-        bvh,
-        [&](V3 lo, V3 hi) {
-          ++work[3];
-          return cone_slab_hit(lo, hi, p, iv, dist);
-        },
-        [&](int first, int count) {
-          for (int j = 0; j < bvh.leaf_size && j < count && bm != full;
-               ++j) {
-            int id;
-            const float* row;
-            int k = lv.prim(first + j, &id, &row);
-            if (k < 0) continue;
-            if (k == 0) {
-              float s[4];
-              load_row<true>(row, 4, s);
-              for (int r = 0; r < S; ++r) {
-                if (bm >> r & 1ull) continue;
-                ++work[4];
-                F4 q = sd4[r];
-                if (sphere_t(p, V3{q.x, q.y, q.z}, q.w, sia[r], s, dist) <
-                    kBig)
-                  bm |= 1ull << r;
-              }
-            } else {
-              float tr[9];
-              load_row<true>(row, 9, tr);
-              TriPre T = tri_pre(p, tr);
-              for (int r = 0; r < S; ++r) {
-                if (bm >> r & 1ull) continue;
-                ++work[5];
-                F4 q = sd4[r];
-                if (tri_blocked_pre(T, V3{q.x, q.y, q.z}, dist))
-                  bm |= 1ull << r;
-              }
-            }
-          }
-          return bm == full;
-        });
-    return popc64(bm);
   }
 };
 

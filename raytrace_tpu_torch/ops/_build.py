@@ -129,7 +129,11 @@ def library() -> ctypes.CDLL:
     # start_bounce, end_bounce, shadow_samples, soft, recursive, seed,
     # rr_start, tp_eps, soft_guard, stream (bounce.cuh:Run)
     run = [i, i, i, i, i, u, i, f, i, p]
-    for name, extra in (("rt_trace_unroll", []), ("rt_trace_bvh", []),
+    # rt_trace_bvh: walk table, its floats, in shared memory, the lane
+    # counter; rt_trace_bvh_global: the previous K3+K4
+    for name, extra in (("rt_trace_unroll", []),
+                        ("rt_trace_bvh", [p, i, i, p]),
+                        ("rt_trace_bvh_global", []),
                         ("rt_trace_stream", [p]),
                         ("rt_trace_stream_serial", [p]),
                         ("rt_trace_loop", [i])):

@@ -44,9 +44,13 @@ on a CUDA device it launches its kernel or raises - there is no fallback.
 Each wrapper counts its launches in ``LAUNCHES``, adding one where it
 launches its kernel and nowhere else; a trace launch that resumes or
 returns lane state also counts under ``trace_state`` (K1-state), one
-whose walks take the 4-wide table under ``trace_wide`` (K3-wide), a K1
-launch with its soft-shadow guard under ``trace_guard`` (K1-guard), and a
-mask launch with depth of field under ``mask_dof``.
+whose walks take the 4-wide table under ``trace_wide`` (K3-wide), a
+K3+K4 launch that reads its walk table in place from global memory (past
+``BVH_SMEM_BYTES``) under ``trace_bvh_ldg``, a K1 launch with its
+soft-shadow guard under ``trace_guard`` (K1-guard), and a mask launch
+with depth of field under ``mask_dof``. The previous K3+K4
+(``prepare_trace(bvh_smem=False)``, for comparisons on the card) counts
+under ``trace_bvh_global`` alone.
 
 Past ``MAX_STREAM_KERNEL_PRIMS`` primitives the JAX package renders with
 its banded jnp engine, which is not ported: such scenes raise.
@@ -82,6 +86,11 @@ STREAM_COLS_VN = 23
 # K7 copies its tables to shared memory up to this many bytes (the most a
 # block takes without opting in); past it they stay in global memory.
 LOOP_SMEM_BYTES = 48 * 1024
+# K3+K4 copies its walk table (pack_walk_table) to the shared memory of
+# each block up to this many bytes (the most an H100 block can take, after
+# opting in); past it the kernel reads the table in place.
+BVH_SMEM_BYTES = 232_448
+WALK_ROW = 12             # floats of a walk-table leaf row (rt::kWalkRow)
 COUNTERS = 8              # rt::kBruteCounters: per-lane work of K1 and K7
 GUARD_MAX = 96            # rt::kGuardMax: occluders K1-guard can flag
 BVH_COUNTERS = 10         # rt::kBvhCounters: per-lane work of K3+K4, K5
@@ -96,11 +105,14 @@ MASKS = {"unroll": "pixel_mask", "loop": "pixel_mask",
 
 # Kernel launches since the last reset_launches(), by kernel;
 # "trace_state" counts the trace launches that take or return lane state,
-# "trace_wide" those whose walks take the 4-wide table, "trace_guard" the
+# "trace_wide" those whose walks take the 4-wide table, "trace_bvh_ldg"
+# the K3+K4 launches that read the walk table from global memory,
+# "trace_bvh_global" the launches of the previous K3+K4, "trace_guard" the
 # K1 launches with K1-guard on, "mask_dof" the mask launches with depth of
 # field.
 LAUNCHES = {"trace_unroll": 0, "trace_bvh": 0, "trace_stream": 0,
             "trace_loop": 0, "trace_state": 0, "trace_wide": 0,
+            "trace_bvh_ldg": 0, "trace_bvh_global": 0,
             "trace_guard": 0, "pixel_mask": 0,
             "pixel_mask_bvh": 0, "pixel_mask_stream": 0, "mask_dof": 0}
 
@@ -302,6 +314,79 @@ def pack_bvh_tables(accel, inflate: float = 0.0):
     nodes = torch.cat([nmin, nmax, col(accel.node_skip),
                        col(accel.node_first), col(accel.node_count)], 1)
     return nodes, accel.prim_index.to(torch.float32)
+
+
+def pack_walk_table(scene, tabs=None) -> torch.Tensor:
+    """K3+K4's walk table, flat float32: what its three walks read.
+
+    First the tree the walks take: the 4-wide table (W,36) where
+    ``bvh.wide_walk`` says so, else the binary node table (N,9) of
+    ``pack_bvh_tables``, padded to a multiple of 4 floats. Then one row of
+    WALK_ROW floats per leaf slot, in slot order (the tree's, so the
+    first-minimum tie order is unchanged), with ``prim_index`` resolved:
+    v0, e1, e2 of a hit triangle, or a sphere's center and radius then
+    zeros; the tag (0 sphere, 1 triangle, 2 cube face, which the walks
+    skip: boxes are a cube's hit form); the id (the row of ``tabs``'
+    sphere or triangle table, which hold the hit's attributes); 0. The
+    floats are those of ``pack_tables`` (``tabs``, packed here when not
+    given), so the walks compute what they compute over the scene tables.
+    Rows are 48 bytes, so every row is 16-byte aligned."""
+    accel = scene.accel
+    tabs = pack_tables(scene) if tabs is None else tabs
+    sph, tri = tabs["sph"], tabs["tri"]
+    dev = sph.device
+    ns, nt = sph.shape[0], tri.shape[0]
+    pid = accel.prim_index.to(torch.int64)
+    is_s = pid < ns
+    ti = pid - ns
+    is_t = ~is_s & (ti < nt)
+    data = torch.zeros((pid.shape[0], 9), dtype=torch.float32, device=dev)
+    if ns:
+        data[is_s, 0:4] = sph[pid[is_s], 0:4]
+    if nt:
+        data[is_t] = tri[ti[is_t], 0:9]
+    tag = torch.where(is_s, 0.0, torch.where(is_t, 1.0, 2.0))
+    ids = torch.where(is_s, pid, ti).to(torch.float32)
+    rows = torch.cat([data, tag[:, None], ids[:, None],
+                      torch.zeros_like(tag)[:, None]], 1)
+    if bvh_mod.wide_walk(accel):
+        nodes = accel.wide4.reshape(-1)
+    else:
+        nodes = pack_bvh_tables(accel)[0].reshape(-1)
+        nodes = torch.cat([nodes, nodes.new_zeros((-nodes.numel()) % 4)])
+    return torch.cat([nodes.to(torch.float32), rows.reshape(-1)])
+
+
+def walk_table_in_smem(walk: torch.Tensor) -> bool:
+    """Does K3+K4 take this walk table into shared memory (else it reads
+    it in place)?"""
+    return 4 * walk.numel() <= BVH_SMEM_BYTES
+
+
+def walk_table_plain(scene, origin, direction, t_min, t_max, *,
+                     any_hit: bool = False, walk=None):
+    """The walks of K3+K4 over its walk table alone (the table's plain
+    version; the plain engine walks the scene tables, ``trace.trace``):
+    the closest hit, (t, primitive id) as ``bvh.traverse_closest``, or
+    with ``any_hit`` the hard-shadow verdicts of ``bvh.traverse_any``, in
+    the order of the table's tree (4-wide or binary)."""
+    accel = scene.accel
+    walk = pack_walk_table(scene) if walk is None else walk
+    wide = bvh_mod.wide_walk(accel)
+    n_wide = accel.wide4.shape[0] if wide else 0
+    n_tree = 36 * n_wide if wide else 9 * accel.n_nodes
+    tree = bvh_mod.walk_view(walk[:n_tree], accel.n_nodes, n_wide,
+                             accel.leaf_size)
+    leaves = bvh_mod.WalkLeaves(walk[n_tree + (-n_tree) % 4:].reshape(
+                                    -1, WALK_ROW),
+                                accel.leaf_size,
+                                scene.geometry.sph_center.shape[0])
+    if any_hit:
+        fn = bvh_mod.traverse_any_wide if wide else bvh_mod.traverse_any
+    else:
+        fn = (bvh_mod.traverse_closest_wide if wide
+              else bvh_mod.traverse_closest)
+    return fn(tree, None, origin, direction, t_min, t_max, leaves=leaves)
 
 
 def _mask_camera(scene, width, height, cfg, go_camera) -> torch.Tensor:
@@ -590,14 +675,16 @@ def _check_trace_inputs(scene, origin, direction, pix_id, samp_id, cfg,
     return mode
 
 
-def trace_tables(scene, mode):
+def trace_tables(scene, mode, *, bvh_smem: bool = True):
     """The trace kernel's scene input: (flat float32 tables in the order of
-    ``csrc/bounce.cuh``, then in bvh and stream modes the node table, the
-    4-wide table when the walks take it (``bvh.wide_walk``; else n_wide is
-    0 and they walk the binary tree) and in bvh mode prim_index; the table
-    sizes as ``bounce.cuh:Dims``; and
-    ``extra``: in loop mode whether K7 takes the tables into shared
-    memory, in stream mode the stream table, which K5 reads in place).
+    ``csrc/bounce.cuh``, then in stream mode the node table and the 4-wide
+    table when the walks take it (``bvh.wide_walk``; else n_wide is 0 and
+    they walk the binary tree), in bvh mode the same and prim_index only
+    for the previous K3+K4 (``bvh_smem=False``); the table sizes as
+    ``bounce.cuh:Dims``; and ``extra``: in loop mode whether K7 takes the
+    tables into shared memory, in bvh mode K3+K4's walk table
+    (``pack_walk_table``; None for the previous K3+K4), in stream mode the
+    stream table, which K5 reads in place).
 
     In stream mode the sphere and triangle tables are left out (ns = nt =
     0): K5 reads every sphere and triangle from the stream table, whose
@@ -616,15 +703,18 @@ def trace_tables(scene, mode):
     if mode in ("bvh", "stream"):
         accel = scene.accel if mode == "bvh" else with_stream_table(
             scene).accel
-        nodes, pidx = pack_bvh_tables(accel)
-        parts.append(nodes.reshape(-1))
-        n_wide = 0
-        if bvh_mod.wide_walk(accel):   # K3-wide: the 4-wide table
-            parts.append(accel.wide4.reshape(-1))
-            n_wide = accel.wide4.shape[0]
-        if mode == "bvh":
-            parts.append(pidx)
-        dims += [nodes.shape[0], accel.leaf_size, n_wide]
+        wide = bvh_mod.wide_walk(accel)   # K3-wide: the 4-wide table
+        if mode == "bvh" and bvh_smem:
+            extra = pack_walk_table(scene, tabs)
+        else:
+            nodes, pidx = pack_bvh_tables(accel)
+            parts.append(nodes.reshape(-1))
+            if wide:
+                parts.append(accel.wide4.reshape(-1))
+            if mode == "bvh":
+                parts.append(pidx)
+        dims += [accel.n_nodes, accel.leaf_size,
+                 accel.wide4.shape[0] if wide else 0]
     else:
         dims += [0, 0, 0]
     if mode == "loop":
@@ -637,7 +727,8 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
                   init_throughput=None, init_alive=None,
                   return_state: bool = False,
                   counters: torch.Tensor | None = None,
-                  soft_guard: bool = True, leaf_group: bool = True):
+                  soft_guard: bool = True, leaf_group: bool = True,
+                  bvh_smem: bool = True):
     """The trace kernel's inputs on the card: returns (out, launch).
     ``launch()`` runs K1 (unroll mode), K3+K4 (bvh mode), K5 (stream mode)
     or K7 (loop mode) into ``out`` and counts the launch under the
@@ -659,6 +750,14 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
     does; False runs K3+K4's per-thread walk over the same rows
     (``rt_trace_stream_serial``, the previous K5), which gives the same
     result and the same work counters (for comparisons on the card).
+    ``bvh_smem`` (K3+K4 only) runs K3+K4 over its walk table in the
+    persistent blocks (``csrc/trace_bvh.cu``), as every main-path launch
+    does: in shared memory within ``BVH_SMEM_BYTES``, else in place
+    (``trace_bvh_ldg``); False runs the previous K3+K4
+    (``rt_trace_bvh_global``: the tree and the scene tables in global
+    memory, 128-lane blocks), which gives the same result and the same
+    work counters (for comparisons on the card; it counts under
+    ``trace_bvh_global``, not ``trace_bvh``).
 
     ``counters`` (for operation counts; off on the main path) receives
     each lane's work. Unroll and loop modes, (B, COUNTERS) int32:
@@ -696,7 +795,7 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
     end = cfg.max_depth if end_bounce is None else min(end_bounce,
                                                        cfg.max_depth)
     ptr = lambda t: None if t is None else t.data_ptr()
-    flat, dims, extra = trace_tables(scene, mode)
+    flat, dims, extra = trace_tables(scene, mode, bvh_smem=bvh_smem)
     wide = dims[12] > 0
     guard = mode == "unroll" and bool(soft_guard)
     if guard and sum(dims[0:4]) > GUARD_MAX:
@@ -713,16 +812,29 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
                          "int32 tensor on the scene's device")
     lib = _build.library()
     serial = mode == "stream" and not leaf_group
-    entry = getattr(lib, "rt_" + kernel + ("_serial" if serial else ""))
+    prev = mode == "bvh" and not bvh_smem
+    entry = getattr(lib, "rt_" + kernel + ("_serial" if serial else "")
+                    + ("_global" if prev else ""))
     dims_c = (ctypes.c_int * len(dims))(*dims)
+    name = kernel + "_global" if prev else kernel
+    ldg = False
+    nxt = None
     if mode == "loop":
         extra_args = (int(extra),)
     elif mode == "stream":
         extra_args = (extra,)  # the stream table: K5 reads it in place
+    elif mode == "bvh" and not prev:
+        ldg = not walk_table_in_smem(extra)
+        nxt = torch.zeros((1,), dtype=torch.int32, device=dev)
+        # the walk table, its length, in shared memory, the lane counter
+        # (zeroed before each launch)
+        extra_args = (extra, extra.numel(), int(not ldg), nxt)
     else:
         extra_args = ()
 
     def launch():
+        if nxt is not None:
+            nxt.zero_()
         err = entry(
             o.data_ptr(), d.data_ptr(), pix.data_ptr(), samp.data_ptr(),
             ptr(tp), ptr(al), rad.data_ptr(), ptr(state), ptr(counters), n,
@@ -733,8 +845,10 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
             int(cfg.recursive_reflections), cfg.seed & 0xFFFFFFFF,
             rr_start, float(cfg.throughput_epsilon), int(guard),
             torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, kernel)
-        LAUNCHES[kernel] += 1
+        _build.check(err, name)
+        LAUNCHES[name] += 1
+        if ldg:
+            LAUNCHES["trace_bvh_ldg"] += 1
         if stateful:
             LAUNCHES["trace_state"] += 1
         if wide:

@@ -16,7 +16,11 @@ must equal K3+K4 on the same tree bit for bit (the same walks over the
 same floats), and its group closest-hit walk must equal its per-thread
 walk, work counters too, on leaves of 32 and 128 rows, on partial warps
 and at depth 100 with 20 lights and 80 soft rays. P1's three variants
-must equal the plain chain bit for bit. K3-wide (the 4-wide walk of K3+K4 and K5) must take its
+must equal the plain chain bit for bit. K3+K4 over its walk table (in
+shared memory, or read in place past the budget) must equal the previous
+design, rt_trace_bvh_global, bit for bit, work counters too, on partial
+warps, from resumed state and at depth 100 with 20 lights and 80 soft
+rays. K3-wide (the 4-wide walk of K3+K4 and K5) must take its
 plain version's hits where primitives tie exactly in t. K1-state's two
 segments must give the alive flags of the plain version exactly, its
 state on the lanes still alive, and the unsplit launch's radiance under
@@ -39,6 +43,7 @@ from raytrace_tpu_torch.bench.suite import (bvh_scene_dict,
                                              golden_scene_dict,
                                              ring_scene_dict,
                                              twin_scene_dict)
+from raytrace_tpu_torch.bench.suite import mesh_scene_dict as suite_mesh
 from raytrace_tpu_torch.ops import megakernel as tmk
 from raytrace_tpu_torch.tools import measure_dma_stream as p1
 
@@ -546,3 +551,114 @@ def test_k5_run_time_bounds_match_plain(cuda, monkeypatch):
     (k5, cnt), (serial, cnt_serial) = k5_both(s, lanes, cfg)
     assert torch.equal(k5, serial) and torch.equal(cnt, cnt_serial)
     gate(k5, ttrace.trace(s, *lanes, cfg))
+
+
+def k3_both(s, lanes, cfg, **kw):
+    """K3+K4 over its walk table and the previous design
+    (rt_trace_bvh_global) on the same lanes: (output, work counters) of
+    each."""
+    out = []
+    for smem in (True, False):
+        cnt = torch.zeros((lanes[0].shape[0], tmk.BVH_COUNTERS),
+                          dtype=torch.int32, device=lanes[0].device)
+        rad, launch = tmk.prepare_trace(s, *lanes, cfg, counters=cnt,
+                                        bvh_smem=smem, **kw)
+        launch()
+        out.append((rad, cnt))
+    return out
+
+
+def same_out(a, b):
+    if isinstance(a, tuple):
+        return torch.equal(a[0], b[0]) and all(
+            torch.equal(a[1][k], b[1][k]) for k in a[1])
+    return torch.equal(a, b)
+
+
+def ico2561_dict(tmp_path):
+    """Two smooth icospheres of 1,280 triangles over a plane: 2,561
+    primitives, a walk table of about 135 KB."""
+    return suite_mesh(str(tmp_path), subdiv=3)
+
+
+K3_WALK_CASES = ("ring1000", "mixed", "smooth", "ico2561", "mixed-ldg")
+
+
+@pytest.mark.parametrize("case", K3_WALK_CASES)
+def test_k3_walk_table_equals_global_and_plain(cuda, case, tmp_path,
+                                               monkeypatch):
+    """K3+K4 over its walk table: equal to the previous design bit for bit
+    (radiance and work counters) and to the plain version under the image
+    gate; "mixed-ldg" lowers the budget so the table is read in place."""
+    go = case != "smooth"
+    if case == "smooth":
+        s = tscene.load(os.path.join(ASSETS, "smooth_shading_demo.json"),
+                        device=cuda)[0]
+    elif case == "ico2561":
+        s = tscene.from_dict(ico2561_dict(tmp_path), device=cuda)[0]
+    else:
+        s = tscene.from_dict(bvh_scene_dict(case.split("-")[0]),
+                             device=cuda)[0]
+    assert tmk._kernel_mode(s) == "bvh"
+    walk = tmk.pack_walk_table(s)
+    if case == "ico2561":
+        assert 120_000 < 4 * walk.numel() <= tmk.BVH_SMEM_BYTES
+    if case.endswith("-ldg"):
+        monkeypatch.setattr(tmk, "BVH_SMEM_BYTES", 4 * walk.numel() - 16)
+    cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
+    W, H, S = (16, 12, 2) if case == "ico2561" else (32, 24, 2)
+    hit, pos = trender._pixel_mask(s, width=W, height=H, cfg=cfg,
+                                   go_camera=go)
+    px = trender._compact_pixels(hit, pos, int(pos[-1]) + 1)
+    pix, samp = trender._lane_ids(px, S)
+    o, d = trender._lane_rays(s, pix, samp, width=W, height=H, cfg=cfg,
+                              go_camera=go)
+    lanes = (o.contiguous(), d, pix, samp)
+    tmk.reset_launches()
+    (k3, cnt), (prev, cnt_prev) = k3_both(s, lanes, cfg)
+    assert tmk.LAUNCHES["trace_bvh"] == tmk.LAUNCHES["trace_bvh_global"] == 1
+    assert tmk.LAUNCHES["trace_bvh_ldg"] == int(case.endswith("-ldg"))
+    assert torch.equal(k3, prev) and torch.equal(cnt, cnt_prev)
+    img = lambda r: torch.zeros((W * H, 3), device=cuda).index_add_(
+        0, px, r.reshape(-1, S, 3).sum(1))
+    gate(img(k3), img(ttrace.trace(s, *lanes, cfg)))
+
+
+def test_k3_walk_table_partial_warps_and_state(cuda):
+    """A lane count that is not a multiple of 32, a segment with state
+    out, and a resumed segment with every other lane dead: equal to the
+    previous design (work counters too) and the plain version."""
+    s = tscene.from_dict(bvh_scene_dict("mixed"), device=cuda)[0]
+    cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
+    lanes = tuple(t[:1001] for t in main_path_lanes(s, 32, 24, 2, cfg))
+    (k3, cnt), (prev, cnt_prev) = k3_both(s, lanes, cfg)
+    assert torch.equal(k3, prev) and torch.equal(cnt, cnt_prev)
+    gate(k3, ttrace.trace(s, *lanes, cfg))
+    (a, cnt), (b, cnt_prev) = k3_both(s, lanes, cfg, end_bounce=2,
+                                      return_state=True)
+    assert same_out(a, b) and torch.equal(cnt, cnt_prev)
+    st = a[1]
+    alive = st["alive"].clone()
+    alive[::2] = 0.0
+    seg = (st["origin"], st["direction"]) + lanes[2:]
+    kw = dict(start_bounce=2, init_throughput=st["throughput"],
+              init_alive=alive)
+    tmk.reset_launches()
+    (k3, cnt), (prev, cnt_prev) = k3_both(s, seg, cfg, **kw)
+    assert tmk.LAUNCHES["trace_state"] == 2
+    assert torch.equal(k3, prev) and torch.equal(cnt, cnt_prev)
+    assert not k3[::2].any()
+    gate(k3, ttrace.trace(s, *seg, cfg, **kw))
+
+
+def test_k3_walk_table_run_time_bounds(cuda):
+    """max_depth 100, 20 lights and 80 soft-shadow rays (the fused walk in
+    blocks of 64 and 16 rays): equal to the previous design, work
+    counters too, and to the plain version."""
+    s = tscene.from_dict(with_lights(bvh_scene_dict("mixed"), 20),
+                         device=cuda)[0]
+    cfg = ttrace.TraceConfig(max_depth=100, shadow_samples=80)
+    lanes = main_path_lanes(s, 16, 12, 1, cfg)
+    (k3, cnt), (prev, cnt_prev) = k3_both(s, lanes, cfg)
+    assert torch.equal(k3, prev) and torch.equal(cnt, cnt_prev)
+    gate(k3, ttrace.trace(s, *lanes, cfg))
