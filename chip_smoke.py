@@ -30,13 +30,13 @@ Phases, in order (each prints a line before and after, with its seconds):
                     must hold hits and misses): masks equal
   k3_check          K3+K4 (bounce megakernel, bvh mode) against its plain
                     version on the lanes of a 64x48 frame, 4 spp, depth 50,
-                    ring-1000 and the mixed scene: max lane error 0 or the
-                    image gate; here and in every phase below that runs
-                    K3+K4 (k3wide_check, k1ext_check, bounds_check,
-                    kstate_check, fast_mc) the main path's K3+K4 (the walk
-                    table in persistent blocks) must also equal the
-                    previous design, rt_trace_bvh_global, bit for bit,
-                    radiance and work counters
+                    ring-1000 and the mixed scene: equal bit for bit; here
+                    and in every phase below that runs K3+K4 (k3wide_check,
+                    k1ext_check, bounds_check, kstate_check, fast_mc) the
+                    main path's K3+K4 (the walk table in the shared memory
+                    of persistent blocks) must equal the plain version bit
+                    for bit, and the same launch reading its walk table in
+                    place, radiance and work counters
   k3wide_check      K3-wide (the 4-wide stack walk of K3+K4 and K5) on the
                     lanes of a 64x48 frame, 4 spp, depth 50: K3+K4 on the
                     4-wide walk and on the binary walk (the same scene
@@ -52,26 +52,33 @@ Phases, in order (each prints a line before and after, with its seconds):
                     (megakernel.BVH_SMEM_BYTES) so the table is read in
                     place; 1,001 lanes (not a multiple of 32); a segment
                     resumed with every other lane dead: each equal to the
-                    previous design (work counters too) and to the plain
-                    version (error 0 or the image gate)
+                    plain version bit for bit and to the launch reading the
+                    table in place (work counters too)
   render_check_bvh  the main path (K6, compaction, K3+K4) against the
                     dense plain path at 160x120, 4 spp, depth 50 on
                     ring-1000, under the image gate
-  k7_check          K7 (loop mode: brute force without a BVH) against its
-                    plain version on the lanes of a 64x48 frame, 4 spp,
-                    depth 50, on the icosphere golden scene without its
-                    BVH (tables in shared memory) and on ring-2500 without
-                    one (tables past the budget, read through __ldg): max
-                    lane error 0 or the image gate
+  k7_check          K7 (loop mode: brute force without a BVH, persistent
+                    blocks, K1-guard in chunks of 96 occluders) on the
+                    lanes of a 64x48 frame, 4 spp, depth 50, on the
+                    icosphere golden scene without its BVH and on
+                    ring-2500 without one (2,501 occluders, 51 KB of tables:
+                    the launch opts in), both with their tables in shared
+                    memory, and on ring-2500 with the budget lowered (read
+                    through __ldg): launched once with its guard, equal to
+                    itself unguarded and to the plain guarded version bit
+                    for bit, timed guarded and unguarded against both
+                    bounds; then on the twin scene's 96 spheres (exact
+                    ties) K7 (the unroll limit lowered) equal to K1,
+                    radiance and all eight work counters
   k1ext_check       the extended body (K1-ext) on the same lanes: K1 on
                     textured_mirror_demo and the extended_textured golden
                     scene, K3+K4 on smooth_shading_demo; image gate, with
                     the max lane error printed
   bounds_check      max_depth 100, 20 lights and 80 soft-shadow samples on
                     K1, K3+K4, K7 and K5 (grid-5833, where K5 must also
-                    equal its per-thread walk) (a few hundred lanes each)
-                    against the plain version: max lane error 0 or the
-                    image gate
+                    equal K3+K4 on the same tree, work counters too) (a
+                    few hundred lanes each) against the plain version bit
+                    for bit (K1 and K7 also against themselves unguarded)
   k6s_check         K6-stream (pixel mask, node-only walk, stream mode)
                     against its plain version at 800x600 on grid-5833 and
                     ico-10241, and on ring-1000 (and without its ground)
@@ -80,16 +87,14 @@ Phases, in order (each prints a line before and after, with its seconds):
   k5_check          K5 (bounce megakernel, stream mode) against its plain
                     version on a strided subset of the lanes of a 64x48
                     frame, 4 spp, depth 50, on grid-5833 and ico-10241
-                    (max lane error 0 or the image gate), and bit-equal to
-                    K3+K4 on every lane of the same frame of ring-1000 and
-                    the mixed scene forced into stream mode (same tree);
-                    its group closest-hit walk (the main path's) equal to
-                    the per-thread walk, output and work counters, on
-                    those subsets, on grid-5833 rebuilt with leaves of 128
-                    rows,
-                    on a lane count that is not a multiple of 32 and on a
-                    segment resumed with every other lane dead (each also
-                    against the plain version)
+                    bit for bit, and bit-equal to K3+K4 on every lane of
+                    the same frame of ring-1000 and the mixed scene forced
+                    into stream mode (same tree); equal to K3+K4 on the
+                    same tree, output and work counters, and to the plain
+                    version on those subsets, on grid-5833 rebuilt with
+                    leaves of 128 rows, on a lane count that is not a
+                    multiple of 32 and on a segment resumed with every
+                    other lane dead
   kstate_check      K1-state: K1, K3+K4, K5 and K7 each run bounces [0,4)
                     with state and then [4,50) from it, on a few thousand
                     lanes: alive flags and the state of alive lanes equal
@@ -104,6 +109,12 @@ Phases, in order (each prints a line before and after, with its seconds):
                     under the image gate; then one frame with the first
                     capacity forced below the survivors, which must report
                     overflow and equal the unsplit frame
+  past_cap          a grid of 65^3 spheres over a plane (274,626
+                    primitives, past the JAX package's 262,144 cap, where
+                    its Renderer leaves its kernels for a banded jnp
+                    engine) renders at 32x24, 1 spp, depth 2 through
+                    K6-stream and K5, K5 equal to its plain version bit
+                    for bit on a strided subset of the frame's lanes
   guard             K1-guard: K1 with its soft-shadow guard (the main
                     path's) against K1 without it and against the plain
                     guarded version (megakernel.shadow_factor_guarded in
@@ -139,10 +150,11 @@ Phases, in order (each prints a line before and after, with its seconds):
   bench_smooth      the same on smooth_shading_demo (its look-at camera)
                     through K6 and K3+K4 with vertex normals
   bench_ico2561     the same on ico-2561 through K6 and K3+K4 (a 135 KB
-                    walk table); every bvh frame must launch K3+K4 over
-                    its walk table and never the previous design
+                    walk table); every bvh frame must launch K3+K4 with its
+                    walk table in shared memory
   bench_loop        the same on the icosphere golden scene without its BVH
-                    (the go camera) through K2 and K7
+                    (the go camera) through K2 and K7, with its tables in
+                    shared memory and K1-guard
   bench_stream_grid the same on grid-5833 through K6-stream and the
                     ladder of K5 launches (K1-state), with the survivor
                     fraction at each level of the ladder
@@ -173,9 +185,8 @@ Phases, in order (each prints a line before and after, with its seconds):
                     frames' own lanes (all of them for K1, a strided subset
                     of about 20k for K3+K4, whose main-path launches must
                     give the same lanes); K3+K4 at ring-1000, smooth and
-                    ico-2561 beside the previous design in turns, each
-                    with soft shadows, hard only and without lights (the
-                    split of its walks), with both designs' registers,
+                    ico-2561 with soft shadows, hard only and without
+                    lights (the split of its walks), with its registers,
                     stack, spills and the walk table's shared memory;
                     each kernel's time per launch at
                     the main path's own shapes (CUDA events; the trace runs
@@ -185,14 +196,15 @@ Phases, in order (each prints a line before and after, with its seconds):
                     K3+K4 with vertex normals) the same way at the three
                     new bench frames, on a strided subset of about 20k of
                     their lanes (2.5k on the smooth frame) for the plain
-                    version; then K6-stream, K5
+                    version, and K7 also unguarded (time and the bound of
+                    the unguarded work); then K6-stream, K5
                     and K1-state at the grid-5833 frame: K5's time per
                     launch over the frame's own ladder segments (inputs
-                    read through the stage hook), the ladder's summed
-                    segment times beside one unsplit launch per chunk
-                    over the same lanes, both also on the per-thread walk
-                    (the previous K5, in turns; its work counters must
-                    equal the group walk's), and the plain version on a
+                    read through the stage hook; each segment equal to
+                    K3+K4 on the same tree, work counters too, on a subset
+                    of its lanes), the ladder's summed segment times
+                    beside one unsplit launch per chunk over the same
+                    lanes, and the plain version on a
                     strided subset of about K5_SUBSET lanes, and
                     K1-state's two segments against the plain version's
                     on a strided subset of about STATE_SUBSET of the
@@ -230,6 +242,7 @@ failure raises and exits non-zero with no contract line; without a GPU
 the script exits non-zero at once.
 """
 
+import contextlib
 import faulthandler
 import json
 import os
@@ -247,7 +260,8 @@ SCENES = ("sphere_reflections_light", "two_red_cubes_scene",
           "final_silver_prism_purple_cube")
 BVH_SCENES = ("ring1000", "mixed")
 MASK_SCENES = BVH_SCENES + ("ring1000-noground", "mixed-noground")
-LOOP_LDG_RING = 2500  # ring spheres: tables past K7's shared-memory budget
+LOOP_LDG_RING = 2500  # ring spheres: 51 KB of K7 tables, past 48 KB
+PAST_CAP_SIDE = 65    # a grid of 65^3 spheres: past the 262,144 cap
 PLAIN_CHUNK = 2048    # lanes per call of the plain brute-force engine
 K3_SUBSET = 20000   # lanes of the bench frame checked against the plain
 # The plain versions run on the host's clock, which varies by 1.5x between
@@ -705,17 +719,15 @@ def main():
             s = bvh_scenes[name]
             px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
             got = mk.trace(s, o, d, pix, samp, cfg)
-            if not torch.equal(got, k3_both(mk, s, (o, d, pix, samp), cfg)):
-                raise AssertionError(f"{name}: the main path's K3+K4 launch "
-                                     "differs from k3_both's walk-table "
-                                     "launch")
             want = trace_mod.trace(s, o, d, pix, samp, cfg)
+            if not torch.equal(got, k3_both(mk, s, (o, d, pix, samp), cfg,
+                                            want)):
+                raise AssertionError(f"{name}: the main path's K3+K4 launch "
+                                     "differs from k3_both's")
             err = float((got - want).abs().max())
-            print(f"   {name}: {o.shape[0]} lanes, equal to the previous "
-                  f"design; max lane error {err:.3e}", flush=True)
-            if err > 0.0:
-                image_gate(pixel_image(px, got, 64, 48, 4),
-                           pixel_image(px, want, 64, 48, 4), f"K3 {name}")
+            print(f"   {name}: {o.shape[0]} lanes, equal to the same launch "
+                  f"reading its walk table in place; max lane error {err:.3e}",
+                  flush=True)
 
     with Phase("k3wide_check"):
         twins = twin_scene(dev)
@@ -741,41 +753,16 @@ def main():
             "icosphere": golden_scene("mesh_smooth_icosphere", dev,
                                       build_accel=False),
             f"ring{LOOP_LDG_RING}": loop_ring_scene(LOOP_LDG_RING, dev)}
-        for name, s in loop_scenes.items():
+        cases = [(name, s, False) for name, s in loop_scenes.items()]
+        cases.append((f"ring{LOOP_LDG_RING}, tables read in place",
+                      loop_scenes[f"ring{LOOP_LDG_RING}"], True))
+        for name, s, in_place in cases:
             if mk._kernel_mode(s) != "loop":
                 raise AssertionError(f"{name} is not a loop-mode scene")
-            in_smem = mk.loop_tables_in_smem(mk.pack_tables(s))
-            if in_smem != (name == "icosphere"):
-                raise AssertionError(f"{name}: tables in shared memory "
-                                     f"{in_smem}")
-            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
-            mk.reset_launches()
-            got = mk.trace(s, o, d, pix, samp, cfg)
-            if mk.LAUNCHES["trace_loop"] != 1:
-                raise AssertionError(f"K7 was not launched: {mk.LAUNCHES}")
-            want = plain_trace(s, o, d, pix, samp, cfg)
-            err = float((got - want).abs().max())
-            print(f"   {name}: {s.prim_count} primitives, tables "
-                  f"{'in shared memory' if in_smem else 'through __ldg'}, "
-                  f"{o.shape[0]} lanes, max lane error {err:.3e}",
-                  flush=True)
-            if err > 0.0:
-                image_gate(pixel_image(px, got, 64, 48, 4),
-                           pixel_image(px, want, 64, 48, 4), f"K7 {name}")
-            record.setdefault("k7_check_err", []).append(err)
-            # the two table routes' speed against their bounds
-            cnt = torch.zeros((o.shape[0], mk.COUNTERS), dtype=torch.int32,
-                              device=dev)
-            _, counted = mk.prepare_trace(s, o, d, pix, samp, cfg,
-                                          counters=cnt)
-            counted()
-            ops, _ = k1_ops(s, cnt)
-            _, launch = mk.prepare_trace(s, o, d, pix, samp, cfg)
-            ms = cuda_ms(launch, 3)
-            bnd, _ = bound(ops, o.shape[0] * 44)
-            record[f"k7_{'smem' if in_smem else 'ldg'}"] = (ms, bnd)
-            print(f"   {name}: K7 {ms:.4f} ms for {ops:.4e} ops, bound "
-                  f"{bnd:.4f} ms ({bnd / ms:.0%})", flush=True)
+            with (lowered_budget(mk, "LOOP_SMEM_BYTES") if in_place
+                  else contextlib.nullcontext()):
+                k7_check(mk, s, name, in_place, cfg, record)
+        k7_equals_k1(mk, twin_spheres(dev), cfg)
 
     with Phase("k1ext_check"):
         ext = (("textured_mirror_demo", asset_scene("textured_mirror_demo",
@@ -791,12 +778,11 @@ def main():
             got = mk.trace(s, o, d, pix, samp, cfg)
             if mk.LAUNCHES[kernel] != 1:
                 raise AssertionError(f"{name}: {kernel} was not launched")
-            if kernel == "trace_bvh" and not torch.equal(
-                    got, k3_both(mk, s, (o, d, pix, samp), cfg)):
-                raise AssertionError(f"{name}: the main path's K3+K4 launch "
-                                     "differs from k3_both's walk-table "
-                                     "launch")
             want = trace_mod.trace(s, o, d, pix, samp, cfg)
+            if kernel == "trace_bvh" and not torch.equal(
+                    got, k3_both(mk, s, (o, d, pix, samp), cfg, want)):
+                raise AssertionError(f"{name}: the main path's K3+K4 launch "
+                                     "differs from k3_both's")
             err = float((got - want).abs().max())
             print(f"   {name} ({kernel}): {o.shape[0]} lanes, max lane "
                   f"error {err:.3e}", flush=True)
@@ -825,18 +811,17 @@ def main():
             # the stream scene's plain version is slow at these bounds
             w, h = (6, 5) if name == "stream" else (12, 9)
             px, o, d, pix, samp = lanes_of(s, w, h, 2, bcfg)
+            lanes = (o, d, pix, samp)
+            want = trace_mod.trace(s, *lanes, bcfg)
             if name == "stream":
-                got = k5_both(mk, s, (o, d, pix, samp), bcfg)
+                got = k5_both(mk, s, lanes, bcfg, want)
             elif name == "bvh":
-                got = k3_both(mk, s, (o, d, pix, samp), bcfg)
+                got = k3_both(mk, s, lanes, bcfg, want)
             else:
-                got = mk.trace(s, o, d, pix, samp, bcfg)
-            want = trace_mod.trace(s, o, d, pix, samp, bcfg)
+                got = brute_both(mk, s, lanes, bcfg, want)[0]
             err = float((got - want).abs().max())
             print(f"   {name}: depth 100, 20 lights, 80 soft rays, "
                   f"{o.shape[0]} lanes, max lane error {err:.3e}", flush=True)
-            if err > 0.0:
-                image_gate(got, want, f"run-time bounds, {name}")
 
     with Phase("k6s_check"):
         for name, s in stream_scenes.items():
@@ -879,14 +864,13 @@ def main():
             got = mk.trace(s, *sub, cfg)
             if mk.LAUNCHES["trace_stream"] != 1:
                 raise AssertionError(f"K5 was not launched: {mk.LAUNCHES}")
-            if not torch.equal(got, k5_both(mk, s, sub, cfg)):
-                raise AssertionError(f"K5 is not deterministic on {name}")
             want = plain_trace(s, *sub, cfg)
+            if not torch.equal(got, k5_both(mk, s, sub, cfg, want)):
+                raise AssertionError(f"K5 is not deterministic on {name}")
             err = float((got - want).abs().max())
-            print(f"   {name}: {idx.numel()} of {o.shape[0]} lanes, max lane "
+            print(f"   {name}: {idx.numel()} of {o.shape[0]} lanes, equal to "
+                  f"K3+K4 on the same tree (work counters too), max lane "
                   f"error {err:.3e}", flush=True)
-            if err > 0.0:
-                image_gate(got, want, f"K5 {name} (lanes as pixels)")
             record.setdefault("k5_check_err", []).append(err)
         for name in BVH_SCENES:
             with forced_stream(mk):
@@ -926,14 +910,12 @@ def main():
                       "lane dead", grid,
                       (st["origin"], st["direction"]) + part[2:], kw))
         for name, s, lanes, kw in cases:
-            got = k5_both(mk, s, lanes, cfg, **kw)
             want = trace_mod.trace(s, *lanes, cfg, **kw)
+            got = k5_both(mk, s, lanes, cfg, want, **kw)
             err = float((got - want).abs().max())
-            print(f"   {name}: {lanes[0].shape[0]} lanes, equal to the "
-                  f"per-thread walks (work counters too); max lane error "
-                  f"vs plain {err:.3e}", flush=True)
-            if err > 0.0:
-                image_gate(got, want, f"K5 {name} (lanes as pixels)")
+            print(f"   {name}: {lanes[0].shape[0]} lanes, equal to K3+K4 on "
+                  f"the same tree (work counters too); max lane error vs "
+                  f"plain {err:.3e}", flush=True)
             if kw and got[::2].any():
                 raise AssertionError("K5 gave radiance to dead lanes")
             record["k5_check_err"].append(err)
@@ -953,11 +935,14 @@ def main():
                                           pix, samp), cfg, start_bounce=4,
                 init_throughput=st["throughput"], init_alive=st["alive"])
         print("   K3+K4's state entry: [0,4) with state and [4,50) from it "
-              "equal to the previous design (work counters too)",
-              flush=True)
+              "equal to the plain version and to the same launches reading "
+              "the walk table in place (work counters too)", flush=True)
 
     with Phase("render_check_stream"):
         render_check_stream(mk, rmod, trace_mod, stream_scenes["grid5833"])
+
+    with Phase("past_cap"):
+        past_cap_check(mk, rmod, trace_mod, dev)
 
     with Phase("guard"):
         for name in GUARD_SCENES:
@@ -1046,12 +1031,12 @@ def main():
                 if mk.LAUNCHES[kernel] != 1:
                     raise AssertionError(f"{name}: {kernel} was not "
                                          "launched")
+                want = plain_trace(s, o, d, pix, samp, c)
                 if kernel == "trace_bvh" and not torch.equal(
-                        got, k3_both(mk, s, (o, d, pix, samp), c)):
+                        got, k3_both(mk, s, (o, d, pix, samp), c, want)):
                     raise AssertionError(f"{name}: the main path's K3+K4 "
                                          "launch with fast_mc differs from "
-                                         "k3_both's walk-table launch")
-                want = plain_trace(s, o, d, pix, samp, c)
+                                         "k3_both's")
                 err = float((got - want).abs().max())
                 print(f"   {name} ({kernel}), roulette from bounce "
                       f"{c.russian_roulette_start}: {o.shape[0]} lanes, "
@@ -1090,7 +1075,7 @@ def main():
                 raise AssertionError(f"the bvh main path never launched {k}")
         if launches_bvh["trace_wide"] != launches_bvh["trace_bvh"]:
             raise AssertionError("the bvh main path did not walk 4-wide")
-        if launches_bvh["trace_bvh_global"] or launches_bvh["trace_bvh_ldg"]:
+        if launches_bvh["trace_bvh_ldg"]:
             raise AssertionError("the bvh main path left the walk table in "
                                  f"shared memory: {launches_bvh}")
 
@@ -1110,9 +1095,12 @@ def main():
                 if got[k] < 1:
                     raise AssertionError(f"the {phase} frame never "
                                          f"launched {k}")
-            if got["trace_bvh_global"] or got["trace_bvh_ldg"]:
-                raise AssertionError(f"the {phase} frame left the walk "
-                                     f"table in shared memory: {got}")
+            if got["trace_bvh_ldg"] or got["trace_loop_ldg"]:
+                raise AssertionError(f"the {phase} frame left its table "
+                                     f"out of shared memory: {got}")
+            if got["trace_guard"] != got["trace_unroll"] + got["trace_loop"]:
+                raise AssertionError(f"the {phase} frame ran K1 or K7 "
+                                     f"without K1-guard: {got}")
             frames[key] = (s, go, got)
 
     for phase, key in (("bench_stream_grid", "grid5833"),
@@ -1199,7 +1187,6 @@ def main():
                     row.update({f"{key}_{k}": f[k] for k in (
                         "ms", "launches", "bound", "plain", "plain_lanes",
                         "split", "walk_smem_bytes")})
-                    row[f"{key}_prev_ms"] = f["split"]["prev"]["soft"]
                     row[f"{key}_frame_launches"] = frames[key][2][
                         "trace_bvh"]
         obj_dir.cleanup()
@@ -1224,20 +1211,18 @@ def main():
             if row["name"].startswith("K5"):
                 row["unsplit_entry_registers"] = regs.get(
                     "rt_trace_stream_kernel", (None,))[0]
-            if row["name"].startswith("K3 "):
-                for key, fn_ in (("state", "rt_trace_bvh_state_kernel"),
-                                 ("prev", "rt_trace_bvh_global_kernel"),
-                                 ("prev_state",
-                                  "rt_trace_bvh_global_state_kernel")):
-                    r2, st2, sp2 = regs.get(fn_, (None, None, None))
-                    row.update({f"{key}_registers": r2,
-                                f"{key}_stack_bytes": st2,
-                                f"{key}_spill_bytes": sp2})
+            state_fn = {"K1": "rt_trace_unroll_state_kernel",
+                        "K1-guard": "rt_trace_unroll_state_kernel",
+                        "K3": "rt_trace_bvh_state_kernel",
+                        "K7": "rt_trace_loop_state_kernel"}.get(
+                            row["name"].split()[0])
+            if state_fn:
+                r2, st2, sp2 = regs.get(state_fn, (None, None, None))
+                row.update(state_registers=r2, state_stack_bytes=st2,
+                           state_spill_bytes=sp2)
             print(f"   {row['name']}: {fn} {r_} registers, {stack} B stack, "
                   f"{spill} B spills", flush=True)
         for fn in ("rt_trace_unroll_state_kernel", "rt_trace_bvh_state_kernel",
-                   "rt_trace_bvh_global_kernel",
-                   "rt_trace_bvh_global_state_kernel",
                    "rt_trace_loop_state_kernel"):
             print(f"   {fn}: {regs.get(fn)} (registers, stack bytes, "
                   "spill bytes)", flush=True)
@@ -1259,6 +1244,91 @@ def twin_scene(device):
     return scene_mod.with_accel(
         scene_mod.from_dict(twin_scene_dict(), device=device)[0],
         leaf_size=1)
+
+
+def twin_spheres(device):
+    """The twin scene's 96 spheres without its plane and without a tree:
+    an unroll-mode scene whose brute-force order picks the copy a lane
+    shows."""
+    from raytrace_tpu_torch import scene as scene_mod
+    from raytrace_tpu_torch.bench.suite import twin_scene_dict
+    d = twin_scene_dict()
+    d["objects"] = [o for o in d["objects"] if o["type"] != "plane"]
+    return scene_mod.from_dict(d, device=device, build_accel=False)[0]
+
+
+def k7_equals_k1(mk, twins, cfg):
+    """K7 and K1 run one policy: on the twin scene's 96 spheres without a
+    BVH (exact ties) K7 - the scene forced into loop mode by a lowered
+    unroll limit - gives K1's radiance and all eight work counters."""
+    import torch
+    if mk._kernel_mode(twins) != "unroll":
+        raise AssertionError("the twin spheres are not an unroll-mode scene")
+    px, o, d, pix, samp = lanes_of(twins, 64, 48, 4, cfg)
+    lanes = (o, d, pix, samp)
+    mk.reset_launches()
+    k1, c1 = counted_launch(mk, twins, lanes, cfg)
+    old_limit = mk.UNROLL_PRIM_LIMIT
+    mk.UNROLL_PRIM_LIMIT = twins.prim_count - 1
+    try:
+        k7, c7 = counted_launch(mk, twins, lanes, cfg)
+    finally:
+        mk.UNROLL_PRIM_LIMIT = old_limit
+    if (mk.LAUNCHES["trace_loop"], mk.LAUNCHES["trace_unroll"]) != (1, 1):
+        raise AssertionError(f"twins: K7 and K1 were not launched once each: "
+                             f"{mk.LAUNCHES}")
+    if not (torch.equal(k7, k1) and torch.equal(c7, c1)):
+        raise AssertionError("twins: K7 differs from K1 (radiance or work "
+                             "counters)")
+    print(f"   twin spheres ({twins.prim_count} occluders, exact ties): K7 "
+          f"equal to K1 on {o.shape[0]} lanes, radiance and work counters "
+          f"{[int(x) for x in c7.to(torch.int64).sum(0)]}", flush=True)
+
+
+def k7_check(mk, scene, name, in_place, cfg, record):
+    """K7 on the lanes of a 64x48, 4 spp frame: launched once, with its
+    guard, its tables in shared memory (or, ``in_place``, read through
+    __ldg); equal to itself unguarded and to the plain guarded version
+    bit for bit; its time guarded and unguarded against both bounds."""
+    import torch
+    in_smem = mk.loop_tables_in_smem(mk.pack_tables(scene))
+    if in_smem == in_place:
+        raise AssertionError(f"{name}: tables in shared memory {in_smem}")
+    px, o, d, pix, samp = lanes_of(scene, 64, 48, 4, cfg)
+    lanes = (o, d, pix, samp)
+    mk.reset_launches()
+    got = mk.trace(scene, *lanes, cfg)
+    if (mk.LAUNCHES["trace_loop"], mk.LAUNCHES["trace_guard"],
+            mk.LAUNCHES["trace_loop_ldg"]) != (1, 1, int(in_place)):
+        raise AssertionError(f"{name}: K7 launched {mk.LAUNCHES}")
+    with plain_guarded():
+        want = plain_trace(scene, *lanes, cfg)
+    out, cg, cu = brute_both(mk, scene, lanes, cfg, want)
+    if not torch.equal(got, out):
+        raise AssertionError(f"{name}: K7 is not deterministic")
+    err = float((got - want).abs().max())
+    record.setdefault("k7_check_err", []).append(err)
+    times = {}
+    for guard, cnt in ((True, cg), (False, cu)):
+        ops, _ = k1_ops(scene, cnt)
+        _, launch = mk.prepare_trace(scene, *lanes, cfg, soft_guard=guard)
+        ms = cuda_ms(launch, 3)
+        times[guard] = (ms, bound(ops, o.shape[0] * 44)[0])
+    gw = [int(x) for x in cg.to(torch.int64).sum(0)]
+    smem = mk.trace_smem_bytes(scene)
+    record.setdefault("k7_check", {})[name] = dict(
+        ms=times[True][0], bound_ms=times[True][1],
+        unguarded_ms=times[False][0], unguarded_bound_ms=times[False][1],
+        smem_bytes=smem, guards=gw[5], flagged=gw[6])
+    where = ("through __ldg" if in_place
+             else f"in shared memory ({smem} B)")
+    print(f"   {name}: {scene.prim_count} primitives, tables {where}, "
+          f"{o.shape[0]} lanes, equal to K7 unguarded and to the plain "
+          f"guarded version (max lane error {err:.3e}); guards {gw[5]}, "
+          f"flagged {gw[6]}, undrawn soft rays {gw[7]} of {gw[2]}; K7 "
+          f"{times[True][0]:.4f} ms guarded (bound {times[True][1]:.4f}), "
+          f"{times[False][0]:.4f} ms unguarded (bound "
+          f"{times[False][1]:.4f})", flush=True)
 
 
 def without_wide(scene):
@@ -1283,18 +1353,13 @@ def wide_check(mk, trace_mod, scene, cfg, what):
     if (mk.LAUNCHES["trace_bvh"], mk.LAUNCHES["trace_wide"]) != (2, 1):
         raise AssertionError(f"{what}: K3 was not launched once with and "
                              f"once without the 4-wide walk: {mk.LAUNCHES}")
-    for got, s in ((wide, scene), (walk2, binary)):
-        if not torch.equal(got, k3_both(mk, s, lanes, cfg)):
-            raise AssertionError(f"{what}: the main path's K3+K4 launch "
-                                 "differs from k3_both's walk-table launch")
     errs = []
     for got, s, walk in ((wide, scene, "4-wide"), (walk2, binary, "binary")):
         want = trace_mod.trace(s, *lanes, cfg)
+        if not torch.equal(got, k3_both(mk, s, lanes, cfg, want)):
+            raise AssertionError(f"{what}: the main path's K3+K4 launch "
+                                 f"on the {walk} walk differs from k3_both's")
         errs.append(float((got - want).abs().max()))
-        if errs[-1] > 0.0:
-            image_gate(pixel_image(px, got, 64, 48, 4),
-                       pixel_image(px, want, 64, 48, 4),
-                       f"K3 {walk} walk on {what} vs plain")
     differ = int(((wide - walk2).abs().amax(dim=-1) > 1e-3).sum())
     if what != "twins":   # no exact ties: the two walks take the same hits
         image_gate(pixel_image(px, wide, 64, 48, 4),
@@ -1439,6 +1504,72 @@ def render_check_stream(mk, rmod, trace_mod, scene, w=160, h=120, spp=4):
                              "unsplit")
 
 
+def tuple_at(out, idx):
+    """A trace output (radiance, or radiance and state) at lanes idx."""
+    if isinstance(out, tuple):
+        return out[0][idx], {k: v[idx] for k, v in out[1].items()}
+    return out[idx]
+
+
+def past_cap_check(mk, rmod, trace_mod, dev):
+    """A scene past the JAX package's stream cap (MAX_STREAM_KERNEL_PRIMS,
+    where its Renderer leaves its kernels for a banded jnp engine): a grid
+    of PAST_CAP_SIDE^3 spheres over a plane renders at 32x24, 1 spp, depth
+    2 through K6-stream and K5, and K5 equals its plain version bit for
+    bit on a strided subset of the frame's lanes; the Renderer renders it
+    too."""
+    import torch
+    from raytrace_tpu_torch import scene as scene_mod
+    from raytrace_tpu_torch.bench.suite import grid_scene_dict
+    t0 = time.perf_counter()
+    s = scene_mod.from_dict(grid_scene_dict(PAST_CAP_SIDE), device=dev)[0]
+    build_s = time.perf_counter() - t0
+    if not (s.prim_count > mk.MAX_STREAM_KERNEL_PRIMS
+            and not mk.scene_fits_kernel(s)
+            and mk.require_mode(s) == "stream"):
+        raise AssertionError("the past-cap scene is not past the cap in "
+                             "stream mode")
+    cfg = trace_mod.TraceConfig(max_depth=2, shadow_samples=SOFT, seed=0)
+    seen = []
+
+    def hook(stage, **v):
+        if stage == "lane_rays":
+            seen.append({k: v[k] for k in ("origin", "direction", "pix",
+                                           "samp")})
+        elif stage == "trace":
+            seen[-1]["rad"] = v["rad"]
+
+    mk.reset_launches()
+    img = rmod.render_wavefront(s, width=32, height=24, samples=1, cfg=cfg,
+                                hook=hook)
+    launches = dict(mk.LAUNCHES)
+    if not (launches["pixel_mask_stream"] == 1
+            and launches["trace_stream"] == len(seen) >= 1
+            and launches["trace_bvh"] == launches["pixel_mask_bvh"] == 0):
+        raise AssertionError(f"the past-cap frame launched {launches}")
+    if not (bool(torch.isfinite(img).all())
+            and bool((img.sum(-1) > 0).any())):
+        raise AssertionError("the past-cap frame is not finite and lit")
+    lanes = tuple(torch.cat([c[k] for c in seen])
+                  for k in ("origin", "direction", "pix", "samp"))
+    got = torch.cat([c["rad"] for c in seen])
+    idx = torch.arange(0, got.shape[0], max(1, got.shape[0] // 256),
+                       device=dev)
+    want = trace_mod.trace(s, *(t[idx] for t in lanes), cfg)
+    if not torch.equal(got[idx], want):
+        raise AssertionError("K5 differs from its plain version past the cap")
+    r = rmod.Renderer(device=dev)
+    r.set_samples(1)
+    r.set_max_depth(2)
+    if r.render(s, 32, 24).shape != (24, 32, 3):
+        raise AssertionError("the Renderer's past-cap image is misshapen")
+    print(f"   grid of {PAST_CAP_SIDE}^3 spheres: {s.prim_count} primitives "
+          f"(cap {mk.MAX_STREAM_KERNEL_PRIMS}), leaf {s.accel.leaf_size}, "
+          f"{s.accel.n_nodes} nodes, built in {build_s:.1f} s; 32x24, 1 spp, "
+          f"depth 2: launches {launches}; K5 equal to its plain version on "
+          f"{idx.numel()} of {got.shape[0]} lanes", flush=True)
+
+
 def same(a, b):
     """Are two trace outputs (radiance, or radiance and state) equal?"""
     import torch
@@ -1448,61 +1579,140 @@ def same(a, b):
     return torch.equal(a, b)
 
 
-def k5_both(mk, scene, lanes, cfg, **kw):
-    """K5 with its group closest-hit walk and with the per-thread walk on
-    the same lanes (``kw``: more arguments of prepare_trace); raises unless
-    their outputs and work counters are equal. Returns the group walk's
-    output."""
+def same_plain(got, want):
+    """Is a trace output (radiance, or radiance and state) the plain
+    version's? Radiance and alive flags bit for bit, and the state of the
+    lanes still alive (a dead lane keeps the state of the bounce it died
+    at, which the two need not share)."""
     import torch
-    outs, cnts = [], []
-    for group in (True, False):
-        cnt = torch.zeros((lanes[0].shape[0], mk.BVH_COUNTERS),
-                          dtype=torch.int32, device=lanes[0].device)
-        out, launch = mk.prepare_trace(scene, *lanes, cfg, counters=cnt,
-                                       leaf_group=group, **kw)
-        launch()
-        outs.append(out)
-        cnts.append(cnt)
-    if not (same(*outs) and torch.equal(*cnts)):
-        raise AssertionError("K5's group walk differs from the per-thread "
-                             "walk (output or work counters)")
-    return outs[0]
+    if not isinstance(got, tuple):
+        return torch.equal(got, want)
+    alive = want[1]["alive"] > 0
+    return (torch.equal(got[0], want[0])
+            and torch.equal(got[1]["alive"], want[1]["alive"])
+            and all(torch.equal(got[1][k][alive], want[1][k][alive])
+                    for k in ("origin", "direction", "throughput")))
 
 
-def k3_both(mk, scene, lanes, cfg, **kw):
-    """K3+K4 over its walk table (the main path's) and the previous design
-    (rt_trace_bvh_global) on the same lanes (``kw``: more arguments of
-    prepare_trace); raises unless their outputs and work counters are
-    equal. Returns the main path's output."""
+def plain_of(scene, lanes, cfg, **kw):
+    from raytrace_tpu_torch import trace as trace_mod
+    if kw:
+        return trace_mod.trace(scene, *lanes, cfg, **kw)
+    return plain_trace(scene, *lanes, cfg)
+
+
+class same_tree:
+    """Within the block, the stream scene's tree as a bvh-mode scene (its
+    stream table dropped, megakernel.MAX_BVH_KERNEL_PRIMS raised past it),
+    walked in the stream scene's order: K3+K4 over it must equal K5."""
+
+    def __init__(self, mk, scene):
+        self.mk, self.scene = mk, scene
+
+    def __enter__(self):
+        import dataclasses
+        from raytrace_tpu_torch import bvh as bvh_mod
+        self.old = self.mk.MAX_BVH_KERNEL_PRIMS
+        self.mk.MAX_BVH_KERNEL_PRIMS = 1 << 30
+        accel = dataclasses.replace(self.scene.accel, stream_tab=None)
+        if not bvh_mod.wide_walk(self.scene.accel):
+            accel = dataclasses.replace(accel, wide4=None)
+        tree = dataclasses.replace(self.scene, accel=accel)
+        if self.mk._kernel_mode(tree) != "bvh":
+            raise AssertionError("the stream tree is not a bvh-mode scene")
+        return tree
+
+    def __exit__(self, *exc):
+        self.mk.MAX_BVH_KERNEL_PRIMS = self.old
+        return False
+
+
+def counted_launch(mk, scene, lanes, cfg, **kw):
+    """(output, per-lane work counters) of one trace launch."""
     import torch
-    outs, cnts = [], []
-    for smem in (True, False):
-        cnt = torch.zeros((lanes[0].shape[0], mk.BVH_COUNTERS),
-                          dtype=torch.int32, device=lanes[0].device)
-        out, launch = mk.prepare_trace(scene, *lanes, cfg, counters=cnt,
-                                       bvh_smem=smem, **kw)
-        launch()
-        outs.append(out)
-        cnts.append(cnt)
-    if not (same(*outs) and torch.equal(*cnts)):
-        raise AssertionError("K3+K4 over its walk table differs from the "
-                             "previous design (output or work counters)")
-    return outs[0]
+    n_cnt = (mk.BVH_COUNTERS if mk._kernel_mode(scene) in ("bvh", "stream")
+             else mk.COUNTERS)
+    cnt = torch.zeros((lanes[0].shape[0], n_cnt), dtype=torch.int32,
+                      device=lanes[0].device)
+    out, launch = mk.prepare_trace(scene, *lanes, cfg, counters=cnt, **kw)
+    launch()
+    return out, cnt
+
+
+def k5_both(mk, scene, lanes, cfg, want=None, check_plain=True, **kw):
+    """K5 and K3+K4 on the same tree (same_tree), on the same lanes
+    (``kw``: more arguments of prepare_trace); raises unless their outputs
+    and work counters are equal, and (unless not ``check_plain``) unless
+    the output is the plain version's (``want``, computed here when not
+    given). Returns K5's output."""
+    import torch
+    out, cnt = counted_launch(mk, scene, lanes, cfg, **kw)
+    with same_tree(mk, scene) as tree:
+        k3, cnt3 = counted_launch(mk, tree, lanes, cfg, **kw)
+    if not (same(out, k3) and torch.equal(cnt, cnt3)):
+        raise AssertionError("K5 differs from K3+K4 on the same tree "
+                             "(output or work counters)")
+    if not check_plain:
+        return out
+    want = plain_of(scene, lanes, cfg, **kw) if want is None else want
+    if not same_plain(out, want):
+        raise AssertionError("K5 differs from its plain version")
+    return out
+
+
+def k3_both(mk, scene, lanes, cfg, want=None, **kw):
+    """K3+K4 over its walk table as the main path takes it and the same
+    launch reading the table in place (lowered_budget), on the same lanes
+    (``kw``: more arguments of prepare_trace); raises unless their outputs
+    and work counters are equal, and unless the output is the plain
+    version's (``want``, computed here when not given). Returns the main
+    path's output."""
+    import torch
+    out, cnt = counted_launch(mk, scene, lanes, cfg, **kw)
+    with lowered_budget(mk):
+        ldg, cnt_ldg = counted_launch(mk, scene, lanes, cfg, **kw)
+    if not (same(out, ldg) and torch.equal(cnt, cnt_ldg)):
+        raise AssertionError("K3+K4 over its walk table in shared memory "
+                             "differs from the same launch reading it in "
+                             "place (output or work counters)")
+    want = plain_of(scene, lanes, cfg, **kw) if want is None else want
+    if not same_plain(out, want):
+        raise AssertionError("K3+K4 differs from its plain version")
+    return out
+
+
+def brute_both(mk, scene, lanes, cfg, want=None, **kw):
+    """K1 or K7 with K1-guard (the main path's) and without it on the same
+    lanes; raises unless their outputs are equal and the guarded output is
+    the plain guarded version's (``want``, computed here when not given).
+    Returns (guarded output, guarded counters, unguarded counters)."""
+    out, cnt = counted_launch(mk, scene, lanes, cfg, **kw)
+    un, cnt_un = counted_launch(mk, scene, lanes, cfg, soft_guard=False, **kw)
+    if not same(out, un):
+        raise AssertionError("K1-guard changed a result")
+    if want is None:
+        with plain_guarded():
+            want = plain_of(scene, lanes, cfg, **kw)
+    if not same_plain(out, want):
+        raise AssertionError("the brute-force kernel differs from the plain "
+                             "guarded version")
+    return out, cnt, cnt_un
 
 
 class lowered_budget:
     """Within the block, K3+K4 reads every walk table in place from
-    global memory (megakernel.BVH_SMEM_BYTES lowered to 0)."""
+    global memory (megakernel.BVH_SMEM_BYTES lowered to 0), or with
+    ``name`` "LOOP_SMEM_BYTES" K7 its tables."""
 
-    def __init__(self, mk):
-        self.mk = mk
+    def __init__(self, mk, name="BVH_SMEM_BYTES"):
+        self.mk, self.name = mk, name
 
     def __enter__(self):
-        self.old = self.mk.BVH_SMEM_BYTES
-        self.mk.BVH_SMEM_BYTES = 0
+        self.old = getattr(self.mk, self.name)
+        setattr(self.mk, self.name, 0)
 
     def __exit__(self, *exc):
-        self.mk.BVH_SMEM_BYTES = self.old
+        setattr(self.mk, self.name, self.old)
         return False
 
 
@@ -1543,34 +1753,32 @@ def k3walk_check(mk, trace_mod, scenes, cfg, record):
                   mixed, (st["origin"], st["direction"]) + part[2:], kw,
                   False))
     for name, s, lanes, kw, in_place in cases:
+        want = plain_of(s, lanes, cfg, **kw)
         mk.reset_launches()
         if in_place:
             with lowered_budget(mk):
-                got = k3_both(mk, s, lanes, cfg, **kw)
+                got = k3_both(mk, s, lanes, cfg, want=want, **kw)
         else:
-            got = k3_both(mk, s, lanes, cfg, **kw)
+            got = k3_both(mk, s, lanes, cfg, want=want, **kw)
         if (mk.LAUNCHES["trace_bvh"], mk.LAUNCHES["trace_bvh_ldg"]) != (
-                1, int(in_place)):
+                2, 1 + int(in_place)):
             raise AssertionError(f"{name}: K3+K4 launched {mk.LAUNCHES}")
-        want = plain_trace(s, *lanes, cfg) if not kw else trace_mod.trace(
-            s, *lanes, cfg, **kw)
         err = float((got - want).abs().max())
         print(f"   {name}: {lanes[0].shape[0]} lanes, walk table "
               f"{4 * mk.pack_walk_table(s).numel()} B "
               f"{'in place' if in_place else 'in shared memory'}; equal to "
-              f"the previous design (work counters too); max lane error vs "
-              f"plain {err:.3e}", flush=True)
-        if err > 0.0:
-            image_gate(got, want, f"K3+K4 {name} (lanes as pixels)")
+              f"the plain version and to the launch reading it in place "
+              f"(work counters too); max lane error vs plain {err:.3e}",
+              flush=True)
         if kw and got[::2].any():
             raise AssertionError("K3+K4 gave radiance to dead lanes")
         record.setdefault("k3walk_err", []).append(err)
 
 
 def k3_split(mk, scene, lanes, sizes, cfg):
-    """K3+K4 at a bench frame's own chunks, ms per launch, over its walk
-    table ("ms") and in the previous design ("prev"), each with soft
-    shadows, hard shadows only and without lights, timed in turns."""
+    """K3+K4 at a bench frame's own chunks, ms per launch, with soft
+    shadows, hard shadows only and without lights (the split of its
+    walks), each timed twice in turns."""
     import dataclasses
     import torch
     from raytrace_tpu_torch import scene as scene_mod
@@ -1580,21 +1788,14 @@ def k3_split(mk, scene, lanes, sizes, cfg):
         color=torch.zeros((0, 3), device=dev),
         intensity=torch.zeros((0,), device=dev)))
     hard = dataclasses.replace(cfg, soft_shadows=False)
-    runs = {(smem, name): chunk_launches(mk, s, lanes, sizes, c,
-                                         bvh_smem=smem)[1]
-            for smem in (True, False)
+    runs = {name: chunk_launches(mk, s, lanes, sizes, c)[1]
             for name, s, c in (("soft", scene, cfg), ("hard", scene, hard),
                                ("none", dark, cfg))}
     times = {k: [] for k in runs}
-    for order in ((True, False), (False, True)):
-        for smem in order:
-            for name in ("soft", "hard", "none"):
-                times[(smem, name)].append(
-                    cuda_ms(runs[(smem, name)], 1) / len(sizes))
-    return {("ms" if smem else "prev"): {
-        name: sum(times[(smem, name)]) / 2 for name in ("soft", "hard",
-                                                        "none")}
-        for smem in (True, False)}
+    for _ in range(2):
+        for name in ("soft", "hard", "none"):
+            times[name].append(cuda_ms(runs[name], 1) / len(sizes))
+    return {name: sum(t) / 2 for name, t in times.items()}
 
 
 def ladder_frame(mk, scene, cfg, launches, what):
@@ -1618,30 +1819,29 @@ def ladder_frame(mk, scene, cfg, launches, what):
     rmod.render_wavefront(scene, width=W, height=H, samples=SPP, cfg=cfg,
                           hook=hook)
 
-    def prepare(v, counters=None, leaf_group=True):
+    def seg_kw(v, idx=None):
         last = v["b1"] >= cfg.max_depth
         kw = dict(start_bounce=v["b0"], return_state=not last,
                   end_bounce=None if last else v["b1"])
         if v["b0"] > 0:
             kw.update(init_throughput=v["throughput"], init_alive=v["alive"])
+        if idx is not None:
+            kw = {k: (a[idx] if isinstance(a, torch.Tensor) else a)
+                  for k, a in kw.items()}
+        return kw
+
+    def prepare(v, counters=None):
         return mk.prepare_trace(scene, v["origin"], v["direction"], v["pix"],
                                 v["samp"], cfg, counters=counters,
-                                leaf_group=leaf_group, **kw)
+                                **seg_kw(v))
 
     n_launch = len(segs)
     if not (n_launch == launches["trace_stream"] == launches["trace_state"]):
         raise AssertionError(f"{what}: {n_launch} ladder segments, but the "
                              f"bench frame launched {launches}")
     prepared = [prepare(v)[1] for v in segs]
-    ladder_ms = cuda_ms(lambda: [f() for f in prepared], 1)
-    # the same segments on K3+K4's per-thread walk (the previous K5), in
-    # turns with the group walk
-    serial = [prepare(v, leaf_group=False)[1] for v in segs]
-    serial_ladder_ms = cuda_ms(lambda: [f() for f in serial], 1)
-    ladder_ms = min(ladder_ms, cuda_ms(lambda: [f() for f in prepared], 1))
-    serial_ladder_ms = min(serial_ladder_ms,
-                           cuda_ms(lambda: [f() for f in serial], 1))
-    del serial
+    ladder_ms = min(cuda_ms(lambda: [f() for f in prepared], 1)
+                    for _ in range(2))
     # each level's launches on their own: where the ladder's time goes
     level_ms = {}
     for v, f in zip(segs, prepared):
@@ -1661,10 +1861,6 @@ def ladder_frame(mk, scene, cfg, launches, what):
     unsplit = [mk.prepare_trace(scene, c["origin"], c["direction"],
                                 c["pix"], c["samp"], cfg)[1] for c in chunks]
     unsplit_ms = cuda_ms(lambda: [f() for f in unsplit], 1)
-    unsplit = [mk.prepare_trace(scene, c["origin"], c["direction"],
-                                c["pix"], c["samp"], cfg,
-                                leaf_group=False)[1] for c in chunks]
-    serial_unsplit_ms = cuda_ms(lambda: [f() for f in unsplit], 1)
     # the same launches on the binary walk (K3-wide against it)
     binary = without_wide(scene)
     unsplit = [mk.prepare_trace(binary, c["origin"], c["direction"],
@@ -1680,23 +1876,26 @@ def ladder_frame(mk, scene, cfg, launches, what):
                   + scene.accel.stream_tab.numel())
     for v in segs:
         n = v["origin"].shape[0]
-        cnt, cnt_serial = (torch.zeros((n, mk.BVH_COUNTERS),
-                                       dtype=torch.int32,
-                                       device=v["origin"].device)
-                           for _ in range(2))
-        out, counted = prepare(v, cnt)
-        counted()
-        out_serial, counted = prepare(v, cnt_serial, leaf_group=False)
-        counted()
-        if not (torch.equal(cnt, cnt_serial) and same(out, out_serial)):
-            raise AssertionError(f"{what}: K5's group walk differs from the "
-                                 "per-thread walk (radiance or work "
-                                 f"counters) at the segment from bounce "
-                                 f"{v['b0']}")
+        cnt = torch.zeros((n, mk.BVH_COUNTERS), dtype=torch.int32,
+                          device=v["origin"].device)
+        out, launch_counted = prepare(v, cnt)
+        launch_counted()
+        # K5 against K3+K4 on the same tree (the plain version: below, on
+        # the frame's lanes), on a strided subset of the segment's lanes
+        sidx = torch.arange(0, n, max(1, n // PARTIAL_LANES),
+                            device=v["origin"].device)
+        sub = tuple(v[k][sidx] for k in ("origin", "direction", "pix",
+                                         "samp"))
+        got = k5_both(mk, scene, sub, cfg, check_plain=False,
+                      **seg_kw(v, sidx))
+        if not (same(got, tuple_at(out, sidx))):
+            raise AssertionError(f"{what}: K5's segment from bounce "
+                                 f"{v['b0']} differs from its own launch on "
+                                 "a subset of its lanes")
         o_, _, w_ = k3_ops(cnt)
         ops += o_
         work = [a + b for a, b in zip(work, w_)]
-        del out, out_serial, cnt_serial
+        del out, got
         n_bytes += tables + n * (12 + 12 + 4 + 4 + 12) + (
             n * 16 if v["b0"] > 0 else 0) + (
             n * 40 if v["b1"] < cfg.max_depth else 0)
@@ -1753,9 +1952,9 @@ def ladder_frame(mk, scene, cfg, launches, what):
           f"chunk(s), {sum(v['origin'].shape[0] for v in segs)} segment "
           f"lanes; work {work}, {ops:.4e} ops; ladder {ladder_ms:.3f} ms "
           f"({ladder_ms / n_launch:.4f} ms a launch) vs one unsplit launch "
-          f"a chunk {unsplit_ms:.3f} ms; on the per-thread walk: ladder "
-          f"{serial_ladder_ms:.3f} ms, unsplit {serial_unsplit_ms:.3f} ms "
-          f"(work counters equal); bound per launch {bnd:.4f} ms "
+          f"a chunk {unsplit_ms:.3f} ms; every segment equal to K3+K4 on the "
+          f"same tree on a subset of its lanes (work counters too); bound "
+          f"per launch {bnd:.4f} ms "
           f"({by}); on {idx.numel()} lanes: kernel {sub_ms:.3f} ms vs "
           f"plain {plain_ms:.1f} ms; on {sidx.numel()} lanes as two "
           f"segments {state_sub_ms:.3f} ms vs plain {plain_state_ms:.1f} ms "
@@ -1765,9 +1964,6 @@ def ladder_frame(mk, scene, cfg, launches, what):
           f"{tables_ms:.3f} ms a segment", flush=True)
     return dict(launches=n_launch, ms=ladder_ms / n_launch,
                 ladder_ms=ladder_ms, unsplit_ms=unsplit_ms,
-                serial_ms=serial_ladder_ms / n_launch,
-                serial_ladder_ms=serial_ladder_ms,
-                serial_unsplit_ms=serial_unsplit_ms,
                 unsplit_binary_ms=unsplit_binary_ms, tables_ms=tables_ms,
                 state_err=state_err,
                 level_ms={str(b): v for b, v in sorted(level_ms.items())},
@@ -1802,10 +1998,8 @@ def stream_rows(mk, frames, cfg, record):
     g = ladder_frame(mk, grid, cfg, g_launches, "grid-5833 frame (K5)")
     m = ladder_frame(mk, mesh, cfg, m_launches, "ico-10241 frame (K5)")
     common = dict(route="cuda", library_ms=None)
-    mesh_keys = dict(mesh_ms=m["ms"], mesh_serial_ms=m["serial_ms"],
+    mesh_keys = dict(mesh_ms=m["ms"],
                      mesh_unsplit_entry_ms=m["unsplit_ms"] / m["chunks"],
-                     mesh_serial_unsplit_entry_ms=(m["serial_unsplit_ms"]
-                                                   / m["chunks"]),
                      mesh_launches=m["launches"],
                      mesh_bound_ms=m["bound"], mesh_plain_ms=m["plain"],
                      mesh_plain_lanes=m["plain_lanes"],
@@ -1825,8 +2019,6 @@ def stream_rows(mk, frames, cfg, record):
              bound_by=g["by"], plain_lanes=g["plain_lanes"],
              ms_plain_lanes=g["ms_plain_lanes"], chunks=g["chunks"],
              unsplit_entry_ms=g["unsplit_ms"] / g["chunks"],
-             serial_ms=g["serial_ms"],
-             serial_unsplit_entry_ms=g["serial_unsplit_ms"] / g["chunks"],
              tables_host_ms=g["tables_ms"],
              **mesh_keys, **common),
         dict(name="K6-stream pixel_mask_stream", source=src + "pixel_mask.cu",
@@ -2234,13 +2426,28 @@ def frame_kernel(mk, scene, cfg, go_camera, what, subset=K3_SUBSET):
     out = dict(launches=n_launch, err=err, ms=ms, plain=plain, bound=bnd,
                by=by, plain_lanes=int(idx.numel()), ms_plain_lanes=sub_ms,
                lanes_per_frame=n)
+    if mode == "loop":
+        # K7 without its guard: the time, and the bound over the work the
+        # unguarded soft loop does (the yardstick of the parent's K7)
+        cnt.zero_()
+        _, counted = chunk_launches(mk, scene, lanes, sizes, cfg,
+                                    counters=cnt, soft_guard=False)
+        counted()
+        u_ops, u_work = k1_ops(scene, cnt)
+        _, u_launch = chunk_launches(mk, scene, lanes, sizes, cfg,
+                                     soft_guard=False)
+        out["unguarded_ms"] = cuda_ms(u_launch, 2) / n_launch
+        out["unguarded_bound"] = bound(u_ops / n_launch, n / n_launch * (
+            12 + 12 + 4 + 4 + 12))[0]
+        print(f"   {what}: unguarded work {u_work}, {u_ops:.4e} ops; per "
+              f"launch {out['unguarded_ms']:.4f} ms, bound "
+              f"{out['unguarded_bound']:.4f} ms", flush=True)
     if mode == "bvh":
         out["split"] = k3_split(mk, scene, lanes, sizes, cfg)
         out["walk_smem_bytes"] = 4 * mk.pack_walk_table(scene).numel()
         print(f"   {what}: K3+K4 ms a launch over its walk table "
-              f"({out['walk_smem_bytes']} B) vs the previous design, in "
-              f"turns (soft shadows, hard only, no lights): "
-              f"{out['split']}", flush=True)
+              f"({out['walk_smem_bytes']} B) with soft shadows, hard only "
+              f"and without lights: {out['split']}", flush=True)
     return out
 
 
@@ -2281,10 +2488,10 @@ def slice_rows(mk, scenes, frames, cfg, record):
         ms_plain_lanes=lp["ms_plain_lanes"],
         lanes_per_frame=lp["lanes_per_frame"],
         k2_mask_ms=record["k2_loop_ms"],
-        smem_check_ms=record["k7_smem"][0],
-        smem_check_bound_ms=record["k7_smem"][1],
-        ldg_check_ms=record["k7_ldg"][0],
-        ldg_check_bound_ms=record["k7_ldg"][1], **common))
+        unguarded_ms=lp["unguarded_ms"],
+        unguarded_bound_ms=lp["unguarded_bound"],
+        smem_bytes=mk.trace_smem_bytes(frames["loop"][0]),
+        check_64x48=record["k7_check"], **common))
     rows.append(dict(
         name="K1-ext bounce body (in K1, K3+K4, K7)",
         source=src + "bounce.cuh", replaces=mkpy + "1921",
@@ -2514,9 +2721,9 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
     k4_bound, k4_by = bound(k4_ops / n_k3, 0)
     split = k3_split(mk, ring, lanes, sizes, cfg)
     walk_bytes = 4 * mk.pack_walk_table(ring).numel()
-    print(f"   K3+K4: ms a launch over its walk table ({walk_bytes} B) vs "
-          f"the previous design, in turns (soft shadows, hard only, no "
-          f"lights): {split}", flush=True)
+    print(f"   K3+K4: ms a launch over its walk table ({walk_bytes} B) with "
+          f"soft shadows, hard only and without lights: {split}",
+          flush=True)
     print(f"   K3+K4: {n} lanes in {n_k3} launches, work [closest, hard, "
           f"soft, slab, sphere, triangle, fused slab, fused (ray, sphere), "
           f"fused (ray, triangle), plane/box] = {work}, {ops:.4e} ops of "
@@ -2556,12 +2763,11 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
             k2_bound, k2_by),
         row("K3 trace_bvh", src + "trace_bvh.cu", mkpy + "954",
             launches_bvh["trace_bvh"], max([k3_err] + record["k3walk_err"]),
-            k3_ms, plain_ms, k3_bound, k3_by, prev_ms=split["prev"]["soft"],
-            split=split, walk_smem_bytes=walk_bytes, **subset),
+            k3_ms, plain_ms, k3_bound, k3_by, split=split,
+            walk_smem_bytes=walk_bytes, **subset),
         row("K4 trace_bvh soft walk", src + "bvh_walk.cuh", mkpy + "1308",
             launches_bvh["trace_bvh"], k3_err, k3_ms - hard_ms,
             plain_ms - plain_hard_ms, k4_bound, k4_by,
-            prev_ms=split["prev"]["soft"] - split["prev"]["hard"],
             **subset),
         row("K6 pixel_mask_bvh", src + "pixel_mask.cu", mkpy + "2661",
             launches_bvh["pixel_mask_bvh"], record["k6_err"], k6_ms,

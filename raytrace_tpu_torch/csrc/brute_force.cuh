@@ -15,36 +15,59 @@
 // in shared memory, where every thread of a warp reads the same row at
 // the same time (a broadcast).
 //
-// K1-guard (kGuard, K1 only; K7 stays unguarded, as the JAX loop mode
-// sets both guard functions to None, :1684-1685). Replaces soft_prim_sets_fn
-// (:1718) and soft_guard_fn (:1858) of raytrace_tpu/ops/megakernel.py and
-// their use in the unroll soft-shadow loop (:2040-2136). Before a lane
-// draws a light's soft-shadow rays, one conservative interval test per
-// occluder asks whether ANY ray of the light's jitter cone (asin 0.1;
-// 0.102 for margin) could put a root in [t_min, dist]: spheres by the
-// sphere quadratic, triangles and boxes by bounding spheres, planes by
-// |n.(q - p)| <= dist. The flags go into a bitmask in registers (at most
-// kGuardMax occluders: spheres + hit triangles + boxes + planes <= the 96
-// primitives of unroll mode, three 32-bit words). The sample-outer loop
-// then tests only the flagged occluders, with its early exit; a lane with
-// no flag counts every ray unblocked without drawing one. A skipped
-// occluder blocks no ray, so every verdict, and sf, is bit-identical to
-// the unguarded loop. The JAX kernel hoists all samples' directions and
-// ORs verdicts occluder by occluder under a per-block lax.cond, a form made
-// for (R,128) blocks; one thread per lane keeps the sample-outer order and
-// needs no hoisted directions. What it saves: the soft tests of occluders
-// out of the cone, at the price of one guard per (occluder, light) where
-// the unguarded loop pays one test per (occluder, sample).
+// K1-guard (Run.soft_guard, on every main-path launch of K1 and K7).
+// Replaces soft_prim_sets_fn (:1718) and soft_guard_fn (:1858) of
+// raytrace_tpu/ops/megakernel.py and their use in the unroll soft-shadow
+// loop (:2040-2136); the JAX loop mode runs unguarded (:1684-1685), which
+// gives the same verdicts. Before a lane draws a light's soft-shadow rays,
+// one conservative interval test per occluder asks whether ANY ray of the
+// light's jitter cone (asin 0.1; 0.102 for margin) could put a root in
+// [t_min, dist]: spheres by the sphere quadratic, triangles and boxes by
+// bounding spheres, planes by |n.(q - p)| <= dist. The flags, one bit an
+// occluder in the order [sph, tri, box, pln], go into three 32-bit words
+// in registers (kGuardMax = 96 occluders); the sample-outer loop then
+// tests each ray against the flagged occluders only, with its early exit,
+// and a light with nothing flagged counts every ray unblocked without
+// drawing one (soft_one_chunk). Past 96 occluders (K7 only: kChunks) the
+// occluders go in chunks of 96, each chunk's flags computed in turn and
+// every ray of a block of 64 not yet blocked (a bit of a 64-bit mask) drawn
+// again and tested against them (soft_chunks): a ray's tests are still one
+// pass over every flagged occluder in order up to its first blocker. A
+// skipped occluder blocks no ray, and a ray's verdict is the OR over its
+// tests whatever their order, so every verdict, and sf, is bit-identical
+// to the unguarded loop. The single-chunk loop stays separate, in K7 too,
+// and out of K1 the chunked one, from same-call A/Bs on the H100
+// (PERF.md): the chunked form ran K1's soft shadows 30% slower on the
+// textured frame, compiled into K1 beside the other, inline or not, it
+// slowed the bench frame, and in K7 on the loop frame's 81 occluders it
+// ran the frame 3% slower than the single-chunk loop. K1's scenes have at
+// most 96 occluders (on a scene past that K1 runs the unguarded loop).
+// The JAX kernel hoists all samples' directions and ORs verdicts occluder
+// by occluder under a per-block lax.cond, a form made for (R,128) blocks;
+// one thread per lane keeps the sample-outer order and needs no hoisted
+// directions. What it saves: the soft tests of occluders out of
+// the cone, at the price of one guard per (occluder, light) where the
+// unguarded loop pays one test per (occluder, sample).
 #pragma once
 
 #include "bounce.cuh"
+
+// The threads of a block of K1 and K7, and the blocks an SM that ptxas
+// must leave registers for (__launch_bounds__) in each: K1 at three blocks
+// of 256 (80 registers, 24 warps an SM), K7 at four (64 registers, 32
+// warps), where the entries took 115-128 registers and 16 warps (PERF.md:
+// the same-call A/B of 128, 256 and 384 threads and of 2, 3 and 4
+// blocks).
+#define RT_BRUTE_THREADS 256
+#define RT_UNROLL_MIN_BLOCKS 3
+#define RT_LOOP_MIN_BLOCKS 4
 
 namespace rt {
 
 // 3 from trace_lane + tests[5]
 constexpr int kBruteCounters = 8;
 constexpr int kGuardWords = 3;
-constexpr int kGuardMax = 32 * kGuardWords;
+constexpr int kGuardMax = 32 * kGuardWords;  // occluders a chunk
 
 // The soft-shadow guard of one bounding sphere, given the direction-free
 // terms of its test from p (oc = p - center, cc = |oc|^2 - r^2, by the
@@ -113,12 +136,14 @@ RT_DEV bool plane_guard(V3 p, const float* pl, float dist) {
 // Work: occlusion tests of spheres and planes (tests[0]) and of triangles
 // and boxes (tests[1]); K1-guard's guard evaluations (tests[2]), the
 // occluders they flagged (tests[3]) and the soft-shadow rays left undrawn
-// (tests[4]: the sample count for a lane whose mask was empty).
-template <bool kLdg, bool kGuard>
+// (tests[4]: the rays of a block where no chunk flagged an occluder).
+// With more than 64 soft-shadow rays and more than kGuardMax occluders
+// the guards run again for each block of 64 rays.
+template <bool kLdg, bool kChunks>
 struct BruteGeo {
   static constexpr int kSphMat = 4;  // sph row: center.xyz, radius, mat
   const Tables& tb;
-  bool guard;  // run.soft_guard (K1 only)
+  bool guard;  // run.soft_guard
   int tests[5];
 
   RT_DEV const float* sphere_row(int i) const { return tb.sph + 5 * i; }
@@ -216,10 +241,11 @@ struct BruteGeo {
     return plane_guard(p, row, dist);
   }
 
-  // The occlusion test of the flagged occluders only, in occluded's order
-  // and with its early exit and counters.
-  RT_DEV bool occluded_flagged(V3 o, V3 d, float t_max,
-                               const uint32_t* can) {
+  // The occlusion test of the flagged occluders of the chunk from c0 only
+  // (bit k of can: occluder c0 + k), in occluded's order and with its
+  // early exit and counters.
+  RT_DEV bool occluded_flagged(V3 o, V3 d, float t_max, const uint32_t* can,
+                               int c0) {
     float a = dot3(d, d);
     float inv_a = 1.0f / a;
     V3 inv = safe_inverse(d);
@@ -227,7 +253,7 @@ struct BruteGeo {
     for (int w = 0; w < kGuardWords; ++w) {
       uint32_t bits = can[w];
       while (bits != 0u) {
-        int i = 32 * w + (ffs32(bits) - 1);
+        int i = c0 + 32 * w + (ffs32(bits) - 1);
         bits &= bits - 1u;
         bool hit;
         if (i < tb.ns) {
@@ -256,35 +282,77 @@ struct BruteGeo {
   // One occlusion ray per soft-shadow sample, for any sample count; with
   // K1-guard, only against the occluders its guard flags.
   RT_DEV float soft_unblocked(V3 p, V3 ld, float dist, const SoftRays& rays) {
-    float unblocked = 0.0f;
     const int n_occl = tb.ns + tb.nt + tb.nb + tb.npl;
-    // (the wrapper refuses the guard past kGuardMax occluders)
-    if (!kGuard || !guard) {
-      for (int s = 0; s < rays.samples; ++s) {
-        V3 sd = soft_dir(rays, ld, s);
-        unblocked += occluded(p, sd, dist) ? 0.0f : 1.0f;
-      }
-      return unblocked;
+    if (guard && n_occl <= kGuardMax) return soft_one_chunk(p, ld, dist, rays);
+    if (kChunks && guard) return soft_chunks(p, ld, dist, rays, n_occl);
+    float unblocked = 0.0f;
+    for (int s = 0; s < rays.samples; ++s) {
+      V3 sd = soft_dir(rays, ld, s);
+      unblocked += occluded(p, sd, dist) ? 0.0f : 1.0f;
     }
-    uint32_t can[kGuardWords] = {0u, 0u, 0u};
+    return unblocked;
+  }
+
+  // The flags of the chunk of occluders [c0, c0 + n), n <= kGuardMax (bit
+  // k: occluder c0 + k); false when none is flagged.
+  RT_DEV bool flag_chunk(int c0, int n, V3 p, V3 ld, float dist,
+                         uint32_t* can) {
     uint32_t any = 0u;
-    for (int i = 0; i < n_occl; ++i) {
-      if (guard_one(i, p, ld, dist)) {
-        can[i >> 5] |= 1u << (i & 31);
+    for (int w = 0; w < kGuardWords; ++w) can[w] = 0u;
+    for (int k = 0; k < n; ++k) {
+      if (guard_one(c0 + k, p, ld, dist)) {
+        can[k >> 5] |= 1u << (k & 31);
         ++tests[3];
       }
     }
-    tests[2] += n_occl;
+    tests[2] += n;
     for (int w = 0; w < kGuardWords; ++w) any |= can[w];
-    if (any == 0u) {  // nothing can block: every ray is unblocked
-      tests[4] += rays.samples;
+    return any != 0u;
+  }
+
+  // Up to kGuardMax occluders (every K1 scene): one chunk, each ray drawn
+  // once and tested against the flagged occluders.
+  RT_DEV float soft_one_chunk(V3 p, V3 ld, float dist, const SoftRays& rays) {
+    uint32_t can[kGuardWords];
+    if (!flag_chunk(0, tb.ns + tb.nt + tb.nb + tb.npl, p, ld, dist, can)) {
+      tests[4] += rays.samples;  // nothing can block: every ray unblocked
       return static_cast<float>(rays.samples);
     }
+    float unblocked = 0.0f;
     for (int s = 0; s < rays.samples; ++s) {
       V3 sd = soft_dir(rays, ld, s);
-      unblocked += occluded_flagged(p, sd, dist, can) ? 0.0f : 1.0f;
+      unblocked += occluded_flagged(p, sd, dist, can, 0) ? 0.0f : 1.0f;
     }
     return unblocked;
+  }
+
+  // Past kGuardMax occluders: chunk by chunk, in blocks of 64 rays whose
+  // blocked rays are the bits of a mask, each ray drawn again for each
+  // chunk that flags an occluder while it is unblocked.
+  RT_DEV float soft_chunks(V3 p, V3 ld, float dist, const SoftRays& rays,
+                           int n_occl) {
+    int blocked = 0;
+    for (int s0 = 0; s0 < rays.samples; s0 += 64) {
+      const int S = rays.samples - s0 < 64 ? rays.samples - s0 : 64;
+      const uint64_t full =
+          S >= 64 ? ~0ull : ((1ull << static_cast<uint64_t>(S)) - 1ull);
+      uint64_t bm = 0;  // bit s: ray s0 + s is blocked
+      bool drawn = false;
+      for (int c0 = 0; c0 < n_occl && bm != full; c0 += kGuardMax) {
+        uint32_t can[kGuardWords];
+        const int n = n_occl - c0 < kGuardMax ? n_occl - c0 : kGuardMax;
+        if (!flag_chunk(c0, n, p, ld, dist, can)) continue;
+        drawn = true;
+        for (int s = 0; s < S; ++s) {
+          if (bm >> s & 1ull) continue;
+          V3 sd = soft_dir(rays, ld, s0 + s);
+          if (occluded_flagged(p, sd, dist, can, c0)) bm |= 1ull << s;
+        }
+      }
+      if (!drawn) tests[4] += S;  // nothing can block: every ray unblocked
+      blocked += popc64(bm);
+    }
+    return static_cast<float>(rays.samples - blocked);
   }
 
   RT_DEV void store_work(int32_t* out) {
@@ -292,12 +360,11 @@ struct BruteGeo {
   }
 };
 
-// One thread, one lane: the shared entry of K1 (kGuard) and K7 over the
-// tables tb.
-template <bool kLdg, bool kState, bool kGuard>
+// One lane of K1 (kChunks false) or K7 over the tables tb.
+template <bool kLdg, bool kState, bool kChunks>
 RT_DEV void brute_lane(const Tables& tb, const Lanes& io, const Run& run,
                        int lane) {
-  BruteGeo<kLdg, kGuard> geo{tb, run.soft_guard != 0, {0, 0, 0, 0, 0}};
+  BruteGeo<kLdg, kChunks> geo{tb, run.soft_guard != 0, {0, 0, 0, 0, 0}};
   run_lane<kState>(geo, tb, io, run, lane, kBruteCounters);
 }
 

@@ -50,11 +50,6 @@
 //   WalkLeaves (bvh mode, K3+K4): the rows of the walk table
 //     (megakernel.pack_walk_table), one 16-byte aligned row of 12 floats
 //     per leaf slot, prim_index resolved when it was packed;
-//   TreeLeaves (bvh mode, rt_trace_bvh_global, the previous K3+K4):
-//     prim_index [P] floats, a primitive id per leaf slot (id < ns:
-//     sphere, else triangle id - ns; triangles past the hit table, the
-//     cube faces, are skipped: their boxes are the hit form), into the
-//     sphere and triangle tables;
 //   RowLeaves (stream mode, K5, stream_walk.cuh): the unified rows of the
 //     stream table, one per leaf slot, read in place (trace_stream.cu).
 // The hit's attributes (the smooth normal of a triangle winner, K1-ext,
@@ -104,34 +99,6 @@ RT_DEV const float* walk_tables(const float* walk, const Dims& dims,
   return walk + ((n + 3) & ~3);
 }
 
-// Leaf slots as indices into the scene's sphere and triangle tables.
-struct TreeLeaves {
-  static constexpr int kSphMat = 4;  // sph row: center.xyz, radius, mat
-  const Tables& tb;
-  const float* pidx;
-
-  // The primitive of leaf slot `slot`: 0 sphere (*row: center.xyz,
-  // radius), 1 triangle (*row: v0, e1, e2), -1 none (a cube face); *id
-  // indexes sphere_row/triangle_row.
-  RT_DEV int prim(int slot, int* id, const float** row) const {
-    int pid = static_cast<int>(ldg(pidx + slot));
-    if (pid < tb.ns) {
-      *id = pid;
-      *row = tb.sph + 5 * pid;
-      return 0;
-    }
-    int ti = pid - tb.ns;
-    if (ti >= tb.nt) return -1;
-    *id = ti;
-    *row = tb.tri + tb.tri_cols * ti;
-    return 1;
-  }
-  RT_DEV const float* sphere_row(int i) const { return tb.sph + 5 * i; }
-  RT_DEV const float* triangle_row(int i) const {
-    return tb.tri + tb.tri_cols * i;
-  }
-};
-
 // Leaf slots as rows of the walk table: 12 floats a slot, 16-byte
 // aligned - v0.xyz, e1.xyz, e2.xyz (a sphere: center.xyz, radius, then
 // zeros), tag (0 sphere, 1 triangle, 2 cube face), id (into the sphere or
@@ -145,7 +112,10 @@ struct WalkLeaves {
   const Tables& tb;
   const float* rows;
 
-  // As TreeLeaves::prim; *row is the slot's row.
+  // The primitive of leaf slot `slot`: 0 sphere (*row: center.xyz,
+  // radius), 1 triangle (*row: v0, e1, e2), -1 none (a cube face: its box
+  // is the hit form); *id indexes sphere_row/triangle_row. *row is the
+  // slot's row.
   RT_DEV int prim(int slot, int* id, const float** row) const {
     const float* r = rows + kWalkRow * slot;
     F4 c = ld4<kLdg>(r + 8);  // e2.z, tag, id, 0

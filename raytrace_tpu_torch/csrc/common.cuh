@@ -84,6 +84,125 @@ RT_DEV void load_row(const float* src, int n, float* dst) {
   for (int k = 0; k < n; ++k) dst[k] = ld<kLdg>(src + k);
 }
 
+// ------------------------------------------------- persistent blocks ----
+// The trace kernels K1, K3+K4 and K7 run persistent blocks: as many as are
+// resident on the card (persistent_blocks), each copying its table into
+// shared memory once (copy_to_smem), and each warp taking the next 32
+// lanes from a lane counter that the launcher zeroes on the stream just
+// before the kernel (for_lanes).
+// Under RT_HOST_EMULATION a warp is one thread that takes one lane at a
+// time.
+#ifndef RT_HOST_EMULATION
+constexpr int kWarpLanes = 32;
+#else
+constexpr int kWarpLanes = 1;
+#endif
+
+// The first of the next kWarpLanes lanes of a persistent launch, the same
+// for every thread of the warp (the warp must be converged).
+RT_DEV int take_lanes(int32_t* next) {
+#ifndef RT_HOST_EMULATION
+  int first = 0;
+  if ((threadIdx.x & 31u) == 0u) first = atomicAdd(next, kWarpLanes);
+  return __shfl_sync(0xffffffffu, first, 0);
+#else
+  int first = *next;
+  *next += kWarpLanes;
+  return first;
+#endif
+}
+
+// f(lane) for every lane this thread takes, until the counter passes n.
+// Consecutive lanes are samples of one pixel, so a warp's rays stay
+// coherent. (Asking for the next lanes before running these, to hide the
+// atomic's round trip, ran K1 and K7 slower in a same-call A/B on the
+// H100; PERF.md.)
+template <class F>
+RT_DEV void for_lanes(int n, int32_t* next, F&& f) {
+  const int in_warp = static_cast<int>(threadIdx.x) % kWarpLanes;
+  for (;;) {
+    int first = take_lanes(next);
+    if (first >= n) break;
+    int lane = first + in_warp;
+    if (lane < n) f(lane);
+  }
+}
+
+// Copy n floats from src (global memory, 16-byte aligned) to dst (shared
+// memory, 16-byte aligned) with the threads of the block, in 16-byte
+// loads, then the tail of fewer than 4 floats. The caller synchronises.
+RT_DEV void copy_to_smem(float* dst, const float* src, int n) {
+  const int n4 = n & ~3;
+  const int t = static_cast<int>(threadIdx.x);
+  const int nt = static_cast<int>(blockDim.x);
+  for (int i = 4 * t; i < n4; i += 4 * nt)
+    *reinterpret_cast<F4*>(dst + i) = ld4<true>(src + i);
+  for (int i = n4 + t; i < n; i += nt) dst[i] = ldg(src + i);
+}
+
+#ifndef RT_HOST_EMULATION
+// The current device's SM count, read once.
+inline int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 1;
+  if (counts[dev] == 0) {
+    cudaDeviceProp prop;
+    cudaGetDeviceProperties(&prop, dev);
+    counts[dev] = prop.multiProcessorCount;
+  }
+  return counts[dev];
+}
+
+// The blocks of a persistent launch of `kernel` over n_lanes lanes: as
+// many as are resident at `threads` threads and `smem` bytes of dynamic
+// shared memory a block (the occupancy at the entry's registers times the
+// SM count), and no more than the lanes fill. Above 48 KB the entry opts
+// in to the device's largest block of shared memory first. The answer is
+// kept per (entry, threads, bytes, device), so a repeated launch makes no
+// occupancy query. A launch that cannot run at all (too much shared
+// memory) still gets one block an SM, and reports why through
+// cudaGetLastError().
+template <class Kernel>
+inline int persistent_blocks(Kernel kernel, int threads, size_t smem,
+                             int n_lanes) {
+  struct Seen {
+    const void* fn;
+    int threads, dev, blocks;
+    size_t smem;
+  };
+  static Seen seen[64];
+  static int n_seen = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int blocks = 0;
+  for (int i = 0; i < n_seen && blocks == 0; ++i)
+    if (seen[i].fn == fn && seen[i].threads == threads &&
+        seen[i].smem == smem && seen[i].dev == dev)
+      blocks = seen[i].blocks;
+  if (blocks == 0) {
+    if (smem > 48 * 1024) {
+      int optin = 0;
+      cudaDeviceGetAttribute(&optin,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           optin);
+    }
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  smem);
+    blocks = sm_count() * (per_sm < 1 ? 1 : per_sm);
+    if (per_sm >= 1 && n_seen < 64)
+      seen[n_seen++] = Seen{fn, threads, dev, blocks, smem};
+  }
+  int need = (n_lanes + threads - 1) / threads;
+  return blocks < need ? blocks : need;
+}
+#endif
+
 constexpr float kBig = 3.0e38f;   // "no hit" distance
 constexpr float kTMin = 1e-3f;    // t_min of every ray
 constexpr uint32_t kStreamsPerBounce = 512u;

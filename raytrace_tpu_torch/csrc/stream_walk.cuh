@@ -56,7 +56,7 @@ struct RowLeaves {
   const float* rows;
   int cols;
 
-  // As TreeLeaves::prim; *id is the row, *row its cols 1...
+  // As WalkLeaves::prim; *id is the row, *row its cols 1...
   RT_DEV int prim(int slot, int* id, const float** row) const {
     const float* r = rows + cols * slot;
     int tag = static_cast<int>(ldg(r));

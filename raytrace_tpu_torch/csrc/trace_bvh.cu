@@ -22,48 +22,14 @@
 // (kLdg). The scene tables (lights, materials, textures, planes, boxes,
 // the hit's attributes by id) stay in global memory.
 //
-// The blocks are persistent: as many as fit the SMs at this entry's
-// registers and shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// times the SM count), so a large table is copied once an SM-resident
-// block, not once every 128 lanes. Each warp takes the next 32 lanes
-// from a lane counter (one atomicAdd a warp, broadcast by a shuffle) until
-// none are left; the wrapper passes the counter zeroed. Consecutive lanes
-// are samples of one pixel, so a warp's walks stay coherent. What bounds
+// The blocks are persistent (common.cuh): as many as fit the SMs at this
+// entry's registers and shared memory, so a large table is copied once an
+// SM-resident block, not once every 128 lanes. Each warp takes the next 32
+// lanes from a lane counter (one atomicAdd a warp, broadcast by a shuffle)
+// until none are left; the launcher zeroes the counter. What bounds
 // it: operations (slab and primitive tests); divergence between the walks
 // of a warp's lanes is the cost this design accepts.
-//
-// The previous design - the same walks over the scene tables, the node
-// tables and prim_index in global memory, one block of 128 lanes a grid
-// block - is a second pair of entries, rt_trace_bvh_global: the same
-// function and work counters, kept to compare against on the card.
-//
-// Under RT_HOST_EMULATION a warp is one thread that takes one lane at a
-// time.
 #include "bvh_walk.cuh"
-
-namespace rt {
-
-#ifndef RT_HOST_EMULATION
-constexpr int kWarpLanes = 32;
-#else
-constexpr int kWarpLanes = 1;
-#endif
-
-// The first of the next kWarpLanes lanes of a persistent launch, the same
-// for every thread of the warp (the warp must be converged).
-RT_DEV int take_lanes(int32_t* next) {
-#ifndef RT_HOST_EMULATION
-  int first = 0;
-  if ((threadIdx.x & 31u) == 0u) first = atomicAdd(next, kWarpLanes);
-  return __shfl_sync(0xffffffffu, first, 0);
-#else
-  int first = *next;
-  *next += kWarpLanes;
-  return first;
-#endif
-}
-
-}  // namespace rt
 
 // The lanes of the persistent blocks over a walk table in shared memory
 // (kSmem) or in global memory.
@@ -76,16 +42,11 @@ RT_DEV void trace_walk_lanes(const rt::Lanes& io, const float* tables,
   rt::Bvh bvh;
   const float* rows = rt::walk_tables(walk, dims, &bvh);
   rt::WalkLeaves<kLdg> lv{tb, rows};
-  const int in_warp = static_cast<int>(threadIdx.x) % rt::kWarpLanes;
-  for (;;) {
-    int first = rt::take_lanes(next);
-    if (first >= io.n) break;
-    int lane = first + in_warp;
-    if (lane >= io.n) continue;
+  rt::for_lanes(io.n, next, [&](int lane) {
     rt::BvhGeo<rt::WalkLeaves<kLdg>, kLdg> geo{tb, lv, bvh,
                                                {0, 0, 0, 0, 0, 0, 0}};
     rt::run_lane<kState>(geo, tb, io, run, lane, rt::kBvhCounters);
-  }
+  });
 }
 
 template <bool kState>
@@ -95,9 +56,7 @@ RT_DEV void trace_bvh_body(const rt::Lanes& io, const float* tables,
                            const rt::Run& run) {
   extern __shared__ __align__(16) float smem[];
   if (in_smem) {
-    for (int i = 4 * static_cast<int>(threadIdx.x); i < walk_floats;
-         i += 4 * static_cast<int>(blockDim.x))
-      *reinterpret_cast<rt::F4*>(smem + i) = rt::ld4<true>(walk + i);
+    rt::copy_to_smem(smem, walk, walk_floats);
     __syncthreads();
     trace_walk_lanes<kState, true>(io, tables, dims, smem, next, run);
   } else {
@@ -132,60 +91,15 @@ rt_trace_bvh_state_kernel(
                        run);
 }
 
-// The previous design: one thread a lane over 128-lane blocks, the scene
-// tables, the tree and prim_index read through the read-only cache.
-template <bool kState>
-RT_DEV void trace_bvh_global_body(const rt::Lanes& io, const float* tables,
-                                  const rt::Dims& dims, const rt::Run& run) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= io.n) return;
-  rt::Tables tb = rt::make_tables(tables, dims);
-  rt::Bvh bvh;
-  const float* pidx = rt::bvh_tables(tables, dims, &bvh);
-  rt::TreeLeaves lv{tb, pidx};
-  rt::BvhGeo<rt::TreeLeaves> geo{tb, lv, bvh, {0, 0, 0, 0, 0, 0, 0}};
-  rt::run_lane<kState>(geo, tb, io, run, lane, rt::kBvhCounters);
-}
-
-extern "C" __global__ void rt_trace_bvh_global_kernel(
-    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
-    rt::Run run) {
-  trace_bvh_global_body<false>(io, tables, dims, run);
-}
-
-extern "C" __global__ void rt_trace_bvh_global_state_kernel(
-    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
-    rt::Run run) {
-  trace_bvh_global_body<true>(io, tables, dims, run);
-}
-
 #ifndef RT_HOST_EMULATION
-namespace {
-
-// The current device's SM count, read once.
-int sm_count() {
-  static int counts[64] = {0};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return 1;
-  if (counts[dev] == 0) {
-    cudaDeviceProp prop;
-    cudaGetDeviceProperties(&prop, dev);
-    counts[dev] = prop.multiProcessorCount;
-  }
-  return counts[dev];
-}
-
-}  // namespace
-
 // Launch K3+K4 on `stream`; dims: the table sizes (bounce.cuh:Dims) as
 // ints; walk: the walk table (megakernel.pack_walk_table), walk_floats
 // long (a multiple of 4, 16-byte aligned); in_smem: copy it to shared
 // memory (it fits the budget), else read it in place; next: an int32
-// lane counter, zeroed; tp_in, alive_in, state and counters may be null
-// (bounce.cuh:Lanes). Returns cudaGetLastError() after the launch: a
-// launch refused for its shared memory or its registers reports it
-// there.
+// lane counter (zeroed here, on the stream, before the kernel); tp_in,
+// alive_in, state and counters may be null (bounce.cuh:Lanes). Returns
+// cudaGetLastError() after the launch: a launch refused for its shared
+// memory or its registers reports it there.
 extern "C" int rt_trace_bvh(const float* origin, const float* direction,
                             const int32_t* pix, const int32_t* samp,
                             const float* tp_in, const float* alive_in,
@@ -196,7 +110,6 @@ extern "C" int rt_trace_bvh(const float* origin, const float* direction,
                             int end_bounce, int shadow_samples, int soft,
                             int recursive, uint32_t seed, int rr_start,
                             float tp_eps, int soft_guard, void* stream) {
-  static bool opted_in[2] = {false, false};
   const int threads = RT_BVH_THREADS;
   rt::Dims d;
   memcpy(&d, dims, sizeof(d));
@@ -205,60 +118,15 @@ extern "C" int rt_trace_bvh(const float* origin, const float* direction,
   rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive,
               seed, rr_start, tp_eps, soft_guard};
   if (n_lanes > 0) {
-    const bool st = rt::stateful(io, run);
-    auto kernel = st ? rt_trace_bvh_state_kernel : rt_trace_bvh_kernel;
+    auto kernel = rt::stateful(io, run) ? rt_trace_bvh_state_kernel
+                                        : rt_trace_bvh_kernel;
     size_t smem = in_smem ? static_cast<size_t>(walk_floats) * sizeof(float)
                           : 0;
-    if (smem > 48 * 1024 && !opted_in[st]) {
-      int dev = 0, optin = 0;
-      cudaGetDevice(&dev);
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-      cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           optin);
-      opted_in[st] = true;
-    }
-    int per_sm = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                  smem);
-    if (per_sm < 1) per_sm = 1;  // the launch then reports why it cannot run
-    int need = (n_lanes + threads - 1) / threads;
-    int blocks = sm_count() * per_sm;
-    if (blocks > need) blocks = need;
+    int blocks = rt::persistent_blocks(kernel, threads, smem, n_lanes);
+    cudaMemsetAsync(next, 0, sizeof(int32_t),
+                    static_cast<cudaStream_t>(stream));
     kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
         io, tables, d, walk, walk_floats, in_smem, next, run);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launch the previous K3+K4 (rt_trace_bvh_global) on `stream`: the same
-// arguments without the walk table; tables hold the node table, the
-// 4-wide table (n_wide > 0) and prim_index after the scene tables.
-extern "C" int rt_trace_bvh_global(const float* origin, const float* direction,
-                                   const int32_t* pix, const int32_t* samp,
-                                   const float* tp_in, const float* alive_in,
-                                   float* radiance, float* state,
-                                   int32_t* counters, int n_lanes,
-                                   const float* tables, const int* dims,
-                                   int start_bounce, int end_bounce,
-                                   int shadow_samples, int soft,
-                                   int recursive, uint32_t seed,
-                                   int rr_start, float tp_eps,
-                                   int soft_guard, void* stream) {
-  const int threads = 128;
-  rt::Dims d;
-  memcpy(&d, dims, sizeof(d));
-  rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
-                                alive_in, radiance, state, counters, n_lanes);
-  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive,
-              seed, rr_start, tp_eps, soft_guard};
-  if (n_lanes > 0) {
-    int blocks = (n_lanes + threads - 1) / threads;
-    auto kernel = rt::stateful(io, run) ? rt_trace_bvh_global_state_kernel
-                                        : rt_trace_bvh_global_kernel;
-    kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        io, tables, d, run);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,15 +9,20 @@
 // :889-930). Plain version: trace.py:trace.
 //
 // Design for Hopper. K1's brute-force policy (brute_force.cuh) with its
-// first-minimum tie order and its box-occluder split (cube faces are left
-// out of the tests, their boxes are the hit form), over the same bounce
-// body (bounce.cuh). The tables go to shared memory while they fit the
-// budget that the wrapper states (megakernel.LOOP_SMEM_BYTES: 48 KB, the
-// most a block takes without opting in); past it they stay in global
-// memory and every row is read through the read-only cache (__ldg), as K3
-// reads its tables. What bounds it: operations - every ray tests every
-// primitive, so the work grows with the table while the bytes (32 in and
-// 12 out per lane) do not.
+// first-minimum tie order, its box-occluder split (cube faces are left out
+// of the tests, their boxes are the hit form) and K1-guard, here over any
+// number of occluders (in chunks of 96), over the same bounce body
+// (bounce.cuh), in K1's persistent blocks (common.cuh): as many blocks as
+// are resident, each copying the tables into dynamic shared memory once
+// with 16-byte loads, opting in above 48 KB, while they fit the budget
+// that the wrapper states (megakernel.LOOP_SMEM_BYTES, the most an H100
+// block can take: 232,448 bytes, some 11,600 spheres); each warp takes the
+// next 32 lanes from the lane counter. Past the budget the tables stay in
+// global memory and every row is read through the read-only cache
+// (__ldg) by the same code (kLdg). What bounds it: operations - every
+// closest-hit and hard-shadow ray tests every primitive, and every soft
+// ray the occluders its guard flags, so the work grows with the table
+// while the bytes (32 in and 12 out per lane) do not.
 //
 // Table layout: bounce.cuh.
 #include "brute_force.cuh"
@@ -25,54 +30,58 @@
 template <bool kState>
 RT_DEV void trace_loop_body(const rt::Lanes& io, const float* tables,
                             const rt::Dims& dims, int in_smem,
-                            const rt::Run& run) {
-  extern __shared__ float smem[];
+                            int32_t* next, const rt::Run& run) {
+  extern __shared__ __align__(16) float smem[];
   if (in_smem) {
-    const int n_table = rt::table_floats(dims);
-    for (int i = threadIdx.x; i < n_table; i += blockDim.x)
-      smem[i] = tables[i];
+    rt::copy_to_smem(smem, tables, rt::table_floats(dims));
     __syncthreads();
-  }
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= io.n) return;
-  if (in_smem) {
     rt::Tables tb = rt::make_tables(smem, dims);
-    rt::brute_lane<false, kState, false>(tb, io, run, lane);
+    rt::for_lanes(io.n, next, [&](int lane) {
+      rt::brute_lane<false, kState, true>(tb, io, run, lane);
+    });
   } else {
     rt::Tables tb = rt::make_tables(tables, dims);
-    rt::brute_lane<true, kState, false>(tb, io, run, lane);
+    rt::for_lanes(io.n, next, [&](int lane) {
+      rt::brute_lane<true, kState, true>(tb, io, run, lane);
+    });
   }
 }
 
-extern "C" __global__ void rt_trace_loop_kernel(
-    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
-    int in_smem, rt::Run run) {
-  trace_loop_body<false>(io, tables, dims, in_smem, run);
+extern "C" __global__ void __launch_bounds__(RT_BRUTE_THREADS,
+                                             RT_LOOP_MIN_BLOCKS)
+rt_trace_loop_kernel(rt::Lanes io, const float* __restrict__ tables,
+                     rt::Dims dims, int in_smem, int32_t* next,
+                     rt::Run run) {
+  trace_loop_body<false>(io, tables, dims, in_smem, next, run);
 }
 
 // K1-state: the same with lane state in or out.
-extern "C" __global__ void rt_trace_loop_state_kernel(
-    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
-    int in_smem, rt::Run run) {
-  trace_loop_body<true>(io, tables, dims, in_smem, run);
+extern "C" __global__ void __launch_bounds__(RT_BRUTE_THREADS,
+                                             RT_LOOP_MIN_BLOCKS)
+rt_trace_loop_state_kernel(rt::Lanes io, const float* __restrict__ tables,
+                           rt::Dims dims, int in_smem, int32_t* next,
+                           rt::Run run) {
+  trace_loop_body<true>(io, tables, dims, in_smem, next, run);
 }
 
 #ifndef RT_HOST_EMULATION
 // Launch K7 on `stream`; dims: the table sizes (bounce.cuh:Dims) as ints;
-// in_smem: copy the tables to shared memory (they fit the budget); tp_in,
-// alive_in, state and counters may be null (bounce.cuh:Lanes). Returns
-// cudaGetLastError() after the launch.
+// in_smem: copy the tables to shared memory (they fit the budget); next:
+// an int32 lane counter (zeroed here, on the stream, before the kernel);
+// tp_in, alive_in, state and counters may be null (bounce.cuh:Lanes).
+// Returns cudaGetLastError() after the launch: a launch refused for its
+// shared memory reports it there.
 extern "C" int rt_trace_loop(const float* origin, const float* direction,
                              const int32_t* pix, const int32_t* samp,
                              const float* tp_in, const float* alive_in,
                              float* radiance, float* state,
                              int32_t* counters, int n_lanes,
                              const float* tables, const int* dims,
-                             int in_smem, int start_bounce, int end_bounce,
-                             int shadow_samples, int soft, int recursive,
-                             uint32_t seed, int rr_start, float tp_eps,
-                             int soft_guard, void* stream) {
-  const int threads = 128;
+                             int in_smem, int32_t* next, int start_bounce,
+                             int end_bounce, int shadow_samples, int soft,
+                             int recursive, uint32_t seed, int rr_start,
+                             float tp_eps, int soft_guard, void* stream) {
+  const int threads = RT_BRUTE_THREADS;
   rt::Dims d;
   memcpy(&d, dims, sizeof(d));
   rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
@@ -83,11 +92,13 @@ extern "C" int rt_trace_loop(const float* origin, const float* direction,
                               sizeof(float)
                         : 0;
   if (n_lanes > 0) {
-    int blocks = (n_lanes + threads - 1) / threads;
     auto kernel = rt::stateful(io, run) ? rt_trace_loop_state_kernel
                                         : rt_trace_loop_kernel;
+    int blocks = rt::persistent_blocks(kernel, threads, smem, n_lanes);
+    cudaMemsetAsync(next, 0, sizeof(int32_t),
+                    static_cast<cudaStream_t>(stream));
     kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        io, tables, d, in_smem, run);
+        io, tables, d, in_smem, next, run);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-// K5: the bounce megakernel for stream-mode scenes (4097-262,144
+// K5: the bounce megakernel for stream-mode scenes (more than 4,096
 // primitives with a scene BVH).
 //
 // Replaces raytrace_tpu/ops/megakernel.py:trace_pallas (:2987) built by
@@ -37,19 +37,23 @@
 // through the read-only cache at 212 ns a step from the L2 on the H100,
 // against 288-374 ns for a warp's cp.async copy and 272-304 ns for a bulk
 // copy on an mbarrier, and shared memory's carve-out takes L1 from the
-// rows and the walk stacks (PERF.md). At the 262,144-primitive cap the node table
-// is about 590 KB and the rows 24 MB (at 23 floats): both stay in global
-// memory, inside the 50 MB L2. What bounds it: the latency of dependent
-// loads and the divergence of the walks (a lane's next node depends on
-// its last slab test); it is measured against its operations
-// (chip_smoke.py).
-//
-// The per-thread walks of K3+K4 (bvh_walk.cuh:BvhGeo over RowLeaves, the
-// previous K5) are a second pair of entries, rt_trace_stream_serial: the
-// same function and work counters, kept to compare against on the card.
+// rows and the walk stacks (PERF.md). At 262,144 primitives (the TPU
+// kernel's cap, past which the JAX package leaves its kernels for a
+// banded jnp engine) the node table is about 590 KB and the rows 24 MB
+// (at 23 floats): both stay in global memory, inside the 50 MB L2; past
+// it they grow by 92 bytes a primitive and spill out of the L2, and the
+// kernel is the same. Its one limit is the node table's: first, count,
+// skip and child are float32 integers, exact up to 2^24, so a scene may
+// hold at most 2^24 primitives (megakernel.MAX_STREAM_ROWS); row offsets
+// (cols * row < 23 * 2^24) stay inside int32, and the binary walk keeps
+// no stack (the 4-wide walk, with its 64-entry stack, is taken only where
+// bvh.py:wide_walk finds the stack bound fits). What bounds it: the
+// latency of dependent loads and the divergence of the walks (a lane's
+// next node depends on its last slab test); it is measured against its
+// operations (chip_smoke.py).
 #include "stream_walk.cuh"
 
-template <bool kState, bool kGroup>
+template <bool kState>
 RT_DEV void trace_stream_body(const rt::Lanes& io, const float* tables,
                               const rt::Dims& dims, const float* rows,
                               const rt::Run& run) {
@@ -59,20 +63,15 @@ RT_DEV void trace_stream_body(const rt::Lanes& io, const float* tables,
   rt::Bvh bvh;
   rt::bvh_tables(tables, dims, &bvh);
   rt::RowLeaves lv{rows, dims.tri_cols + 1};
-  if constexpr (kGroup) {
-    rt::StreamGeo geo{{tb, lv, bvh, {0, 0, 0, 0, 0, 0, 0}},
-                      io.counters != nullptr};
-    rt::run_lane<kState>(geo, tb, io, run, lane, rt::kBvhCounters);
-  } else {
-    rt::BvhGeo<rt::RowLeaves> geo{tb, lv, bvh, {0, 0, 0, 0, 0, 0, 0}};
-    rt::run_lane<kState>(geo, tb, io, run, lane, rt::kBvhCounters);
-  }
+  rt::StreamGeo geo{{tb, lv, bvh, {0, 0, 0, 0, 0, 0, 0}},
+                    io.counters != nullptr};
+  rt::run_lane<kState>(geo, tb, io, run, lane, rt::kBvhCounters);
 }
 
 extern "C" __global__ void rt_trace_stream_kernel(
     rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
     const float* __restrict__ rows, rt::Run run) {
-  trace_stream_body<false, true>(io, tables, dims, rows, run);
+  trace_stream_body<false>(io, tables, dims, rows, run);
 }
 
 // K1-state: the same with lane state in or out (every launch of the split
@@ -80,55 +79,10 @@ extern "C" __global__ void rt_trace_stream_kernel(
 extern "C" __global__ void rt_trace_stream_state_kernel(
     rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
     const float* __restrict__ rows, rt::Run run) {
-  trace_stream_body<true, true>(io, tables, dims, rows, run);
-}
-
-// The per-thread walks (K3+K4's), both forms.
-extern "C" __global__ void rt_trace_stream_serial_kernel(
-    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
-    const float* __restrict__ rows, rt::Run run) {
-  trace_stream_body<false, false>(io, tables, dims, rows, run);
-}
-
-extern "C" __global__ void rt_trace_stream_serial_state_kernel(
-    rt::Lanes io, const float* __restrict__ tables, rt::Dims dims,
-    const float* __restrict__ rows, rt::Run run) {
-  trace_stream_body<true, false>(io, tables, dims, rows, run);
+  trace_stream_body<true>(io, tables, dims, rows, run);
 }
 
 #ifndef RT_HOST_EMULATION
-namespace {
-
-int launch_stream(bool group, const float* origin, const float* direction,
-                  const int32_t* pix, const int32_t* samp,
-                  const float* tp_in, const float* alive_in, float* radiance,
-                  float* state, int32_t* counters, int n_lanes,
-                  const float* tables, const int* dims, const float* rows,
-                  int start_bounce, int end_bounce, int shadow_samples,
-                  int soft, int recursive, uint32_t seed, int rr_start,
-                  float tp_eps, int soft_guard, void* stream) {
-  const int threads = 128;
-  rt::Dims d;
-  memcpy(&d, dims, sizeof(d));
-  rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
-                                alive_in, radiance, state, counters, n_lanes);
-  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive,
-              seed, rr_start, tp_eps, soft_guard};
-  if (n_lanes > 0) {
-    int blocks = (n_lanes + threads - 1) / threads;
-    bool st = rt::stateful(io, run);
-    auto kernel = group ? (st ? rt_trace_stream_state_kernel
-                              : rt_trace_stream_kernel)
-                        : (st ? rt_trace_stream_serial_state_kernel
-                              : rt_trace_stream_serial_kernel);
-    kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        io, tables, d, rows, run);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
 // Launch K5 on `stream`; dims: the table sizes (bounce.cuh:Dims) as ints,
 // with ns = nt = 0; rows: the stream table; tp_in, alive_in, state and
 // counters may be null (bounce.cuh:Lanes). Returns cudaGetLastError()
@@ -144,24 +98,20 @@ extern "C" int rt_trace_stream(const float* origin, const float* direction,
                                int recursive, uint32_t seed,
                                int rr_start, float tp_eps, int soft_guard,
                                void* stream) {
-  return launch_stream(true, origin, direction, pix, samp, tp_in, alive_in,
-                       radiance, state, counters, n_lanes, tables, dims,
-                       rows, start_bounce, end_bounce, shadow_samples, soft,
-                       recursive, seed, rr_start, tp_eps, soft_guard, stream);
-}
-
-// The same with the per-thread walks.
-extern "C" int rt_trace_stream_serial(
-    const float* origin, const float* direction, const int32_t* pix,
-    const int32_t* samp, const float* tp_in, const float* alive_in,
-    float* radiance, float* state, int32_t* counters, int n_lanes,
-    const float* tables, const int* dims, const float* rows,
-    int start_bounce, int end_bounce, int shadow_samples, int soft,
-    int recursive, uint32_t seed, int rr_start, float tp_eps, int soft_guard,
-    void* stream) {
-  return launch_stream(false, origin, direction, pix, samp, tp_in, alive_in,
-                       radiance, state, counters, n_lanes, tables, dims,
-                       rows, start_bounce, end_bounce, shadow_samples, soft,
-                       recursive, seed, rr_start, tp_eps, soft_guard, stream);
+  const int threads = 128;
+  rt::Dims d;
+  memcpy(&d, dims, sizeof(d));
+  rt::Lanes io = rt::make_lanes(origin, direction, pix, samp, tp_in,
+                                alive_in, radiance, state, counters, n_lanes);
+  rt::Run run{start_bounce, end_bounce, shadow_samples, soft, recursive,
+              seed, rr_start, tp_eps, soft_guard};
+  if (n_lanes > 0) {
+    int blocks = (n_lanes + threads - 1) / threads;
+    auto kernel = rt::stateful(io, run) ? rt_trace_stream_state_kernel
+                                        : rt_trace_stream_kernel;
+    kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        io, tables, d, rows, run);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 #endif

@@ -129,14 +129,14 @@ def library() -> ctypes.CDLL:
     # start_bounce, end_bounce, shadow_samples, soft, recursive, seed,
     # rr_start, tp_eps, soft_guard, stream (bounce.cuh:Run)
     run = [i, i, i, i, i, u, i, f, i, p]
-    # rt_trace_bvh: walk table, its floats, in shared memory, the lane
-    # counter; rt_trace_bvh_global: the previous K3+K4
-    for name, extra in (("rt_trace_unroll", []),
+    # after the dims: rt_trace_unroll the lane counter; rt_trace_bvh the
+    # walk table, its floats, in shared memory, the lane counter;
+    # rt_trace_stream the stream table; rt_trace_loop in shared memory,
+    # the lane counter
+    for name, extra in (("rt_trace_unroll", [p]),
                         ("rt_trace_bvh", [p, i, i, p]),
-                        ("rt_trace_bvh_global", []),
                         ("rt_trace_stream", [p]),
-                        ("rt_trace_stream_serial", [p]),
-                        ("rt_trace_loop", [i])):
+                        ("rt_trace_loop", [i, p])):
         fn = getattr(lib, name)
         fn.argtypes = lanes + extra + run
         fn.restype = i

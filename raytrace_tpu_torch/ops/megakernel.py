@@ -8,12 +8,14 @@ Port of the host side of ``raytrace_tpu/ops/megakernel.py``:
   K3+K4 in ``bvh`` mode (97-4096 primitives with a scene BVH: the
   closest-hit and hard-shadow tree walks, K3, and the fused soft-shadow
   walk, K4, in one launch; ``csrc/trace_bvh.cu``), K5 in ``stream`` mode
-  (4097-262,144 primitives with a scene BVH: the same walks over the
+  (more than 4096 primitives with a scene BVH: the same walks over the
   unified leaf rows of ``pack_stream_table``, the closest-hit walk testing
   each leaf with the warp's lanes in the same walk;
   ``csrc/trace_stream.cu`` and ``csrc/stream_walk.cuh``),
   or K7 in ``loop`` mode (past the unroll limit without a BVH: brute force
-  over tables of any size; ``csrc/trace_loop.cu``). All four run the one
+  over tables of any size; ``csrc/trace_loop.cu``). K1, K3+K4 and K7 run
+  persistent blocks that copy their table into shared memory once and
+  take lanes from a counter (``csrc/common.cuh``). All four run the one
   bounce body of ``csrc/bounce.cuh`` with the extended features (K1-ext:
   smooth normals, material kinds 7-12, textures) and the resumable form
   (K1-state: ``start_bounce``/``end_bounce``, the initial throughput and
@@ -32,11 +34,12 @@ Port of the host side of ``raytrace_tpu/ops/megakernel.py``:
   mode), each with a thin-lens branch for depth of field that takes the
   corrected bound (``_mask_camera``). CUDA source: ``csrc/pixel_mask.cu``.
   Plain version: ``pixel_mask_plain``.
-* K1-guard, in K1 (``csrc/brute_force.cuh``): the per-occluder cone guard
-  of the soft-shadow loop, on every main-path launch (``soft_guard``).
-  Plain versions: ``soft_guard_mask`` and ``shadow_factor_guarded``
+* K1-guard, in K1 and K7 (``csrc/brute_force.cuh``): the per-occluder
+  cone guard of the soft-shadow loop, on every main-path launch
+  (``soft_guard``), for any occluder count (in chunks of 96). Plain
+  versions: ``soft_guard_mask`` and ``shadow_factor_guarded``
   (``shade.shadow_factor`` given the guard's flags), which the tests and
-  chip_smoke.py hold the kernel to; the plain engine itself
+  chip_smoke.py hold the kernels to; the plain engine itself
   runs the unguarded loop, whose result is the same bit for bit.
 
 A wrapper takes its plain version only for a scene or tensor on the CPU;
@@ -46,14 +49,16 @@ launches its kernel and nowhere else; a trace launch that resumes or
 returns lane state also counts under ``trace_state`` (K1-state), one
 whose walks take the 4-wide table under ``trace_wide`` (K3-wide), a
 K3+K4 launch that reads its walk table in place from global memory (past
-``BVH_SMEM_BYTES``) under ``trace_bvh_ldg``, a K1 launch with its
-soft-shadow guard under ``trace_guard`` (K1-guard), and a mask launch
-with depth of field under ``mask_dof``. The previous K3+K4
-(``prepare_trace(bvh_smem=False)``, for comparisons on the card) counts
-under ``trace_bvh_global`` alone.
+``BVH_SMEM_BYTES``) under ``trace_bvh_ldg``, a K7 launch that reads its
+tables in place (past ``LOOP_SMEM_BYTES``) under ``trace_loop_ldg``, a K1
+or K7 launch with its soft-shadow guard under ``trace_guard``
+(K1-guard), and a mask launch with depth of field under ``mask_dof``.
 
-Past ``MAX_STREAM_KERNEL_PRIMS`` primitives the JAX package renders with
-its banded jnp engine, which is not ported: such scenes raise.
+Past ``MAX_STREAM_KERNEL_PRIMS`` primitives (the TPU kernel's cap, which
+bounds a node table in the TPU's scalar memory) the JAX package leaves
+its kernels for a banded jnp engine. K6-stream and K5 keep their tables
+in global memory, so on the card such scenes stay in stream mode, up to
+``MAX_STREAM_ROWS``, the stream kernels' own limit.
 """
 
 from __future__ import annotations
@@ -76,23 +81,25 @@ from .shade import shadow_factor as _shadow_factor  # before any swap
 UNROLL_PRIM_LIMIT = 96
 UNROLL_PRIM_LIMIT_VN = scene_mod.UNROLL_PRIM_LIMIT_VN  # 48
 MAX_BVH_KERNEL_PRIMS = scene_mod.MAX_BVH_KERNEL_PRIMS  # 4096
-MAX_STREAM_KERNEL_PRIMS = 1 << 18
+MAX_STREAM_KERNEL_PRIMS = 1 << 18  # the JAX package's (scene_fits_kernel)
+# The stream kernels' limit: the node table holds first, count, skip and
+# child as float32 integers, exact up to 2^24 (csrc/trace_stream.cu).
+MAX_STREAM_ROWS = 1 << 24
 # Floats of a unified stream row: [tag, v0 or center.xyz, e1.xyz (radius
 # in e1.x), e2.xyz, normal.xyz, mat], + 9 vertex-normal floats in a
 # smooth-shaded scene. (The JAX package pads rows to 128 floats, a TPU
 # tile rule; the port keeps them narrow.)
 STREAM_COLS = 14
 STREAM_COLS_VN = 23
-# K7 copies its tables to shared memory up to this many bytes (the most a
-# block takes without opting in); past it they stay in global memory.
-LOOP_SMEM_BYTES = 48 * 1024
 # K3+K4 copies its walk table (pack_walk_table) to the shared memory of
 # each block up to this many bytes (the most an H100 block can take, after
 # opting in); past it the kernel reads the table in place.
 BVH_SMEM_BYTES = 232_448
+# K7's budget for its tables (pack_tables): the same bytes, K3+K4's; past
+# it the tables stay in global memory and K7 reads them through __ldg.
+LOOP_SMEM_BYTES = BVH_SMEM_BYTES
 WALK_ROW = 12             # floats of a walk-table leaf row (rt::kWalkRow)
 COUNTERS = 8              # rt::kBruteCounters: per-lane work of K1 and K7
-GUARD_MAX = 96            # rt::kGuardMax: occluders K1-guard can flag
 BVH_COUNTERS = 10         # rt::kBvhCounters: per-lane work of K3+K4, K5
 STATE_COLS = 10           # resumable lane state: origin, direction,
                           # throughput, alive (trace.state_dict)
@@ -107,12 +114,12 @@ MASKS = {"unroll": "pixel_mask", "loop": "pixel_mask",
 # "trace_state" counts the trace launches that take or return lane state,
 # "trace_wide" those whose walks take the 4-wide table, "trace_bvh_ldg"
 # the K3+K4 launches that read the walk table from global memory,
-# "trace_bvh_global" the launches of the previous K3+K4, "trace_guard" the
-# K1 launches with K1-guard on, "mask_dof" the mask launches with depth of
-# field.
+# "trace_loop_ldg" the K7 launches that read their tables from global
+# memory, "trace_guard" the K1 and K7 launches with K1-guard on,
+# "mask_dof" the mask launches with depth of field.
 LAUNCHES = {"trace_unroll": 0, "trace_bvh": 0, "trace_stream": 0,
             "trace_loop": 0, "trace_state": 0, "trace_wide": 0,
-            "trace_bvh_ldg": 0, "trace_bvh_global": 0,
+            "trace_bvh_ldg": 0, "trace_loop_ldg": 0,
             "trace_guard": 0, "pixel_mask": 0,
             "pixel_mask_bvh": 0, "pixel_mask_stream": 0, "mask_dof": 0}
 
@@ -122,7 +129,9 @@ def reset_launches() -> None:
 
 
 def scene_fits_kernel(scene) -> bool:
-    """Does a kernel mode of the JAX package take this scene?"""
+    """Does a kernel mode of the JAX package take this scene? (Past
+    MAX_STREAM_KERNEL_PRIMS the JAX Renderer takes its banded jnp engine;
+    the port stays in stream mode, ``require_mode``.)"""
     n = scene.prim_count
     if n <= UNROLL_PRIM_LIMIT:
         return True
@@ -133,7 +142,8 @@ def _kernel_mode(scene) -> str:
     """'unroll' | 'bvh' | 'stream' | 'loop' by primitive count (spheres +
     triangles + planes), as in the JAX package: unroll up to 96 (48 in a
     smooth-shaded scene); past it bvh up to 4096 and stream beyond when
-    the scene has a BVH, else loop."""
+    the scene has a BVH, else loop. (The JAX package's stream mode ends at
+    MAX_STREAM_KERNEL_PRIMS; the port's goes on, ``require_mode``.)"""
     n = scene.prim_count
     limit = UNROLL_PRIM_LIMIT
     if scene.geometry.tri_vn is not None:
@@ -146,17 +156,19 @@ def _kernel_mode(scene) -> str:
 
 
 def require_mode(scene) -> str:
-    """The scene's kernel mode; raises NotImplementedError past
-    MAX_STREAM_KERNEL_PRIMS primitives with a BVH, where the JAX Renderer
-    leaves its kernels for the banded jnp engine (raytrace_tpu/renderer.py
-    :917-930), which the port has not ported."""
+    """The scene's kernel mode. Past MAX_STREAM_KERNEL_PRIMS primitives with
+    a BVH, where the JAX Renderer leaves its kernels for the banded jnp
+    engine (raytrace_tpu/renderer.py:917-972), the port stays in stream
+    mode: K6-stream and K5 keep their tables in global memory, and their
+    plain versions compute what that engine computes. Raises ValueError
+    past MAX_STREAM_ROWS primitives, where the stream node table's float32
+    integers are no longer exact."""
     mode = _kernel_mode(scene)
-    if mode == "stream" and scene.prim_count > MAX_STREAM_KERNEL_PRIMS:
-        raise NotImplementedError(
-            f"scene has {scene.prim_count} primitives: past "
-            f"{MAX_STREAM_KERNEL_PRIMS} the JAX package renders with its "
-            "banded jnp engine (raytrace_tpu/renderer.py:917-930), which "
-            "is not ported yet: ROADMAP Queue 1, the past-cap band route")
+    if mode == "stream" and scene.prim_count > MAX_STREAM_ROWS:
+        raise ValueError(
+            f"scene has {scene.prim_count} primitives: the stream kernels' "
+            f"node table holds leaf offsets as float32 integers, exact up "
+            f"to {MAX_STREAM_ROWS} (csrc/trace_stream.cu)")
     return mode
 
 
@@ -248,8 +260,23 @@ def pack_tables(scene, prims: bool = True):
 
 
 def loop_tables_in_smem(tabs) -> bool:
-    """Does K7 take these tables (``pack_tables``) into shared memory?"""
+    """Does K7 take these tables (``pack_tables``) into shared memory
+    (within ``LOOP_SMEM_BYTES``; else it reads them in place)?"""
     return 4 * sum(tabs[k].numel() for k in ORDER) <= LOOP_SMEM_BYTES
+
+
+def trace_smem_bytes(scene) -> int:
+    """Bytes of dynamic shared memory a block of the scene's trace launch
+    takes: K1 its tables, K7 its tables within LOOP_SMEM_BYTES, K3+K4 its
+    walk table within BVH_SMEM_BYTES; 0 where the kernel reads them in
+    place (K5 always)."""
+    mode = require_mode(scene)
+    if mode == "stream":
+        return 0
+    flat, _, extra = trace_tables(scene, mode)
+    if mode == "bvh":
+        return 4 * extra.numel() if walk_table_in_smem(extra) else 0
+    return 4 * flat.numel() if mode == "unroll" or extra else 0
 
 
 def _affine_camera(scene, go_camera: bool) -> torch.Tensor:
@@ -675,16 +702,15 @@ def _check_trace_inputs(scene, origin, direction, pix_id, samp_id, cfg,
     return mode
 
 
-def trace_tables(scene, mode, *, bvh_smem: bool = True):
+def trace_tables(scene, mode):
     """The trace kernel's scene input: (flat float32 tables in the order of
     ``csrc/bounce.cuh``, then in stream mode the node table and the 4-wide
     table when the walks take it (``bvh.wide_walk``; else n_wide is 0 and
-    they walk the binary tree), in bvh mode the same and prim_index only
-    for the previous K3+K4 (``bvh_smem=False``); the table sizes as
-    ``bounce.cuh:Dims``; and ``extra``: in loop mode whether K7 takes the
-    tables into shared memory, in bvh mode K3+K4's walk table
-    (``pack_walk_table``; None for the previous K3+K4), in stream mode the
-    stream table, which K5 reads in place).
+    they walk the binary tree); the table sizes as ``bounce.cuh:Dims``;
+    and ``extra``: in loop mode whether K7 takes the tables into shared
+    memory (``loop_tables_in_smem``), in bvh mode K3+K4's walk table
+    (``pack_walk_table``), in stream mode the stream table, which K5 reads
+    in place).
 
     In stream mode the sphere and triangle tables are left out (ns = nt =
     0): K5 reads every sphere and triangle from the stream table, whose
@@ -704,15 +730,12 @@ def trace_tables(scene, mode, *, bvh_smem: bool = True):
         accel = scene.accel if mode == "bvh" else with_stream_table(
             scene).accel
         wide = bvh_mod.wide_walk(accel)   # K3-wide: the 4-wide table
-        if mode == "bvh" and bvh_smem:
+        if mode == "bvh":
             extra = pack_walk_table(scene, tabs)
         else:
-            nodes, pidx = pack_bvh_tables(accel)
-            parts.append(nodes.reshape(-1))
+            parts.append(pack_bvh_tables(accel)[0].reshape(-1))
             if wide:
                 parts.append(accel.wide4.reshape(-1))
-            if mode == "bvh":
-                parts.append(pidx)
         dims += [accel.n_nodes, accel.leaf_size,
                  accel.wide4.shape[0] if wide else 0]
     else:
@@ -727,8 +750,7 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
                   init_throughput=None, init_alive=None,
                   return_state: bool = False,
                   counters: torch.Tensor | None = None,
-                  soft_guard: bool = True, leaf_group: bool = True,
-                  bvh_smem: bool = True):
+                  soft_guard: bool = True):
     """The trace kernel's inputs on the card: returns (out, launch).
     ``launch()`` runs K1 (unroll mode), K3+K4 (bvh mode), K5 (stream mode)
     or K7 (loop mode) into ``out`` and counts the launch under the
@@ -741,30 +763,20 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
     ``init_throughput`` and ``init_alive`` are those of ``trace.trace``.
 
     ``cfg``'s fast_mc settings go to the kernel as ``rr_start`` (-1: off)
-    and ``tp_eps`` (``csrc/bounce.cuh:Run``). ``soft_guard`` (K1 only) runs
-    K1-guard, as every main-path launch does; False runs K1's unguarded
-    soft-shadow loop, which gives the same result (for comparisons on the
-    card; the JAX package's RT_SOFT_PRIM=0). ``leaf_group`` (K5 only)
-    runs the closest-hit walk that tests each leaf with the group of lanes
-    in the same walk (``csrc/stream_walk.cuh``), as every main-path launch
-    does; False runs K3+K4's per-thread walk over the same rows
-    (``rt_trace_stream_serial``, the previous K5), which gives the same
-    result and the same work counters (for comparisons on the card).
-    ``bvh_smem`` (K3+K4 only) runs K3+K4 over its walk table in the
-    persistent blocks (``csrc/trace_bvh.cu``), as every main-path launch
-    does: in shared memory within ``BVH_SMEM_BYTES``, else in place
-    (``trace_bvh_ldg``); False runs the previous K3+K4
-    (``rt_trace_bvh_global``: the tree and the scene tables in global
-    memory, 128-lane blocks), which gives the same result and the same
-    work counters (for comparisons on the card; it counts under
-    ``trace_bvh_global``, not ``trace_bvh``).
+    and ``tp_eps`` (``csrc/bounce.cuh:Run``). ``soft_guard`` (K1 and K7)
+    runs K1-guard, as every main-path launch does; False runs the
+    unguarded soft-shadow loop, which gives the same result (for
+    comparisons on the card; the JAX package's RT_SOFT_PRIM=0, and its
+    loop mode). K3+K4 reads its walk table from shared memory within
+    ``BVH_SMEM_BYTES``, else in place (``trace_bvh_ldg``); K7 its tables
+    within ``LOOP_SMEM_BYTES``, else in place (``trace_loop_ldg``).
 
     ``counters`` (for operation counts; off on the main path) receives
     each lane's work. Unroll and loop modes, (B, COUNTERS) int32:
     closest-hit rays, hard and soft shadow rays (the soft ones a lane
     asked for), occlusion tests of spheres+planes and of triangles+boxes,
     and K1-guard's guard evaluations, flagged occluders and undrawn soft
-    rays (0 in K7 and unguarded). Bvh and stream modes, (B,
+    rays (0 unguarded). Bvh and stream modes, (B,
     BVH_COUNTERS) int32: closest-hit, hard shadow and soft shadow rays,
     then node slab tests, sphere tests and triangle tests of the
     closest-hit and hard shadow walks, node slab tests and (sample,
@@ -795,12 +807,9 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
     end = cfg.max_depth if end_bounce is None else min(end_bounce,
                                                        cfg.max_depth)
     ptr = lambda t: None if t is None else t.data_ptr()
-    flat, dims, extra = trace_tables(scene, mode, bvh_smem=bvh_smem)
+    flat, dims, extra = trace_tables(scene, mode)
     wide = dims[12] > 0
-    guard = mode == "unroll" and bool(soft_guard)
-    if guard and sum(dims[0:4]) > GUARD_MAX:
-        raise ValueError(f"K1-guard flags at most {GUARD_MAX} occluders "
-                         f"(spheres, hit triangles, planes, boxes): {dims}")
+    guard = mode in ("unroll", "loop") and bool(soft_guard)
     rr_start = (-1 if cfg.russian_roulette_start is None
                 else int(cfg.russian_roulette_start))
     rad = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -810,31 +819,26 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
             or not counters.is_contiguous()):
         raise ValueError(f"counters must be a contiguous (B,{n_counters}) "
                          "int32 tensor on the scene's device")
-    lib = _build.library()
-    serial = mode == "stream" and not leaf_group
-    prev = mode == "bvh" and not bvh_smem
-    entry = getattr(lib, "rt_" + kernel + ("_serial" if serial else "")
-                    + ("_global" if prev else ""))
+    entry = getattr(_build.library(), "rt_" + kernel)
     dims_c = (ctypes.c_int * len(dims))(*dims)
-    name = kernel + "_global" if prev else kernel
     ldg = False
-    nxt = None
+    # the lane counter of the persistent kernels (their launchers zero it
+    # on the stream before each launch)
+    nxt = (None if mode == "stream"
+           else torch.zeros((1,), dtype=torch.int32, device=dev))
     if mode == "loop":
-        extra_args = (int(extra),)
+        ldg = not extra
+        extra_args = (int(extra), nxt)  # in shared memory, the counter
     elif mode == "stream":
         extra_args = (extra,)  # the stream table: K5 reads it in place
-    elif mode == "bvh" and not prev:
+    elif mode == "bvh":
         ldg = not walk_table_in_smem(extra)
-        nxt = torch.zeros((1,), dtype=torch.int32, device=dev)
         # the walk table, its length, in shared memory, the lane counter
-        # (zeroed before each launch)
         extra_args = (extra, extra.numel(), int(not ldg), nxt)
     else:
-        extra_args = ()
+        extra_args = (nxt,)
 
     def launch():
-        if nxt is not None:
-            nxt.zero_()
         err = entry(
             o.data_ptr(), d.data_ptr(), pix.data_ptr(), samp.data_ptr(),
             ptr(tp), ptr(al), rad.data_ptr(), ptr(state), ptr(counters), n,
@@ -845,10 +849,10 @@ def prepare_trace(scene, origin, direction, pix_id, samp_id, cfg,
             int(cfg.recursive_reflections), cfg.seed & 0xFFFFFFFF,
             rr_start, float(cfg.throughput_epsilon), int(guard),
             torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, name)
-        LAUNCHES[name] += 1
+        _build.check(err, kernel)
+        LAUNCHES[kernel] += 1
         if ldg:
-            LAUNCHES["trace_bvh_ldg"] += 1
+            LAUNCHES[kernel + "_ldg"] += 1
         if stateful:
             LAUNCHES["trace_state"] += 1
         if wide:
@@ -983,11 +987,13 @@ def shadow_factor_guarded(geom, point, light_dist, light_dir, pix_id,
                           shadow_samples=16, seed=0, accel=None):
     """``shade.shadow_factor`` with K1-guard: each soft ray tested only
     against the occluders that ``soft_guard_mask`` flags (1 where nothing
-    is flagged): the plain version of K1's guarded shadow factor, equal to
-    the unguarded one bit for bit. ``accel`` must be None (K1-guard is
-    unroll mode's)."""
+    is flagged): the plain version of the guarded shadow factor of K1 and
+    K7, equal to the unguarded one bit for bit, for any occluder count.
+    ``accel`` must be None (K1-guard is the brute-force soft loop's, in
+    unroll and loop modes)."""
     if accel is not None:
-        raise ValueError("K1-guard is the brute-force (unroll) soft loop")
+        raise ValueError("K1-guard is the brute-force (unroll and loop) "
+                         "soft loop")
     need = torch.ones_like(light_dist, dtype=torch.bool)
     can = soft_guard_mask(occluder_tables(geom), point, light_dir,
                           light_dist, need) if soft_shadows else None

@@ -12,8 +12,10 @@ is what ``Renderer.render`` runs:
 4. the trace (``megakernel.trace``), by the scene's kernel mode
    (``megakernel._kernel_mode``): K1 (up to 96 primitives, 48 in a
    smooth-shaded scene), K3+K4 (97-4096 primitives with a scene BVH), K5
-   (4097-262,144 primitives with a scene BVH) or K7 (past the unroll
-   limit without a BVH), the whole bounce loop per lane - in stream mode
+   (past 4096 primitives with a scene BVH; past the JAX package's
+   262,144-primitive cap too, where its Renderer takes a banded jnp
+   engine) or K7 (past the unroll limit without a BVH), the whole bounce
+   loop per lane - in stream mode
    run as the survivor split ladder (``trace_with_split``): segments of
    bounces, each a resumable launch (K1-state), with the lanes still
    alive compacted between them;
@@ -392,8 +394,9 @@ class Renderer:
 
     Runs on ``device`` (default CUDA; raises when there is no GPU unless
     ``device="cpu"`` is given) through the main path, ``render_wavefront``,
-    in the unroll, bvh, stream and loop modes (every scene but those past
-    262,144 primitives with a BVH, which raise).
+    in the unroll, bvh, stream and loop modes: every scene, those past the
+    JAX package's 262,144-primitive cap in stream mode (up to
+    ``megakernel.MAX_STREAM_ROWS``).
     """
 
     def __init__(self, num_workers: Optional[int] = None, device=None):

@@ -1,39 +1,47 @@
-"""The trace kernel of a tree mode per launch on the card, with its shadow
-walks split apart, for one or more builds in one process: K5 (stream
-mode) or K3+K4 (bvh mode).
+"""The trace kernel of a mode per launch on the card, with its shadow
+loops split apart, for one or more builds in one process: K5 (stream
+mode), K3+K4 (bvh mode), K1 (unroll mode) or K7 (loop mode).
 
     python -m raytrace_tpu_torch.tools.measure_stream_walk \
-        [--mode stream|bvh] [--pkg LABEL=DIR ...] [--serial] \
-        [--in-place] [--reps N] [--out FILE]
+        [--mode stream|bvh|unroll|loop] [--pkg LABEL=DIR ...] \
+        [--in-place] [--unguarded] [--reps N] [--out FILE]
 
-For each bench frame of the mode (``chip_smoke.py``'s, at 800x600, 100
-spp, depth 50, 16 soft-shadow rays, seed 0: stream mode grid-5833 and
-ico-10241; bvh mode ring-1000, smooth_shading_demo with its look-at
-camera, and ico-2561, two smooth icospheres of 1,280 triangles over a
-plane) it captures the main path's lanes (the trace chunks and, in stream
+For each bench frame of the mode (at 800x600, 100 spp, depth 50, 16
+soft-shadow rays, seed 0, as ``chip_smoke.py`` renders them: stream mode
+grid-5833 and ico-10241; bvh mode ring-1000, smooth_shading_demo with its
+look-at camera, and ico-2561, two smooth icospheres of 1,280 triangles
+over a plane; unroll mode the bench scene, textured_mirror_demo and
+final_silver_prism_purple_cube, the last two with their look-at camera
+and their scene config's renderer block; loop mode the
+mesh_smooth_icosphere golden and a ring of 2,500 spheres, both without a
+BVH, the ring at 4 spp: 1.92M lanes, where the parent's K7 took seconds
+a launch) it captures the main path's lanes (the trace chunks and, in stream
 mode, the split ladder's segments, through ``render_wavefront``'s hook)
 once, then times with CUDA events the kernel's launch over every chunk
 (and the ladder's segment launches) under three settings: soft shadows
-on, soft shadows off, and the scene without lights (no shadow walk at
+on, soft shadows off, and the scene without lights (no shadow test at
 all). A lane's path does not depend on its direct light, so the same
 inputs serve all three, and the differences split the kernel's time into
-the closest-hit walk, the hard-shadow walk and the fused soft walk.
+the closest-hit tests, the hard shadows and the soft shadows.
 
-Builds: this package's library ("this"). In stream mode, with
-``--serial``, also its per-thread leaf walk (``rt_trace_stream_serial``,
-"this-serial"). In bvh mode also the previous K3+K4 ("this-global",
-``rt_trace_bvh_global``), and with ``--in-place`` this build's K3+K4
-reading its walk table in place from global memory ("this-inplace",
-``megakernel.BVH_SMEM_BYTES`` set to 0). Each
-``--pkg`` directory holds another copy of ``raytrace_tpu_torch`` (a
-parent commit's, or a variant of this one), built by that copy's own
-``_build`` in parallel; in bvh mode a copy
-without ``rt_trace_bvh_global`` (a parent from before the walk table)
-runs its ``rt_trace_bvh`` in the previous design's place. The builds are
-timed in turns (ABBA) and must give equal radiance and equal per-lane work
-counters. Prints a JSON summary (also written to ``--out``) with the
-card's name and power limit and each build's registers, stack, spills
-and, in bvh mode, the walk table's bytes. Needs a CUDA GPU.
+Builds: this package's library ("this"); in bvh and loop modes with
+``--in-place`` also this build reading its table in place from global
+memory ("this-inplace": ``megakernel.BVH_SMEM_BYTES`` or
+``LOOP_SMEM_BYTES`` set to 0); in unroll and loop modes with
+``--unguarded`` also this build without K1-guard ("this-unguarded").
+Each ``--pkg`` directory holds another copy of ``raytrace_tpu_torch`` (a
+parent commit's, or a variant of this one) with this build's C launchers
+(the mode's ``rt_trace_*`` entry takes the same arguments), built by that
+copy's own ``_build`` in parallel. The builds are timed in turns (ABBA)
+and must give equal radiance and equal per-lane work counters (a build
+without K1-guard: equal radiance and equal ray counts).
+Prints a JSON summary (also written to ``--out``) with the card's name
+and power limit and each build's registers, stack, spills and the bytes
+of each frame's table. Needs a CUDA GPU.
+
+A parent commit's package for ``--pkg``: ``git archive HEAD~1
+raytrace_tpu_torch | tar -x -C _ab/parent`` in a checkout (into a
+git-ignored directory), then ``--pkg parent=_ab/parent``.
 """
 
 from __future__ import annotations
@@ -59,32 +67,58 @@ from ..ops import megakernel as mk
 from .measure_dma_stream import card
 
 W, H, SPP, DEPTH, SOFT = 800, 600, 100, 50, 16
+RING_SPP = 4   # the ring-2500 loop frame's samples a pixel
+MAX_RUNS = 256  # runs of a launch list in one timing (cuda_ms)
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-ENTRIES = {"stream": ("rt_trace_stream_kernel",
-                      "rt_trace_stream_state_kernel",
-                      "rt_trace_stream_serial_kernel",
-                      "rt_trace_stream_serial_state_kernel"),
-           "bvh": ("rt_trace_bvh_kernel", "rt_trace_bvh_state_kernel",
-                   "rt_trace_bvh_global_kernel",
-                   "rt_trace_bvh_global_state_kernel")}
+ENTRIES = {mode: (f"rt_{kernel}_kernel", f"rt_{kernel}_state_kernel")
+           for mode, kernel in mk.KERNELS.items()}
+
+
+def bench_dict():
+    with open(os.path.join(REPO, "assets",
+                           "sphere_reflections_light.json")) as f:
+        d = json.load(f)
+    d["camera"]["position"][2] = -d["camera"]["position"][2]
+    return d
 
 
 def frames(mode, tmp):
-    """{name: (scene dict or asset path, go camera)} of a mode's frames."""
+    """{name: (scene dict or asset path, go camera, built with a BVH)} of
+    a mode's frames."""
+    asset = lambda name: os.path.join(REPO, "assets", f"{name}.json")
     if mode == "stream":
-        return {"grid-5833": (suite.grid_scene_dict(), True),
-                "ico-10241": (suite.mesh_scene_dict(tmp), True)}
-    return {"ring-1000": (suite.ring_scene_dict(1000), True),
-            "smooth": (os.path.join(REPO, "assets",
-                                    "smooth_shading_demo.json"), False),
-            "ico-2561": (suite.mesh_scene_dict(tmp, subdiv=3), True)}
+        return {"grid-5833": (suite.grid_scene_dict(), True, None),
+                "ico-10241": (suite.mesh_scene_dict(tmp), True, None)}
+    if mode == "unroll":
+        return {"bench": (bench_dict(), True, None),
+                "textured": (asset("textured_mirror_demo"), False, None),
+                "final_silver": (asset("final_silver_prism_purple_cube"),
+                                 False, None)}
+    if mode == "loop":
+        return {"loop": (suite.golden_scene_dict("mesh_smooth_icosphere")[0],
+                         True, False),
+                "ring-2500": (suite.ring_scene_dict(2500), True, False,
+                              RING_SPP)}
+    return {"ring-1000": (suite.ring_scene_dict(1000), True, None),
+            "smooth": (asset("smooth_shading_demo"), False, None),
+            "ico-2561": (suite.mesh_scene_dict(tmp, subdiv=3), True, None)}
 
 
-def load(src, dev):
+def load(src, dev, build_accel=None, samples=SPP):
+    """(scene, the trace settings of its frame, its samples a pixel): an
+    asset with its scene config's renderer block (samples, depth)
+    applied."""
+    cfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT, seed=0)
     if isinstance(src, str):
-        return scene_mod.load(src, device=dev)[0]
-    return scene_mod.from_dict(src, device=dev)[0]
+        scene, scfg = scene_mod.load(src, device=dev)
+        r = rmod.Renderer(device=dev)
+        r.set_samples(SPP)
+        r._apply_renderer_block(scfg)
+        cfg = dataclasses.replace(r.trace_config(), shadow_samples=SOFT)
+        return scene, cfg, r.samples
+    return (scene_mod.from_dict(src, device=dev, build_accel=build_accel)[0],
+            cfg, samples)
 
 
 def _build_in(pkg_dir: str) -> subprocess.Popen:
@@ -110,7 +144,9 @@ class Build:
     kw: dict           # more arguments of prepare_trace
     path: str
     regs: dict
-    budget: int = mk.BVH_SMEM_BYTES  # megakernel.BVH_SMEM_BYTES for them
+    budget: int = mk.BVH_SMEM_BYTES       # megakernel.BVH_SMEM_BYTES,
+    loop_budget: int = mk.LOOP_SMEM_BYTES  # and LOOP_SMEM_BYTES, for them
+    guarded: bool = True  # its K1 and K7 run K1-guard (the counters' sense)
 
 
 def _bind(path, name, like):
@@ -120,52 +156,41 @@ def _bind(path, name, like):
     return fn
 
 
-def builds(mode, pkgs, serial, in_place=False):
+def builds(mode, pkgs, in_place=False, unguarded=False):
     """{label: Build}."""
     procs = {label: _build_in(d) for label, d in pkgs}
     res = _build.build()
     own = _build.library()
     regs = _build.kernel_resources(res.ptxas)
     out = {"this": Build(None, {}, res.path, regs)}
-    if mode == "stream" and serial:
-        out["this-serial"] = Build(None, {"leaf_group": False}, res.path,
-                                   regs)
-    if mode == "bvh":
-        out["this-global"] = Build(None, {"bvh_smem": False}, res.path, regs)
-        if in_place:
-            out["this-inplace"] = Build(None, {}, res.path, regs, 0)
+    if in_place and mode in ("bvh", "loop"):
+        out["this-inplace"] = Build(None, {}, res.path, regs, 0, 0)
+    if unguarded and mode in ("unroll", "loop"):
+        out["this-unguarded"] = Build(None, {"soft_guard": False}, res.path,
+                                      regs, guarded=False)
+    name = "rt_" + mk.KERNELS[mode]
     for label, proc in procs.items():
         stdout, stderr = proc.communicate(timeout=900)
         if proc.returncode != 0:
             raise RuntimeError(f"build of {label} failed:\n{stderr}")
         path, ptxas = json.loads(stdout.strip().splitlines()[-1])
-        r = _build.kernel_resources(ptxas)
-        if mode == "stream":
-            lib = _Entry(rt_trace_stream=_bind(path, "rt_trace_stream",
-                                               own.rt_trace_stream))
-            out[label] = Build(lib, {}, path, r)
-        elif hasattr(ctypes.CDLL(path), "rt_trace_bvh_global"):
-            lib = _Entry(rt_trace_bvh=_bind(path, "rt_trace_bvh",
-                                            own.rt_trace_bvh))
-            out[label] = Build(lib, {}, path, r)
-        else:   # the previous design's entry under its old name
-            lib = _Entry(rt_trace_bvh_global=_bind(
-                path, "rt_trace_bvh", own.rt_trace_bvh_global))
-            out[label] = Build(lib, {"bvh_smem": False}, path, r)
+        fn = _bind(path, name, getattr(own, name))
+        out[label] = Build(_Entry(**{name: fn}), {}, path,
+                           _build.kernel_resources(ptxas))
     return out
 
 
 @contextlib.contextmanager
 def using(build):
     """Within the block, prepare_trace launches ``build``'s kernel."""
-    real, budget = _build.library, mk.BVH_SMEM_BYTES
+    real = _build.library, mk.BVH_SMEM_BYTES, mk.LOOP_SMEM_BYTES
     if build.library is not None:
         _build.library = lambda: build.library
-    mk.BVH_SMEM_BYTES = build.budget
+    mk.BVH_SMEM_BYTES, mk.LOOP_SMEM_BYTES = build.budget, build.loop_budget
     try:
         yield
     finally:
-        _build.library, mk.BVH_SMEM_BYTES = real, budget
+        _build.library, mk.BVH_SMEM_BYTES, mk.LOOP_SMEM_BYTES = real
 
 
 def without_lights(scene):
@@ -176,7 +201,7 @@ def without_lights(scene):
         intensity=torch.zeros((0,), device=dev)))
 
 
-def capture(scene, cfg, go_camera=True):
+def capture(scene, cfg, samples, go_camera=True):
     """The main path's trace chunks and ladder segments of one frame."""
     chunks, segs = [], []
 
@@ -187,8 +212,8 @@ def capture(scene, cfg, go_camera=True):
         elif stage == "segment":
             segs.append(values)
 
-    rmod.render_wavefront(scene, width=W, height=H, samples=SPP, cfg=cfg,
-                          go_camera=go_camera, hook=hook)
+    rmod.render_wavefront(scene, width=W, height=H, samples=samples,
+                          cfg=cfg, go_camera=go_camera, hook=hook)
     return chunks, segs
 
 
@@ -196,10 +221,12 @@ def launches(scene, cfg, chunks, segs, counters=False, **kw):
     """(unsplit launch functions and outputs, segment launch functions);
     ``kw``: more arguments of prepare_trace."""
     unsplit, outs, cnts = [], [], []
+    n_cnt = (mk.BVH_COUNTERS if mk._kernel_mode(scene) in ("bvh", "stream")
+             else mk.COUNTERS)
     for c in chunks:
         cnt = None
         if counters:
-            cnt = torch.zeros((c["origin"].shape[0], mk.BVH_COUNTERS),
+            cnt = torch.zeros((c["origin"].shape[0], n_cnt),
                               dtype=torch.int32, device=c["origin"].device)
             cnts.append(cnt)
         out, f = mk.prepare_trace(scene, c["origin"], c["direction"],
@@ -219,30 +246,41 @@ def launches(scene, cfg, chunks, segs, counters=False, **kw):
     return unsplit, outs, cnts, seg_fns
 
 
-def cuda_ms(fns):
+def cuda_ms(fns, min_ms=20.0):
+    """ms of one run of the launches ``fns``, timed with CUDA events over
+    as many runs back to back as fill ``min_ms`` (one launch of a small
+    frame takes half a millisecond, and the host's launch work before its
+    first kernel would count in a single run)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for f in fns:
-        f()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
+    runs = 1
+    while True:
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(runs):
+            for f in fns:
+                f()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        if ms >= min_ms or runs >= MAX_RUNS or not fns:
+            return ms / runs
+        runs = min(MAX_RUNS, max(2 * runs,
+                                 int(runs * min_ms / max(ms, 1e-3)) + 1))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("stream", "bvh"), default="stream")
+    ap.add_argument("--mode", choices=tuple(mk.KERNELS), default="stream")
     ap.add_argument("--pkg", action="append", default=[],
                     help="LABEL=DIR: a directory holding another copy of "
                          "raytrace_tpu_torch")
-    ap.add_argument("--serial", action="store_true",
-                    help="stream mode: also time this build's per-thread "
-                         "leaf walk")
     ap.add_argument("--in-place", action="store_true",
-                    help="bvh mode: also time K3+K4 reading its walk table "
-                         "in place")
+                    help="bvh and loop modes: also time this build reading "
+                         "its table in place")
+    ap.add_argument("--unguarded", action="store_true",
+                    help="unroll and loop modes: also time this build "
+                         "without K1-guard")
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -251,39 +289,36 @@ def main(argv=None) -> int:
         return 2
     dev = torch.device("cuda")
     pkgs = [tuple(p.split("=", 1)) for p in args.pkg]
-    blds = builds(args.mode, pkgs, args.serial, args.in_place)
+    blds = builds(args.mode, pkgs, args.in_place, args.unguarded)
     labels = list(blds)
     report = {"card": card(), "mode": args.mode, "builds": {}, "frames": {}}
     for label, b in blds.items():
         report["builds"][label] = {
             "library": os.path.basename(b.path), "smem_budget": b.budget,
+            "loop_smem_budget": b.loop_budget, "guarded": b.guarded,
             "kw": b.kw, "resources": {e: b.regs.get(e)
                                       for e in ENTRIES[args.mode]
                                       if e in b.regs}}
-    cfgs = {"soft": trace_mod.TraceConfig(max_depth=DEPTH,
-                                          shadow_samples=SOFT, seed=0)}
-    cfgs["hard"] = dataclasses.replace(cfgs["soft"], soft_shadows=False)
-    cfgs["none"] = cfgs["soft"]
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        for frame, (src, go) in frames(args.mode, tmp).items():
-            scene = load(src, dev)
+        for frame, (src, go, accel, *spp) in frames(args.mode, tmp).items():
+            scene, soft_cfg, samples = load(src, dev, accel, *spp)
+            cfgs = {"soft": soft_cfg,
+                    "hard": dataclasses.replace(soft_cfg,
+                                                soft_shadows=False),
+                    "none": soft_cfg}
             if mk._kernel_mode(scene) != args.mode:
                 raise AssertionError(f"{frame} is not a {args.mode}-mode "
                                      "scene")
-            chunks, segs = capture(scene, cfgs["soft"], go)
-            if args.mode == "bvh":
+            chunks, segs = capture(scene, soft_cfg, samples, go)
+            if args.mode != "stream":
                 segs = []   # unsplit: one segment a chunk, its launch
             dark = without_lights(scene)
             rec = {"chunks": len(chunks), "segments": len(segs),
                    "lanes": sum(c["origin"].shape[0] for c in chunks),
                    "segment_lanes": sum(v["origin"].shape[0] for v in segs),
-                   "ms": {}}
-            if args.mode == "bvh":
-                walk = mk.pack_walk_table(scene)
-                rec["walk_bytes"] = 4 * walk.numel()
-                rec["walk_in_smem"] = mk.walk_table_in_smem(walk)
-                del walk
+                   "samples": samples, "max_depth": soft_cfg.max_depth,
+                   "smem_bytes": mk.trace_smem_bytes(scene), "ms": {}}
             ref = None
             for label in labels:
                 with using(blds[label]):
@@ -299,8 +334,11 @@ def main(argv=None) -> int:
                 if ref is None:
                     ref = (rad, cnt)
                 else:
+                    # without the guard the ray counts stay, the tests move
+                    cols = (cnt.shape[1] if blds[label].guarded
+                            == blds[labels[0]].guarded else 3)
                     same = (torch.equal(rad, ref[0]),
-                            torch.equal(cnt, ref[1]))
+                            torch.equal(cnt[:, :cols], ref[1][:, :cols]))
                     rec.setdefault("equal_to_" + labels[0], {})[label] = same
                     ok = ok and all(same)
                 del outs, cnts, rad, cnt

@@ -23,7 +23,8 @@
   render_band under the goldens gate on ring-100.
 * Dispatch: _kernel_mode equals the JAX package's at the tier edges; a
   4,097-sphere scene renders through the stream tier's plain path and
-  equals render_band; past MAX_STREAM_KERNEL_PRIMS the port raises; the
+  equals render_band; past MAX_STREAM_KERNEL_PRIMS the port stays in
+  stream mode, and raises only past MAX_STREAM_ROWS; the
   CLI renders a bvh scene.
 """
 
@@ -295,22 +296,27 @@ def test_stream_scenes_render(stream_4097):
 
 
 def test_past_stream_cap_raises(stream_4097, monkeypatch):
-    """Past MAX_STREAM_KERNEL_PRIMS primitives the port raises, naming the
-    JAX package's band route (here the cap is lowered below the scene's
-    4,097 primitives)."""
+    """Past MAX_STREAM_KERNEL_PRIMS primitives (the JAX package's cap,
+    lowered here below the scene's 4,097 primitives) the port stays in
+    stream mode and renders; it raises only past MAX_STREAM_ROWS, the
+    stream node table's limit, naming it."""
     monkeypatch.setattr(tmk, "MAX_STREAM_KERNEL_PRIMS", 4096)
     ts = stream_4097
     assert not tmk.scene_fits_kernel(ts)
+    assert tmk.require_mode(ts) == "stream"
     r = trender.Renderer(device="cpu")
     r.set_samples(1)
-    with pytest.raises(NotImplementedError, match="band"):
+    r.set_max_depth(2)
+    assert r.render(ts, 4, 3).shape == (3, 4, 3)
+    monkeypatch.setattr(tmk, "MAX_STREAM_ROWS", 4096)
+    with pytest.raises(ValueError, match="float32"):
         r.render(ts, 4, 3)
-    with pytest.raises(NotImplementedError, match="band"):
+    with pytest.raises(ValueError, match="float32"):
         tmk.pixel_mask(ts, width=4, height=3, cfg=ttrace.TraceConfig())
     o = torch.tensor([[0.0, 1.0, 8.0]])
     d = torch.tensor([[0.0, 0.0, -1.0]])
     i = torch.zeros(1, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="band"):
+    with pytest.raises(ValueError, match="float32"):
         tmk.trace(ts, o, d, i, i, ttrace.TraceConfig())
 
 

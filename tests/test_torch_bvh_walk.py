@@ -116,17 +116,15 @@ def test_walk_table_matches_jax_tables(name, tmp_path):
     np.testing.assert_array_equal(got[:nodes.size], nodes)
     np.testing.assert_array_equal(
         got[nodes.size:].reshape(-1, tmk.WALK_ROW), rows)
-    # trace_tables hands it to K3+K4, beside the scene tables alone; the
-    # previous K3+K4 takes the trees and prim_index after them instead
+    # trace_tables hands it to K3+K4, beside the scene tables alone (the
+    # trees and prim_index are not packed after them)
     flat, dims, extra = tmk.trace_tables(ts, "bvh")
     assert torch.equal(extra, walk)
     assert dims[10:] == [ts.accel.n_nodes, ts.accel.leaf_size,
                          ts.accel.wide4.shape[0]]
-    prev, prev_dims, prev_extra = tmk.trace_tables(ts, "bvh", bvh_smem=False)
-    assert prev_extra is None and prev_dims == dims
-    nodes, pidx = tmk.pack_bvh_tables(ts.accel)
-    assert torch.equal(prev, torch.cat([flat, nodes.reshape(-1),
-                                        ts.accel.wide4.reshape(-1), pidx]))
+    tabs = tmk.pack_tables(ts)
+    assert torch.equal(flat, torch.cat([tabs[k].reshape(-1)
+                                        for k in tmk.ORDER]))
 
 
 @pytest.mark.parametrize("name", ["ring100", "mixed", "ico80"])
@@ -209,6 +207,6 @@ def test_trace_cpu_branch_and_prepare_raises():
     got = tmk.trace(ts, *lanes, cfg)
     assert torch.equal(got, ttrace.trace(ts, *lanes, cfg))
     assert not any(tmk.LAUNCHES.values())
-    for smem in (True, False):
+    for guard in (True, False):
         with pytest.raises(RuntimeError, match="not CUDA"):
-            tmk.prepare_trace(ts, *lanes, cfg, bvh_smem=smem)
+            tmk.prepare_trace(ts, *lanes, cfg, soft_guard=guard)

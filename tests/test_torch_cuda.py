@@ -12,19 +12,24 @@ the extended body (K1-ext: smooth normals, kinds 7-12, textures), must
 equal their plain version under the goldens image gate (<= 0.1% of pixels
 off by > 1e-3, mean abs error < 1e-4), which admits the rare lane that a
 one-ulp difference of a library pow or sin sends down another branch. K5
-must equal K3+K4 on the same tree bit for bit (the same walks over the
-same floats), and its group closest-hit walk must equal its per-thread
-walk, work counters too, on leaves of 32 and 128 rows, on partial warps
-and at depth 100 with 20 lights and 80 soft rays. P1's three variants
-must equal the plain chain bit for bit. K3+K4 over its walk table (in
-shared memory, or read in place past the budget) must equal the previous
-design, rt_trace_bvh_global, bit for bit, work counters too, on partial
-warps, from resumed state and at depth 100 with 20 lights and 80 soft
-rays. K3-wide (the 4-wide walk of K3+K4 and K5) must take its
-plain version's hits where primitives tie exactly in t. K1-state's two
-segments must give the alive flags of the plain version exactly, its
-state on the lanes still alive, and the unsplit launch's radiance under
-the image gate.
+must equal K3+K4 on the same tree bit for bit, work counters too (the
+same walks over the same floats), and its plain version, on leaves of 32
+and 128 rows, on partial warps and at depth 100 with 20 lights and 80
+soft rays. P1's three variants must equal the plain chain bit for bit.
+K3+K4 over its walk table must equal the plain version bit for bit, and
+the same launch with the table read in place (past a lowered budget),
+work counters too, on partial warps, from resumed state and at depth 100
+with 20 lights and 80 soft rays. K1 and K7 (persistent blocks, K1-guard
+in both, in chunks of 96 occluders past 96) must equal the plain guarded
+version bit for bit and themselves unguarded, on ring-2500 with its
+tables in shared memory, on partial warps and dead lanes, at depth 100,
+on the twin scene's ties and in the K1-state entries; K7's work counters
+must equal K1's on the same scene. K3-wide (the 4-wide walk of K3+K4 and
+K5) must take its plain version's hits where primitives tie exactly in
+t. K1-state's two segments must give the alive flags of the plain
+version exactly, its state on the lanes still alive, and the unsplit
+launch's radiance under the image gate. A scene past the JAX package's
+262,144-primitive cap renders through K6-stream and K5.
 """
 
 import copy
@@ -41,10 +46,12 @@ from raytrace_tpu_torch import scene as tscene
 from raytrace_tpu_torch import trace as ttrace
 from raytrace_tpu_torch.bench.suite import (bvh_scene_dict,
                                              golden_scene_dict,
+                                             grid_scene_dict,
                                              ring_scene_dict,
                                              twin_scene_dict)
 from raytrace_tpu_torch.bench.suite import mesh_scene_dict as suite_mesh
 from raytrace_tpu_torch.ops import megakernel as tmk
+from raytrace_tpu_torch.ops import shade as tshade
 from raytrace_tpu_torch.tools import measure_dma_stream as p1
 
 # The scenes of the extended body: (asset, kernel); the assets run with
@@ -207,24 +214,31 @@ def icosphere_dict():
 
 
 # Loop-mode scenes: the icosphere without its BVH (81 primitives with
-# vertex normals), ring-300 (tables in shared memory) and ring-2500 (past
-# K7's shared-memory budget: rows read through __ldg), without a BVH.
+# vertex normals), ring-300 and ring-2500 (51 KB of tables: past 48 KB,
+# the launch opts in), without a BVH, all with their tables in shared
+# memory; "ring2500-ldg" lowers the budget, so the rows are read through
+# __ldg.
 LOOP_SCENES = {"icosphere": icosphere_dict, "ring300": lambda: (
-    ring_scene_dict(300)), "ring2500": lambda: ring_scene_dict(2500)}
+    ring_scene_dict(300)), "ring2500": lambda: ring_scene_dict(2500),
+    "ring2500-ldg": lambda: ring_scene_dict(2500)}
 
 
 @pytest.mark.parametrize("name", list(LOOP_SCENES))
-def test_k7_matches_plain(cuda, name):
+def test_k7_matches_plain(cuda, name, monkeypatch):
     s = tscene.from_dict(LOOP_SCENES[name](), device=cuda,
                          build_accel=False)[0]
     assert tmk._kernel_mode(s) == "loop"
+    ldg = name.endswith("-ldg")
+    if ldg:
+        monkeypatch.setattr(tmk, "LOOP_SMEM_BYTES", 48 * 1024)
     tabs = tmk.pack_tables(s)
-    assert tmk.loop_tables_in_smem(tabs) == (name != "ring2500")
+    assert tmk.loop_tables_in_smem(tabs) == (not ldg)
     cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
-    W, H, S = (32, 24, 2) if name != "ring2500" else (16, 12, 1)
+    W, H, S = (16, 12, 1) if name.startswith("ring2500") else (32, 24, 2)
     tmk.reset_launches()
     got = lane_image(s, tmk.trace, cfg, W, H, S)
-    assert tmk.LAUNCHES["trace_loop"] == 1
+    assert tmk.LAUNCHES["trace_loop"] == tmk.LAUNCHES["trace_guard"] == 1
+    assert tmk.LAUNCHES["trace_loop_ldg"] == int(ldg)
     gate(got, lane_image(s, ttrace.trace, cfg, W, H, S))
 
 
@@ -415,6 +429,176 @@ def test_k1_guard_equals_unguarded(cuda, name):
     assert int(outs[False][2][5]) == 0
 
 
+def plain_guarded(s, lanes, cfg, monkeypatch, **kw):
+    """The plain guarded version: the plain engine with K1-guard's soft
+    loop (megakernel.shadow_factor_guarded)."""
+    with monkeypatch.context() as m:
+        m.setattr(tshade, "shadow_factor", tmk.shadow_factor_guarded)
+        return ttrace.trace(s, *lanes, cfg, **kw)
+
+
+def brute_both(s, lanes, cfg, **kw):
+    """K1 or K7 with K1-guard and without it on the same lanes: (output,
+    work counters) of each."""
+    out = []
+    for guard in (True, False):
+        cnt = torch.zeros((lanes[0].shape[0], tmk.COUNTERS),
+                          dtype=torch.int32, device=lanes[0].device)
+        rad, launch = tmk.prepare_trace(s, *lanes, cfg, counters=cnt,
+                                        soft_guard=guard, **kw)
+        launch()
+        out.append((rad, cnt))
+    return out
+
+
+def twins_without_plane():
+    """The twin scene's 96 spheres alone: K1's size, exact ties in t."""
+    d = twin_scene_dict()
+    d["objects"] = [o for o in d["objects"] if o["type"] != "plane"]
+    return d
+
+
+def twin_brute(device, monkeypatch, kernel):
+    """The twin scene without a BVH (exact ties in t): K7's with its 97
+    primitives (two chunks of K1-guard), K1's without its plane (96)."""
+    d = twin_scene_dict() if kernel == "trace_loop" else twins_without_plane()
+    return tscene.from_dict(d, device=device, build_accel=False)[0]
+
+
+# (kernel, scene, depth, lights, soft rays, frame): the bench scene; the
+# twin scene's ties (96 occluders for K1; 97 for K7, two chunks of
+# K1-guard); ring-2500
+# (2,501 occluders, its 51 KB of tables in shared memory); the mixed scene
+# without its BVH (102 occluders, a chunk that crosses the kinds); depth
+# 100 with 20 lights and 80 soft rays (two blocks of rays)
+BRUTE_CASES = {
+    "k1-bench": ("trace_unroll", lambda d, m: scene_on(SCENES[0], d),
+                 50, 16, (48, 36, 2)),
+    "k1-twins": ("trace_unroll", lambda d, m: twin_brute(d, m,
+                                                         "trace_unroll"),
+                 8, 16, (32, 24, 2)),
+    "k1-depth100": ("trace_unroll", lambda d, m: tscene.from_dict(
+        with_lights(scene_dict(SCENES[2]), 20), device=d)[0], 100, 80,
+        (16, 12, 1)),
+    "k7-twins": ("trace_loop", lambda d, m: twin_brute(d, m, "trace_loop"),
+                 8, 16, (32, 24, 2)),
+    "k7-ring2500": ("trace_loop", lambda d, m: tscene.from_dict(
+        ring_scene_dict(2500), device=d, build_accel=False)[0], 50, 16,
+        (16, 12, 2)),
+    "k7-mixed": ("trace_loop", lambda d, m: tscene.from_dict(
+        bvh_scene_dict("mixed"), device=d, build_accel=False)[0], 50, 16,
+        (32, 24, 2)),
+    "k7-depth100": ("trace_loop", lambda d, m: tscene.from_dict(
+        with_lights(bvh_scene_dict("mixed"), 20), device=d,
+        build_accel=False)[0], 100, 80, (16, 12, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(BRUTE_CASES))
+def test_brute_kernels_equal_plain_guarded(cuda, case, monkeypatch):
+    """K1 and K7 in their persistent blocks, with K1-guard (in chunks of
+    96 occluders past 96): equal bit for bit to themselves unguarded and
+    to the plain guarded version, on every lane of a frame, on 1001 lanes
+    (not a multiple of 32) as a K1-state segment, and on a segment resumed
+    from it with every other lane dead; the guard skips some (lane, light,
+    occluder) triples and leaves the ray counts as they are."""
+    kernel, make, depth, soft, (W, H, S) = BRUTE_CASES[case]
+    s = make(cuda, monkeypatch)
+    assert tmk._kernel_mode(s) == kernel.split("_")[1]
+    assert tmk.trace_smem_bytes(s) > 0   # the tables in shared memory
+    cfg = ttrace.TraceConfig(max_depth=depth, shadow_samples=soft)
+    lanes = main_path_lanes(s, W, H, S, cfg)
+    tmk.reset_launches()
+    (g, cg), (u, cu) = brute_both(s, lanes, cfg)
+    assert tmk.LAUNCHES[kernel] == 2 and tmk.LAUNCHES["trace_guard"] == 1
+    assert tmk.LAUNCHES["trace_loop_ldg"] == 0
+    assert torch.equal(g, u)
+    assert torch.equal(g, plain_guarded(s, lanes, cfg, monkeypatch))
+    assert torch.equal(cg[:, :3], cu[:, :3])
+    work = cg.sum(0)
+    assert int(work[5]) > 0 and int(work[6]) < int(work[5])
+    assert not cu[:, 5:].any()
+    part = tuple(t[:1001] for t in lanes)
+    (a, _), (b, _) = brute_both(s, part, cfg, end_bounce=2,
+                                return_state=True)
+    assert same_out(a, b)
+    assert same_as_plain(a, plain_guarded(s, part, cfg, monkeypatch,
+                                          end_bounce=2, return_state=True))
+    alive = a[1]["alive"].clone()
+    alive[::2] = 0.0
+    seg = (a[1]["origin"], a[1]["direction"]) + part[2:]
+    kw = dict(start_bounce=2, init_throughput=a[1]["throughput"],
+              init_alive=alive)
+    (c, _), (d, _) = brute_both(s, seg, cfg, **kw)
+    assert torch.equal(c, d) and not c[::2].any()
+    assert torch.equal(c, plain_guarded(s, seg, cfg, monkeypatch, **kw))
+
+
+def test_k7_counters_equal_k1(cuda, monkeypatch):
+    """K7 and K1 run one policy: on the twin scene's 96 spheres (exact
+    ties; forced into loop mode by a lowered unroll limit) K7 - with its
+    tables in shared memory and read in place - gives K1's radiance and
+    K1's work counters, all eight, lane for lane."""
+    s = tscene.from_dict(twins_without_plane(), device=cuda,
+                         build_accel=False)[0]
+    assert tmk._kernel_mode(s) == "unroll"
+    cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
+    lanes = main_path_lanes(s, 32, 24, 2, cfg)
+    outs = []
+    for budget in (tmk.LOOP_SMEM_BYTES, 0):
+        with monkeypatch.context() as m:
+            m.setattr(tmk, "UNROLL_PRIM_LIMIT", 95)
+            m.setattr(tmk, "LOOP_SMEM_BYTES", budget)
+            assert tmk._kernel_mode(s) == "loop"
+            outs.append(brute_both(s, lanes, cfg)[0])
+    tmk.reset_launches()
+    outs.append(brute_both(s, lanes, cfg)[0])
+    assert tmk.LAUNCHES["trace_unroll"] == 2
+    for rad, cnt in outs[:2]:
+        assert torch.equal(rad, outs[2][0]) and torch.equal(cnt, outs[2][1])
+    assert int(outs[2][1][:, 5].sum()) > 0
+
+
+def test_past_cap_scene_renders_through_k6s_and_k5(cuda):
+    """A grid of 65^3 spheres over a plane (274,626 primitives, past the
+    JAX package's 262,144-primitive cap, where its Renderer leaves its
+    kernels) renders at 32x24, 1 spp, depth 2 through K6-stream and K5,
+    and K5 equals its plain version on a strided subset of the frame's
+    lanes."""
+    s = tscene.from_dict(grid_scene_dict(65), device=cuda)[0]
+    assert s.prim_count > tmk.MAX_STREAM_KERNEL_PRIMS
+    assert not tmk.scene_fits_kernel(s)
+    assert tmk.require_mode(s) == "stream"
+    cfg = ttrace.TraceConfig(max_depth=2, shadow_samples=16)
+    seen = []
+
+    def hook(stage, **v):
+        if stage == "lane_rays":
+            seen.append({k: v[k] for k in ("origin", "direction", "pix",
+                                           "samp")})
+        elif stage == "trace":
+            seen[-1]["rad"] = v["rad"]
+
+    tmk.reset_launches()
+    img = trender.render_wavefront(s, width=32, height=24, samples=1,
+                                   cfg=cfg, hook=hook)
+    assert tmk.LAUNCHES["pixel_mask_stream"] == 1
+    assert tmk.LAUNCHES["trace_stream"] == len(seen) >= 1
+    assert tmk.LAUNCHES["trace_bvh"] == tmk.LAUNCHES["pixel_mask_bvh"] == 0
+    assert bool(torch.isfinite(img).all()) and bool((img.sum(-1) > 0).any())
+    lanes = tuple(torch.cat([c[k] for c in seen])
+                  for k in ("origin", "direction", "pix", "samp"))
+    got = torch.cat([c["rad"] for c in seen])
+    idx = torch.arange(0, got.shape[0], max(1, got.shape[0] // 256),
+                       device=cuda)
+    want = ttrace.trace(s, *(t[idx] for t in lanes), cfg)
+    assert torch.equal(got[idx], want)
+    r = trender.Renderer(device=cuda)
+    r.set_samples(1)
+    r.set_max_depth(2)
+    assert r.render(s, 32, 24).shape == (24, 32, 3)
+
+
 DOF_CASES = (("unroll", lambda: scene_dict(SCENES[0])),
              ("bvh", lambda: bvh_scene_dict("mixed-noground")),
              ("stream", lambda: bvh_scene_dict("mixed-noground")))
@@ -476,96 +660,115 @@ def test_dma_probe_equals_plain(cuda, variant, rows, floats):
     assert torch.equal(got, p1.chain_plain(tab, 300, seed=5))
 
 
-def k5_both(s, lanes, cfg, **kw):
-    """K5 with its group closest-hit walk and with the per-thread walk on
-    the same lanes: (radiance, work counters) of each."""
+def same_tree(s, monkeypatch):
+    """The stream scene s as a bvh-mode scene over the same tree (its
+    stream table dropped, MAX_BVH_KERNEL_PRIMS raised past it), walked in
+    the same order: K3+K4 over it must equal K5."""
+    monkeypatch.setattr(tmk, "MAX_BVH_KERNEL_PRIMS", 1 << 20)
+    accel = dataclasses.replace(s.accel, stream_tab=None)
+    if not tbvh.wide_walk(s.accel):
+        accel = dataclasses.replace(accel, wide4=None)
+    tree = dataclasses.replace(s, accel=accel)
+    assert tmk._kernel_mode(tree) == "bvh"
+    return tree
+
+
+def k5_both(s, lanes, cfg, monkeypatch, **kw):
+    """K5 and K3+K4 on the same tree, on the same lanes: (radiance, work
+    counters) of each."""
     out = []
-    for group in (True, False):
-        cnt = torch.zeros((lanes[0].shape[0], tmk.BVH_COUNTERS),
-                          dtype=torch.int32, device=lanes[0].device)
-        rad, launch = tmk.prepare_trace(s, *lanes, cfg, counters=cnt,
-                                        leaf_group=group, **kw)
-        launch()
-        out.append((rad, cnt))
+    with monkeypatch.context() as m:
+        for scene in (s, same_tree(s, m)):
+            cnt = torch.zeros((lanes[0].shape[0], tmk.BVH_COUNTERS),
+                              dtype=torch.int32, device=lanes[0].device)
+            rad, launch = tmk.prepare_trace(scene, *lanes, cfg, counters=cnt,
+                                            **kw)
+            launch()
+            out.append((rad, cnt))
     return out
 
 
 @pytest.mark.parametrize("leaf", [32, 128])
 def test_k5_group_walk_equals_k3_and_plain(cuda, leaf, monkeypatch):
     """K5's group leaf tests on leaves of 32 rows (one a thread) and 128
-    (four rows a thread in a full group): equal to the per-thread walk
-    (work counters too), to K3+K4 on the same tree, and to the plain
-    version under the image gate."""
+    (four rows a thread in a full group): equal to K3+K4 on the same tree
+    (work counters too) and to the plain version bit for bit."""
     s = forced_stream(bvh_scene_dict("mixed"), cuda, monkeypatch,
                       leaf_size=leaf)
     cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
     lanes = main_path_lanes(s, 32, 24, 2, cfg)
-    (k5, cnt), (serial, cnt_serial) = k5_both(s, lanes, cfg)
-    assert torch.equal(k5, serial)
-    assert torch.equal(cnt, cnt_serial)
-    gate(k5, ttrace.trace(s, *lanes, cfg))
-    monkeypatch.setattr(tmk, "MAX_BVH_KERNEL_PRIMS", 4096)
-    tree = dataclasses.replace(s, accel=dataclasses.replace(
-        s.accel, stream_tab=None))
-    assert tmk._kernel_mode(tree) == "bvh"
-    assert torch.equal(k5, tmk.trace(tree, *lanes, cfg))
+    (k5, cnt), (k3, cnt_k3) = k5_both(s, lanes, cfg, monkeypatch)
+    assert torch.equal(k5, k3)
+    assert torch.equal(cnt, cnt_k3)
+    assert torch.equal(k5, ttrace.trace(s, *lanes, cfg))
 
 
 def test_k5_partial_warps(cuda, monkeypatch):
     """Groups of every size: a lane count that is not a multiple of 32,
-    and a resumed segment with every other lane dead; against the
-    per-thread walk, the plain version and K3+K4 on the same tree."""
+    and a resumed segment with every other lane dead; against K3+K4 on
+    the same tree (work counters too) and the plain version."""
     s = forced_stream(bvh_scene_dict("mixed"), cuda, monkeypatch,
                       leaf_size=32)
     cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
     lanes = tuple(t[:1001] for t in main_path_lanes(s, 32, 24, 2, cfg))
-    (k5, cnt), (serial, cnt_serial) = k5_both(s, lanes, cfg)
-    assert torch.equal(k5, serial) and torch.equal(cnt, cnt_serial)
-    gate(k5, ttrace.trace(s, *lanes, cfg))
-    tree = dataclasses.replace(s, accel=dataclasses.replace(
-        s.accel, stream_tab=None))
-    with monkeypatch.context() as m:
-        m.setattr(tmk, "MAX_BVH_KERNEL_PRIMS", 4096)
-        assert tmk._kernel_mode(tree) == "bvh"
-        assert torch.equal(k5, tmk.trace(tree, *lanes, cfg))
+    (k5, cnt), (k3, cnt_k3) = k5_both(s, lanes, cfg, monkeypatch)
+    assert torch.equal(k5, k3) and torch.equal(cnt, cnt_k3)
+    assert torch.equal(k5, ttrace.trace(s, *lanes, cfg))
     _, st = tmk.trace(s, *lanes, cfg, end_bounce=2, return_state=True)
     alive = st["alive"].clone()
     alive[::2] = 0.0
     seg = (st["origin"], st["direction"]) + lanes[2:]
     kw = dict(start_bounce=2, init_throughput=st["throughput"],
               init_alive=alive)
-    (k5, cnt), (serial, cnt_serial) = k5_both(s, seg, cfg, **kw)
-    assert torch.equal(k5, serial) and torch.equal(cnt, cnt_serial)
+    (k5, cnt), (k3, cnt_k3) = k5_both(s, seg, cfg, monkeypatch, **kw)
+    assert torch.equal(k5, k3) and torch.equal(cnt, cnt_k3)
     assert not k5[::2].any()
-    gate(k5, ttrace.trace(s, *seg, cfg, **kw))
+    assert torch.equal(k5, ttrace.trace(s, *seg, cfg, **kw))
 
 
 def test_k5_run_time_bounds_match_plain(cuda, monkeypatch):
     """max_depth 100, 20 lights and 80 soft-shadow rays on K5 (its soft
-    walk in two blocks of rays, 64 and 16), group and per-thread walks
-    alike."""
+    walk in two blocks of rays, 64 and 16): equal to K3+K4 on the same
+    tree (work counters too) and to the plain version."""
     s = forced_stream(with_lights(bvh_scene_dict("mixed"), 20), cuda,
                       monkeypatch, leaf_size=32)
     cfg = ttrace.TraceConfig(max_depth=100, shadow_samples=80)
     lanes = main_path_lanes(s, 16, 12, 1, cfg)
-    (k5, cnt), (serial, cnt_serial) = k5_both(s, lanes, cfg)
-    assert torch.equal(k5, serial) and torch.equal(cnt, cnt_serial)
-    gate(k5, ttrace.trace(s, *lanes, cfg))
+    (k5, cnt), (k3, cnt_k3) = k5_both(s, lanes, cfg, monkeypatch)
+    assert torch.equal(k5, k3) and torch.equal(cnt, cnt_k3)
+    assert torch.equal(k5, ttrace.trace(s, *lanes, cfg))
 
 
 def k3_both(s, lanes, cfg, **kw):
-    """K3+K4 over its walk table and the previous design
-    (rt_trace_bvh_global) on the same lanes: (output, work counters) of
-    each."""
+    """K3+K4 over its walk table as the main path takes it and read in
+    place (BVH_SMEM_BYTES lowered to 0) on the same lanes: (output, work
+    counters) of each."""
     out = []
-    for smem in (True, False):
+    for budget in (tmk.BVH_SMEM_BYTES, 0):
         cnt = torch.zeros((lanes[0].shape[0], tmk.BVH_COUNTERS),
                           dtype=torch.int32, device=lanes[0].device)
-        rad, launch = tmk.prepare_trace(s, *lanes, cfg, counters=cnt,
-                                        bvh_smem=smem, **kw)
+        old, tmk.BVH_SMEM_BYTES = tmk.BVH_SMEM_BYTES, budget
+        try:
+            rad, launch = tmk.prepare_trace(s, *lanes, cfg, counters=cnt,
+                                            **kw)
+        finally:
+            tmk.BVH_SMEM_BYTES = old
         launch()
         out.append((rad, cnt))
     return out
+
+
+def same_as_plain(got, want):
+    """A trace output (radiance, or radiance and state) equal to the
+    plain version's: radiance and alive flags bit for bit, and the state
+    of the lanes still alive."""
+    if not isinstance(got, tuple):
+        return torch.equal(got, want)
+    alive = want[1]["alive"] > 0
+    return (torch.equal(got[0], want[0])
+            and torch.equal(got[1]["alive"], want[1]["alive"])
+            and all(torch.equal(got[1][k][alive], want[1][k][alive])
+                    for k in ("origin", "direction", "throughput")))
 
 
 def same_out(a, b):
@@ -587,9 +790,10 @@ K3_WALK_CASES = ("ring1000", "mixed", "smooth", "ico2561", "mixed-ldg")
 @pytest.mark.parametrize("case", K3_WALK_CASES)
 def test_k3_walk_table_equals_global_and_plain(cuda, case, tmp_path,
                                                monkeypatch):
-    """K3+K4 over its walk table: equal to the previous design bit for bit
-    (radiance and work counters) and to the plain version under the image
-    gate; "mixed-ldg" lowers the budget so the table is read in place."""
+    """K3+K4 over its walk table: equal to the plain version bit for bit,
+    and to the same launch with the table read in place (radiance and
+    work counters); "mixed-ldg" lowers the budget so the main path's
+    launch reads it in place too."""
     go = case != "smooth"
     if case == "smooth":
         s = tscene.load(os.path.join(ASSETS, "smooth_shading_demo.json"),
@@ -615,28 +819,29 @@ def test_k3_walk_table_equals_global_and_plain(cuda, case, tmp_path,
                               go_camera=go)
     lanes = (o.contiguous(), d, pix, samp)
     tmk.reset_launches()
-    (k3, cnt), (prev, cnt_prev) = k3_both(s, lanes, cfg)
-    assert tmk.LAUNCHES["trace_bvh"] == tmk.LAUNCHES["trace_bvh_global"] == 1
-    assert tmk.LAUNCHES["trace_bvh_ldg"] == int(case.endswith("-ldg"))
-    assert torch.equal(k3, prev) and torch.equal(cnt, cnt_prev)
-    img = lambda r: torch.zeros((W * H, 3), device=cuda).index_add_(
-        0, px, r.reshape(-1, S, 3).sum(1))
-    gate(img(k3), img(ttrace.trace(s, *lanes, cfg)))
+    (k3, cnt), (ldg, cnt_ldg) = k3_both(s, lanes, cfg)
+    assert tmk.LAUNCHES["trace_bvh"] == 2
+    assert tmk.LAUNCHES["trace_bvh_ldg"] == 1 + int(case.endswith("-ldg"))
+    assert torch.equal(k3, ldg) and torch.equal(cnt, cnt_ldg)
+    assert torch.equal(k3, ttrace.trace(s, *lanes, cfg))
 
 
 def test_k3_walk_table_partial_warps_and_state(cuda):
     """A lane count that is not a multiple of 32, a segment with state
     out, and a resumed segment with every other lane dead: equal to the
-    previous design (work counters too) and the plain version."""
+    plain version bit for bit, and to the same launches reading the table
+    in place (work counters too)."""
     s = tscene.from_dict(bvh_scene_dict("mixed"), device=cuda)[0]
     cfg = ttrace.TraceConfig(max_depth=50, shadow_samples=16)
     lanes = tuple(t[:1001] for t in main_path_lanes(s, 32, 24, 2, cfg))
-    (k3, cnt), (prev, cnt_prev) = k3_both(s, lanes, cfg)
-    assert torch.equal(k3, prev) and torch.equal(cnt, cnt_prev)
-    gate(k3, ttrace.trace(s, *lanes, cfg))
-    (a, cnt), (b, cnt_prev) = k3_both(s, lanes, cfg, end_bounce=2,
-                                      return_state=True)
-    assert same_out(a, b) and torch.equal(cnt, cnt_prev)
+    (k3, cnt), (ldg, cnt_ldg) = k3_both(s, lanes, cfg)
+    assert torch.equal(k3, ldg) and torch.equal(cnt, cnt_ldg)
+    assert torch.equal(k3, ttrace.trace(s, *lanes, cfg))
+    (a, cnt), (b, cnt_ldg) = k3_both(s, lanes, cfg, end_bounce=2,
+                                     return_state=True)
+    assert same_out(a, b) and torch.equal(cnt, cnt_ldg)
+    assert same_as_plain(a, ttrace.trace(s, *lanes, cfg, end_bounce=2,
+                                         return_state=True))
     st = a[1]
     alive = st["alive"].clone()
     alive[::2] = 0.0
@@ -644,21 +849,21 @@ def test_k3_walk_table_partial_warps_and_state(cuda):
     kw = dict(start_bounce=2, init_throughput=st["throughput"],
               init_alive=alive)
     tmk.reset_launches()
-    (k3, cnt), (prev, cnt_prev) = k3_both(s, seg, cfg, **kw)
+    (k3, cnt), (ldg, cnt_ldg) = k3_both(s, seg, cfg, **kw)
     assert tmk.LAUNCHES["trace_state"] == 2
-    assert torch.equal(k3, prev) and torch.equal(cnt, cnt_prev)
+    assert torch.equal(k3, ldg) and torch.equal(cnt, cnt_ldg)
     assert not k3[::2].any()
-    gate(k3, ttrace.trace(s, *seg, cfg, **kw))
+    assert torch.equal(k3, ttrace.trace(s, *seg, cfg, **kw))
 
 
 def test_k3_walk_table_run_time_bounds(cuda):
     """max_depth 100, 20 lights and 80 soft-shadow rays (the fused walk in
-    blocks of 64 and 16 rays): equal to the previous design, work
-    counters too, and to the plain version."""
+    blocks of 64 and 16 rays): equal to the plain version bit for bit, and
+    to the same launch reading the table in place, work counters too."""
     s = tscene.from_dict(with_lights(bvh_scene_dict("mixed"), 20),
                          device=cuda)[0]
     cfg = ttrace.TraceConfig(max_depth=100, shadow_samples=80)
     lanes = main_path_lanes(s, 16, 12, 1, cfg)
-    (k3, cnt), (prev, cnt_prev) = k3_both(s, lanes, cfg)
-    assert torch.equal(k3, prev) and torch.equal(cnt, cnt_prev)
-    gate(k3, ttrace.trace(s, *lanes, cfg))
+    (k3, cnt), (ldg, cnt_ldg) = k3_both(s, lanes, cfg)
+    assert torch.equal(k3, ldg) and torch.equal(cnt, cnt_ldg)
+    assert torch.equal(k3, ttrace.trace(s, *lanes, cfg))

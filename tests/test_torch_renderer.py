@@ -167,3 +167,54 @@ def test_fast_mc_and_dof_renderer_settings_render():
     want = trender.render_wavefront(ts, width=8, height=6, samples=1,
                                     cfg=cfg).numpy()
     assert np.array_equal(lin, want) and np.isfinite(lin).all()
+
+
+def test_past_cap_render_matches_jax_banded_engine(monkeypatch):
+    """Past the JAX package's stream cap (MAX_STREAM_KERNEL_PRIMS, lowered
+    here below a small scene forced into stream mode) the port's Renderer
+    stays on the stream route - K6-stream's and K5's plain versions on the
+    CPU, as the split ladder at depth 12 - where the JAX Renderer renders
+    with its banded jnp engine (raytrace_tpu/renderer.py:917-972): the two
+    images agree under the goldens gate."""
+    from raytrace_tpu_torch.bench.suite import ring_scene_dict
+    from raytrace_tpu_torch.ops import megakernel as tmk
+    d = ring_scene_dict(12)
+    js = jscene.from_dict(d)[0]
+    monkeypatch.setattr(tmk, "UNROLL_PRIM_LIMIT", 4)
+    monkeypatch.setattr(tmk, "MAX_BVH_KERNEL_PRIMS", 8)
+    monkeypatch.setattr(tmk, "MAX_STREAM_KERNEL_PRIMS", 8)
+    ts = tscene.with_accel(tscene.from_dict(d, device="cpu",
+                                            build_accel=False)[0],
+                           leaf_size=4)
+    assert ts.prim_count > tmk.MAX_STREAM_KERNEL_PRIMS
+    assert not tmk.scene_fits_kernel(ts)
+    assert tmk.require_mode(ts) == "stream"
+    assert ts.accel.stream_tab is not None
+    jr, tr = jrender.Renderer(), trender.Renderer(device="cpu")
+    for r in (jr, tr):
+        r.set_samples(2)
+        r.set_max_depth(12)
+    assert trender.pick_split(ts, tr.trace_config())
+    want = jr.render_linear(js, 8, 6)
+    got = tr.render_linear(ts, 8, 6)
+    assert got.shape == want.shape == (6, 8, 3)
+    assert (want.sum(-1) > 0).any()
+    gate(got, want)
+
+
+def test_namespace_exports_the_ports_names():
+    """The package exports Scene, render_band and trace_rays beside its
+    other entry points, as raytrace_tpu/__init__.py does, and each is the
+    port's own object."""
+    import raytrace_tpu
+    import raytrace_tpu_torch as rtt
+    from raytrace_tpu_torch import scene as scene_mod
+    for name in ("Scene", "render_band", "trace_rays", "Renderer",
+                 "TraceConfig", "load_scene", "scene_from_dict"):
+        assert name in rtt.__all__ and name in raytrace_tpu.__all__
+        obj = getattr(rtt, name)
+        assert obj.__module__.startswith("raytrace_tpu_torch."), name
+        assert obj is not getattr(raytrace_tpu, name)
+    assert rtt.Scene is scene_mod.Scene
+    assert rtt.render_band is trender.render_band
+    assert rtt.trace_rays is ttrace.trace

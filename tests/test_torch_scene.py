@@ -279,17 +279,21 @@ def test_scene_config_features_render(feature):
 
 
 def test_out_of_slice_features_raise(monkeypatch):
-    """What the port still leaves out raises, naming where it is queued:
-    a scene past MAX_STREAM_KERNEL_PRIMS, which the JAX package renders
-    with its band route (the cap is lowered here below the scene's 4,097
-    primitives)."""
+    """What the kernels cannot take raises, naming why: a scene past
+    MAX_STREAM_ROWS primitives, whose leaf offsets the stream node table
+    cannot hold exactly (the limit is lowered here below the scene's 4,097
+    primitives). Past MAX_STREAM_KERNEL_PRIMS alone, where the JAX package
+    takes its band route, the port renders."""
     r = trender.Renderer(device="cpu")
     r.set_samples(1)
+    r.set_max_depth(2)
     d = {"objects": [{"type": "sphere", "position": [i % 64, i // 64, -5],
                       "radius": 0.2} for i in range(4097)]}
     ts = tscene.from_dict(d, device="cpu")[0]
     monkeypatch.setattr(tmk, "MAX_STREAM_KERNEL_PRIMS", 4096)
-    with pytest.raises(NotImplementedError, match="band route"):
+    assert r.render(ts, 4, 3).shape == (3, 4, 3)
+    monkeypatch.setattr(tmk, "MAX_STREAM_ROWS", 4096)
+    with pytest.raises(ValueError, match="float32 integers"):
         r.render(ts, 4, 3)
 
 
