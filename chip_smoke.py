@@ -27,7 +27,11 @@ Phases, in order (each prints a line before and after, with its seconds):
   k6_check          K6 (pixel mask, BVH walk) against its plain version at
                     800x600 on ring-1000 and the mixed scene, and on both
                     without what covers the whole frame (their frames
-                    must hold hits and misses): masks equal
+                    must hold hits and misses): masks equal; here and in
+                    k6s_check, dof and past_cap the pre-pass's mask table
+                    must equal megakernel.mask_table_plain bit for bit,
+                    and the walk reading it in place (the budget lowered)
+                    must give the same mask
   k3_check          K3+K4 (bounce megakernel, bvh mode) against its plain
                     version on the lanes of a 64x48 frame, 4 spp, depth 50,
                     ring-1000 and the mixed scene: equal bit for bit; here
@@ -81,7 +85,8 @@ Phases, in order (each prints a line before and after, with its seconds):
                     for bit (K1 and K7 also against themselves unguarded)
   k6s_check         K6-stream (pixel mask, node-only walk, stream mode)
                     against its plain version at 800x600 on grid-5833 and
-                    ico-10241, and on ring-1000 (and without its ground)
+                    ico-10241 (pre-pass and walk), and on ring-1000 (and
+                    without its ground)
                     forced into stream mode, where it must also pass every
                     pixel of K6's mask on the same tree: masks equal
   k5_check          K5 (bounce megakernel, stream mode) against its plain
@@ -114,7 +119,10 @@ Phases, in order (each prints a line before and after, with its seconds):
                     its Renderer leaves its kernels for a banded jnp
                     engine) renders at 32x24, 1 spp, depth 2 through
                     K6-stream and K5, K5 equal to its plain version bit
-                    for bit on a strided subset of the frame's lanes
+                    for bit on a strided subset of the frame's lanes;
+                    K6-stream reads its 393 KB mask table in place
+                    (counted under pixel_mask_ldg) and equals its plain
+                    version
   guard             K1-guard: K1 with its soft-shadow guard (the main
                     path's) against K1 without it and against the plain
                     guarded version (megakernel.shadow_factor_guarded in
@@ -212,7 +220,19 @@ Phases, in order (each prints a line before and after, with its seconds):
                     launches on the 4-wide walk beside the same launches
                     on the binary walk; K1-guard (K1 guarded and
                     unguarded at the bench frame's lanes, both bounds) and
-                    the DoF masks at the DoF frames; P1's three variants
+                    the DoF masks at the DoF frames; K6 and K6-stream
+                    (ring-1000, grid-5833, and their DoF frames) as the
+                    mask launch (its table built in shared memory) and
+                    the pre-pass kernel alone timed on the device (the
+                    stream held by a sleep kernel while the host enqueues
+                    200 launches, tools/measure_mask.py:device_ms, as K2
+                    and K2-dof: one launch takes the host longer than
+                    these kernels run), the bound over the mask's work
+                    (the table built once, the walk), the table's bytes,
+                    and the mask stage split into camera row, tables,
+                    launch and cumsum (host clock, median of 20); the
+                    pre-pass's own row (K6-table) at the past-cap frame,
+                    whose table it writes; P1's three variants
                     (ms at the TPU tool's shape, launches from dma_probe,
                     P1's main path); registers, stack and spills of every
                     kernel from the build
@@ -280,6 +300,15 @@ CARD = "card not read"  # nvidia-smi's name and power limit, read in env
 # per second. Used for the kernels' bounds only.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 33.5e12
+# Operations of K6 and K6-stream, read off csrc/pixel_mask.cu (every add,
+# multiply, compare, min/max, divide and square root counts one): the
+# pre-pass a node row (with the DoF pad) and a leaf row of a triangle or
+# of a sphere; the walk a slab test and a leaf test over a leaf row (with
+# the thin-lens slack), and a pixel's center ray and a plane as K2's.
+TABLE_NODE_OPS, TABLE_NODE_DOF_OPS = 47, 101
+TABLE_TRI_OPS, TABLE_SPH_OPS = 50, 14
+SLAB_OPS = 21
+LEAF_OPS, LEAF_DOF_OPS = 13, 34
 # K1-guard's operations a guard evaluation, read off csrc/brute_force.cuh:
 # a sphere's (sphere_oc 9, sphere_guard 31); a triangle's bounding sphere
 # costs more and a plane's less: a round count, like the others.
@@ -547,6 +576,115 @@ def bench(scene, mk, what, slow_cut, go_camera=True, dof=False,
     return launches
 
 
+def mask_table_check(mk, scene, cfg, what, width=W, height=H):
+    """K6 or K6-stream's pre-pass against mask_table_plain bit for bit, and
+    the mask as the main path launches it (the walk building its table in
+    shared memory, or reading the pre-pass's in place) against the same
+    walk reading the table in place (megakernel.MASK_SMEM_BYTES lowered):
+    masks equal, each launch counted. Returns (table bytes, in shared
+    memory)."""
+    import torch
+    kw = dict(width=width, height=height, cfg=cfg)
+    kernel = mk.MASKS[mk.require_mode(scene)]
+    mk.reset_launches()
+    out, launch = mk.prepare_pixel_mask(scene, **kw)
+    launch()
+    launch.prepass()
+    want = mk.mask_table_plain(scene, launch.cam, cfg)
+    if not torch.equal(launch.table.view(torch.int32),
+                       want.view(torch.int32)):
+        raise AssertionError(f"{what}: the pre-pass's table differs from "
+                             "mask_table_plain")
+    with lowered_budget(mk, "MASK_SMEM_BYTES"):
+        ldg, ldg_launch = mk.prepare_pixel_mask(scene, **kw)
+        ldg_launch()
+    if ldg_launch.in_smem or not torch.equal(out, ldg):
+        raise AssertionError(f"{what}: the walk reading its table in place "
+                             "differs")
+    in_place = int(not launch.in_smem)
+    got = (mk.LAUNCHES["mask_table"], mk.LAUNCHES[kernel],
+           mk.LAUNCHES["pixel_mask_ldg"])
+    if got != (2 + in_place, 2, 1 + in_place):
+        raise AssertionError(f"{what}: the mask launched {mk.LAUNCHES}")
+    return 4 * launch.table.numel(), launch.in_smem
+
+
+def table_work(mk, scene, cfg):
+    """(operations, input bytes) of building a scene's mask table once:
+    node rows and, in bvh mode, leaf rows; the tree's arrays, the camera
+    row and, in bvh mode, prim_index and the sphere and triangle tables."""
+    g, acc = scene.geometry, scene.accel
+    ns = g.sph_center.shape[0]
+    ops = acc.n_nodes * (TABLE_NODE_DOF_OPS if cfg.depth_of_field
+                         else TABLE_NODE_OPS)
+    n_bytes = 36 * acc.n_nodes + 4 * 18
+    if mk.require_mode(scene) == "bvh":
+        n_sph = int((acc.prim_index < ns).sum())
+        ops += (n_sph * TABLE_SPH_OPS
+                + (acc.prim_index.shape[0] - n_sph) * TABLE_TRI_OPS)
+        n_bytes += (4 * acc.prim_index.shape[0] + 16 * ns
+                    + 36 * g.tri_v0.shape[0])
+    return ops, n_bytes
+
+
+def mask_numbers(mk, scene, cfg, go_camera=True):
+    """K6 or K6-stream at a bench frame's shape: ms of the mask launch as
+    the main path runs it (the walk, which builds its table in shared
+    memory, or the pre-pass and the walk in place) and of the pre-pass
+    kernel alone, on the device (tools/measure_mask.py:device_ms), and of
+    their plain versions; the bound of the mask's work (the table built
+    once, the walk's tests), the table's bytes and whether it sits in
+    shared memory, the work [slab tests, leaf tests], and the mask stage
+    split on the host clock (tools/measure_mask.py:stage_ms, median of
+    20)."""
+    from raytrace_tpu_torch.tools.measure_mask import device_ms, stage_ms
+    kw = dict(width=W, height=H, cfg=cfg, go_camera=go_camera)
+    work = [0, 0]
+    mk.pixel_mask_plain(scene, work=work, **kw)
+    _, launch = mk.prepare_pixel_mask(scene, **kw)
+    launch()
+    ms = device_ms([launch])
+    prepass_ms = device_ms([launch.prepass])
+    plain = cuda_ms(lambda: mk.pixel_mask_plain(scene, **kw), 3)
+    table_plain = cuda_ms(lambda: mk.mask_table_plain(scene, launch.cam,
+                                                      cfg), 3)
+    npl, n_px = scene.geometry.pl_point.shape[0], W * H
+    table_ops, in_bytes = table_work(mk, scene, cfg)
+    walk_ops = (n_px * (27 + 23 * npl) + work[0] * SLAB_OPS
+                + work[1] * (LEAF_DOF_OPS if cfg.depth_of_field
+                             else LEAF_OPS))
+    bnd, by = bound(table_ops + walk_ops, in_bytes + 28 * npl + n_px)
+    return dict(ms=ms, prepass_ms=prepass_ms, plain=plain,
+                table_plain=table_plain, bound=bnd, by=by,
+                table_bytes=4 * launch.table.numel(),
+                table_in_smem=launch.in_smem, work=work,
+                stage=stage_ms(mk, scene, cfg, go_camera, 20))
+
+
+def mask_keys(m):
+    """The extra keys of a K6 or K6-stream row."""
+    return dict(prepass_ms=m["prepass_ms"], table_plain_ms=m["table_plain"],
+                smem_bytes=m["table_bytes"] if m["table_in_smem"] else 0,
+                table_bytes=m["table_bytes"], slab_tests=m["work"][0],
+                leaf_tests=m["work"][1], mask_stage_ms=m["stage"])
+
+
+def mask_line(name, m):
+    """Print mask_numbers' reading."""
+    st = m["stage"]
+    where = ("built in shared memory" if m["table_in_smem"]
+             else "read in place")
+    print(f"   {name} [{CARD}]: work [slab tests, leaf tests] = {m['work']}; "
+          f"{m['ms']:.4f} ms a mask (the pre-pass kernel alone "
+          f"{m['prepass_ms']:.4f}) vs plain {m['plain']:.4f} ms (table "
+          f"alone {m['table_plain']:.4f}); bound {m['bound']:.6f} ms "
+          f"({m['by']}); table {m['table_bytes']} B "
+          f"{where};"
+          f" mask stage {st['stage']:.3f} ms: camera row {st['camera']:.3f},"
+          f" tables {st['tables']:.3f}, launch {st['launch']:.3f}, cumsum "
+          f"{st['cumsum']:.3f}", flush=True)
+
+
 def k1_ops(scene, cnt):
     """Operations K1 ran, from its per-lane work counters and the
     per-test costs read off csrc/: every add, multiply, divide, square
@@ -710,6 +848,10 @@ def main():
             if not torch.equal(got, want):
                 raise AssertionError(f"K6 differs from its plain version "
                                      f"on {name}")
+            nbytes, in_smem = mask_table_check(mk, s, cfg, f"K6 {name}")
+            print(f"   {name}: the pre-pass's table ({nbytes} B, in shared "
+                  f"memory {in_smem}) equals mask_table_plain; the walk "
+                  "reading it in place gives the same mask", flush=True)
             if name == BVH_SCENES[0]:
                 record["k6_err"] = float(
                     (got.float() - want.float()).abs().max())
@@ -836,12 +978,18 @@ def main():
             if not torch.equal(got, want):
                 raise AssertionError(f"K6-stream differs from its plain "
                                      f"version on {name}")
+            nbytes, in_smem = mask_table_check(mk, s, cfg,
+                                               f"K6-stream {name}")
+            print(f"   {name}: the pre-pass's table ({nbytes} B, in shared "
+                  f"memory {in_smem}) equals mask_table_plain; the walk "
+                  "reading it in place gives the same mask", flush=True)
         record["k6s_err"] = 0.0
         for name in ("ring1000", "ring1000-noground"):
             with forced_stream(mk):
                 s = bvh_scene(name, dev)
                 got = mk.pixel_mask(s, width=W, height=H, cfg=cfg)
                 want = mk.pixel_mask_plain(s, width=W, height=H, cfg=cfg)
+                mask_table_check(mk, s, cfg, f"K6-stream {name}")
             k6 = mk.pixel_mask(s, width=W, height=H, cfg=cfg)  # same tree
             print(f"   {name} forced into stream mode: {int(got.sum())} of "
                   f"{W * H} pixels, K6 on the same tree {int(k6.sum())}, "
@@ -942,7 +1090,7 @@ def main():
         render_check_stream(mk, rmod, trace_mod, stream_scenes["grid5833"])
 
     with Phase("past_cap"):
-        past_cap_check(mk, rmod, trace_mod, dev)
+        past_cap_check(mk, rmod, trace_mod, dev, record)
 
     with Phase("guard"):
         for name in GUARD_SCENES:
@@ -977,6 +1125,9 @@ def main():
                 if not torch.equal(got, want):
                     raise AssertionError(f"{kernel} with DoF differs from "
                                          f"its plain version on {name}")
+                if kernel != "pixel_mask":
+                    mask_table_check(mk, s, dcfg, f"{kernel} with DoF on "
+                                     f"{name}")
                 if (pin & ~got).any():
                     raise AssertionError(f"{name}: the DoF mask drops "
                                          "pinhole pixels")
@@ -1075,8 +1226,9 @@ def main():
                 raise AssertionError(f"the bvh main path never launched {k}")
         if launches_bvh["trace_wide"] != launches_bvh["trace_bvh"]:
             raise AssertionError("the bvh main path did not walk 4-wide")
-        if launches_bvh["trace_bvh_ldg"]:
-            raise AssertionError("the bvh main path left the walk table in "
+        if (launches_bvh["trace_bvh_ldg"] or launches_bvh["pixel_mask_ldg"]
+                or launches_bvh["mask_table"]):
+            raise AssertionError("the bvh main path left a table out of "
                                  f"shared memory: {launches_bvh}")
 
     frames = {}
@@ -1095,7 +1247,8 @@ def main():
                 if got[k] < 1:
                     raise AssertionError(f"the {phase} frame never "
                                          f"launched {k}")
-            if got["trace_bvh_ldg"] or got["trace_loop_ldg"]:
+            if (got["trace_bvh_ldg"] or got["trace_loop_ldg"]
+                    or got["pixel_mask_ldg"] or got["mask_table"]):
                 raise AssertionError(f"the {phase} frame left its table "
                                      f"out of shared memory: {got}")
             if got["trace_guard"] != got["trace_unroll"] + got["trace_loop"]:
@@ -1111,7 +1264,8 @@ def main():
                 if got[k] < 1:
                     raise AssertionError(f"the {phase} frame never "
                                          f"launched {k}")
-            for k in ("pixel_mask_bvh", "trace_bvh"):
+            for k in ("pixel_mask_bvh", "trace_bvh", "mask_table",
+                      "pixel_mask_ldg"):
                 if got[k] != 0:
                     raise AssertionError(f"the {phase} frame launched {k}")
             if got["trace_wide"] != got["trace_stream"]:
@@ -1511,15 +1665,17 @@ def tuple_at(out, idx):
     return out[idx]
 
 
-def past_cap_check(mk, rmod, trace_mod, dev):
+def past_cap_check(mk, rmod, trace_mod, dev, record):
     """A scene past the JAX package's stream cap (MAX_STREAM_KERNEL_PRIMS,
     where its Renderer leaves its kernels for a banded jnp engine): a grid
     of PAST_CAP_SIDE^3 spheres over a plane renders at 32x24, 1 spp, depth
     2 through K6-stream and K5, and K5 equals its plain version bit for
     bit on a strided subset of the frame's lanes; the Renderer renders it
-    too."""
+    too. K6-stream reads its mask table in place, after the pre-pass,
+    whose numbers go to record["past_cap_table"]."""
     import torch
     from raytrace_tpu_torch import scene as scene_mod
+    from raytrace_tpu_torch.tools.measure_mask import device_ms
     from raytrace_tpu_torch.bench.suite import grid_scene_dict
     t0 = time.perf_counter()
     s = scene_mod.from_dict(grid_scene_dict(PAST_CAP_SIDE), device=dev)[0]
@@ -1543,10 +1699,34 @@ def past_cap_check(mk, rmod, trace_mod, dev):
     img = rmod.render_wavefront(s, width=32, height=24, samples=1, cfg=cfg,
                                 hook=hook)
     launches = dict(mk.LAUNCHES)
-    if not (launches["pixel_mask_stream"] == 1
+    if not (launches["pixel_mask_stream"] == launches["mask_table"] == 1
+            and launches["pixel_mask_ldg"] == 1
             and launches["trace_stream"] == len(seen) >= 1
             and launches["trace_bvh"] == launches["pixel_mask_bvh"] == 0):
         raise AssertionError(f"the past-cap frame launched {launches}")
+    # K6-stream past the shared-memory budget: its table read in place
+    got = mk.pixel_mask(s, width=32, height=24, cfg=cfg)
+    if not torch.equal(got, mk.pixel_mask_plain(s, width=32, height=24,
+                                                cfg=cfg)):
+        raise AssertionError("K6-stream differs from its plain version past "
+                             "the cap")
+    nbytes, in_smem = mask_table_check(mk, s, cfg, "past-cap K6-stream",
+                                       width=32, height=24)
+    if in_smem:
+        raise AssertionError("the past-cap mask table is in shared memory")
+    _, launch = mk.prepare_pixel_mask(s, width=32, height=24, cfg=cfg)
+    launch()
+    ms = device_ms([launch.prepass])
+    plain = cuda_ms(lambda: mk.mask_table_plain(s, launch.cam, cfg), 3)
+    ops, n_bytes = table_work(mk, s, cfg)
+    bnd, by = bound(ops, n_bytes + nbytes)
+    record["past_cap_table"] = dict(launches=launches["mask_table"], ms=ms,
+                                    plain=plain, bound=bnd, by=by,
+                                    table_bytes=nbytes)
+    print(f"   past-cap: {s.prim_count} primitives, {s.accel.n_nodes} nodes,"
+          f" a {nbytes} B mask table read in place; K6-stream equal to its "
+          f"plain version; the pre-pass {ms:.4f} ms vs plain {plain:.4f} ms,"
+          f" bound {bnd:.6f} ms ({by})", flush=True)
     if not (bool(torch.isfinite(img).all())
             and bool((img.sum(-1) > 0).any())):
         raise AssertionError("the past-cap frame is not finite and lit")
@@ -1982,19 +2162,8 @@ def stream_rows(mk, frames, cfg, record):
     mkpy = "raytrace_tpu/ops/megakernel.py:"
     grid, _, g_launches = frames["grid5833"]
     mesh, _, m_launches = frames["ico10241"]
-    mwork = [0, 0]
-    mk.pixel_mask_plain(grid, width=W, height=H, cfg=cfg, work=mwork)
-    _, k6s_launch = mk.prepare_pixel_mask(grid, width=W, height=H, cfg=cfg)
-    k6s_ms = cuda_ms(k6s_launch, 20)
-    k6s_plain = cuda_ms(lambda: mk.pixel_mask_plain(
-        grid, width=W, height=H, cfg=cfg), 3)
-    npl = grid.geometry.pl_point.shape[0]
-    k6s_bound, k6s_by = bound(
-        n_px * (27 + 23 * npl) + mwork[0] * 21,
-        n_px + 4 * (13 + 9 * grid.accel.n_nodes + 7 * npl))
-    print(f"   K6-stream: {n_px} pixels, {grid.accel.n_nodes} nodes, "
-          f"{mwork[0]} slab tests; {k6s_ms:.4f} ms vs plain "
-          f"{k6s_plain:.4f} ms, bound {k6s_bound:.6f} ms", flush=True)
+    k6s = mask_numbers(mk, grid, cfg)
+    mask_line(f"K6-stream ({n_px} pixels, {grid.accel.n_nodes} nodes)", k6s)
     g = ladder_frame(mk, grid, cfg, g_launches, "grid-5833 frame (K5)")
     m = ladder_frame(mk, mesh, cfg, m_launches, "ico-10241 frame (K5)")
     common = dict(route="cuda", library_ms=None)
@@ -2024,8 +2193,9 @@ def stream_rows(mk, frames, cfg, record):
         dict(name="K6-stream pixel_mask_stream", source=src + "pixel_mask.cu",
              replaces=mkpy + "2597",
              launches=g_launches["pixel_mask_stream"],
-             max_abs_err=record["k6s_err"], ms=k6s_ms, plain_ms=k6s_plain,
-             bound_ms=k6s_bound, bound_by=k6s_by, **common),
+             max_abs_err=record["k6s_err"], ms=k6s["ms"],
+             plain_ms=k6s["plain"], bound_ms=k6s["bound"],
+             bound_by=k6s["by"], **mask_keys(k6s), **common),
         dict(name="K1-state resumable bounce loop (in K1, K3+K4, K5, K7)",
              source=src + "bounce.cuh", replaces=mkpy + "2448",
              launches=g_launches["trace_state"],
@@ -2455,6 +2625,7 @@ def slice_rows(mk, scenes, frames, cfg, record):
     """The rows of K7 and K1-ext at the three bench frames of the slice
     (K1-ext's row is K1 on the textured frame; K3+K4 with vertex normals
     on the smooth frame rides along as extra keys)."""
+    from raytrace_tpu_torch.tools.measure_mask import device_ms
     src = "raytrace_tpu_torch/csrc/"
     mkpy = "raytrace_tpu/ops/megakernel.py:"
     rows = []
@@ -2475,7 +2646,7 @@ def slice_rows(mk, scenes, frames, cfg, record):
     # K2, the loop frame's mask
     _, k2_launch = mk.prepare_pixel_mask(frames["loop"][0], width=W,
                                          height=H, cfg=cfg)
-    record["k2_loop_ms"] = cuda_ms(k2_launch, 20)
+    record["k2_loop_ms"] = device_ms([k2_launch])
     print(f"   K2 on the loop frame: {record['k2_loop_ms']:.4f} ms",
           flush=True)
     common = dict(route="cuda", library_ms=None)
@@ -2515,6 +2686,7 @@ def port_rows(mk, trace_mod, scene, ring, grid, cfg, launches,
     at the bench, ring-1000 and grid-5833 frames, lens L=0.1, F=10: the
     Renderer's)."""
     import torch
+    from raytrace_tpu_torch.tools.measure_mask import device_ms
     dev = torch.device("cuda")
     src = "raytrace_tpu_torch/csrc/"
     mkpy = "raytrace_tpu/ops/megakernel.py:"
@@ -2579,29 +2751,31 @@ def port_rows(mk, trace_mod, scene, ring, grid, cfg, launches,
              "2774"),
             ("K6-stream-dof pixel_mask_stream", grid, "grid5833",
              "pixel_mask_stream", "2774")):
+        if kernel != "pixel_mask":
+            m = mask_numbers(mk, s, dcfg)
+            mask_line(f"{name} (L={dcfg.dof_lens_radius}, "
+                      f"F={dcfg.dof_focus_distance})", m)
+            rows.append(dict(
+                name=name, source=src + "pixel_mask.cu",
+                replaces=mkpy + line, launches=dof_frames[key]["mask_dof"],
+                max_abs_err=record["dof_mask_err"], ms=m["ms"],
+                plain_ms=m["plain"], bound_ms=m["bound"], bound_by=m["by"],
+                **mask_keys(m), **common))
+            continue
         _, launch = mk.prepare_pixel_mask(s, width=W, height=H, cfg=dcfg)
-        ms = cuda_ms(launch, 20)
+        ms = device_ms([launch])
         plain = cuda_ms(lambda: mk.pixel_mask_plain(
             s, width=W, height=H, cfg=dcfg), 3)
         g = s.geometry
         npl = g.pl_point.shape[0]
         nbs = g.sph_center.shape[0] + g.tri_v0.shape[0]
-        mwork = [0, 0]
-        if kernel != "pixel_mask":
-            mk.pixel_mask_plain(s, width=W, height=H, cfg=dcfg, work=mwork)
-            nbs_tests = mwork[1]
-        else:
-            nbs_tests = n_px * nbs
         # a bounding-sphere test with the lens slack: 28 + 14 operations
-        ops = n_px * (27 + 23 * npl) + mwork[0] * 21 + nbs_tests * 42
-        tables = (4 * 9 * s.accel.n_nodes if s.accel is not None else 0) + (
-            0 if kernel == "pixel_mask_stream" else 4 * 5 * nbs)
-        bnd, by = bound(ops, n_px + 4 * (18 + 7 * npl) + tables)
+        ops = n_px * (27 + 23 * npl) + n_px * nbs * 42
+        bnd, by = bound(ops, n_px + 4 * (18 + 7 * npl) + 4 * 5 * nbs)
         print(f"   {name}: L={dcfg.dof_lens_radius}, "
-              f"F={dcfg.dof_focus_distance}, work [slab tests, "
-              f"bounding-sphere tests] = {[mwork[0], nbs_tests]}; "
-              f"{ms:.4f} ms vs plain {plain:.4f} ms, bound {bnd:.6f} ms",
-              flush=True)
+              f"F={dcfg.dof_focus_distance}, {n_px * nbs} bounding-sphere "
+              f"tests; {ms:.4f} ms vs plain {plain:.4f} ms, bound "
+              f"{bnd:.6f} ms", flush=True)
         rows.append(dict(
             name=name, source=src + "pixel_mask.cu", replaces=mkpy + line,
             launches=dof_frames[key]["mask_dof"],
@@ -2615,6 +2789,7 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
     """Each kernel at its bench frame: checks, times, bounds; the rows of
     the JSON kernel record."""
     import torch
+    from raytrace_tpu_torch.tools.measure_mask import device_ms
     dev = torch.device("cuda")
     n_px = W * H
     rows = []
@@ -2624,7 +2799,7 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
     nbs = g.sph_center.shape[0] + g.tri_v0.shape[0]
     npl = g.pl_point.shape[0]
     _, k2_launch = mk.prepare_pixel_mask(scene, width=W, height=H, cfg=cfg)
-    k2_ms = cuda_ms(k2_launch, 20)
+    k2_ms = device_ms([k2_launch])
     k2_plain = cuda_ms(lambda: mk.pixel_mask_plain(
         scene, width=W, height=H, cfg=cfg), 3)
     k2_bound, k2_by = bound(n_px * (27 + 28 * nbs + 23 * npl),
@@ -2661,23 +2836,9 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
           f"vs plain {k2_plain:.4f} ms, bound {k2_bound:.6f} ms", flush=True)
     del px, o, d, pix, samp, cnt, got, want
 
-    # K6 at the bvh bench frame
-    mwork = [0, 0]
-    mk.pixel_mask_plain(ring, width=W, height=H, cfg=cfg, work=mwork)
-    _, k6_launch = mk.prepare_pixel_mask(ring, width=W, height=H, cfg=cfg)
-    k6_ms = cuda_ms(k6_launch, 20)
-    k6_plain = cuda_ms(lambda: mk.pixel_mask_plain(
-        ring, width=W, height=H, cfg=cfg), 3)
-    rg = ring.geometry
-    nbs_r = rg.sph_center.shape[0] + rg.tri_v0.shape[0]
-    n_nodes = ring.accel.n_nodes
-    k6_bound, k6_by = bound(
-        n_px * (27 + 23 * rg.pl_point.shape[0]) + mwork[0] * 21
-        + mwork[1] * 28,
-        n_px + 4 * (13 + 4 * nbs_r + 9 * n_nodes + nbs_r))
-    print(f"   K6: {n_px} pixels, {n_nodes} nodes, work [slab tests, "
-          f"bounding-sphere tests] = {mwork}; {k6_ms:.4f} ms vs plain "
-          f"{k6_plain:.4f} ms, bound {k6_bound:.6f} ms", flush=True)
+    # K6 (the pre-pass and the walk) at the bvh bench frame
+    k6 = mask_numbers(mk, ring, cfg)
+    mask_line(f"K6 ({n_px} pixels, {ring.accel.n_nodes} nodes)", k6)
 
     # K3+K4 at the bvh bench lanes, per launch of the main path's chunks
     px, o, d, pix, samp, sizes = lanes_of(ring, W, H, SPP, cfg, chunks=True)
@@ -2770,8 +2931,17 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
             plain_ms - plain_hard_ms, k4_bound, k4_by,
             **subset),
         row("K6 pixel_mask_bvh", src + "pixel_mask.cu", mkpy + "2661",
-            launches_bvh["pixel_mask_bvh"], record["k6_err"], k6_ms,
-            k6_plain, k6_bound, k6_by),
+            launches_bvh["pixel_mask_bvh"], record["k6_err"], k6["ms"],
+            k6["plain"], k6["bound"], k6["by"], **mask_keys(k6)),
+        row("K6-table mask_table (pre-pass of K6, K6-stream past the "
+            "shared-memory budget)", src + "pixel_mask.cu", mkpy + "2762",
+            record["past_cap_table"]["launches"], 0.0,
+            record["past_cap_table"]["ms"],
+            record["past_cap_table"]["plain"],
+            record["past_cap_table"]["bound"],
+            record["past_cap_table"]["by"], entry="rt_mask_table_kernel",
+            at="past_cap frame (32x24, a 274,626-primitive grid)",
+            table_bytes=record["past_cap_table"]["table_bytes"]),
         row("K3-wide 4-wide stack walk (in K3+K4, K5)",
             src + "bvh_walk.cuh", mkpy + "1000", launches_bvh["trace_wide"],
             max([k3_err] + record["k3wide_err"]), k3_ms, plain_ms,

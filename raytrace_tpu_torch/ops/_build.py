@@ -144,12 +144,23 @@ def library() -> ctypes.CDLL:
     # P1: table, n_rows, row_floats, n_steps, seed, variant, out, stream
     lib.rt_dma_probe.argtypes = [p, i, i, i, i, i, p, p]
     lib.rt_dma_probe.restype = i
+    # the scene's arrays of the mask table (pixel_mask.cu:
+    # RT_MASK_SCENE_ARGS): node_min, node_max, skip, first, count, n_nodes,
+    # prim_index, n_slots, sph_center, sph_radius, ns, v0, v1, v2
+    mask_scene = [p] * 5 + [i, p, i, p, p, i, p, p, p]
+    # K2: bs, nbs, pln, npl, stream; K6 and K6-stream: the mask table, its
+    # floats, in shared memory, dof, pln, npl, focus, the scene's arrays,
+    # stream
+    walk = [p, i, i, i, p, i, f] + mask_scene + [p]
     for name, args in (("rt_pixel_mask", [p, i, p, i, p]),
-                       ("rt_pixel_mask_bvh", [p, p, i, p, p, i, p]),
-                       ("rt_pixel_mask_stream", [p, i, p, i, p])):
+                       ("rt_pixel_mask_bvh", walk),
+                       ("rt_pixel_mask_stream", walk)):
         fn = getattr(lib, name)
         fn.argtypes = head + args
         fn.restype = i
+    # the pre-pass: tab, cam, focus, dof, the scene's arrays, stream
+    lib.rt_mask_table.argtypes = [p, p, f, i] + mask_scene + [p]
+    lib.rt_mask_table.restype = i
     return lib
 
 

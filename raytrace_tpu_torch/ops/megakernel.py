@@ -32,8 +32,13 @@ Port of the host side of ``raytrace_tpu/ops/megakernel.py``:
   bounding-sphere tests at the leaves (K6, bvh mode), or the same walk
   that marks a pixel at the first leaf slab it reaches (K6-stream, stream
   mode), each with a thin-lens branch for depth of field that takes the
-  corrected bound (``_mask_camera``). CUDA source: ``csrc/pixel_mask.cu``.
-  Plain version: ``pixel_mask_plain``.
+  corrected bound (``_mask_camera``). K6 and K6-stream walk a mask table
+  (the grown node slabs, and for K6 a leaf row a slot with the per-pixel
+  test's pixel-independent terms) in persistent blocks, each of which
+  builds the table in its shared memory; past ``MASK_SMEM_BYTES`` a
+  pre-pass writes it to global memory and the walk reads it in place.
+  CUDA source: ``csrc/pixel_mask.cu``. Plain versions:
+  ``pixel_mask_plain``, and ``mask_table_plain`` for the table.
 * K1-guard, in K1 and K7 (``csrc/brute_force.cuh``): the per-occluder
   cone guard of the soft-shadow loop, on every main-path launch
   (``soft_guard``), for any occluder count (in chunks of 96). Plain
@@ -52,7 +57,10 @@ K3+K4 launch that reads its walk table in place from global memory (past
 ``BVH_SMEM_BYTES``) under ``trace_bvh_ldg``, a K7 launch that reads its
 tables in place (past ``LOOP_SMEM_BYTES``) under ``trace_loop_ldg``, a K1
 or K7 launch with its soft-shadow guard under ``trace_guard``
-(K1-guard), and a mask launch with depth of field under ``mask_dof``.
+(K1-guard), a mask launch with depth of field under ``mask_dof``, the
+pre-pass of K6 and K6-stream under ``mask_table``, and a K6 or K6-stream
+walk that reads the pre-pass's table in place (past ``MASK_SMEM_BYTES``)
+under ``pixel_mask_ldg``.
 
 Past ``MAX_STREAM_KERNEL_PRIMS`` primitives (the TPU kernel's cap, which
 bounds a node table in the TPU's scalar memory) the JAX package leaves
@@ -98,6 +106,13 @@ BVH_SMEM_BYTES = 232_448
 # K7's budget for its tables (pack_tables): the same bytes, K3+K4's; past
 # it the tables stay in global memory and K7 reads them through __ldg.
 LOOP_SMEM_BYTES = BVH_SMEM_BYTES
+# K6 and K6-stream build their mask table (mask_table_plain) in the shared
+# memory of each block up to this many bytes; past it (the past-cap
+# grid's 393 KB table) the pre-pass writes it and the walk reads it in
+# place.
+MASK_SMEM_BYTES = BVH_SMEM_BYTES
+MASK_NODE = 12            # floats of a mask-table node row (rt::kMaskNode)
+MASK_LEAF = 8             # floats of a mask-table leaf row (rt::kMaskLeaf)
 WALK_ROW = 12             # floats of a walk-table leaf row (rt::kWalkRow)
 COUNTERS = 8              # rt::kBruteCounters: per-lane work of K1 and K7
 BVH_COUNTERS = 10         # rt::kBvhCounters: per-lane work of K3+K4, K5
@@ -116,12 +131,15 @@ MASKS = {"unroll": "pixel_mask", "loop": "pixel_mask",
 # the K3+K4 launches that read the walk table from global memory,
 # "trace_loop_ldg" the K7 launches that read their tables from global
 # memory, "trace_guard" the K1 and K7 launches with K1-guard on,
-# "mask_dof" the mask launches with depth of field.
+# "mask_dof" the mask launches with depth of field, "mask_table" the
+# pre-pass launches of K6 and K6-stream, "pixel_mask_ldg" their walks that
+# read the mask table from global memory.
 LAUNCHES = {"trace_unroll": 0, "trace_bvh": 0, "trace_stream": 0,
             "trace_loop": 0, "trace_state": 0, "trace_wide": 0,
             "trace_bvh_ldg": 0, "trace_loop_ldg": 0,
             "trace_guard": 0, "pixel_mask": 0,
-            "pixel_mask_bvh": 0, "pixel_mask_stream": 0, "mask_dof": 0}
+            "pixel_mask_bvh": 0, "pixel_mask_stream": 0, "mask_dof": 0,
+            "mask_table": 0, "pixel_mask_ldg": 0}
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -485,19 +503,67 @@ def _mask_tree(scene, cam, cfg):
 
 
 def _mask_inputs(scene, width, height, cfg, go_camera):
-    """(mode, camera row (18,) of ``_mask_camera``, bounding spheres
-    (Nbs,4) or None in stream mode, planes (Np,7), and in bvh and stream
-    modes the walk's (nodes, prim_index))."""
+    """(mode, camera row (18,) of ``_mask_camera``, planes (Np,7))."""
     mode = require_mode(scene)
     cam = _mask_camera(scene, width, height, cfg, go_camera)
     g = scene.geometry
     pln = torch.cat([g.pl_point, g.pl_normal,
                      g.pl_mat[:, None].to(torch.float32)], 1)
-    tree = (_mask_tree(scene, cam, cfg) if mode in ("bvh", "stream")
-            else None)
-    # stream scenes: the mask stops at the node slabs (node_only, :2597)
-    bs = None if mode == "stream" else _bsphere_table(scene)
-    return mode, cam, bs, pln, tree
+    return mode, cam, pln
+
+
+def _node_rows(nodes) -> torch.Tensor:
+    """(N,9) [min.xyz, max.xyz, skip, first, count] -> the mask table's
+    (N,12) node rows [min.xyz, skip, max.xyz, first, count, 0, 0, 0]."""
+    return torch.cat([nodes[:, 0:3], nodes[:, 6:7], nodes[:, 3:6],
+                      nodes[:, 7:9], nodes.new_zeros((nodes.shape[0], 3))],
+                     1)
+
+
+def _leaf_rows(bs, cam, dof: bool) -> torch.Tensor:
+    """(P,8) leaf rows of the mask table from bounding spheres bs (P,4) in
+    slot order: [oc.xyz, |oc|^2, dist, r, R, R*R], the terms of
+    ``_bs_hit`` that do not depend on the pixel (R its finished radius);
+    with depth of field [..., dist, r, r + (dist + r)*k, 0], since the
+    thin-lens slack is the pixel's."""
+    oc = bs[:, :3] - cam[0:3]
+    ocx, ocy, ocz = oc[:, 0], oc[:, 1], oc[:, 2]
+    oc2 = ocx * ocx + ocy * ocy + ocz * ocz
+    r = bs[:, 3]
+    dist = _sqrt(oc2)
+    base = r + (dist + r) * cam[12]
+    if dof:
+        a, b = base, torch.zeros_like(base)
+    else:
+        a = base + 1e-3       # _bs_hit's R at dofl = 0
+        b = a * a
+    return torch.stack([ocx, ocy, ocz, oc2, dist, r, a, b], 1)
+
+
+def mask_table_plain(scene, cam, cfg) -> torch.Tensor:
+    """The mask table of K6 (bvh mode) or K6-stream (stream mode), flat
+    float32: the plain version of their pre-pass and of the walk's
+    prologue (``csrc/pixel_mask.cu``: ``mask_row``) for the camera row
+    ``cam`` (``_mask_camera``). First a node row of MASK_NODE floats a tree
+    node
+    (``_node_rows`` of ``_mask_tree``'s grown slabs); then, in bvh mode, a
+    leaf row of MASK_LEAF floats a leaf slot, in slot order
+    (``_leaf_rows`` of ``_bsphere_table``'s row of prim_index[slot])."""
+    mode = require_mode(scene)
+    nodes, pidx = _mask_tree(scene, cam, cfg)
+    rows = _node_rows(nodes).reshape(-1)
+    if mode == "stream":
+        return rows
+    bs = _bsphere_table(scene)[pidx.to(torch.int64)]
+    return torch.cat([rows, _leaf_rows(bs, cam,
+                                       cfg.depth_of_field).reshape(-1)])
+
+
+def mask_table_in_smem(n_floats: int) -> bool:
+    """Does the K6 or K6-stream walk build a mask table of this many
+    floats in shared memory (else the pre-pass writes it and the walk reads
+    it in place)?"""
+    return 4 * n_floats <= MASK_SMEM_BYTES
 
 
 # ------------------------------------------------ K2, K6, K6-stream ----
@@ -524,18 +590,39 @@ def _bs_hit(o, dx, dy, dz, inv_a, sqa, inv_sq, cam, bs):
     return (oc2 - g * g * inv_a <= R * R) & (g >= -(R + ll) * sqa)
 
 
-def _mask_walk(o, d, inv_a, sqa, inv_sq, cam, bs, nodes, pidx, leaf_size,
-               work):
-    """(P,) bool: K6's walk for every pixel's center ray. Skip walk over
-    the inflated slabs (near clamped at 0); a boxed leaf runs the
-    bounding-sphere test of its primitives, or, with ``bs`` None (K6-stream,
+def _leaf_hit(rows, dx, dy, dz, inv_a, sqa, inv_sq, cam, dof: bool):
+    """``_bs_hit`` over leaf rows of the mask table (..., MASK_LEAF)
+    (``csrc/pixel_mask.cu``: ``leaf_hit``): the same bits."""
+    g = rows[..., 0] * dx + rows[..., 1] * dy + rows[..., 2] * dz
+    R, R2 = rows[..., 6], rows[..., 7]
+    if dof:
+        k, le, c_lo, c_hi = cam[12], cam[15], cam[16], cam[17]
+        dist, r = rows[..., 4], rows[..., 5]
+        n_lo = dist - r - le
+        n_hi = dist + r + le
+        x_lo = n_lo * inv_sq * torch.where(n_lo >= 0.0, c_lo, c_hi)
+        x_hi = n_hi * inv_sq * c_hi
+        dofl = le * (1.0 + k) * torch.maximum(torch.abs(1.0 - x_lo),
+                                              torch.abs(1.0 - x_hi))
+        R = R + dofl + 1e-3
+        R2 = R * R
+    return ((rows[..., 3] - g * g * inv_a <= R2)
+            & (g >= -(R + cam[14]) * sqa))
+
+
+def _mask_walk(o, d, nodes, leaf_size, leaf_hits, work):
+    """(P,) bool: the skip walk of every pixel's center ray (origin o,
+    directions d (P,3)) over node rows (N,12) in the mask table's layout
+    (near clamped at 0); a boxed leaf calls ``leaf_hits(slots (A,L),
+    pixels (A,))`` for its slots [first, first + leaf_size) (clamped;
+    those past count are dropped) or, with ``leaf_hits`` None (K6-stream,
     the node-only branch), marks the pixel at once; a pixel stops at its
     first hit. ``work`` (a list of two ints, or None) gets the node slab
-    tests and the bounding-sphere tests added to it."""
+    tests and the leaf tests added to it."""
     P, n = d.shape[0], nodes.shape[0]
     iv = 1.0 / torch.where(d == 0.0, torch.full_like(d, 1e-30), d)
-    lo, hi = nodes[:, 0:3], nodes[:, 3:6]
-    skip, first, cnt = (nodes[:, c].to(torch.int64) for c in (6, 7, 8))
+    lo, hi = nodes[:, 0:3], nodes[:, 4:7]
+    skip, first, cnt = (nodes[:, c].to(torch.int64) for c in (3, 7, 8))
     slots = torch.arange(leaf_size, device=d.device)
     hit = torch.zeros(P, dtype=torch.bool, device=d.device)
     cursor = torch.zeros(P, dtype=torch.int64, device=d.device)
@@ -552,25 +639,18 @@ def _mask_walk(o, d, inv_a, sqa, inv_sq, cam, bs, nodes, pidx, leaf_size,
         far = torch.minimum(torch.minimum(tf[:, 0], tf[:, 1]), tf[:, 2])
         boxed = near <= far
         leaf = cnt[cur] > 0
-        if bs is None:
+        if leaf_hits is None:
             h = boxed & leaf
         else:
             at = (boxed & leaf).nonzero()[:, 0]
             h = torch.zeros_like(boxed)
             if at.numel():
                 c = cur[at]
-                slot = torch.clamp(first[c][:, None] + slots,
-                                   max=pidx.shape[0] - 1)
-                rows = bs[pidx[slot].to(torch.int64)]          # (A,L,4)
+                slot = first[c][:, None] + slots
                 valid = slots < cnt[c][:, None]
                 if work is not None:
                     work[1] += int(valid.sum())
-                lane = act[at]
-                dd = d[lane]
-                h[at] = torch.any(
-                    _bs_hit(o, dd[:, 0:1], dd[:, 1:2], dd[:, 2:3],
-                            inv_a[lane], sqa[lane], inv_sq[lane], cam,
-                            rows) & valid, dim=-1)
+                h[at] = torch.any(leaf_hits(slot, act[at]) & valid, dim=-1)
         hit[act[h]] = True
         nxt = torch.where(boxed & ~leaf, cur + 1, skip[cur])
         nxt = torch.where(h, n, nxt)
@@ -579,35 +659,67 @@ def _mask_walk(o, d, inv_a, sqa, inv_sq, cam, bs, nodes, pidx, leaf_size,
     return hit
 
 
+def _center_rays(cam, width, height, device):
+    """The pixels' center-ray directions d (P,3) of the camera row and
+    inv_a = 1/|d|^2, sqa = |d|, inv_sq = 1/|d| (P,1), as
+    ``csrc/pixel_mask.cu:center_ray`` computes them."""
+    inv_w = float(np.float32(1.0 / width))
+    inv_h = float(np.float32(1.0 / height))
+    pix = torch.arange(width * height, device=device)
+    u = ((pix % width).to(torch.float32) + 0.5) * inv_w
+    v = ((pix // width).to(torch.float32) + 0.5) * inv_h
+    d = cam[3:6] + u[:, None] * cam[6:9] + v[:, None] * cam[9:12]  # (P,3)
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    a = dx * dx + dy * dy + dz * dz
+    sqa = _sqrt(a)
+    return d, 1.0 / a, sqa, 1.0 / sqa
+
+
+def mask_walk_plain(scene, cam, table, *, width: int, height: int, cfg,
+                    work=None) -> torch.Tensor:
+    """(H*W,) bool: the walk of K6 (bvh mode) or K6-stream (stream mode)
+    over a mask table (``mask_table_plain``), planes left out."""
+    n = scene.accel.n_nodes
+    nodes = table[:MASK_NODE * n].reshape(n, MASK_NODE)
+    d, inv_a, sqa, inv_sq = _center_rays(cam, width, height, scene.device)
+    leaf_hits = None
+    if require_mode(scene) == "bvh":
+        leaves = table[MASK_NODE * n:].reshape(-1, MASK_LEAF)
+        last = leaves.shape[0] - 1
+
+        def leaf_hits(slot, px):
+            dd = d[px]
+            return _leaf_hit(leaves[torch.clamp(slot, max=last)],
+                             dd[:, 0:1], dd[:, 1:2], dd[:, 2:3], inv_a[px],
+                             sqa[px], inv_sq[px], cam, cfg.depth_of_field)
+
+    return _mask_walk(cam[0:3], d, nodes, scene.accel.leaf_size, leaf_hits,
+                      work)
+
+
 def pixel_mask_plain(scene, *, width: int, height: int, cfg,
                      go_camera: bool = True, work=None) -> torch.Tensor:
     """The plain version of K2 (unroll and loop modes), K6 (bvh mode) and
     K6-stream (stream mode): (H*W,) bool, the same float32 operations as
-    ``csrc/pixel_mask.cu``, vectorised over pixels. ``work``: see
-    _mask_walk (bvh and stream modes)."""
-    mode, cam, bs, pln, tree = _mask_inputs(scene, width, height, cfg,
-                                            go_camera)
+    ``csrc/pixel_mask.cu``, vectorised over pixels; K6 and K6-stream walk
+    ``mask_table_plain``'s table. ``work``: see _mask_walk (bvh and stream
+    modes)."""
+    mode, cam, pln = _mask_inputs(scene, width, height, cfg, go_camera)
     dev = scene.device
     eps = 1e-3
-    inv_w = float(np.float32(1.0 / width))
-    inv_h = float(np.float32(1.0 / height))
-    pix = torch.arange(width * height, device=dev)
-    u = ((pix % width).to(torch.float32) + 0.5) * inv_w
-    v = ((pix // width).to(torch.float32) + 0.5) * inv_h
     o = cam[0:3]
-    d = cam[3:6] + u[:, None] * cam[6:9] + v[:, None] * cam[9:12]  # (P,3)
+    d, inv_a, sqa, inv_sq = _center_rays(cam, width, height, dev)
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    a = dx * dx + dy * dy + dz * dz
-    inv_a = 1.0 / a
-    sqa = _sqrt(a)
-    inv_sq = 1.0 / sqa
     hit = torch.zeros((width * height,), dtype=torch.bool, device=dev)
-    if tree is not None:
-        hit |= _mask_walk(o, d, inv_a, sqa, inv_sq, cam, bs, *tree,
-                          scene.accel.leaf_size, work)
-    elif bs.shape[0]:
-        hit |= torch.any(_bs_hit(o, dx, dy, dz, inv_a, sqa, inv_sq, cam,
-                                 bs[None]), dim=-1)
+    if mode in ("bvh", "stream"):
+        hit |= mask_walk_plain(scene, cam, mask_table_plain(scene, cam, cfg),
+                               width=width, height=height, cfg=cfg,
+                               work=work)
+    else:
+        bs = _bsphere_table(scene)
+        if bs.shape[0]:
+            hit |= torch.any(_bs_hit(o, dx, dy, dz, inv_a, sqa, inv_sq, cam,
+                                     bs[None]), dim=-1)
     if pln.shape[0]:
         kp, ll = cam[13], cam[14]
         n = pln[None, :, 3:6]
@@ -621,17 +733,53 @@ def pixel_mask_plain(scene, *, width: int, height: int, cfg,
     return hit
 
 
+@dataclasses.dataclass
+class MaskLaunch:
+    """A prepared mask launch on the card (``prepare_pixel_mask``). Calling
+    it runs the mask kernel (``walk``), after the pre-pass where K6 or
+    K6-stream reads its table in place (``in_smem`` False; in shared memory
+    each block of the walk builds the table itself). ``prepass()`` writes
+    the mask table to ``table``; ``cam``: the camera row. For K2,
+    ``prepass`` and ``table`` are None."""
+
+    prepass: object    # the pre-pass launch, or None (K2)
+    walk: object       # the mask kernel's launch
+    table: object = None
+    cam: object = None
+    in_smem: bool = False
+
+    def __call__(self) -> None:
+        if self.prepass is not None and not self.in_smem:
+            self.prepass()
+        self.walk()
+
+
+def _f32(t: torch.Tensor, what: str) -> torch.Tensor:
+    if t.dtype != torch.float32:
+        raise ValueError(f"{what}: dtype {t.dtype}, not float32")
+    return t.contiguous()
+
+
+def _i32(t: torch.Tensor, what: str) -> torch.Tensor:
+    if t.dtype != torch.int32:
+        raise ValueError(f"{what}: dtype {t.dtype}, not int32")
+    return t.contiguous()
+
+
 def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
                        go_camera: bool = True):
     """The mask kernel's inputs on the card: returns (out, launch).
-    ``launch()`` runs K2 (unroll and loop modes), K6 (bvh mode) or
-    K6-stream (stream mode) into ``out``, (H*W,) bool, and counts the
-    launch under the kernel's name (``MASKS``)."""
+    ``launch()`` (a ``MaskLaunch``) runs K2 (unroll and loop modes), K6
+    (bvh mode) or K6-stream (stream mode) into ``out``, (H*W,) bool,
+    counting the launch under the kernel's name (``MASKS``); K6 and
+    K6-stream build their mask table in each block's shared memory, or,
+    past ``MASK_SMEM_BYTES``, read the table that the pre-pass (counted
+    under ``mask_table``) writes, in place (counted under
+    ``pixel_mask_ldg`` too)."""
     dev = scene.device
     if dev.type != "cuda":
         raise RuntimeError(f"pixel_mask kernel: device {dev} is not CUDA")
-    mode, cam, bs, pln, tree = _mask_inputs(scene, width, height, cfg,
-                                            go_camera)
+    mode, cam, pln = _mask_inputs(scene, width, height, cfg, go_camera)
     name = MASKS[mode]
     cam = cam.contiguous()
     pln = pln.contiguous()
@@ -639,30 +787,56 @@ def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
     lib = _build.library()
     inv_w = float(np.float32(1.0 / width))
     inv_h = float(np.float32(1.0 / height))
-    # the kernel's arguments after ``out``; tensors stay referenced here
-    # until the launch reads their pointers
-    head = (width, height, inv_w, inv_h, cam)
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream
+    dof = int(cfg.depth_of_field)
+    ptr = lambda a: a.data_ptr() if isinstance(a, torch.Tensor) else a
+    # the kernels' arguments; tensors stay referenced here until a launch
+    # reads their pointers
+    head = (out, width, height, inv_w, inv_h, cam)
     tail = (pln, pln.shape[0])
-    if mode == "stream":
-        nodes = tree[0].contiguous()
-        args = head + (nodes, nodes.shape[0]) + tail
-    elif mode == "bvh":
-        nodes, pidx = (t.contiguous() for t in tree)
-        args = head + (bs.contiguous(), nodes, nodes.shape[0], pidx) + tail
+    prep = None
+    if mode in ("bvh", "stream"):
+        acc, g = scene.accel, scene.geometry
+        n_nodes = acc.n_nodes
+        n_slots = acc.prim_index.shape[0] if mode == "bvh" else 0
+        table = torch.empty((MASK_NODE * n_nodes + MASK_LEAF * n_slots,),
+                            dtype=torch.float32, device=dev)
+        in_smem = mask_table_in_smem(table.numel())
+        focus = float(np.float32(max(cfg.dof_focus_distance, 1e-6)))
+        arrays = (_f32(acc.node_min, "node_min"),
+                  _f32(acc.node_max, "node_max"),
+                  _i32(acc.node_skip, "node_skip"),
+                  _i32(acc.node_first, "node_first"),
+                  _i32(acc.node_count, "node_count"), n_nodes,
+                  _i32(acc.prim_index, "prim_index"), n_slots,
+                  _f32(g.sph_center, "sph_center"),
+                  _f32(g.sph_radius, "sph_radius"), g.sph_center.shape[0],
+                  _f32(g.tri_v0, "tri_v0"), _f32(g.tri_v1, "tri_v1"),
+                  _f32(g.tri_v2, "tri_v2"))
+        prep = (table, cam, focus, dof) + arrays
+        args = head + (table, table.numel(), int(in_smem), dof) + tail + (
+            focus,) + arrays
     else:
-        args = head + (bs.contiguous(), bs.shape[0]) + tail
+        bs = _bsphere_table(scene).contiguous()
+        table, in_smem = None, False
+        args = head + (bs, bs.shape[0]) + tail
     entry = getattr(lib, "rt_" + name)
 
-    def launch():
-        err = entry(out.data_ptr(), *(
-            a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in args), torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, name)
+    def table_fn():
+        _build.check(lib.rt_mask_table(*map(ptr, prep), stream()),
+                     "mask_table")
+        LAUNCHES["mask_table"] += 1
+
+    def walk_fn():
+        _build.check(entry(*map(ptr, args), stream()), name)
         LAUNCHES[name] += 1
+        if table is not None and not in_smem:
+            LAUNCHES["pixel_mask_ldg"] += 1
         if cfg.depth_of_field:
             LAUNCHES["mask_dof"] += 1
 
-    return out, launch
+    return out, MaskLaunch(table_fn if prep else None, walk_fn, table, cam,
+                           in_smem)
 
 
 def pixel_mask(scene, *, width: int, height: int, cfg,

@@ -7,7 +7,10 @@ a machine without them:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: K2, K6 and K6-stream must equal their plain version (the
-same float32 operations, no FMA contraction); K1, K3+K4, K5 and K7, with
+same float32 operations, no FMA contraction), K6 and K6-stream also at
+sizes with partial tiles and with their mask table built in shared
+memory or read in place, and their pre-pass must write the plain
+version's table bit for bit; K1, K3+K4, K5 and K7, with
 the extended body (K1-ext: smooth normals, kinds 7-12, textures), must
 equal their plain version under the goldens image gate (<= 0.1% of pixels
 off by > 1e-3, mean abs error < 1e-4), which admits the rare lane that a
@@ -867,3 +870,80 @@ def test_k3_walk_table_run_time_bounds(cuda):
     (k3, cnt), (ldg, cnt_ldg) = k3_both(s, lanes, cfg)
     assert torch.equal(k3, ldg) and torch.equal(cnt, cnt_ldg)
     assert torch.equal(k3, ttrace.trace(s, *lanes, cfg))
+
+
+# K6 and K6-stream: the pre-pass and the walk over the mask table. Scenes
+# with hits and misses: the mixed scene without its ground and back wall
+# in bvh mode and forced into stream mode; ico-2561 (triangles only).
+MASK_MODES = ("bvh", "stream")
+MASK_LENSES = {"pinhole": None, "dof": (0.25, 5.0)}
+
+
+def mask_scene(mode, device, monkeypatch):
+    d = bvh_scene_dict("mixed-noground")
+    if mode == "stream":
+        return forced_stream(d, device, monkeypatch)
+    return tscene.from_dict(d, device=device)[0]
+
+
+def mask_cfg(lens):
+    if MASK_LENSES[lens] is None:
+        return ttrace.TraceConfig()
+    L, F = MASK_LENSES[lens]
+    return ttrace.TraceConfig(depth_of_field=True, dof_lens_radius=L,
+                              dof_focus_distance=F)
+
+
+@pytest.mark.parametrize("lens", list(MASK_LENSES))
+@pytest.mark.parametrize("mode", MASK_MODES + ("ico2561",))
+def test_mask_table_equals_plain(cuda, mode, lens, monkeypatch, tmp_path):
+    """The pre-pass writes mask_table_plain's table bit for bit, and is
+    counted under mask_table (the walk builds the same rows in shared
+    memory with the same code, held by test_mask_walk_equals_plain)."""
+    if mode == "ico2561":
+        s = tscene.from_dict(ico2561_dict(tmp_path), device=cuda)[0]
+    else:
+        s = mask_scene(mode, cuda, monkeypatch)
+    cfg = mask_cfg(lens)
+    tmk.reset_launches()
+    _, launch = tmk.prepare_pixel_mask(s, width=200, height=150, cfg=cfg)
+    launch.prepass()
+    torch.cuda.synchronize()
+    kernel = tmk.MASKS[tmk._kernel_mode(s)]
+    assert (tmk.LAUNCHES["mask_table"], tmk.LAUNCHES[kernel]) == (1, 0)
+    want = tmk.mask_table_plain(s, launch.cam, cfg)
+    assert launch.table.shape == want.shape
+    assert torch.equal(launch.table.view(torch.int32),
+                       want.view(torch.int32))
+
+
+@pytest.mark.parametrize("in_place", [False, True], ids=["smem", "in-place"])
+@pytest.mark.parametrize("size", [(1, 1), (33, 7), (799, 601)],
+                         ids=["1x1", "33x7", "799x601"])
+@pytest.mark.parametrize("mode", MASK_MODES)
+def test_mask_walk_equals_plain(cuda, mode, size, in_place, monkeypatch):
+    """K6 and K6-stream, pinhole and with depth of field, at sizes with
+    partial tiles and partial blocks, the table built in shared memory and
+    read in place (the budget lowered): equal to the plain version, with
+    one walk launch each, after a pre-pass launch where it reads the table
+    in place."""
+    s = mask_scene(mode, cuda, monkeypatch)
+    if in_place:
+        monkeypatch.setattr(tmk, "MASK_SMEM_BYTES", 1024)
+    W, H = size
+    kernel = tmk.MASKS[mode]
+    for lens in MASK_LENSES:
+        cfg = mask_cfg(lens)
+        tmk.reset_launches()
+        got = tmk.pixel_mask(s, width=W, height=H, cfg=cfg)
+        want = tmk.pixel_mask_plain(s, width=W, height=H, cfg=cfg)
+        assert torch.equal(got, want)
+        launched = {k: v for k, v in tmk.LAUNCHES.items() if v}
+        expect = {kernel: 1}
+        if in_place:
+            expect.update(mask_table=1, pixel_mask_ldg=1)
+        if cfg.depth_of_field:
+            expect["mask_dof"] = 1
+        assert launched == expect
+        if size == (799, 601):
+            assert want.any() and (~want).any()
