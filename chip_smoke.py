@@ -17,7 +17,17 @@ Phases, in order (each prints a line before and after, with its seconds):
                     it, each equal to the plain chain bit for bit; ns a
                     step
   k2_check          K2 (pixel mask, brute force) against its plain version
-                    at 800x600 on the three demo scenes: masks equal
+                    at 800x600 on the three demo scenes, on the camera row
+                    that the kernel builds (MaskLaunch.cam, rt_mask_camera)
+                    and on _mask_camera's row computed by PyTorch on the
+                    card, which must equal the kernel's bit for bit (both
+                    cameras; the elements where the CPU's row differs are
+                    printed in ulps): masks equal; K2 past its
+                    shared-memory budget (lowered) at 160x120 on the bench
+                    scene and the icosphere golden without its BVH; and
+                    ring-2500 with and without its ground (loop mode,
+                    2,501 and 2,500 bounding spheres) at 800x600, the plain
+                    version going over the pixels in steps
   k1_check          K1 (bounce megakernel, unroll mode) against its plain
                     version on the lanes of a 64x48 frame, 4 spp, depth 50,
                     three scenes, under the image gate
@@ -135,7 +145,9 @@ Phases, in order (each prints a line before and after, with its seconds):
                     light, occluder) triples skipped
   dof               the masks' thin-lens branch: K2, K6 and K6-stream with
                     DoF (L=0.1, F=10 and L=0.25, F=5) equal to their plain
-                    version at 800x600 on the bench scene, ring-1000 (and
+                    version (K2's on the kernel's own camera row, whose
+                    DoF terms must equal _mask_camera's on the card) at
+                    800x600 on the bench scene, ring-1000 (and
                     without its ground) and grid-5833, each a superset of
                     the pinhole mask; conservative against the dense plain
                     path (every pixel that some of 256 lens samples hits
@@ -150,7 +162,10 @@ Phases, in order (each prints a line before and after, with its seconds):
   bench             Renderer().render of the bench workload (800x600,
                     100 spp, depth 50, 16 soft-shadow rays, seed 0): one
                     warm-up, then 3 timed frames; launch counts are reset
-                    just before the first timed frame and read just after
+                    just before the first timed frame and read just after;
+                    in every bench frame the host must build no camera
+                    row and no mask table (megakernel._mask_camera,
+                    _bsphere_table and _mask_tree raise)
   bench_bvh         the same on ring-1000 through K6 and K3+K4 (one timed
                     frame instead of 3 when a frame takes over 30 s)
   bench_textured    the same on textured_mirror_demo (its look-at camera)
@@ -163,9 +178,9 @@ Phases, in order (each prints a line before and after, with its seconds):
   bench_loop        the same on the icosphere golden scene without its BVH
                     (the go camera) through K2 and K7, with its tables in
                     shared memory and K1-guard
-  bench_stream_grid the same on grid-5833 through K6-stream and the
-                    ladder of K5 launches (K1-state), with the survivor
-                    fraction at each level of the ladder
+  bench_stream_grid the same (one timed frame) on grid-5833 through
+                    K6-stream and the ladder of K5 launches (K1-state),
+                    with the survivor fraction at each level of the ladder
   bench_stream_mesh the same on ico-10241 (its OBJ written at run time)
   bench_dof*        the bench scene, ring-1000 and grid-5833 (1 frame)
                     with the Renderer's depth of field (L=0.1, F=10)
@@ -229,8 +244,13 @@ Phases, in order (each prints a line before and after, with its seconds):
                     and K2-dof: one launch takes the host longer than
                     these kernels run), the bound over the mask's work
                     (the table built once, the walk), the table's bytes,
-                    and the mask stage split into camera row, tables,
-                    launch and cumsum (host clock, median of 20); the
+                    and the mask stage split into prep, launch and cumsum
+                    (host clock, median of 20); K2 and K2-dof the same
+                    way at the bench frames, K2 also at the textured and
+                    loop frames and on ring-2500, its bound over the
+                    design's own work (the rows built once, the center
+                    ray and the planes a pixel, the leaf tests to each
+                    pixel's first hit); the
                     pre-pass's own row (K6-table) at the past-cap frame,
                     whose table it writes; P1's three variants
                     (ms at the TPU tool's shape, launches from dma_probe,
@@ -309,6 +329,10 @@ TABLE_NODE_OPS, TABLE_NODE_DOF_OPS = 47, 101
 TABLE_TRI_OPS, TABLE_SPH_OPS = 50, 14
 SLAB_OPS = 21
 LEAF_OPS, LEAF_DOF_OPS = 13, 34
+CENTER_RAY_OPS, PLANE_OPS = 27, 23
+# The camera row (csrc/pixel_mask.cu:mask_camera, its look-at branch with
+# depth of field, tanf counted as one), built once a block.
+CAMERA_OPS = 110
 # K1-guard's operations a guard evaluation, read off csrc/brute_force.cuh:
 # a sphere's (sphere_oc 9, sphere_guard 31); a triangle's bounding sphere
 # costs more and a plane's less: a round count, like the others.
@@ -532,7 +556,8 @@ def bench(scene, mk, what, slow_cut, go_camera=True, dof=False,
     r.fast_mc = fast_mc
     r.go_camera = go_camera
     t0 = time.perf_counter()
-    r.render(scene, W, H)  # warm-up
+    with no_host_mask_prep(mk):
+        r.render(scene, W, H)  # warm-up
     warm = time.perf_counter() - t0
     n = 1 if slow_cut and warm > SLOW_FRAME_S else frames
     if n == 1:
@@ -544,7 +569,8 @@ def bench(scene, mk, what, slow_cut, go_camera=True, dof=False,
             mk.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        img = r.render(scene, W, H)
+        with no_host_mask_prep(mk):
+            img = r.render(scene, W, H)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         if i == 0:
@@ -646,8 +672,8 @@ def mask_numbers(mk, scene, cfg, go_camera=True):
     ms = device_ms([launch])
     prepass_ms = device_ms([launch.prepass])
     plain = cuda_ms(lambda: mk.pixel_mask_plain(scene, **kw), 3)
-    table_plain = cuda_ms(lambda: mk.mask_table_plain(scene, launch.cam,
-                                                      cfg), 3)
+    cam = launch.cam
+    table_plain = cuda_ms(lambda: mk.mask_table_plain(scene, cam, cfg), 3)
     npl, n_px = scene.geometry.pl_point.shape[0], W * H
     table_ops, in_bytes = table_work(mk, scene, cfg)
     walk_ops = (n_px * (27 + 23 * npl) + work[0] * SLAB_OPS
@@ -680,9 +706,135 @@ def mask_line(name, m):
           f"alone {m['table_plain']:.4f}); bound {m['bound']:.6f} ms "
           f"({m['by']}); table {m['table_bytes']} B "
           f"{where};"
-          f" mask stage {st['stage']:.3f} ms: camera row {st['camera']:.3f},"
-          f" tables {st['tables']:.3f}, launch {st['launch']:.3f}, cumsum "
-          f"{st['cumsum']:.3f}", flush=True)
+          f" mask stage {st['stage']:.3f} ms: prep {st['prep']:.3f} (of it "
+          f"a host camera row {st['camera']:.3f}), launch "
+          f"{st['launch']:.3f}, cumsum {st['cumsum']:.3f}", flush=True)
+
+
+def camera_row_check(mk, scene, cfg, what, go_camera=True, width=W,
+                     height=H):
+    """The camera row that every mask block builds (MaskLaunch.cam, one
+    rt_mask_camera launch) against megakernel._mask_camera computed by
+    PyTorch on the card: equal bit for bit. Prints the elements where the
+    CPU's _mask_camera (the plain version's row in the CPU tests) differs,
+    in ulps. Returns the card's row."""
+    import types
+    import torch
+    kw = dict(width=width, height=height, cfg=cfg, go_camera=go_camera)
+    _, launch = mk.prepare_pixel_mask(scene, **kw)
+    row = launch.cam
+    want = mk._mask_camera(scene, width, height, cfg, go_camera)
+    if not torch.equal(row.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(
+            f"{what}: the kernels' camera row differs from _mask_camera on "
+            f"the card at {(row != want).nonzero()[:, 0].tolist()}: "
+            f"{row.tolist()} vs {want.tolist()}")
+    cpu = mk._mask_camera(types.SimpleNamespace(
+        camera=scene.camera.to("cpu")), width, height, cfg, go_camera)
+    ulps = (row.cpu().view(torch.int32).to(torch.int64)
+            - cpu.view(torch.int32).to(torch.int64))
+    diff = {int(i): int(ulps[i]) for i in ulps.nonzero()[:, 0]}
+    print(f"   {what}: the kernels' camera row equals _mask_camera on the "
+          f"card; against the CPU's row, ulps by element {diff}",
+          flush=True)
+    return row
+
+
+def k2_mask_check(mk, scene, cfg, what, width=W, height=H, go_camera=True,
+                  expect=None):
+    """K2 as the main path launches it against its plain version on the
+    kernel's own camera row (MaskLaunch.cam), the plain version going over
+    the pixels in steps: masks equal; with ``expect`` the launch counts
+    (nonzero keys) must be those. Returns the mask."""
+    import torch
+    kw = dict(width=width, height=height, cfg=cfg, go_camera=go_camera)
+    mk.reset_launches()
+    out, launch = mk.prepare_pixel_mask(scene, **kw)
+    launch()
+    launched = {k: v for k, v in mk.LAUNCHES.items() if v}
+    want = mk.pixel_mask_plain(scene, cam=launch.cam, **kw)
+    print(f"   {what} ({width}x{height}): {int(out.sum())} of "
+          f"{width * height} pixels, {int((out != want).sum())} differ from "
+          f"the plain version on the kernel's camera row; launched "
+          f"{launched}", flush=True)
+    if not torch.equal(out, want):
+        raise AssertionError(f"{what}: K2 differs from its plain version")
+    if expect is not None and launched != expect:
+        raise AssertionError(f"{what}: K2 launched {launched}, not {expect}")
+    return out
+
+
+def k2_numbers(mk, scene, cfg, go_camera=True):
+    """K2 at a bench frame's shape: ms a launch on the device
+    (tools/measure_mask.py:device_ms) and its plain version's; the bound
+    over the design's own work: the camera row and the leaf rows built
+    once, the center ray and the planes a pixel, and the leaf tests that
+    this frame's pixels run to their first hit (the plain early-exit form,
+    megakernel.k2_walk_plain); inputs read once (the scene's camera,
+    spheres, triangle vertices and planes), the mask written once; the
+    rows, the leaf tests and the mask stage split (stage_ms)."""
+    from raytrace_tpu_torch.tools.measure_mask import device_ms, stage_ms
+    kw = dict(width=W, height=H, cfg=cfg, go_camera=go_camera)
+    work = [0, 0]
+    mk.pixel_mask_plain(scene, work=work, **kw)
+    _, launch = mk.prepare_pixel_mask(scene, **kw)
+    launch()
+    ms = device_ms([launch])
+    plain = cuda_ms(lambda: mk.pixel_mask_plain(scene, **kw), 3)
+    g = scene.geometry
+    ns, nt, npl = (g.sph_center.shape[0], g.tri_v0.shape[0],
+                   g.pl_point.shape[0])
+    n_px = W * H
+    ops = (CAMERA_OPS + ns * TABLE_SPH_OPS + nt * TABLE_TRI_OPS
+           + n_px * (CENTER_RAY_OPS + PLANE_OPS * npl)
+           + work[1] * (LEAF_DOF_OPS if cfg.depth_of_field else LEAF_OPS))
+    in_bytes = 4 * (3 + 3 + 3 + 1 + 1) + 16 * ns + 36 * nt + 24 * npl
+    bnd, by = bound(ops, in_bytes + n_px)
+    return dict(ms=ms, plain=plain, bound=bnd, by=by, rows=ns + nt,
+                leaf_tests=work[1], rows_in_smem=launch.in_smem,
+                stage=stage_ms(mk, scene, cfg, go_camera, 20))
+
+
+def k2_line(name, m):
+    """Print k2_numbers' reading."""
+    st = m["stage"]
+    print(f"   {name} [{CARD}]: {m['rows']} rows, {m['leaf_tests']} leaf "
+          f"tests; {m['ms']:.4f} ms a mask vs plain {m['plain']:.4f} ms; "
+          f"bound {m['bound']:.6f} ms ({m['by']}); mask stage "
+          f"{st['stage']:.3f} ms: prep {st['prep']:.3f}, launch "
+          f"{st['launch']:.3f}, cumsum {st['cumsum']:.3f}", flush=True)
+
+
+def k2_keys(m):
+    """The extra keys of a K2 row."""
+    return dict(rows=m["rows"], leaf_tests=m["leaf_tests"],
+                smem_bytes=4 * (8 * m["rows"] + 20) if m["rows_in_smem"]
+                else None, mask_stage_ms=m["stage"])
+
+
+class no_host_mask_prep:
+    """Within the block, a mask launch that builds its camera row,
+    bounding spheres, tree or plane table on the host raises
+    (megakernel._mask_camera, _bsphere_table and _mask_tree replaced)."""
+    NAMES = ("_mask_camera", "_bsphere_table", "_mask_tree")
+
+    def __init__(self, mk):
+        self.mk = mk
+
+    def __enter__(self):
+        self.old = {n: getattr(self.mk, n) for n in self.NAMES}
+
+        def boom(*a, **k):
+            raise AssertionError("the host built a camera row or a mask "
+                                 "table on the card path")
+
+        for n in self.NAMES:
+            setattr(self.mk, n, boom)
+
+    def __exit__(self, *exc):
+        for n, f in self.old.items():
+            setattr(self.mk, n, f)
+        return False
 
 
 def k1_ops(scene, cnt):
@@ -799,7 +951,9 @@ def main():
 
     with Phase("k2_check"):
         for name, s in scenes.items():
-            got = mk.pixel_mask(s, width=W, height=H, cfg=cfg)
+            got = k2_mask_check(mk, s, cfg, f"K2 {name}",
+                                expect={"pixel_mask": 1})
+            camera_row_check(mk, s, cfg, f"{name}, go camera")
             want = mk.pixel_mask_plain(s, width=W, height=H, cfg=cfg)
             missing = int((want & ~got).sum())
             extra = int((got & ~want).sum())
@@ -812,6 +966,43 @@ def main():
             if name == SCENES[0]:
                 record["k2_err"] = float(
                     (got.float() - want.float()).abs().max())
+        from raytrace_tpu_torch import scene as scene_mod
+        from raytrace_tpu_torch.bench.suite import bvh_scene_dict
+        textured = asset_scene("textured_mirror_demo", dev)
+        for lens in (None,) + DOF_LENSES:
+            c = cfg if lens is None else dof_cfg(trace_mod, lens)
+            camera_row_check(mk, textured, c, f"textured_mirror_demo, "
+                             f"look-at camera, lens {lens}", go_camera=False)
+            camera_row_check(mk, scenes[SCENES[0]], c, f"bench, go camera, "
+                             f"lens {lens}")
+        k2_mask_check(mk, textured, cfg, "K2 textured_mirror_demo (look-at "
+                      "camera)", go_camera=False)
+        # past the shared-memory budget (lowered to 0: a row a chunk)
+        k2_loop = {
+            "icosphere": golden_scene("mesh_smooth_icosphere", dev,
+                                      build_accel=False),
+            f"ring{LOOP_LDG_RING}": loop_ring_scene(LOOP_LDG_RING, dev),
+            f"ring{LOOP_LDG_RING}-noground": scene_mod.from_dict(
+                bvh_scene_dict(f"ring{LOOP_LDG_RING}-noground"), device=dev,
+                build_accel=False)[0]}
+        past = {"pixel_mask": 1, "pixel_mask_chunked": 1}
+        for name, s in (("bench", scenes[SCENES[0]]),
+                        ("icosphere", k2_loop["icosphere"])):
+            with lowered_budget(mk, "MASK_SMEM_BYTES"):
+                k2_mask_check(mk, s, cfg, f"K2 {name} past its budget",
+                              160, 120, expect=past)
+        # loop mode at full size: every pixel hits the ground's bound at
+        # the first row, and without the ground each tests up to 2,500
+        for name, s in k2_loop.items():
+            if mk._kernel_mode(s) != "loop":
+                raise AssertionError(f"{name} is not a loop-mode scene")
+            got = k2_mask_check(mk, s, cfg, f"K2 {name}",
+                                expect={"pixel_mask": 1})
+            if name.endswith("noground") and not (got.any()
+                                                  and (~got).any()):
+                raise AssertionError(f"{name}: the frame must hold both "
+                                     "hits and misses")
+        record["k2_ring"] = k2_loop[f"ring{LOOP_LDG_RING}"]
 
     with Phase("k1_check"):
         for name, s in scenes.items():
@@ -1117,7 +1308,12 @@ def main():
                 if (mk.LAUNCHES[kernel], mk.LAUNCHES["mask_dof"]) != (1, 1):
                     raise AssertionError(f"{name}: the DoF mask launched "
                                          f"{mk.LAUNCHES}")
-                want = mk.pixel_mask_plain(s, width=W, height=H, cfg=dcfg)
+                cam = None
+                if kernel == "pixel_mask":   # K2 on its own camera row
+                    cam = camera_row_check(mk, s, dcfg, f"{name} L={lens[0]},"
+                                           f" F={lens[1]}")
+                want = mk.pixel_mask_plain(s, width=W, height=H, cfg=dcfg,
+                                           cam=cam)
                 print(f"   {name} ({kernel}) L={lens[0]}, F={lens[1]}: "
                       f"{int(got.sum())} of {W * H} pixels (pinhole "
                       f"{int(pin.sum())}), {int((got != want).sum())} "
@@ -1259,7 +1455,8 @@ def main():
     for phase, key in (("bench_stream_grid", "grid5833"),
                        ("bench_stream_mesh", "ico10241")):
         with Phase(phase):
-            got = bench(stream_scenes[key], mk, phase, slow_cut=True)
+            got = bench(stream_scenes[key], mk, phase, slow_cut=True,
+                        frames=1)
             for k in ("pixel_mask_stream", "trace_stream", "trace_state"):
                 if got[k] < 1:
                     raise AssertionError(f"the {phase} frame never "
@@ -1336,6 +1533,11 @@ def main():
         for row in kernels:   # K3-wide in K5: the stream frames, unsplit
             if row["name"].startswith("K3-wide"):
                 row.update(record["k3wide_stream"])
+            if row["name"].startswith("K2 "):   # K2's other frames
+                for key, m in record["k2_frames"].items():
+                    row.update({f"{key}_{k}": m[k] for k in (
+                        "ms", "plain", "bound", "rows", "leaf_tests")})
+                    row[f"{key}_mask_stage_ms"] = m["stage"]
             if row["name"].startswith("K3 "):   # K3+K4's other frames
                 for key, f in record["k3_frames"].items():
                     row.update({f"{key}_{k}": f[k] for k in (
@@ -1355,7 +1557,7 @@ def main():
                  "K6-stream": "rt_pixel_mask_stream_kernel",
                  "K1-state": "rt_trace_stream_state_kernel",
                  "K1-guard": "rt_trace_unroll_kernel",
-                 "K2-dof": "rt_pixel_mask_kernel",
+                 "K2-dof": "rt_pixel_mask_dof_kernel",
                  "K6-dof": "rt_pixel_mask_bvh_kernel",
                  "K6-stream-dof": "rt_pixel_mask_stream_kernel"}
         for row in kernels:
@@ -1717,7 +1919,8 @@ def past_cap_check(mk, rmod, trace_mod, dev, record):
     _, launch = mk.prepare_pixel_mask(s, width=32, height=24, cfg=cfg)
     launch()
     ms = device_ms([launch.prepass])
-    plain = cuda_ms(lambda: mk.mask_table_plain(s, launch.cam, cfg), 3)
+    cam = launch.cam
+    plain = cuda_ms(lambda: mk.mask_table_plain(s, cam, cfg), 3)
     ops, n_bytes = table_work(mk, s, cfg)
     bnd, by = bound(ops, n_bytes + nbytes)
     record["past_cap_table"] = dict(launches=launches["mask_table"], ms=ms,
@@ -2625,7 +2828,6 @@ def slice_rows(mk, scenes, frames, cfg, record):
     """The rows of K7 and K1-ext at the three bench frames of the slice
     (K1-ext's row is K1 on the textured frame; K3+K4 with vertex normals
     on the smooth frame rides along as extra keys)."""
-    from raytrace_tpu_torch.tools.measure_mask import device_ms
     src = "raytrace_tpu_torch/csrc/"
     mkpy = "raytrace_tpu/ops/megakernel.py:"
     rows = []
@@ -2643,12 +2845,15 @@ def slice_rows(mk, scenes, frames, cfg, record):
                                  f"count {got[key]['launches']}")
     t, sm, lp = got["textured"], got["smooth"], got["loop"]
     record["k3_frames"] = {k: got[k] for k in ("smooth", "ico2561")}
-    # K2, the loop frame's mask
-    _, k2_launch = mk.prepare_pixel_mask(frames["loop"][0], width=W,
-                                         height=H, cfg=cfg)
-    record["k2_loop_ms"] = device_ms([k2_launch])
-    print(f"   K2 on the loop frame: {record['k2_loop_ms']:.4f} ms",
-          flush=True)
+    # K2 at the textured and loop frames and on ring-2500 (loop mode)
+    record["k2_frames"] = {}
+    for key, s, go in (("textured", frames["textured"][0], False),
+                       ("loop", frames["loop"][0], True),
+                       (f"ring{LOOP_LDG_RING}", record["k2_ring"], True)):
+        m = k2_numbers(mk, s, cfg, go)
+        k2_line(f"K2 on the {key} frame", m)
+        record["k2_frames"][key] = m
+    record["k2_loop_ms"] = record["k2_frames"]["loop"]["ms"]
     common = dict(route="cuda", library_ms=None)
     rows.append(dict(
         name="K7 trace_loop", source=src + "trace_loop.cu",
@@ -2686,12 +2891,10 @@ def port_rows(mk, trace_mod, scene, ring, grid, cfg, launches,
     at the bench, ring-1000 and grid-5833 frames, lens L=0.1, F=10: the
     Renderer's)."""
     import torch
-    from raytrace_tpu_torch.tools.measure_mask import device_ms
     dev = torch.device("cuda")
     src = "raytrace_tpu_torch/csrc/"
     mkpy = "raytrace_tpu/ops/megakernel.py:"
     common = dict(route="cuda", library_ms=None)
-    n_px = W * H
     px, o, d, pix, samp, sizes = lanes_of(scene, W, H, SPP, cfg, chunks=True)
     lanes = (o, d, pix, samp)
     n, n_k1 = o.shape[0], len(sizes)
@@ -2762,25 +2965,15 @@ def port_rows(mk, trace_mod, scene, ring, grid, cfg, launches,
                 plain_ms=m["plain"], bound_ms=m["bound"], bound_by=m["by"],
                 **mask_keys(m), **common))
             continue
-        _, launch = mk.prepare_pixel_mask(s, width=W, height=H, cfg=dcfg)
-        ms = device_ms([launch])
-        plain = cuda_ms(lambda: mk.pixel_mask_plain(
-            s, width=W, height=H, cfg=dcfg), 3)
-        g = s.geometry
-        npl = g.pl_point.shape[0]
-        nbs = g.sph_center.shape[0] + g.tri_v0.shape[0]
-        # a bounding-sphere test with the lens slack: 28 + 14 operations
-        ops = n_px * (27 + 23 * npl) + n_px * nbs * 42
-        bnd, by = bound(ops, n_px + 4 * (18 + 7 * npl) + 4 * 5 * nbs)
-        print(f"   {name}: L={dcfg.dof_lens_radius}, "
-              f"F={dcfg.dof_focus_distance}, {n_px * nbs} bounding-sphere "
-              f"tests; {ms:.4f} ms vs plain {plain:.4f} ms, bound "
-              f"{bnd:.6f} ms", flush=True)
+        m = k2_numbers(mk, s, dcfg)
+        k2_line(f"{name} (L={dcfg.dof_lens_radius}, "
+                f"F={dcfg.dof_focus_distance})", m)
         rows.append(dict(
             name=name, source=src + "pixel_mask.cu", replaces=mkpy + line,
             launches=dof_frames[key]["mask_dof"],
-            max_abs_err=record["dof_mask_err"], ms=ms, plain_ms=plain,
-            bound_ms=bnd, bound_by=by, **common))
+            max_abs_err=record["dof_mask_err"], ms=m["ms"],
+            plain_ms=m["plain"], bound_ms=m["bound"], bound_by=m["by"],
+            **k2_keys(m), **common))
     return rows
 
 
@@ -2789,21 +2982,12 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
     """Each kernel at its bench frame: checks, times, bounds; the rows of
     the JSON kernel record."""
     import torch
-    from raytrace_tpu_torch.tools.measure_mask import device_ms
     dev = torch.device("cuda")
     n_px = W * H
     rows = []
 
     # K2 at the bench frame
-    g = scene.geometry
-    nbs = g.sph_center.shape[0] + g.tri_v0.shape[0]
-    npl = g.pl_point.shape[0]
-    _, k2_launch = mk.prepare_pixel_mask(scene, width=W, height=H, cfg=cfg)
-    k2_ms = device_ms([k2_launch])
-    k2_plain = cuda_ms(lambda: mk.pixel_mask_plain(
-        scene, width=W, height=H, cfg=cfg), 3)
-    k2_bound, k2_by = bound(n_px * (27 + 28 * nbs + 23 * npl),
-                            n_px + 4 * (13 + 4 * nbs + 7 * npl))
+    k2 = k2_numbers(mk, scene, cfg)
 
     # K1 at the bench lanes (100 spp over the hit pixels), per launch of
     # the main path's chunks
@@ -2832,8 +3016,7 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
           f"{ops:.4e} ops; per launch {k1_ms:.4f} ms, bound "
           f"{k1_bound:.4f} ms; plain over all lanes {k1_plain:.1f} ms",
           flush=True)
-    print(f"   K2: {n_px} pixels x {nbs} bounding spheres; {k2_ms:.4f} ms "
-          f"vs plain {k2_plain:.4f} ms, bound {k2_bound:.6f} ms", flush=True)
+    k2_line(f"K2 ({n_px} pixels)", k2)
     del px, o, d, pix, samp, cnt, got, want
 
     # K6 (the pre-pass and the walk) at the bvh bench frame
@@ -2920,8 +3103,8 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
             launches["trace_unroll"], k1_err, k1_ms, k1_plain, k1_bound,
             k1_by),
         row("K2 pixel_mask", src + "pixel_mask.cu", mkpy + "2532",
-            launches["pixel_mask"], record["k2_err"], k2_ms, k2_plain,
-            k2_bound, k2_by),
+            launches["pixel_mask"], record["k2_err"], k2["ms"], k2["plain"],
+            k2["bound"], k2["by"], **k2_keys(k2)),
         row("K3 trace_bvh", src + "trace_bvh.cu", mkpy + "954",
             launches_bvh["trace_bvh"], max([k3_err] + record["k3walk_err"]),
             k3_ms, plain_ms, k3_bound, k3_by, split=split,

@@ -140,27 +140,32 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = lanes + extra + run
         fn.restype = i
-    head = [p, i, i, f, f, p]  # out, width, height, inv_w, inv_h, cam
     # P1: table, n_rows, row_floats, n_steps, seed, variant, out, stream
     lib.rt_dma_probe.argtypes = [p, i, i, i, i, i, p, p]
     lib.rt_dma_probe.restype = i
-    # the scene's arrays of the mask table (pixel_mask.cu:
-    # RT_MASK_SCENE_ARGS): node_min, node_max, skip, first, count, n_nodes,
-    # prim_index, n_slots, sph_center, sph_radius, ns, v0, v1, v2
+    # the camera of a mask launch (pixel_mask.cu: RT_MASK_CAM_ARGS):
+    # position, look_at, up, fov, aspect, go, dof, lens, focus
+    cam = [p] * 5 + [i, i, f, f]
+    # the scene's arrays of a mask table (RT_MASK_SCENE_ARGS): node_min,
+    # node_max, skip, first, count, n_nodes, prim_index, n_slots,
+    # sph_center, sph_radius, ns, v0, v1, v2
     mask_scene = [p] * 5 + [i, p, i, p, p, i, p, p, p]
-    # K2: bs, nbs, pln, npl, stream; K6 and K6-stream: the mask table, its
-    # floats, in shared memory, dof, pln, npl, focus, the scene's arrays,
-    # stream
-    walk = [p, i, i, i, p, i, f] + mask_scene + [p]
-    for name, args in (("rt_pixel_mask", [p, i, p, i, p]),
-                       ("rt_pixel_mask_bvh", walk),
-                       ("rt_pixel_mask_stream", walk)):
+    head = [p, i, i, f, f] + cam  # out, width, height, inv_w, inv_h, cam
+    planes = [p, p, i]            # pl_point, pl_normal, npl
+    # K2: rows a chunk; K6 and K6-stream: the mask table, its floats, in
+    # shared memory
+    for name, args in (("rt_pixel_mask", [i]),
+                       ("rt_pixel_mask_bvh", [p, i, i]),
+                       ("rt_pixel_mask_stream", [p, i, i])):
         fn = getattr(lib, name)
-        fn.argtypes = head + args
+        fn.argtypes = head + args + planes + mask_scene + [p]
         fn.restype = i
-    # the pre-pass: tab, cam, focus, dof, the scene's arrays, stream
-    lib.rt_mask_table.argtypes = [p, p, f, i] + mask_scene + [p]
+    # the pre-pass: tab, width, height, the camera, the scene's arrays;
+    # the camera row alone: row, width, height, the camera
+    lib.rt_mask_table.argtypes = [p, i, i] + cam + mask_scene + [p]
     lib.rt_mask_table.restype = i
+    lib.rt_mask_camera.argtypes = [p, i, i] + cam + [p]
+    lib.rt_mask_camera.restype = i
     return lib
 
 

@@ -32,13 +32,17 @@ Port of the host side of ``raytrace_tpu/ops/megakernel.py``:
   bounding-sphere tests at the leaves (K6, bvh mode), or the same walk
   that marks a pixel at the first leaf slab it reaches (K6-stream, stream
   mode), each with a thin-lens branch for depth of field that takes the
-  corrected bound (``_mask_camera``). K6 and K6-stream walk a mask table
-  (the grown node slabs, and for K6 a leaf row a slot with the per-pixel
-  test's pixel-independent terms) in persistent blocks, each of which
-  builds the table in its shared memory; past ``MASK_SMEM_BYTES`` a
-  pre-pass writes it to global memory and the walk reads it in place.
+  corrected bound (``_mask_camera``). All three run persistent blocks,
+  each of which builds the camera row (``_mask_camera``'s, from the
+  scene's camera tensors) and its table in its shared memory: K2 a leaf
+  row a primitive with the per-pixel test's pixel-independent terms,
+  tested to each pixel's first hit; K6 and K6-stream the grown node slabs
+  and, for K6, a leaf row a slot, walked. Past ``MASK_SMEM_BYTES`` K2
+  builds its rows a chunk at a time; for K6 and K6-stream a pre-pass
+  writes the table to global memory and the walk reads it in place.
   CUDA source: ``csrc/pixel_mask.cu``. Plain versions:
-  ``pixel_mask_plain``, and ``mask_table_plain`` for the table.
+  ``pixel_mask_plain``, ``k2_table_plain`` and ``mask_table_plain`` for
+  the tables, ``_mask_camera`` for the camera row.
 * K1-guard, in K1 and K7 (``csrc/brute_force.cuh``): the per-occluder
   cone guard of the soft-shadow loop, on every main-path launch
   (``soft_guard``), for any occluder count (in chunks of 96). Plain
@@ -58,9 +62,11 @@ K3+K4 launch that reads its walk table in place from global memory (past
 tables in place (past ``LOOP_SMEM_BYTES``) under ``trace_loop_ldg``, a K1
 or K7 launch with its soft-shadow guard under ``trace_guard``
 (K1-guard), a mask launch with depth of field under ``mask_dof``, the
-pre-pass of K6 and K6-stream under ``mask_table``, and a K6 or K6-stream
-walk that reads the pre-pass's table in place (past ``MASK_SMEM_BYTES``)
-under ``pixel_mask_ldg``.
+pre-pass under ``mask_table``, a mask launch that reads the pre-pass's
+table in place (past ``MASK_SMEM_BYTES``) under ``pixel_mask_ldg``, a
+K2 launch that builds its rows in more than one chunk under
+``pixel_mask_chunked``, and the camera row's own launch (for the checks)
+under ``mask_camera``.
 
 Past ``MAX_STREAM_KERNEL_PRIMS`` primitives (the TPU kernel's cap, which
 bounds a node table in the TPU's scalar memory) the JAX package leaves
@@ -113,6 +119,8 @@ LOOP_SMEM_BYTES = BVH_SMEM_BYTES
 MASK_SMEM_BYTES = BVH_SMEM_BYTES
 MASK_NODE = 12            # floats of a mask-table node row (rt::kMaskNode)
 MASK_LEAF = 8             # floats of a mask-table leaf row (rt::kMaskLeaf)
+MASK_CAM = 20             # shared-memory floats of the camera row, which
+                          # every mask block builds first (rt::kCamPad)
 WALK_ROW = 12             # floats of a walk-table leaf row (rt::kWalkRow)
 COUNTERS = 8              # rt::kBruteCounters: per-lane work of K1 and K7
 BVH_COUNTERS = 10         # rt::kBvhCounters: per-lane work of K3+K4, K5
@@ -132,14 +140,18 @@ MASKS = {"unroll": "pixel_mask", "loop": "pixel_mask",
 # "trace_loop_ldg" the K7 launches that read their tables from global
 # memory, "trace_guard" the K1 and K7 launches with K1-guard on,
 # "mask_dof" the mask launches with depth of field, "mask_table" the
-# pre-pass launches of K6 and K6-stream, "pixel_mask_ldg" their walks that
-# read the mask table from global memory.
+# pre-pass launches, "pixel_mask_ldg" the mask launches that read the
+# pre-pass's table from global memory, "pixel_mask_chunked" the K2
+# launches that build their rows in more than one chunk (past
+# MASK_SMEM_BYTES), "mask_camera" the launches of the camera row alone
+# (``MaskLaunch.cam``, for the checks; on no main path).
 LAUNCHES = {"trace_unroll": 0, "trace_bvh": 0, "trace_stream": 0,
             "trace_loop": 0, "trace_state": 0, "trace_wide": 0,
             "trace_bvh_ldg": 0, "trace_loop_ldg": 0,
             "trace_guard": 0, "pixel_mask": 0,
             "pixel_mask_bvh": 0, "pixel_mask_stream": 0, "mask_dof": 0,
-            "mask_table": 0, "pixel_mask_ldg": 0}
+            "mask_table": 0, "pixel_mask_ldg": 0, "pixel_mask_chunked": 0,
+            "mask_camera": 0}
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -502,16 +514,6 @@ def _mask_tree(scene, cam, cfg):
                       1), pidx)
 
 
-def _mask_inputs(scene, width, height, cfg, go_camera):
-    """(mode, camera row (18,) of ``_mask_camera``, planes (Np,7))."""
-    mode = require_mode(scene)
-    cam = _mask_camera(scene, width, height, cfg, go_camera)
-    g = scene.geometry
-    pln = torch.cat([g.pl_point, g.pl_normal,
-                     g.pl_mat[:, None].to(torch.float32)], 1)
-    return mode, cam, pln
-
-
 def _node_rows(nodes) -> torch.Tensor:
     """(N,9) [min.xyz, max.xyz, skip, first, count] -> the mask table's
     (N,12) node rows [min.xyz, skip, max.xyz, first, count, 0, 0, 0]."""
@@ -561,9 +563,27 @@ def mask_table_plain(scene, cam, cfg) -> torch.Tensor:
 
 def mask_table_in_smem(n_floats: int) -> bool:
     """Does the K6 or K6-stream walk build a mask table of this many
-    floats in shared memory (else the pre-pass writes it and the walk reads
-    it in place)?"""
-    return 4 * n_floats <= MASK_SMEM_BYTES
+    floats in shared memory, after the camera row (else the pre-pass
+    writes it and the walk reads it in place)?"""
+    return 4 * (MASK_CAM + n_floats) <= MASK_SMEM_BYTES
+
+
+def k2_table_plain(scene, cam, cfg) -> torch.Tensor:
+    """K2's table, flat float32: a leaf row of MASK_LEAF floats a
+    primitive, in primitive order (``_leaf_rows`` of ``_bsphere_table``:
+    the spheres, then every triangle's bounding sphere) for the camera row
+    ``cam``: the plain version of the rows each K2 block builds in its
+    prologue (``csrc/pixel_mask.cu``: ``mask_leaf_row`` through an
+    identity prim_index)."""
+    return _leaf_rows(_bsphere_table(scene), cam,
+                      cfg.depth_of_field).reshape(-1)
+
+
+def k2_chunk_rows() -> int:
+    """Leaf rows of a K2 chunk: as many as fit MASK_SMEM_BYTES after the
+    camera row. A table of more rows is built and tested a chunk at a
+    time."""
+    return max(1, (MASK_SMEM_BYTES // 4 - MASK_CAM) // MASK_LEAF)
 
 
 # ------------------------------------------------ K2, K6, K6-stream ----
@@ -675,6 +695,63 @@ def _center_rays(cam, width, height, device):
     return d, 1.0 / a, sqa, 1.0 / sqa
 
 
+# (pixel, row) pairs a step of the plain K2 tests: the plain version goes
+# over the pixels in steps, so that its intermediates stay small at any
+# table size.
+K2_PLAIN_PAIRS = 1 << 22
+
+
+def _k2_hits(rows, d, inv_a, sqa, inv_sq, cam, dof: bool) -> torch.Tensor:
+    """(P,) bool: K2's bounding-sphere tests of every pixel against every
+    leaf row (rows (n, MASK_LEAF)), or-ed, in steps of pixels."""
+    P, n = d.shape[0], rows.shape[0]
+    hit = torch.zeros(P, dtype=torch.bool, device=d.device)
+    step = max(1, K2_PLAIN_PAIRS // max(n, 1))
+    for a in range(0, P if n else 0, step):
+        sl = slice(a, a + step)
+        dd = d[sl]
+        hit[sl] = torch.any(_leaf_hit(rows[None], dd[:, 0:1], dd[:, 1:2],
+                                      dd[:, 2:3], inv_a[sl], sqa[sl],
+                                      inv_sq[sl], cam, dof), dim=-1)
+    return hit
+
+
+def k2_walk_plain(rows, d, inv_a, sqa, inv_sq, cam, dof: bool, hit=None,
+                  work=None) -> torch.Tensor:
+    """(P,) bool: K2's loop as the kernel runs it: each pixel not already
+    in ``hit`` (the planes' bits) tests the leaf rows (n, MASK_LEAF) in
+    order and stops at its first hit. ``work`` (a list, or None) gets the
+    leaf tests added to its element 1. The bits equal ``_k2_hits``'."""
+    hit = (torch.zeros(d.shape[0], dtype=torch.bool, device=d.device)
+           if hit is None else hit.clone())
+    act = (~hit).nonzero()[:, 0]
+    for j in range(rows.shape[0]):
+        if not act.numel():
+            break
+        if work is not None:
+            work[1] += act.numel()
+        dd = d[act]
+        h = _leaf_hit(rows[j], dd[:, 0], dd[:, 1], dd[:, 2], inv_a[act, 0],
+                      sqa[act, 0], inv_sq[act, 0], cam, dof)
+        hit[act[h]] = True
+        act = act[~h]
+    return hit
+
+
+def _planes_hit(point, normal, o, dx, dy, dz, cam) -> torch.Tensor:
+    """(P,) bool: the planes' interval test (``csrc/pixel_mask.cu``:
+    ``planes_hit``) of center rays dx, dy, dz (P,1) from o, every plane
+    (point, normal (Np,3))."""
+    kp, ll, eps = cam[13], cam[14], 1e-3
+    n = normal[None]
+    denom = dx * n[..., 0] + dy * n[..., 1] + dz * n[..., 2]
+    pd = point[None] - o
+    num = (pd[..., 0] * n[..., 0] + pd[..., 1] * n[..., 1]
+           + pd[..., 2] * n[..., 2])
+    return torch.any((torch.abs(denom) <= kp + eps) | (num * denom > 0.0)
+                     | (torch.abs(num) <= ll + eps), dim=-1)
+
+
 def mask_walk_plain(scene, cam, table, *, width: int, height: int, cfg,
                     work=None) -> torch.Tensor:
     """(H*W,) bool: the walk of K6 (bvh mode) or K6-stream (stream mode)
@@ -698,55 +775,60 @@ def mask_walk_plain(scene, cam, table, *, width: int, height: int, cfg,
 
 
 def pixel_mask_plain(scene, *, width: int, height: int, cfg,
-                     go_camera: bool = True, work=None) -> torch.Tensor:
+                     go_camera: bool = True, work=None,
+                     cam=None) -> torch.Tensor:
     """The plain version of K2 (unroll and loop modes), K6 (bvh mode) and
     K6-stream (stream mode): (H*W,) bool, the same float32 operations as
-    ``csrc/pixel_mask.cu``, vectorised over pixels; K6 and K6-stream walk
-    ``mask_table_plain``'s table. ``work``: see _mask_walk (bvh and stream
-    modes)."""
-    mode, cam, pln = _mask_inputs(scene, width, height, cfg, go_camera)
-    dev = scene.device
-    eps = 1e-3
+    ``csrc/pixel_mask.cu``, vectorised over pixels; K2 tests
+    ``k2_table_plain``'s rows, K6 and K6-stream walk ``mask_table_plain``'s
+    table. ``cam``: the camera row (18,) to use (the kernels' own,
+    ``MaskLaunch.cam``), else ``_mask_camera``'s. ``work`` (a list of two
+    ints, or None): bvh and stream modes, see _mask_walk; unroll and loop
+    modes, element 1 gets K2's leaf tests (``k2_walk_plain``: the planes
+    first, then the rows to the first hit)."""
+    mode = require_mode(scene)
+    if cam is None:
+        cam = _mask_camera(scene, width, height, cfg, go_camera)
+    g, dev = scene.geometry, scene.device
     o = cam[0:3]
     d, inv_a, sqa, inv_sq = _center_rays(cam, width, height, dev)
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     hit = torch.zeros((width * height,), dtype=torch.bool, device=dev)
+    if g.pl_point.shape[0]:
+        hit |= _planes_hit(g.pl_point, g.pl_normal, o, dx, dy, dz, cam)
     if mode in ("bvh", "stream"):
         hit |= mask_walk_plain(scene, cam, mask_table_plain(scene, cam, cfg),
                                width=width, height=height, cfg=cfg,
                                work=work)
-    else:
-        bs = _bsphere_table(scene)
-        if bs.shape[0]:
-            hit |= torch.any(_bs_hit(o, dx, dy, dz, inv_a, sqa, inv_sq, cam,
-                                     bs[None]), dim=-1)
-    if pln.shape[0]:
-        kp, ll = cam[13], cam[14]
-        n = pln[None, :, 3:6]
-        denom = dx * n[..., 0] + dy * n[..., 1] + dz * n[..., 2]
-        pd = pln[None, :, 0:3] - o
-        num = (pd[..., 0] * n[..., 0] + pd[..., 1] * n[..., 1]
-               + pd[..., 2] * n[..., 2])
-        hit |= torch.any((torch.abs(denom) <= kp + eps)
-                         | (num * denom > 0.0)
-                         | (torch.abs(num) <= ll + eps), dim=-1)
-    return hit
+        return hit
+    rows = k2_table_plain(scene, cam, cfg).reshape(-1, MASK_LEAF)
+    if work is not None:
+        return k2_walk_plain(rows, d, inv_a, sqa, inv_sq, cam,
+                             cfg.depth_of_field, hit, work)
+    return hit | _k2_hits(rows, d, inv_a, sqa, inv_sq, cam,
+                          cfg.depth_of_field)
 
 
 @dataclasses.dataclass
 class MaskLaunch:
     """A prepared mask launch on the card (``prepare_pixel_mask``). Calling
-    it runs the mask kernel (``walk``), after the pre-pass where K6 or
-    K6-stream reads its table in place (``in_smem`` False; in shared memory
-    each block of the walk builds the table itself). ``prepass()`` writes
-    the mask table to ``table``; ``cam``: the camera row. For K2,
-    ``prepass`` and ``table`` are None."""
+    it runs the mask kernel (``walk``), after the pre-pass where it reads
+    its table in place (``in_smem`` False and ``prepass`` set; in shared
+    memory each block of the kernel builds the table itself).
+    ``prepass()`` writes the mask table to ``table``. ``cam``: the camera
+    row (18,) that the kernels build, written by its own one-thread
+    launch (``rt_mask_camera``, counted under ``mask_camera``) each time
+    it is read."""
 
-    prepass: object    # the pre-pass launch, or None (K2)
+    prepass: object    # the pre-pass launch, or None
     walk: object       # the mask kernel's launch
     table: object = None
-    cam: object = None
+    camera: object = None  # launches the camera row alone, returns it
     in_smem: bool = False
+
+    @property
+    def cam(self) -> torch.Tensor:
+        return self.camera()
 
     def __call__(self) -> None:
         if self.prepass is not None and not self.in_smem:
@@ -766,60 +848,80 @@ def _i32(t: torch.Tensor, what: str) -> torch.Tensor:
     return t.contiguous()
 
 
+def _camera_args(scene, cfg, go_camera):
+    """The camera of a mask launch as the C launchers take it
+    (``csrc/pixel_mask.cu``: RT_MASK_CAM_ARGS): the scene's position,
+    look_at, up, fov and aspect_ratio tensors, go, dof, the float32 lens
+    radius and focus distance (``_mask_camera``'s L and F)."""
+    c = scene.camera
+    dof = bool(cfg.depth_of_field)
+    return (_f32(c.position, "camera.position"),
+            _f32(c.look_at, "camera.look_at"), _f32(c.up, "camera.up"),
+            _f32(c.fov, "camera.fov"),
+            _f32(c.aspect_ratio, "camera.aspect_ratio"), int(go_camera),
+            int(dof), float(np.float32(cfg.dof_lens_radius)) if dof else 0.0,
+            float(np.float32(max(cfg.dof_focus_distance, 1e-6))))
+
+
 def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
                        go_camera: bool = True):
     """The mask kernel's inputs on the card: returns (out, launch).
     ``launch()`` (a ``MaskLaunch``) runs K2 (unroll and loop modes), K6
     (bvh mode) or K6-stream (stream mode) into ``out``, (H*W,) bool,
-    counting the launch under the kernel's name (``MASKS``); K6 and
-    K6-stream build their mask table in each block's shared memory, or,
-    past ``MASK_SMEM_BYTES``, read the table that the pre-pass (counted
-    under ``mask_table``) writes, in place (counted under
-    ``pixel_mask_ldg`` too)."""
+    counting the launch under the kernel's name (``MASKS``). Every mask
+    block builds the camera row and its table from the scene's own
+    tensors: the host only allocates the output (and K6's table, which
+    the pre-pass fills past the budget). K6 and K6-stream build their mask
+    table in each block's shared memory, or, past ``MASK_SMEM_BYTES``,
+    read the table that the pre-pass (counted under ``mask_table``)
+    writes, in place (counted under ``pixel_mask_ldg`` too); K2 builds its
+    rows ``k2_chunk_rows()`` at a time (more than one chunk: counted
+    under ``pixel_mask_chunked``)."""
     dev = scene.device
     if dev.type != "cuda":
         raise RuntimeError(f"pixel_mask kernel: device {dev} is not CUDA")
-    mode, cam, pln = _mask_inputs(scene, width, height, cfg, go_camera)
+    mode = require_mode(scene)
     name = MASKS[mode]
-    cam = cam.contiguous()
-    pln = pln.contiguous()
+    acc, g = scene.accel, scene.geometry
     out = torch.empty((width * height,), dtype=torch.bool, device=dev)
     lib = _build.library()
     inv_w = float(np.float32(1.0 / width))
     inv_h = float(np.float32(1.0 / height))
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream
-    dof = int(cfg.depth_of_field)
     ptr = lambda a: a.data_ptr() if isinstance(a, torch.Tensor) else a
     # the kernels' arguments; tensors stay referenced here until a launch
     # reads their pointers
-    head = (out, width, height, inv_w, inv_h, cam)
-    tail = (pln, pln.shape[0])
-    prep = None
+    cam = _camera_args(scene, cfg, go_camera)
+    head = (out, width, height, inv_w, inv_h) + cam
+    planes = (_f32(g.pl_point, "pl_point"), _f32(g.pl_normal, "pl_normal"),
+              g.pl_point.shape[0])
+    ns, nt = g.sph_center.shape[0], g.tri_v0.shape[0]
+    prims = (_f32(g.sph_center, "sph_center"),
+             _f32(g.sph_radius, "sph_radius"), ns,
+             _f32(g.tri_v0, "tri_v0"), _f32(g.tri_v1, "tri_v1"),
+             _f32(g.tri_v2, "tri_v2"))
+    table, prep, chunked = None, None, False
     if mode in ("bvh", "stream"):
-        acc, g = scene.accel, scene.geometry
-        n_nodes = acc.n_nodes
         n_slots = acc.prim_index.shape[0] if mode == "bvh" else 0
-        table = torch.empty((MASK_NODE * n_nodes + MASK_LEAF * n_slots,),
+        tree = (_f32(acc.node_min, "node_min"),
+                _f32(acc.node_max, "node_max"),
+                _i32(acc.node_skip, "node_skip"),
+                _i32(acc.node_first, "node_first"),
+                _i32(acc.node_count, "node_count"), acc.n_nodes,
+                _i32(acc.prim_index, "prim_index"), n_slots)
+        table = torch.empty((MASK_NODE * acc.n_nodes + MASK_LEAF * n_slots,),
                             dtype=torch.float32, device=dev)
         in_smem = mask_table_in_smem(table.numel())
-        focus = float(np.float32(max(cfg.dof_focus_distance, 1e-6)))
-        arrays = (_f32(acc.node_min, "node_min"),
-                  _f32(acc.node_max, "node_max"),
-                  _i32(acc.node_skip, "node_skip"),
-                  _i32(acc.node_first, "node_first"),
-                  _i32(acc.node_count, "node_count"), n_nodes,
-                  _i32(acc.prim_index, "prim_index"), n_slots,
-                  _f32(g.sph_center, "sph_center"),
-                  _f32(g.sph_radius, "sph_radius"), g.sph_center.shape[0],
-                  _f32(g.tri_v0, "tri_v0"), _f32(g.tri_v1, "tri_v1"),
-                  _f32(g.tri_v2, "tri_v2"))
-        prep = (table, cam, focus, dof) + arrays
-        args = head + (table, table.numel(), int(in_smem), dof) + tail + (
-            focus,) + arrays
+        prep = (table, width, height) + cam + tree + prims
+        args = head + (table, table.numel(), int(in_smem)) + planes + tree
     else:
-        bs = _bsphere_table(scene).contiguous()
-        table, in_smem = None, False
-        args = head + (bs, bs.shape[0]) + tail
+        # no tree, an identity prim_index, a leaf row a primitive
+        tree = (None,) * 5 + (0, None, ns + nt)
+        chunk = k2_chunk_rows()
+        in_smem = ns + nt <= chunk
+        chunked = not in_smem
+        args = head + (chunk,) + planes + tree
+    args = args + prims
     entry = getattr(lib, "rt_" + name)
 
     def table_fn():
@@ -832,11 +934,21 @@ def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
         LAUNCHES[name] += 1
         if table is not None and not in_smem:
             LAUNCHES["pixel_mask_ldg"] += 1
+        if chunked:
+            LAUNCHES["pixel_mask_chunked"] += 1
         if cfg.depth_of_field:
             LAUNCHES["mask_dof"] += 1
 
-    return out, MaskLaunch(table_fn if prep else None, walk_fn, table, cam,
-                           in_smem)
+    def camera_fn():
+        row = torch.empty((18,), dtype=torch.float32, device=dev)
+        _build.check(lib.rt_mask_camera(row.data_ptr(), width, height,
+                                        *map(ptr, cam), stream()),
+                     "mask_camera")
+        LAUNCHES["mask_camera"] += 1
+        return row
+
+    return out, MaskLaunch(table_fn if prep else None, walk_fn, table,
+                           camera_fn, in_smem)
 
 
 def pixel_mask(scene, *, width: int, height: int, cfg,

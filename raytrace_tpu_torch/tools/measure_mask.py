@@ -1,17 +1,20 @@
-"""The mask stage on the card for one or more builds in one process: K6
-and K6-stream (the pre-pass and the walk, timed apart) and K2, the
-control.
+"""The mask stage on the card for one or more builds in one process: K2,
+K6 and K6-stream (the pre-pass and the kernel, timed apart).
 
     python -m raytrace_tpu_torch.tools.measure_mask \
         [--pkg LABEL=DIR ...] [--in-place] [--reps N] [--stage-reps N] \
         [--out FILE]
 
-Cells, at 800x600 as ``chip_smoke.py`` renders them: ring-1000,
-smooth_shading_demo (its look-at camera), ico-2561 (two smooth
-icospheres of 1,280 triangles over a plane), grid-5833 and ico-10241
-(stream mode), ring-1000 and grid-5833 with the Renderer's depth of field
-(L=0.1, F=10), and the bench scene (K2). For each cell and build it
-times, in turns (ABBA over ``--reps``):
+Cells, at 800x600 as ``chip_smoke.py`` renders them: K6 on ring-1000,
+smooth_shading_demo (its look-at camera) and ico-2561 (two smooth
+icospheres of 1,280 triangles over a plane); K6-stream on grid-5833 and
+ico-10241; both with the Renderer's depth of field (L=0.1, F=10) on
+ring-1000 and grid-5833; K2 on the bench scene, with depth of field,
+textured_mirror_demo (its look-at camera), the icosphere golden without
+its BVH (the loop frame), ring-2500 without a BVH (loop mode) and
+ring-8000 without its ground and without a BVH (loop mode, 8,000
+bounding spheres: K2's rows past the shared-memory budget). For each
+cell and build it times, in turns (ABBA over ``--reps``):
 
 - the mask launch as the main path runs it, the walk kernel alone and
   the pre-pass kernel alone (K6, K6-stream, whose walk builds its table
@@ -23,13 +26,15 @@ times, in turns (ABBA over ``--reps``):
   and launches timed back to back from the host measure the host;
 - the mask stage: ``prepare_pixel_mask`` plus the launch, on the host
   clock, synchronised, the median of ``--stage-reps`` (at least 20);
-  and, for each build, the stage split into the camera row
-  (``_mask_camera``), the rest of the tables' prep, the launch and the
-  renderer's cumsum over the mask.
+  and, for each build, the stage split into its prep
+  (``prepare_pixel_mask``; of it, the time in the build's own host
+  ``_mask_camera``, where its prep calls one), the launch and the
+  renderer's cumsum over the mask (``stage_ms``).
 
 Builds: this package ("this"); with ``--in-place`` also this build with
-every mask table read in place ("this-inplace": ``MASK_SMEM_BYTES`` 0);
-and each ``--pkg`` directory holding
+every mask table read in place ("this-inplace": ``MASK_SMEM_BYTES`` 0;
+K2 then builds its rows one at a time); and each ``--pkg`` directory
+holding
 another copy of ``raytrace_tpu_torch`` (a parent commit's, or a variant of
 this one), imported under a name of its own so that its own host code
 prepares its own launches; the copies build in parallel with their own
@@ -73,26 +78,38 @@ HOLD_CYCLES = 100_000_000  # the sleep kernel: some 50 ms at 1.98 GHz
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 MASK_ENTRIES = ("rt_mask_table_kernel", "rt_pixel_mask_bvh_kernel",
-                "rt_pixel_mask_stream_kernel", "rt_pixel_mask_kernel")
+                "rt_pixel_mask_stream_kernel", "rt_pixel_mask_kernel",
+                "rt_pixel_mask_dof_kernel", "rt_mask_camera_kernel")
 
 
 def cells(tmp):
-    """{name: (scene dict or asset path, go camera, depth of field)}."""
-    smooth = os.path.join(REPO, "assets", "smooth_shading_demo.json")
-    return {"ring-1000": (suite.ring_scene_dict(1000), True, False),
-            "smooth": (smooth, False, False),
-            "ico-2561": (suite.mesh_scene_dict(tmp, subdiv=3), True, False),
-            "grid-5833": (suite.grid_scene_dict(), True, False),
-            "ico-10241": (suite.mesh_scene_dict(tmp), True, False),
-            "ring-1000-dof": (suite.ring_scene_dict(1000), True, True),
-            "grid-5833-dof": (suite.grid_scene_dict(), True, True),
-            "bench": (bench_dict(), True, False)}
+    """{name: (scene dict or asset path, go camera, depth of field, build
+    a BVH)}."""
+    asset = lambda n: os.path.join(REPO, "assets", f"{n}.json")
+    return {"ring-1000": (suite.ring_scene_dict(1000), True, False, True),
+            "smooth": (asset("smooth_shading_demo"), False, False, True),
+            "ico-2561": (suite.mesh_scene_dict(tmp, subdiv=3), True, False,
+                         True),
+            "grid-5833": (suite.grid_scene_dict(), True, False, True),
+            "ico-10241": (suite.mesh_scene_dict(tmp), True, False, True),
+            "ring-1000-dof": (suite.ring_scene_dict(1000), True, True,
+                              True),
+            "grid-5833-dof": (suite.grid_scene_dict(), True, True, True),
+            "bench": (bench_dict(), True, False, True),
+            "bench-dof": (bench_dict(), True, True, True),
+            "textured": (asset("textured_mirror_demo"), False, False, True),
+            "loop": (suite.golden_scene_dict("mesh_smooth_icosphere")[0],
+                     True, False, False),
+            "ring-2500": (suite.ring_scene_dict(2500), True, False, False),
+            "ring-8000-noground": (suite.bvh_scene_dict("ring8000-noground"),
+                                   True, False, False)}
 
 
-def load_scene(src, dev):
+def load_scene(src, dev, accel=True):
+    kw = {} if accel else dict(build_accel=False)
     if isinstance(src, str):
-        return scene_mod.load(src, device=dev)[0]
-    return scene_mod.from_dict(src, device=dev)[0]
+        return scene_mod.load(src, device=dev, **kw)[0]
+    return scene_mod.from_dict(src, device=dev, **kw)[0]
 
 
 def _alias(label: str, pkg_dir: str):
@@ -192,32 +209,48 @@ def _sync_clock():
 
 def stage_ms(mkm, scene, cfg, go, reps):
     """The mask stage of a build on the host clock, synchronised, medians
-    over ``reps`` in ms: {"stage": prepare_pixel_mask plus the launch;
-    "camera": the camera row; "tables": the rest of the prep; "launch";
-    "cumsum": the renderer's inclusive cumsum over the mask}."""
+    over ``reps`` in ms: {"stage": prepare_pixel_mask plus the launch, as
+    the main path runs them; "prep": prepare_pixel_mask alone; "camera":
+    the part of the prep spent in the build's own ``_mask_camera``, where
+    its prep calls it (0 where the kernels build the camera row
+    themselves, in the launch); "launch"; "cumsum": the renderer's
+    inclusive cumsum over the mask}. The split times only what each
+    build's prep does, so two builds compare on the whole stage."""
     kw = dict(width=W, height=H, cfg=cfg, go_camera=go)
-    whole, cam, tables, launch_t, cum = [], [], [], [], []
+    whole, prep, cam, launch_t, cum = [], [], [], [], []
     for _ in range(reps):
         t0 = _sync_clock()
         _, launch = mkm.prepare_pixel_mask(scene, **kw)
         launch()
         whole.append(_sync_clock() - t0)
-    for _ in range(reps):
+    inner = []
+    own = mkm._mask_camera
+
+    def timed(*a, **k):
         t0 = _sync_clock()
-        mkm._mask_camera(scene, W, H, cfg, go)
-        t1 = _sync_clock()
-        out, launch = mkm.prepare_pixel_mask(scene, **kw)
-        t2 = _sync_clock()
-        launch()
-        t3 = _sync_clock()
-        torch.cumsum(out.to(torch.int64), 0) - 1
-        t4 = _sync_clock()
-        cam.append(t1 - t0)
-        tables.append((t2 - t1) - (t1 - t0))
-        launch_t.append(t3 - t2)
-        cum.append(t4 - t3)
+        row = own(*a, **k)
+        inner.append(_sync_clock() - t0)
+        return row
+
+    mkm._mask_camera = timed
+    try:
+        for _ in range(reps):
+            inner.clear()
+            t1 = _sync_clock()
+            out, launch = mkm.prepare_pixel_mask(scene, **kw)
+            t2 = _sync_clock()
+            launch()
+            t3 = _sync_clock()
+            torch.cumsum(out.to(torch.int64), 0) - 1
+            t4 = _sync_clock()
+            prep.append(t2 - t1)
+            cam.append(sum(inner))
+            launch_t.append(t3 - t2)
+            cum.append(t4 - t3)
+    finally:
+        mkm._mask_camera = own
     med = lambda xs: statistics.median(xs) * 1e3
-    return {"stage": med(whole), "camera": med(cam), "tables": med(tables),
+    return {"stage": med(whole), "prep": med(prep), "camera": med(cam),
             "launch": med(launch_t), "cumsum": med(cum)}
 
 
@@ -257,8 +290,8 @@ def main(argv=None) -> int:
     print(report["card"], flush=True)
     ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        for cell, (src, go, dof) in cells(tmp).items():
-            scene = load_scene(src, dev)
+        for cell, (src, go, dof, accel) in cells(tmp).items():
+            scene = load_scene(src, dev, accel)
             cfg = trace_mod.TraceConfig(depth_of_field=dof)
             info = table_info(scene, cfg, go)
             rec = {"mode": mk.require_mode(scene),
@@ -307,8 +340,8 @@ def main(argv=None) -> int:
                           f"back to back from the host "
                           f"{rec['host_walk_ms'][label][-1]:.4f}), pre-pass "
                           f"{rec['table_ms'][label][-1]:.4f} ms, stage "
-                          f"{st['stage']:.3f} ms (camera {st['camera']:.3f}"
-                          f", tables {st['tables']:.3f}, launch "
+                          f"{st['stage']:.3f} ms (prep {st['prep']:.3f}, of "
+                          f"it camera row {st['camera']:.3f}, launch "
                           f"{st['launch']:.3f}, cumsum {st['cumsum']:.3f})",
                           flush=True)
             report["cells"][cell] = rec

@@ -7,10 +7,13 @@ a machine without them:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: K2, K6 and K6-stream must equal their plain version (the
-same float32 operations, no FMA contraction), K6 and K6-stream also at
-sizes with partial tiles and with their mask table built in shared
-memory or read in place, and their pre-pass must write the plain
-version's table bit for bit; K1, K3+K4, K5 and K7, with
+same float32 operations, no FMA contraction), also at sizes with partial
+tiles and with their table built in shared memory or past the budget (K2
+in chunks, K6 and K6-stream read in place), on the camera row that the
+kernels build themselves, which must equal _mask_camera's row computed
+by PyTorch on the card bit for bit, and their pre-pass must write the
+plain version's table bit for bit; a mask launch must build nothing on
+the host; K1, K3+K4, K5 and K7, with
 the extended body (K1-ext: smooth normals, kinds 7-12, textures), must
 equal their plain version under the goldens image gate (<= 0.1% of pixels
 off by > 1e-3, mean abs error < 1e-4), which admits the rare lane that a
@@ -947,3 +950,118 @@ def test_mask_walk_equals_plain(cuda, mode, size, in_place, monkeypatch):
         assert launched == expect
         if size == (799, 601):
             assert want.any() and (~want).any()
+
+
+# K2 on Hopper and the masks' camera row built on the card. K2's scenes:
+# the bench scene (5 spheres), the icosphere golden and ring-300 without
+# its ground, both without a BVH (loop mode).
+K2_SCENES = {"bench": lambda: scene_dict(SCENES[0]),
+             "icosphere-loop": icosphere_dict,
+             "ring300-noground-loop": lambda: bvh_scene_dict(
+                 "ring300-noground")}
+
+
+def k2_scene(name, device):
+    loop = name.endswith("-loop")
+    s = tscene.from_dict(K2_SCENES[name](), device=device,
+                         build_accel=False if loop else None)[0]
+    assert tmk._kernel_mode(s) == ("loop" if loop else "unroll")
+    return s
+
+
+@pytest.mark.parametrize("up", [1.0, 2.0], ids=["up1", "up2"])
+@pytest.mark.parametrize("lens", list(MASK_LENSES))
+@pytest.mark.parametrize("go", [True, False], ids=["go", "lookat"])
+@pytest.mark.parametrize("name", ["bench", "textured_mirror_demo"])
+def test_mask_camera_equals_plain(cuda, name, go, lens, up):
+    """rt_mask_camera (the routine every mask block runs in its prologue)
+    writes _mask_camera's row, computed by PyTorch on the card, bit for
+    bit, counted under mask_camera alone."""
+    if name == "bench":
+        s = scene_on(SCENES[0], cuda)
+    else:
+        s = tscene.load(os.path.join(ASSETS, f"{name}.json"),
+                        device=cuda)[0]
+    if up != 1.0:
+        s = dataclasses.replace(s, camera=dataclasses.replace(
+            s.camera, up=s.camera.up * up))
+    cfg = mask_cfg(lens)
+    for W, H in ((800, 600), (33, 7), (1, 1)):
+        _, launch = tmk.prepare_pixel_mask(s, width=W, height=H, cfg=cfg,
+                                           go_camera=go)
+        tmk.reset_launches()
+        got = launch.cam
+        assert {k: v for k, v in tmk.LAUNCHES.items() if v} == {
+            "mask_camera": 1}
+        want = tmk._mask_camera(s, W, H, cfg, go)
+        assert got.shape == want.shape == (18,)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+            W, H, (got != want).nonzero()[:, 0].tolist())
+
+
+@pytest.mark.parametrize("budget", ["smem", "past-budget"])
+@pytest.mark.parametrize("size", [(1, 1), (33, 7), (799, 601)],
+                         ids=["1x1", "33x7", "799x601"])
+@pytest.mark.parametrize("name", list(K2_SCENES))
+def test_k2_equals_plain_sizes(cuda, name, size, budget, monkeypatch):
+    """K2, pinhole and with depth of field, at sizes with partial tiles,
+    its rows in shared memory and past the budget (lowered to two rows: a
+    chunk at a time): equal to the plain version on the kernel's own
+    camera row, with exactly its own launches counted. (Every pixel of
+    the icosphere frame passes: the camera sits inside its ground
+    sphere's inflated bound.)"""
+    s = k2_scene(name, cuda)
+    if budget == "past-budget":
+        monkeypatch.setattr(tmk, "MASK_SMEM_BYTES",
+                            4 * (tmk.MASK_CAM + 2 * tmk.MASK_LEAF))
+    W, H = size
+    for lens in MASK_LENSES:
+        cfg = mask_cfg(lens)
+        tmk.reset_launches()
+        got = tmk.pixel_mask(s, width=W, height=H, cfg=cfg)
+        launched = {k: v for k, v in tmk.LAUNCHES.items() if v}
+        _, launch = tmk.prepare_pixel_mask(s, width=W, height=H, cfg=cfg)
+        want = tmk.pixel_mask_plain(s, width=W, height=H, cfg=cfg,
+                                    cam=launch.cam)
+        assert torch.equal(got, want)
+        expect = {"pixel_mask": 1}
+        if budget == "past-budget":
+            expect["pixel_mask_chunked"] = 1
+        if cfg.depth_of_field:
+            expect["mask_dof"] = 1
+        assert launched == expect
+        if size == (799, 601) and name != "icosphere-loop":
+            assert want.any() and (~want).any()
+
+
+def test_mask_card_path_builds_nothing_on_the_host(cuda):
+    """On the card a mask launch needs no host-built camera row, bounding
+    spheres, tree or plane table: with _mask_camera, _bsphere_table,
+    _mask_tree, torch.cat, torch.stack and torch.tensor made to raise, K2, K6 and K6-stream still launch and give the plain
+    version's mask."""
+    cases = (("pixel_mask", lambda mp: scene_on(SCENES[0], cuda)),
+             ("pixel_mask", lambda mp: k2_scene("icosphere-loop", cuda)),
+             ("pixel_mask_bvh", lambda mp: mask_scene("bvh", cuda, mp)),
+             ("pixel_mask_stream", lambda mp: mask_scene("stream", cuda,
+                                                         mp)))
+
+    def boom(*a, **k):
+        raise AssertionError("a host-built table on the card path")
+
+    for kernel, make in cases:
+        with pytest.MonkeyPatch.context() as mp:
+            s = make(mp)
+            for lens in MASK_LENSES:
+                cfg = mask_cfg(lens)
+                want = tmk.pixel_mask_plain(s, width=200, height=150,
+                                            cfg=cfg)
+                with pytest.MonkeyPatch.context() as no_host:
+                    for fn in ("_mask_camera", "_bsphere_table",
+                               "_mask_tree"):
+                        no_host.setattr(tmk, fn, boom)
+                    for fn in ("cat", "stack", "tensor"):
+                        no_host.setattr(torch, fn, boom)
+                    tmk.reset_launches()
+                    got = tmk.pixel_mask(s, width=200, height=150, cfg=cfg)
+                    assert tmk.LAUNCHES[kernel] == 1
+                assert torch.equal(got, want)
