@@ -52,7 +52,8 @@ Phases, in order (each prints a line before and after, with its seconds):
                     for bit, and the same launch reading its walk table in
                     place, radiance and work counters
   k3wide_check      K3-wide (the 4-wide stack walk of K3+K4 and K5) on the
-                    lanes of a 64x48 frame, 4 spp, depth 50: K3+K4 on the
+                    lanes of a 64x48 frame, 4 spp, depth 12
+                    (CHECK_DEPTH): K3+K4 on the
                     4-wide walk and on the binary walk (the same scene
                     without its 4-wide view), each against its plain
                     version (max lane error 0 or the image gate), on
@@ -101,7 +102,7 @@ Phases, in order (each prints a line before and after, with its seconds):
                     pixel of K6's mask on the same tree: masks equal
   k5_check          K5 (bounce megakernel, stream mode) against its plain
                     version on a strided subset of the lanes of a 64x48
-                    frame, 4 spp, depth 50, on grid-5833 and ico-10241
+                    frame, 4 spp, depth 12, on grid-5833 and ico-10241
                     bit for bit, and bit-equal to K3+K4 on every lane of
                     the same frame of ring-1000 and the mixed scene forced
                     into stream mode (same tree); equal to K3+K4 on the
@@ -111,15 +112,15 @@ Phases, in order (each prints a line before and after, with its seconds):
                     multiple of 32 and on a segment resumed with every
                     other lane dead
   kstate_check      K1-state: K1, K3+K4, K5 and K7 each run bounces [0,4)
-                    with state and then [4,50) from it, on a few thousand
+                    with state and then [4,12) from it, on a few thousand
                     lanes: alive flags and the state of alive lanes equal
                     to the plain version's, each segment's radiance
                     against the plain version's on the same inputs and the
-                    sum against one [0,50) launch under the image gate
+                    sum against one [0,12) launch under the image gate
                     (max lane errors printed)
   render_check_stream  the stream main path (K6-stream, compaction, the
                     split ladder of K5 launches with K1-state) on
-                    grid-5833 at 160x120, 4 spp, depth 50, against the
+                    grid-5833 at 160x120, 4 spp, depth 12, against the
                     dense plain path and against the same path unsplit,
                     under the image gate; then one frame with the first
                     capacity forced below the survivors, which must report
@@ -152,7 +153,7 @@ Phases, in order (each prints a line before and after, with its seconds):
                     the pinhole mask; conservative against the dense plain
                     path (every pixel that some of 256 lens samples hits
                     lies in the mask, 160x120); the DoF main path against
-                    the dense plain path under the image gate
+                    the dense plain path under the image gate (depth 12)
   fast_mc           K1, K3+K4 and K7 with fast_mc (roulette from bounce 8,
                     the Renderer's, and from bounce 2; cutoff 1e-4) equal
                     to their plain version on the lanes of a 64x48 frame,
@@ -204,6 +205,43 @@ Phases, in order (each prints a line before and after, with its seconds):
                     against the plain guarded version on a strided subset
                     of about 20k of their lanes (error 0 or the image
                     gate)
+  adaptive          Renderer().render_adaptive (device accumulation) at
+                    800x600, cap 100, depth 50, 16 soft-shadow rays,
+                    min_spp 8, rel_tol 0.02 on the bench scene (K2 + K1),
+                    ring-1000 (K6 + K3+K4) and grid-5833 (K6-stream + K5
+                    through the full-capacity split ladder; were its deep
+                    caps not "const", the ladder would run on the mixed
+                    scene forced into stream mode): one warm-up, then 3
+                    timed frames (1 on grid-5833), launch counts reset
+                    just before the first and read just after; frame ms,
+                    mean spp, samples taken/s; then one frame through the
+                    stage hook (the same spp map): its stages, each ended
+                    by a synchronise, the test rounds and the k read at
+                    each, the reads of CUDA tensors to the host by round
+                    (exactly one a test round, none on the others), every
+                    ladder level within its capacity (overflow 0), and the
+                    trace launches of the second batch (s0 8) against the
+                    plain version at error 0: the radiance on a strided
+                    subset of about 20k lanes (5k on ring-1000, whose
+                    unconverged lanes are the costliest), each ladder
+                    segment's radiance and state on about K5_SUBSET of its
+                    lanes; then on the bench scene rel_tol = abs_tol = 0,
+                    min_spp = max_spp = 8 against render_wavefront at 8 spp,
+                    and device against host accumulation (spp maps equal
+                    on >= 99.9% of pixels), both under the image gate
+  aov_denoise       render_aovs and denoise (dense, a-trous over 3 passes,
+                    each with and without the adaptive frame's variance
+                    map) at 800x600 on the bench scene and ring-1000, each
+                    against the same call with device="cpu" on the same
+                    inputs (hit, mat_id, front_face equal; the float
+                    buffers and the filtered image within 1e-5); ms of
+                    each (median of 3); Renderer.render(denoise=True) once
+  checkpoint        the bench scene at 160x120, cap 32, min_spp 4, in both
+                    accumulation modes: render_adaptive interrupted (its
+                    _save_ckpt raising after the second checkpoint) and
+                    resumed equals the uninterrupted render bit for bit; a
+                    changed split spec, batch or scene is refused;
+                    render_with_checkpoints resumed equals one run
   kernels           K1 and K3+K4 against their plain versions on the bench
                     frames' own lanes (all of them for K1, a strided subset
                     of about 20k for K3+K4, whose main-path launches must
@@ -255,7 +293,9 @@ Phases, in order (each prints a line before and after, with its seconds):
                     whose table it writes; P1's three variants
                     (ms at the TPU tool's shape, launches from dma_probe,
                     P1's main path); registers, stack and spills of every
-                    kernel from the build
+                    kernel from the build; each row the kernel walks on
+                    the adaptive path also carries its launches in that
+                    path's first timed frame (adaptive_launches)
 
 The image gate is the goldens gate of tests/test_goldens.py: at most 0.1%
 of pixels off by more than 1e-3 and a mean absolute error below 1e-4.
@@ -312,6 +352,17 @@ SMOOTH_SUBSET = 2500  # the same for the smooth frame, whose plain version
                       # tests some 50 triangles a soft-shadow ray
 STATE_SUBSET = 500    # lanes of a stream frame for K1-state's plain time
 SLOW_FRAME_S = 30.0
+# Depth of the checks whose point is not the depth (the 4-wide walk order,
+# K5 against K3+K4 on one tree, K1-state's split, the stream and DoF main
+# paths against the dense plain path): bounds_check holds every trace
+# kernel at depth 100 and the kernels phase at the bench depth, so these
+# run at depth 12 (the least at which the stream main path splits) to keep
+# the script inside its watchdog.
+CHECK_DEPTH = 12
+# Lanes of an adaptive batch held against the plain version on ring-1000:
+# a batch past the first holds only the unconverged pixels, the frame's
+# costliest lanes (K3_SUBSET of them take the host some 50 s).
+ADAPTIVE_RING_SUBSET = 5000
 CARD = "card not read"  # nvidia-smi's name and power limit, read in env
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and fp32 instructions/s
 # outside the tensor cores: the sheet's 67 TFLOP/s counts an FMA as two
@@ -943,6 +994,8 @@ def main():
                                  f"{p1_launches}")
 
     cfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT, seed=0)
+    ccfg = trace_mod.TraceConfig(max_depth=CHECK_DEPTH, shadow_samples=SOFT,
+                                 seed=0)
     scenes = {n: load_scene(n, dev) for n in SCENES}
     bvh_scenes = {n: bvh_scene(n, dev) for n in MASK_SCENES}
     for n, s in bvh_scenes.items():
@@ -1066,7 +1119,7 @@ def main():
         twins = twin_scene(dev)
         for name, s in (("ring1000", bvh_scenes["ring1000"]),
                         ("mixed", bvh_scenes["mixed"]), ("twins", twins)):
-            err, differ = wide_check(mk, trace_mod, s, cfg, name)
+            err, differ = wide_check(mk, trace_mod, s, ccfg, name)
             record.setdefault("k3wide_err", []).append(err)
             if name == "twins" and differ < 5:
                 raise AssertionError("the twin scene's ties must split the "
@@ -1195,16 +1248,16 @@ def main():
 
     with Phase("k5_check"):
         for name, s in stream_scenes.items():
-            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
+            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, ccfg)
             idx = torch.arange(0, o.shape[0], max(1, o.shape[0] // K5_SUBSET),
                                device=dev)
             sub = tuple(t[idx] for t in (o, d, pix, samp))
             mk.reset_launches()
-            got = mk.trace(s, *sub, cfg)
+            got = mk.trace(s, *sub, ccfg)
             if mk.LAUNCHES["trace_stream"] != 1:
                 raise AssertionError(f"K5 was not launched: {mk.LAUNCHES}")
-            want = plain_trace(s, *sub, cfg)
-            if not torch.equal(got, k5_both(mk, s, sub, cfg, want)):
+            want = plain_trace(s, *sub, ccfg)
+            if not torch.equal(got, k5_both(mk, s, sub, ccfg, want)):
                 raise AssertionError(f"K5 is not deterministic on {name}")
             err = float((got - want).abs().max())
             print(f"   {name}: {idx.numel()} of {o.shape[0]} lanes, equal to "
@@ -1214,12 +1267,12 @@ def main():
         for name in BVH_SCENES:
             with forced_stream(mk):
                 s = bvh_scene(name, dev)
-                px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
+                px, o, d, pix, samp = lanes_of(s, 64, 48, 4, ccfg)
                 mk.reset_launches()
-                k5 = mk.trace(s, o, d, pix, samp, cfg)
+                k5 = mk.trace(s, o, d, pix, samp, ccfg)
                 if mk.LAUNCHES["trace_stream"] != 1:
                     raise AssertionError(f"K5 was not launched on {name}")
-            k3 = mk.trace(s, o, d, pix, samp, cfg)  # bvh mode, same tree
+            k3 = mk.trace(s, o, d, pix, samp, ccfg)  # bvh mode, same tree
             print(f"   {name} forced into stream mode: {o.shape[0]} lanes, "
                   f"K5 vs K3+K4 max lane error "
                   f"{float((k5 - k3).abs().max()):.3e}", flush=True)
@@ -1231,7 +1284,7 @@ def main():
         # other lane dead
         from raytrace_tpu_torch import scene as scene_mod
         g128 = scene_mod.with_accel(stream_scenes["grid5833"], leaf_size=128)
-        px, o, d, pix, samp = lanes_of(g128, 64, 48, 4, cfg)
+        px, o, d, pix, samp = lanes_of(g128, 64, 48, 4, ccfg)
         idx = torch.arange(0, o.shape[0], max(1, o.shape[0] // K5_SUBSET),
                            device=dev)
         cases = [("grid5833, leaves of 128 rows", g128,
@@ -1240,7 +1293,7 @@ def main():
         part = tuple(t[idx[:n_part]] for t in (o, d, pix, samp))
         grid = stream_scenes["grid5833"]
         cases.append((f"grid5833, {n_part} lanes", grid, part, {}))
-        _, st = mk.trace(grid, *part, cfg, end_bounce=2, return_state=True)
+        _, st = mk.trace(grid, *part, ccfg, end_bounce=2, return_state=True)
         alive = st["alive"].clone()
         alive[::2] = 0.0
         kw = dict(start_bounce=2, init_throughput=st["throughput"],
@@ -1249,8 +1302,8 @@ def main():
                       "lane dead", grid,
                       (st["origin"], st["direction"]) + part[2:], kw))
         for name, s, lanes, kw in cases:
-            want = trace_mod.trace(s, *lanes, cfg, **kw)
-            got = k5_both(mk, s, lanes, cfg, want, **kw)
+            want = trace_mod.trace(s, *lanes, ccfg, **kw)
+            got = k5_both(mk, s, lanes, ccfg, want, **kw)
             err = float((got - want).abs().max())
             print(f"   {name}: {lanes[0].shape[0]} lanes, equal to K3+K4 on "
                   f"the same tree (work counters too); max lane error vs "
@@ -1265,17 +1318,18 @@ def main():
                 ("K3+K4", bvh_scenes["mixed"], "trace_bvh"),
                 ("K5", stream_scenes["grid5833"], "trace_stream"),
                 ("K7", loop_scenes["icosphere"], "trace_loop")):
-            err = state_check(mk, trace_mod, s, kernel, cfg, name)
+            err = state_check(mk, trace_mod, s, kernel, ccfg, name)
             record.setdefault("kstate_err", []).append(err)
-        px, o, d, pix, samp = lanes_of(bvh_scenes["mixed"], 64, 48, 4, cfg)
-        _, st = k3_both(mk, bvh_scenes["mixed"], (o, d, pix, samp), cfg,
+        px, o, d, pix, samp = lanes_of(bvh_scenes["mixed"], 64, 48, 4, ccfg)
+        _, st = k3_both(mk, bvh_scenes["mixed"], (o, d, pix, samp), ccfg,
                         end_bounce=4, return_state=True)
         k3_both(mk, bvh_scenes["mixed"], (st["origin"], st["direction"],
-                                          pix, samp), cfg, start_bounce=4,
+                                          pix, samp), ccfg, start_bounce=4,
                 init_throughput=st["throughput"], init_alive=st["alive"])
-        print("   K3+K4's state entry: [0,4) with state and [4,50) from it "
-              "equal to the plain version and to the same launches reading "
-              "the walk table in place (work counters too)", flush=True)
+        print(f"   K3+K4's state entry: [0,4) with state and "
+              f"[4,{CHECK_DEPTH}) from it equal to the plain version and to "
+              "the same launches reading the walk table in place (work "
+              "counters too)", flush=True)
 
     with Phase("render_check_stream"):
         render_check_stream(mk, rmod, trace_mod, stream_scenes["grid5833"])
@@ -1333,7 +1387,7 @@ def main():
                         ("grid5833", grid)):
             for lens in DOF_LENSES:
                 dof_dense_check(mk, rmod, s, dof_cfg(trace_mod, lens), name)
-        dcfg = dof_cfg(trace_mod, DOF_LENSES[1], max_depth=DEPTH,
+        dcfg = dof_cfg(trace_mod, DOF_LENSES[1], max_depth=CHECK_DEPTH,
                        shadow_samples=SOFT)
         for name, s, w, h in (("bench", scenes[SCENES[0]], 160, 120),
                               ("ring1000", bvh_scenes["ring1000"], 160, 120),
@@ -1520,6 +1574,57 @@ def main():
             if fx_launches[k] < 1:
                 raise AssertionError(f"the effects frame never launched {k}")
 
+    adaptive = {}
+    with Phase("adaptive"):
+        from raytrace_tpu_torch import adaptive as ad
+        cfg_r = adaptive_renderer(rmod).trace_config()
+        cases = [("bench", scenes[SCENES[0]],
+                  ("pixel_mask", "trace_unroll", "trace_guard"), 3,
+                  K3_SUBSET),
+                 ("ring1000", bvh_scenes[BVH_SCENES[0]],
+                  ("pixel_mask_bvh", "trace_bvh"), 3, ADAPTIVE_RING_SUBSET),
+                 ("grid5833", grid,
+                  ("pixel_mask_stream", "trace_stream"), 1, K5_SUBSET)]
+        for key, s, kernels_used, n, sub in cases:
+            adaptive[key] = adaptive_frame(mk, rmod, s, f"adaptive {key}",
+                                           kernels_used, frames=n,
+                                           subset=sub)
+        if ad._split_spec(grid, cfg_r):
+            if adaptive["grid5833"]["launches"]["trace_state"] < 1:
+                raise AssertionError("the adaptive grid frame ran no ladder")
+        else:
+            print("   grid5833: pick_deep_caps is not 'const', so its "
+                  "batches run unsplit; the full-capacity ladder runs on "
+                  "the mixed scene forced into stream mode", flush=True)
+            with forced_stream(mk):
+                mixed = bvh_scene("mixed", dev)
+                adaptive["mixed_stream"] = adaptive_frame(
+                    mk, rmod, mixed, "adaptive mixed (stream)",
+                    ("pixel_mask_stream", "trace_stream", "trace_state"),
+                    frames=1)
+        record["adaptive_accum_same"] = adaptive_equalities(
+            rmod, scenes[SCENES[0]])
+
+    with Phase("aov_denoise"):
+        for key, s in (("bench", scenes[SCENES[0]]),
+                       ("ring1000", bvh_scenes[BVH_SCENES[0]])):
+            lin, _, var = ad.render_adaptive(
+                s, width=W, height=H, cfg=cfg_r, min_spp=ADAPTIVE_MIN_SPP,
+                max_spp=SPP, rel_tol=ADAPTIVE_TOL, return_variance=True,
+                as_numpy=False, device=dev)
+            adaptive[key]["aov_denoise_ms"] = aov_denoise(
+                rmod, s, f"aov_denoise {key}", lin, var)
+        r = adaptive_renderer(rmod)
+        ms, img = host_ms(lambda: r.render(scenes[SCENES[0]], W, H,
+                                           denoise=True))
+        if img.shape != (H, W, 3) or not img.any():
+            raise AssertionError("Renderer.render(denoise=True): bad image")
+        print(f"   Renderer.render(denoise=True) on the bench scene "
+              f"[{CARD}]: {ms:.3f} ms (one run)", flush=True)
+
+    with Phase("checkpoint"):
+        checkpoint_check(rmod, scenes[SCENES[0]])
+
     with Phase("kernels"):
         kernels = kernel_rows(mk, trace_mod, scenes[SCENES[0]],
                               bvh_scenes[BVH_SCENES[0]], cfg, launches,
@@ -1545,6 +1650,23 @@ def main():
                         "split", "walk_smem_bytes")})
                     row[f"{key}_frame_launches"] = frames[key][2][
                         "trace_bvh"]
+        # the launches of the adaptive path's timed frames
+        on_adaptive = {"K1": ("bench", "trace_unroll"),
+                       "K1-guard": ("bench", "trace_guard"),
+                       "K2": ("bench", "pixel_mask"),
+                       "K3": ("ring1000", "trace_bvh"),
+                       "K4": ("ring1000", "trace_bvh"),
+                       "K3-wide": ("ring1000", "trace_wide"),
+                       "K6": ("ring1000", "pixel_mask_bvh"),
+                       "K5": ("grid5833", "trace_stream"),
+                       "K6-stream": ("grid5833", "pixel_mask_stream"),
+                       "K1-state": ("grid5833", "trace_state")}
+        for row in kernels:
+            frame, key = on_adaptive.get(row["name"].split()[0],
+                                         (None, None))
+            if frame:
+                row["adaptive_frame"] = frame
+                row["adaptive_launches"] = adaptive[frame]["launches"][key]
         obj_dir.cleanup()
         regs = _build.kernel_resources(res.ptxas)
         entry = {"K1": "rt_trace_unroll_kernel", "K2": "rt_pixel_mask_kernel",
@@ -1808,11 +1930,11 @@ def state_check(mk, trace_mod, scene, kernel, cfg, what, split=4):
 
 
 def render_check_stream(mk, rmod, trace_mod, scene, w=160, h=120, spp=4):
-    """The stream main path at w x h, spp, depth 50 against the dense
-    plain path and the same path unsplit; then a frame whose first
+    """The stream main path at w x h, spp, depth CHECK_DEPTH against the
+    dense plain path and the same path unsplit; then a frame whose first
     capacity is forced below the survivors."""
     import torch
-    rcfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT)
+    rcfg = trace_mod.TraceConfig(max_depth=CHECK_DEPTH, shadow_samples=SOFT)
     key = (w, h, spp, rcfg, True)
     seen = {"segment": 0, "overflow": []}
 
@@ -2685,6 +2807,418 @@ def effects_frame(mk, rmod, scene, scfg, what, gate):
     image_gate(got, want, f"{what} at {r.samples} spp, after the effects, "
                "vs the plain path")
     return launches
+
+
+# ------------------------------------------------ the production loop ----
+
+# Adaptive settings of the adaptive phase (Renderer.render_adaptive's
+# defaults; the cap is SPP).
+ADAPTIVE_MIN_SPP, ADAPTIVE_TOL = 8, 0.02
+# The Tensor methods that bring a CUDA tensor's value to the host.
+HOST_READS = ("item", "tolist", "cpu", "__int__", "__float__", "__bool__",
+              "__index__")
+
+
+class counted_reads:
+    """Within the block every read of a CUDA tensor to the host (a call of
+    a HOST_READS method) is counted under the stage of render_adaptive's
+    hook it follows: "before", a round's index, or "finish"."""
+
+    def __init__(self):
+        self.where = "before"
+        self.counts = {}
+
+    def mark(self, where):
+        self.where = where
+
+    def __enter__(self):
+        import torch
+        self.saved = {n: getattr(torch.Tensor, n) for n in HOST_READS}
+
+        def wrap(orig):
+            def read(t, *a, **k):
+                if t.is_cuda:
+                    self.counts[self.where] = self.counts.get(self.where,
+                                                              0) + 1
+                return orig(t, *a, **k)
+            return read
+
+        for n, orig in self.saved.items():
+            setattr(torch.Tensor, n, wrap(orig))
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        for n, orig in self.saved.items():
+            setattr(torch.Tensor, n, orig)
+        return False
+
+
+def adaptive_renderer(rmod):
+    import torch
+    r = rmod.Renderer(device=torch.device("cuda"))
+    r.set_samples(SPP)
+    r.set_max_depth(DEPTH)
+    return r
+
+
+def adaptive_frame(mk, rmod, scene, what, kernels, frames=3,
+                   subset=K3_SUBSET):
+    """Renderer.render_adaptive at 800x600, cap SPP, depth 50, min_spp 8,
+    rel_tol 0.02, device accumulation: one warm-up, then ``frames`` timed
+    frames (launch counts reset just before the first and read just
+    after it: each of ``kernels`` must have launched); then one run
+    through the stage hook, which must give the same spp map: its test
+    rounds, the k read at each, the reads of CUDA tensors to the host by
+    round (counted_reads: one on a test round, none on the others), and
+    the trace launches of the first batch with s0 > 0 (adaptive_batch,
+    on about ``subset`` of its lanes). Returns the numbers for the
+    record."""
+    import torch
+    from raytrace_tpu_torch import adaptive as ad
+    r = adaptive_renderer(rmod)
+    kw = dict(min_spp=ADAPTIVE_MIN_SPP, rel_tol=ADAPTIVE_TOL)
+    split = ad._split_spec(scene, r.trace_config())
+    t0 = time.perf_counter()
+    r.render_adaptive(scene, W, H, **kw)  # warm-up
+    warm = time.perf_counter() - t0
+    times = []
+    for i in range(frames):
+        if i == 0:
+            mk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, spp = r.render_adaptive(scene, W, H, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(mk.LAUNCHES)
+    for k in kernels:
+        if launches[k] < 1:
+            raise AssertionError(f"{what}: the adaptive path never launched "
+                                 f"{k}: {launches}")
+    if img.shape != (H, W, 3) or not img.any():
+        raise AssertionError(f"{what}: bad adaptive image")
+    if r.benchmark_data.samples != float(spp.mean()):
+        raise AssertionError(f"{what}: benchmark samples is not the mean spp")
+    best = sorted(times)[len(times) // 2]
+    taken = int(spp.astype("int64").sum())
+    print(f"   {what} [{CARD}]: adaptive frame seconds "
+          f"{[round(t, 4) for t in times]} (warm-up {warm:.3f}); median "
+          f"{best * 1e3:.3f} ms; mean spp {float(spp.mean()):.4f} (cap "
+          f"{SPP}, min {ADAPTIVE_MIN_SPP}, pixels sampled "
+          f"{int((spp > 0).sum())}); samples taken {taken} = "
+          f"{taken / best:.4e} samples/s; split {split}; launches "
+          f"{launches}", flush=True)
+
+    rounds, reads = [], counted_reads()
+    seen = {"lanes": [], "rad": [], "segs": [], "ov": [], "compact": []}
+    stage_ms, last = {}, [0.0]
+
+    def hook(stage, **v):
+        torch.cuda.synchronize()   # a stage ends here (no host read)
+        now = time.perf_counter()
+        stage_ms[stage] = stage_ms.get(stage, 0.0) + (now - last[0]) * 1e3
+        last[0] = now
+        if stage == "round":
+            rounds.append({"s0": v["s0"], "batch": v["batch"],
+                           "test": v["test"], "k": None})
+            reads.mark(len(rounds) - 1)
+        elif stage == "k_read":
+            rounds[-1]["k"] = v["k"]
+        elif stage == "finish":
+            reads.mark("finish")
+        elif stage == "split_compact":
+            seen["compact"].append((v["survivors"], v["cap"]))
+        elif stage == "trace":
+            seen["ov"].append(v["overflow"])
+        if not rounds or len(rounds) != 2:
+            return
+        if stage == "lane_rays":   # the second batch: s0 > 0
+            seen["lanes"].append(tuple(v[k] for k in ("origin", "direction",
+                                                      "pix", "samp")))
+        elif stage == "trace":
+            seen["rad"].append(v["rad"])
+        elif stage == "segment":
+            seen["segs"].append(dict(v, rad=v["rad"].clone()))
+
+    with reads:
+        torch.cuda.synchronize()
+        t0 = last[0] = time.perf_counter()
+        _, spp2 = r.render_adaptive(scene, W, H, hook=hook, **kw)
+        hooked = (time.perf_counter() - t0) * 1e3
+    stage_ms["tail"] = hooked - sum(stage_ms.values())
+    if not (spp2 == spp).all():
+        raise AssertionError(f"{what}: the hooked run took other samples")
+    print(f"   {what}: stages of the hooked frame, ms (each ended by a "
+          f"synchronise; the time up to each hook, summed over the "
+          f"batches; tail = finish, tone map, copy): "
+          f"{ {k: round(t, 3) for k, t in stage_ms.items()} }, frame "
+          f"{hooked:.3f}", flush=True)
+    tests = [x for x in rounds if x["test"]]
+    per_round = {i: reads.counts.get(i, 0) for i in range(len(rounds))}
+    bad = [i for i, x in enumerate(rounds)
+           if per_round[i] != (1 if x["test"] else 0)]
+    print(f"   {what}: {len(rounds)} batches (s0, batch): "
+          f"{[(x['s0'], x['batch']) for x in rounds]}; test rounds "
+          f"{len(tests)}, k read at each (s0 after the batch: k): "
+          f"{[(x['s0'] + x['batch'], x['k']) for x in tests]}; host reads "
+          f"by round {per_round}, before the first "
+          f"{reads.counts.get('before', 0)}, after the last "
+          f"{reads.counts.get('finish', 0)}", flush=True)
+    if bad:
+        raise AssertionError(f"{what}: rounds {bad} read the device other "
+                             "than once a test round")
+    ov = [int(o) for o in seen["ov"]]
+    over = [(int(s), c) for s, c in seen["compact"] if int(s) > c]
+    if split:
+        print(f"   {what}: ladder levels over all batches "
+              f"{len(seen['compact'])}, overflow of every trace {set(ov)}, "
+              f"levels past their capacity {len(over)}", flush=True)
+        if any(ov) or over or not seen["compact"]:
+            raise AssertionError(f"{what}: the full-capacity ladder "
+                                 "overflowed or did not run")
+    err = adaptive_batch(scene, r.trace_config(), seen, split, what, subset)
+    return {"frame_ms": best * 1e3, "frame_s": times, "mean_spp":
+            float(spp.mean()), "samples_taken": taken,
+            "samples_per_s": taken / best, "rounds": len(rounds),
+            "k_reads": [x["k"] for x in tests], "split": repr(split),
+            "launches": launches, "max_abs_err": err,
+            "stage_ms": stage_ms}
+
+
+def adaptive_batch(scene, cfg, seen, split, what, subset):
+    """The trace launches of an adaptive batch with s0 > 0, read through
+    the hook, against their plain version: unsplit, the radiance on a
+    strided subset of about ``subset`` of the batch's lanes; through the
+    ladder, each segment's radiance and state on a strided subset of about
+    K5_SUBSET of its lanes (same_plain). Error 0; returns it."""
+    import torch
+    from raytrace_tpu_torch import trace as trace_mod
+    o, d, pix, samp = (torch.cat(t) for t in zip(*seen["lanes"]))
+    s0 = int(samp.min())
+    if s0 <= 0:
+        raise AssertionError(f"{what}: the checked batch starts at s0 0")
+    if not split:
+        rad = torch.cat(seen["rad"])
+        n = o.shape[0]
+        idx = torch.arange(0, n, max(1, n // subset), device=o.device)
+        want = plain_trace(scene, o[idx], d[idx], pix[idx], samp[idx], cfg)
+        err = float((rad[idx] - want).abs().max())
+        print(f"   {what}: batch at s0 {s0}, {n} lanes; at {idx.numel()} of "
+              f"them max lane error against the plain version {err:.3e}",
+              flush=True)
+    else:
+        err = 0.0
+        for v in seen["segs"]:
+            n = v["origin"].shape[0]
+            idx = torch.arange(0, n, max(1, n // K5_SUBSET),
+                               device=v["origin"].device)
+            last = v["state"] is None
+            kw = dict(start_bounce=v["b0"],
+                      end_bounce=None if last else v["b1"],
+                      return_state=not last)
+            if v["b0"] > 0:
+                kw.update(init_throughput=v["throughput"][idx],
+                          init_alive=v["alive"][idx])
+            args = tuple(v[k][idx] for k in ("origin", "direction", "pix",
+                                             "samp"))
+            want = trace_mod.trace(scene, *args, cfg, **kw)
+            got = v["rad"][idx] if last else (
+                v["rad"][idx], {k: t[idx] for k, t in v["state"].items()})
+            rad_want = want if last else want[0]
+            err = max(err, float((got if last else got[0])
+                                 .sub(rad_want).abs().max()))
+            if not same_plain(got, want):
+                raise AssertionError(f"{what}: ladder segment [{v['b0']}, "
+                                     f"{v['b1']}) differs from its plain "
+                                     "version")
+        print(f"   {what}: batch at s0 {s0}, {o.shape[0]} lanes, "
+              f"{len(seen['segs'])} ladder segments, each on at most "
+              f"{K5_SUBSET} of its lanes: max lane error against the plain "
+              f"version {err:.3e} (state of alive lanes equal)", flush=True)
+    if err != 0.0:
+        raise AssertionError(f"{what}: an adaptive batch's trace differs "
+                             "from its plain version")
+    return err
+
+
+def adaptive_equalities(rmod, scene):
+    """On the bench scene at 800x600: rel_tol = abs_tol = 0 with min_spp =
+    max_spp = 8 (two batches of 4) against render_wavefront at 8 spp; the
+    bench settings in device against host accumulation, spp maps equal on
+    at least 99.9% of pixels. Both under the image gate."""
+    import torch
+    from raytrace_tpu_torch import adaptive as ad
+    dev = torch.device("cuda")
+    cfg = adaptive_renderer(rmod).trace_config()
+    img, spp = ad.render_adaptive(
+        scene, width=W, height=H, cfg=cfg, min_spp=8, max_spp=8, batch=4,
+        rel_tol=0.0, abs_tol=0.0, as_numpy=False, device=dev)
+    ref = rmod.render_wavefront(scene, width=W, height=H, samples=8, cfg=cfg)
+    if not bool((spp[spp > 0] == 8).all()):
+        raise AssertionError("tolerance 0: a pixel stopped before 8 spp")
+    image_gate(img, ref, "adaptive, tolerance 0, 8 spp, vs render_wavefront "
+               "at 8 spp")
+    kw = dict(width=W, height=H, cfg=cfg, min_spp=ADAPTIVE_MIN_SPP,
+              max_spp=SPP, batch=8, rel_tol=ADAPTIVE_TOL, as_numpy=False,
+              device=dev)
+    out = {}
+    for accum in ("device", "host"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[accum] = ad.render_adaptive(scene, accum=accum, **kw)
+        torch.cuda.synchronize()
+        out[accum] += (time.perf_counter() - t0,)
+    (img_d, spp_d, t_d), (img_h, spp_h, t_h) = out["device"], out["host"]
+    same = float((spp_d == spp_h).float().mean())
+    print(f"   device vs host accumulation: spp maps equal on {same:.6f} of "
+          f"the pixels, mean spp {float(spp_d.float().mean()):.4f} / "
+          f"{float(spp_h.float().mean()):.4f}; seconds {t_d:.4f} / "
+          f"{t_h:.4f}", flush=True)
+    if same < 0.999:
+        raise AssertionError("device and host accumulation decide apart")
+    image_gate(img_d, img_h, "adaptive, device vs host accumulation")
+    return same
+
+
+def aov_denoise(rmod, scene, what, lin, var):
+    """render_aovs and denoise (dense and a-trous, with and without the
+    variance map) at 800x600 on the card, each against the same call with
+    device="cpu" on the same inputs: hit, mat_id and front_face equal, the
+    float buffers and the filtered image within an absolute 1e-5. ms of
+    each card call (median of 3, synchronised). Returns the ms."""
+    import torch
+    from raytrace_tpu_torch import aov, denoising
+    dev = torch.device("cuda")
+    ms = {}
+
+    def timed(key, fn):
+        fn()  # warm-up
+        runs = [host_ms(fn) for _ in range(3)]
+        ms[key] = sorted(t for t, _ in runs)[1]
+        return runs[0][1]
+
+    a = timed("aovs", lambda: aov.render_aovs(
+        scene, width=W, height=H, as_numpy=False, device=dev))
+    a_cpu = aov.render_aovs(scene.to("cpu"), width=W, height=H,
+                            as_numpy=False, device="cpu")
+    errs = {}
+    for k in ("hit", "mat_id", "front_face"):
+        if not torch.equal(a[k].cpu(), a_cpu[k]):
+            raise AssertionError(f"{what}: AOV {k} differs on the CPU")
+    for k in ("depth", "position", "normal", "albedo"):
+        errs[k] = float((a[k].cpu() - a_cpu[k]).abs().max())
+    a_h = {k: v.cpu() for k, v in a.items()}
+    for passes in (1, 3):
+        for v in (None, var):
+            key = f"denoise_p{passes}{'_var' if v is not None else ''}"
+            got = timed(key, lambda: denoising.denoise(
+                lin, a, variance=v, passes=passes, as_numpy=False,
+                device=dev))
+            want = denoising.denoise(
+                lin.cpu(), a_h, variance=None if v is None else v.cpu(),
+                passes=passes, as_numpy=False, device="cpu")
+            errs[key] = float((got.cpu() - want).abs().max())
+    print(f"   {what} [{CARD}]: ms (median of 3, synchronised) "
+          f"{ {k: round(t, 3) for k, t in ms.items()} }; max abs error "
+          f"against the CPU {errs}; hit pixels {int(a['hit'].sum())}",
+          flush=True)
+    bad = {k: e for k, e in errs.items() if not e <= 1e-5}
+    if bad:
+        raise AssertionError(f"{what}: the card differs from the CPU by more "
+                             f"than 1e-5: {bad}")
+    return ms
+
+
+def checkpoint_check(rmod, scene):
+    """On the bench scene at 160x120, cap 32, min_spp 4, in both
+    accumulation modes: render_adaptive interrupted (adaptive._save_ckpt
+    raising after its second call) and resumed equals the uninterrupted
+    render bit for bit; a changed split spec, batch or scene is refused;
+    render_with_checkpoints resumed to the uninterrupted image."""
+    import numpy as np
+    import torch
+    from raytrace_tpu_torch import adaptive as ad
+    from raytrace_tpu_torch import parallel
+    dev = torch.device("cuda")
+    cfg = adaptive_renderer(rmod).trace_config()
+    kw = dict(width=160, height=120, cfg=cfg, min_spp=4, max_spp=32,
+              batch=4, rel_tol=ADAPTIVE_TOL, device=dev)
+
+    class Interrupted(Exception):
+        pass
+
+    real = ad._save_ckpt
+    other = with_lights(scene, 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        for accum in ("device", "host"):
+            ref = ad.render_adaptive(scene, accum=accum, **kw)
+            path = os.path.join(tmp, f"{accum}.ckpt.npz")
+            calls = [0]
+
+            def dying(*a, **k):
+                real(*a, **k)
+                calls[0] += 1
+                if calls[0] >= 2:
+                    raise Interrupted
+
+            ad._save_ckpt = dying
+            try:
+                ad.render_adaptive(scene, accum=accum, checkpoint_path=path,
+                                   **kw)
+                raise AssertionError("the patched checkpoint did not fire")
+            except Interrupted:
+                pass
+            finally:
+                ad._save_ckpt = real
+            got = ad.render_adaptive(scene, accum=accum,
+                                     checkpoint_path=path, **kw)
+            for a, b, name in zip(got, ref, ("image", "spp map")):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{accum}: the resumed {name} "
+                                         "differs")
+            refused = []
+            old_spec = ad._split_spec
+            for label, s, extra in (("split spec", scene, {}),
+                                    ("batch", scene, {"batch": 2}),
+                                    ("scene", other, {})):
+                if label == "split spec":
+                    ad._split_spec = lambda scene, cfg: (4, 7)
+                try:
+                    ad.render_adaptive(s, accum=accum, checkpoint_path=path,
+                                       **dict(kw, **extra))
+                except ValueError:
+                    refused.append(label)
+                finally:
+                    ad._split_spec = old_spec
+            print(f"   {accum} accumulation: resumed after 2 checkpoints "
+                  f"equals the uninterrupted render bit for bit (mean spp "
+                  f"{float(ref[1].mean()):.4f}); refused: {refused}",
+                  flush=True)
+            if refused != ["split spec", "batch", "scene"]:
+                raise AssertionError(f"{accum}: a changed run was not "
+                                     f"refused: {refused}")
+
+        def fresh():
+            r = rmod.Renderer(device=dev)
+            r.set_max_depth(DEPTH)
+            return r
+
+        path = os.path.join(tmp, "render.npz")
+        full = parallel.render_with_checkpoints(
+            fresh(), scene, 160, 120, total_samples=8, samples_per_round=4)
+        parallel.render_with_checkpoints(
+            fresh(), scene, 160, 120, total_samples=4, samples_per_round=4,
+            checkpoint_path=path)
+        resumed = parallel.render_with_checkpoints(
+            fresh(), scene, 160, 120, total_samples=8, samples_per_round=4,
+            checkpoint_path=path)
+        if not np.array_equal(resumed, full) or not resumed.any():
+            raise AssertionError("render_with_checkpoints resumed to another "
+                                 "image")
+        print("   render_with_checkpoints: 4 + 4 samples resumed equal 8 in "
+              "one run bit for bit", flush=True)
 
 
 def without_roulette(cfg):

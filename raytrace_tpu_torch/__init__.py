@@ -26,8 +26,17 @@ smooth normals, the extended material kinds and procedural textures
 (K1-ext). Each kernel has a plain PyTorch version beside it, which the
 CPU path and the tests use. Entry points run on the GPU unless the caller
 passes ``device="cpu"``.
+
+The production loop is ported too: adaptive sampling over the same trace
+kernels (``render_adaptive``, host or device accumulation, with
+checkpoint/resume), the AOV feature buffers (``render_aovs``), the
+feature-guided denoiser (``denoise``) and the sample-accumulator
+checkpoints of ``parallel``.
 """
 
+from .adaptive import render_adaptive
+from .aov import render_aovs
+from .denoising import denoise
 from .renderer import BenchmarkData, Renderer, render_band, render_wavefront
 from .scene import Scene
 from .scene import from_dict as scene_from_dict
@@ -35,6 +44,6 @@ from .scene import load as load_scene
 from .trace import TraceConfig
 from .trace import trace as trace_rays
 
-__all__ = ["BenchmarkData", "Renderer", "Scene", "TraceConfig",
-           "load_scene", "render_band", "render_wavefront",
-           "scene_from_dict", "trace_rays"]
+__all__ = ["BenchmarkData", "Renderer", "Scene", "TraceConfig", "denoise",
+           "load_scene", "render_adaptive", "render_aovs", "render_band",
+           "render_wavefront", "scene_from_dict", "trace_rays"]

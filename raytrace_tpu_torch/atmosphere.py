@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from . import camera as cam_mod
+from ._f32 import div as _div
 from ._f32 import sqrt as _sqrt
 from .ops import intersect
 
@@ -143,12 +144,14 @@ def height_density(h: torch.Tensor, scale_height: float = 8000.0):
 
 
 def center_rays(scene, width: int, height: int, go_camera: bool = True):
-    """(origin (P,3), direction (P,3)) of every pixel's center ray."""
+    """(origin (P,3), direction (P,3)) of every pixel's center ray. The
+    divisions are float32 divisions on every device (``_f32.div``), so the
+    rays on the card are the CPU's."""
     dev = scene.device
     n_px = width * height
     i = torch.arange(n_px, dtype=torch.float32, device=dev)
-    xs = (i % width + 0.5) / width
-    ys = (torch.div(i, width, rounding_mode="floor") + 0.5) / height
+    xs = _div(i % width + 0.5, width)
+    ys = _div(torch.div(i, width, rounding_mode="floor") + 0.5, height)
     rays = cam_mod.go_rays if go_camera else cam_mod.lookat_rays
     return rays(scene.camera, xs, ys)
 

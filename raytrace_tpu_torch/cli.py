@@ -3,7 +3,8 @@
     python -m raytrace_tpu_torch.cli scene.json out.png W H --samples N
         [--max-depth D] [--seed S] [--no-soft-shadows]
         [--no-recursive-reflections] [--fast-mc] [--lookat-camera]
-        [--go-parity] [--ascii-preview] [--device cuda|cpu]
+        [--go-parity] [--ascii-preview] [--adaptive] [--min-spp N]
+        [--adaptive-tol T] [--denoise] [--device cuda|cpu]
 
 Runs on the GPU unless ``--device cpu`` is given; without a GPU the
 default raises. Writes the PNG and ``benchmark_data.json`` beside it.
@@ -44,6 +45,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "planes, ignore the scene's renderer block)")
     p.add_argument("--ascii-preview", action="store_true",
                    help="print the image as ASCII art")
+    p.add_argument("--adaptive", action="store_true",
+                   help="variance-guided per-pixel sampling: --samples "
+                        "becomes the per-pixel cap (adaptive.py)")
+    p.add_argument("--min-spp", type=int, default=8,
+                   help="adaptive mode: samples every pixel must take "
+                        "before it may stop")
+    p.add_argument("--adaptive-tol", type=float, default=0.02,
+                   help="adaptive mode: relative luminance standard-"
+                        "error tolerance")
+    p.add_argument("--denoise", action="store_true",
+                   help="AOV-guided cross-bilateral denoise of the "
+                        "linear image before tonemapping (with "
+                        "--adaptive the per-pixel variance also guides "
+                        "the radiance term)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     return p
@@ -71,8 +86,18 @@ def main(argv=None) -> int:
     r.go_camera = not args.lookat_camera
 
     print(f"Rendering at {args.width}x{args.height} resolution...")
-    img = r.render(scene, args.width, args.height,
-                   scene_config=None if args.go_parity else cfg)
+    scene_config = None if args.go_parity else cfg
+    if args.adaptive:
+        img, spp = r.render_adaptive(
+            scene, args.width, args.height, scene_config=scene_config,
+            min_spp=args.min_spp, rel_tol=args.adaptive_tol,
+            denoise=args.denoise)
+        print(f"Adaptive sampling: mean {spp.mean():.1f} spp "
+              f"(cap {args.samples}, "
+              f"floor {min(args.min_spp, args.samples)})")
+    else:
+        img = r.render(scene, args.width, args.height,
+                       scene_config=scene_config, denoise=args.denoise)
     out = args.output_file
     if not os.path.splitext(out)[1]:
         out += ".png"

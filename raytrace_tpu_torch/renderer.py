@@ -31,7 +31,7 @@ ladder's per-level radiance sums.
 The host reads the hit-pixel count, to size the trace, and in a split
 frame the ladder's overflow, once, after the trace. The JAX package's
 speculative capacity cache (``_KPAD_CACHE``) is not in the port yet
-(ROADMAP Queue 1 item 4).
+(ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -83,11 +83,12 @@ class BenchmarkData:
         return json.dumps(d, indent=2)
 
 
-def _lane_ids(pixels: torch.Tensor, samples: int):
-    """(pixel, sample) ids of `samples` lanes per pixel, pixel-major."""
+def _lane_ids(pixels: torch.Tensor, samples: int, offset: int = 0):
+    """(pixel, sample) ids of `samples` lanes per pixel, pixel-major: the
+    sample ids [offset, offset + samples) of each pixel."""
     pix = torch.repeat_interleave(pixels.to(torch.int64), samples)
-    samp = torch.arange(samples, device=pixels.device).repeat(
-        pixels.shape[0])
+    samp = torch.arange(offset, offset + samples,
+                        device=pixels.device).repeat(pixels.shape[0])
     return pix, samp
 
 
@@ -222,8 +223,10 @@ def trace_with_split(scene, origin, direction, pix, samp,
     ("shrink"). Survivors past a capacity are dropped and counted in
     overflow: a caller that sees overflow > 0 must trace again unsplit.
     Otherwise the radiance is the unsplit trace's up to one float add per
-    level. ``hook`` sees each segment ("segment": its bounces and inputs)
-    and each compaction ("split_compact": survivors and capacity)."""
+    level. ``hook`` sees each segment ("segment": its bounces, inputs
+    and outputs: ``rad``, which a level that splits then adds the deeper
+    levels into in place, and ``state``, None for the last segment) and
+    each compaction ("split_compact": survivors and capacity)."""
     levels = tuple(b for b in _split_levels(split) if 0 < b < cfg.max_depth)
     zero = torch.zeros((), dtype=torch.int64, device=origin.device)
 
@@ -234,7 +237,8 @@ def trace_with_split(scene, origin, direction, pix, samp,
         if not rest:
             rad = megakernel.trace(scene, o, d, px_, sp_, cfg, **seg)
             hook("segment", b0=b0, b1=cfg.max_depth, origin=o, direction=d,
-                 pix=px_, samp=sp_, throughput=tp, alive=al)
+                 pix=px_, samp=sp_, throughput=tp, alive=al, rad=rad,
+                 state=None)
             return rad, zero
         b1 = rest[0]
         n = o.shape[0]
@@ -247,7 +251,7 @@ def trace_with_split(scene, origin, direction, pix, samp,
         rad_a, st = megakernel.trace(scene, o, d, px_, sp_, cfg,
                                      end_bounce=b1, return_state=True, **seg)
         hook("segment", b0=b0, b1=b1, origin=o, direction=d, pix=px_,
-             samp=sp_, throughput=tp, alive=al)
+             samp=sp_, throughput=tp, alive=al, rad=rad_a, state=st)
         alive = st["alive"] > 0.0
         pos = torch.cumsum(alive.to(torch.int64), 0) - 1
         k_surv = pos[-1] + 1
@@ -396,7 +400,9 @@ class Renderer:
     ``device="cpu"`` is given) through the main path, ``render_wavefront``,
     in the unroll, bvh, stream and loop modes: every scene, those past the
     JAX package's 262,144-primitive cap in stream mode (up to
-    ``megakernel.MAX_STREAM_ROWS``).
+    ``megakernel.MAX_STREAM_ROWS``). ``render_adaptive`` runs the adaptive
+    sampler over the same kernels, and ``render(..., denoise=True)`` the
+    AOV-guided denoiser.
     """
 
     def __init__(self, num_workers: Optional[int] = None, device=None):
@@ -468,22 +474,75 @@ class Renderer:
         return self.render_linear_device(scene, width, height).cpu().numpy()
 
     def render(self, scene, width: int, height: int,
-               scene_config=None) -> np.ndarray:
+               scene_config=None, denoise: bool = False) -> np.ndarray:
         """Render to an (H,W,3) uint8 image and fill benchmark data.
 
         With a scene config, its renderer block (samples, maxDepth, ...) is
         honoured, and its atmospheric, fog, volumetric and post-FX blocks
         run on the linear image (``_apply_scene_effects``) before the tone
-        map, as in the JAX package's ``Renderer.render``."""
+        map, as in the JAX package's ``Renderer.render``. ``denoise`` runs
+        the AOV-guided cross-bilateral filter (``denoising.py``) on the
+        linear image first."""
         self._apply_renderer_block(scene_config)
         t0 = time.perf_counter()
         linear = self.render_linear_device(scene, width, height)
+        if denoise:
+            linear = self._denoise_linear(scene, linear, width, height)
         if scene_config is not None:
             linear = self._apply_scene_effects(scene, linear, width, height,
                                                scene_config)
         img = tonemap.tonemap_rgb8(linear).cpu().numpy()
         self._fill_benchmark(scene, width, height, time.perf_counter() - t0)
         return img
+
+    def render_adaptive(self, scene, width: int, height: int,
+                        scene_config=None, min_spp: int = 8,
+                        rel_tol: float = 0.02, abs_tol: float = 1e-4,
+                        batch: Optional[int] = None, denoise: bool = False,
+                        hook=_no_hook):
+        """Adaptive-spp render to ((H,W,3) uint8, (H,W) int32 spp map).
+
+        ``self.samples`` is the per-pixel cap; a pixel stops once its
+        luminance standard error clears the tolerance (``adaptive.py``,
+        whose stage ``hook`` this passes on; device accumulation on the
+        card, host accumulation on the CPU). The scene config's blocks are
+        honoured as in ``render``. ``denoise`` runs the AOV-guided filter
+        with the sampler's own variance map in its radiance term. The
+        pipeline stays on the device up to the uint8 image;
+        ``benchmark_data.samples`` records the mean spp taken."""
+        from . import adaptive as adaptive_mod
+        self._apply_renderer_block(scene_config)
+        t0 = time.perf_counter()
+        linear, spp, var = adaptive_mod.render_adaptive(
+            scene, width=width, height=height, cfg=self.trace_config(),
+            min_spp=min(min_spp, self.samples), max_spp=self.samples,
+            batch=batch or max(1, min(8, min_spp)), rel_tol=rel_tol,
+            abs_tol=abs_tol, go_camera=self.go_camera,
+            return_variance=True, as_numpy=False,
+            device=self.device, hook=hook)
+        if denoise:
+            linear = self._denoise_linear(scene, linear, width, height,
+                                          variance=var)
+        if scene_config is not None:
+            linear = self._apply_scene_effects(scene, linear, width, height,
+                                               scene_config)
+        img = tonemap.tonemap_rgb8(linear).cpu().numpy()
+        spp = spp.cpu().numpy().astype(np.int32)
+        self._fill_benchmark(scene, width, height, time.perf_counter() - t0,
+                             samples=float(spp.mean()))
+        return img, spp
+
+    def _denoise_linear(self, scene, linear, width: int, height: int,
+                        variance=None) -> torch.Tensor:
+        """The AOV-guided cross-bilateral filter on a linear (H,W,3) image,
+        on the device (the callers tone-map there)."""
+        from . import aov as aov_mod
+        from . import denoising
+        aovs = aov_mod.render_aovs(scene, width=width, height=height,
+                                   go_camera=self.go_camera, as_numpy=False,
+                                   device=self.device)
+        return denoising.denoise(linear, aovs, variance=variance,
+                                 as_numpy=False, device=self.device)
 
     def _primary_depth(self, scene, width: int,
                        height: int) -> torch.Tensor:
@@ -571,12 +630,12 @@ class Renderer:
             self.set_soft_shadows(rb["softShadows"])
 
     def _fill_benchmark(self, scene, width: int, height: int,
-                        dt: float) -> None:
+                        dt: float, samples=None) -> None:
         bd = self.benchmark_data
         bd.scene_name = "demo_scene"
         bd.resolution = f"{width}x{height}"
         bd.render_time_seconds = dt
-        bd.samples = self.samples
+        bd.samples = self.samples if samples is None else samples
         bd.max_depth = self.max_depth
         bd.num_workers = self.num_workers
         bd.objects = scene.num_objects

@@ -1065,3 +1065,142 @@ def test_mask_card_path_builds_nothing_on_the_host(cuda):
                     got = tmk.pixel_mask(s, width=200, height=150, cfg=cfg)
                     assert tmk.LAUNCHES[kernel] == 1
                 assert torch.equal(got, want)
+
+
+# ------------------------------------------------ the production loop ----
+
+ADAPTIVE = dict(width=64, height=48, min_spp=4, max_spp=16, batch=4,
+                rel_tol=0.05, abs_tol=1e-3)
+
+
+def adaptive_scene(name, device, monkeypatch):
+    """The bench scene (K2 + K1), ring100 (K6 + K3+K4) or ring100 forced
+    into stream mode (K6-stream + K5; glassy, so at depth 12 its batches
+    run the full-capacity ladder)."""
+    if name == "bench":
+        return scene_on(SCENES[0], device)
+    if name == "ring100":
+        return tscene.from_dict(bvh_scene_dict("ring100"), device=device)[0]
+    return forced_stream(bvh_scene_dict("ring100"), device, monkeypatch)
+
+
+@pytest.mark.parametrize("name", ["bench", "ring100", "stream"])
+def test_adaptive_batches_equal_plain(cuda, name, monkeypatch):
+    """The trace launches of an adaptive batch with s0 > 0, read through
+    render_adaptive's hook (each ladder segment's own output), equal the
+    plain version bit for bit; the ladder never overflows; device mode
+    reads the device once a test round."""
+    from raytrace_tpu_torch import adaptive as tad
+    s = adaptive_scene(name, cuda, monkeypatch)
+    cfg = ttrace.TraceConfig(max_depth=12 if name == "stream" else 8,
+                             shadow_samples=4)
+    split = tad._split_spec(s, cfg)
+    assert bool(split) == (name == "stream")
+    rounds, segs, ovs = [], [], []
+
+    def hook(stage, **v):
+        if stage == "round":
+            rounds.append(v)
+        elif stage == "trace":
+            ovs.append(v["overflow"])
+        elif stage == "segment" and len(rounds) == 2:
+            segs.append(dict(v, rad=v["rad"].clone()))
+
+    tmk.reset_launches()
+    img, spp = tad.render_adaptive(s, cfg=cfg, hook=hook, device=cuda,
+                                   **ADAPTIVE)
+    assert rounds[1]["s0"] > 0 and segs
+    assert (spp[spp > 0] >= 4).all() and spp.max() <= 16
+    assert all(int(o) == 0 for o in ovs)
+    for v in segs:
+        last = v["state"] is None
+        kw = dict(start_bounce=v["b0"], end_bounce=None if last else v["b1"],
+                  return_state=not last)
+        if v["b0"] > 0:
+            kw.update(init_throughput=v["throughput"],
+                      init_alive=v["alive"])
+        want = ttrace.trace(s, v["origin"], v["direction"], v["pix"],
+                            v["samp"], cfg, **kw)
+        if last:
+            assert torch.equal(v["rad"], want)
+        else:
+            alive = want[1]["alive"] > 0
+            assert torch.equal(v["rad"], want[0])
+            assert torch.equal(v["state"]["alive"], want[1]["alive"])
+            for k in ("origin", "direction", "throughput"):
+                assert torch.equal(v["state"][k][alive], want[1][k][alive])
+    kernel = {"bench": "trace_unroll", "ring100": "trace_bvh",
+              "stream": "trace_stream"}[name]
+    assert tmk.LAUNCHES[kernel] >= len(rounds)
+
+
+def test_adaptive_device_equals_host_and_tol_zero(cuda):
+    from raytrace_tpu_torch import adaptive as tad
+    s = scene_on(SCENES[0], cuda)
+    cfg = ttrace.TraceConfig(max_depth=8, shadow_samples=4)
+    img_d, spp_d = tad.render_adaptive(s, cfg=cfg, accum="device",
+                                       device=cuda, **ADAPTIVE)
+    img_h, spp_h = tad.render_adaptive(s, cfg=cfg, accum="host",
+                                       device=cuda, **ADAPTIVE)
+    assert (spp_d == spp_h).mean() >= 0.999
+    gate(torch.from_numpy(img_d), torch.from_numpy(img_h))
+    kw = dict(ADAPTIVE, min_spp=8, max_spp=8, rel_tol=0.0, abs_tol=0.0)
+    img0, spp0 = tad.render_adaptive(s, cfg=cfg, as_numpy=False, device=cuda,
+                                     **kw)
+    ref = trender.render_wavefront(s, width=64, height=48, samples=8,
+                                   cfg=cfg)
+    assert bool((spp0[spp0 > 0] == 8).all())
+    gate(img0, ref)
+
+
+def test_adaptive_resume_is_bit_exact_on_card(cuda, tmp_path, monkeypatch):
+    from raytrace_tpu_torch import adaptive as tad
+    s = scene_on(SCENES[0], cuda)
+    cfg = ttrace.TraceConfig(max_depth=8, shadow_samples=4)
+    kw = dict(ADAPTIVE, cfg=cfg, device=cuda)
+    ref_img, ref_spp = tad.render_adaptive(s, **kw)
+    real, calls = tad._save_ckpt, [0]
+
+    def dying(*a, **k):
+        real(*a, **k)
+        calls[0] += 1
+        if calls[0] >= 2:
+            raise KeyboardInterrupt
+
+    ckpt = str(tmp_path / "adaptive.ckpt.npz")
+    monkeypatch.setattr(tad, "_save_ckpt", dying)
+    with pytest.raises(KeyboardInterrupt):
+        tad.render_adaptive(s, checkpoint_path=ckpt, **kw)
+    monkeypatch.setattr(tad, "_save_ckpt", real)
+    img, spp = tad.render_adaptive(s, checkpoint_path=ckpt, **kw)
+    assert (img == ref_img).all() and (spp == ref_spp).all()
+    monkeypatch.setattr(tad, "_split_spec", lambda scene, cfg: (4, 7))
+    with pytest.raises(ValueError, match="split"):
+        tad.render_adaptive(s, checkpoint_path=ckpt, **kw)
+
+
+@pytest.mark.parametrize("name", ["bench", "ring100"])
+def test_aovs_and_denoise_match_the_cpu(cuda, name, monkeypatch):
+    """render_aovs and denoise on the card against the same calls on the
+    CPU: bit fields equal, floats within an absolute 1e-5."""
+    from raytrace_tpu_torch import aov, denoising
+    s = adaptive_scene(name, cuda, monkeypatch)
+    a = aov.render_aovs(s, width=200, height=150, as_numpy=False,
+                        device=cuda)
+    b = aov.render_aovs(s.to("cpu"), width=200, height=150, as_numpy=False,
+                        device="cpu")
+    for k in ("hit", "mat_id", "front_face"):
+        assert torch.equal(a[k].cpu(), b[k]), k
+    for k in ("depth", "position", "normal", "albedo"):
+        assert float((a[k].cpu() - b[k]).abs().max()) <= 1e-5, k
+    g = torch.Generator().manual_seed(0)
+    img = torch.rand((150, 200, 3), generator=g)
+    var = torch.rand((150, 200), generator=g) * 1e-3
+    for passes in (1, 3):
+        for v in (None, var):
+            got = denoising.denoise(img.to(cuda), a, passes=passes,
+                                    variance=None if v is None
+                                    else v.to(cuda), device=cuda)
+            want = denoising.denoise(img, b, passes=passes, variance=v,
+                                     device="cpu")
+            assert float((got.cpu() - want).abs().max()) <= 1e-5
