@@ -242,6 +242,32 @@ Phases, in order (each prints a line before and after, with its seconds):
                     resumed equals the uninterrupted render bit for bit; a
                     changed split spec, batch or scene is refused;
                     render_with_checkpoints resumed equals one run
+  diff              the differentiable path (raytrace_tpu_torch.diff, no
+                    kernel: PyTorch autograd through the eager engine,
+                    each bounce checkpointed) on the card against the
+                    CPU: render_and_grad at 12x8, 2 spp, depth 3, 2 soft
+                    rays on the simple and the cube scene of the JAX
+                    package's gradient tests, the image within atol 1e-5
+                    of the CPU's, every gradient leaf finite and within
+                    rtol 1e-4, atol 1e-6 of the CPU's; the scan loop's
+                    image equal to the while loop's (render_band) bit for
+                    bit on the card
+  diff_scale        gradients at scale (tools/measure_grad_scale.py, the
+                    JAX package's four rows): 64x48, 2 spp, depth 3 on
+                    grid-1001 (brute force, keep_accel) and ico-10241
+                    (keep_accel, brute force): forward and
+                    forward+backward ms (1 warm-up, median of 3; 1 timed
+                    run past 5 s), the call's own peak device memory,
+                    bounces run and rerun, every leaf finite, the
+                    light-intensity gradient against a central
+                    difference (eps 0.1, rtol 2e-2); grid-1001's
+                    keep_accel image equal to brute force's bit for bit
+                    and its material and light gradients within rtol
+                    1e-3, atol 1e-6
+  diff_inverse      inverse rendering (tools/inverse_rendering.py): the
+                    light's intensity tripled and recovered within 10%
+                    by 200 Adam steps at 16x16, 2 spp, depth 3; ms a step
+                    and the loss at steps 0, 25 and 199
   kernels           K1 and K3+K4 against their plain versions on the bench
                     frames' own lanes (all of them for K1, a strided subset
                     of about 20k for K3+K4, whose main-path launches must
@@ -1624,6 +1650,16 @@ def main():
 
     with Phase("checkpoint"):
         checkpoint_check(rmod, scenes[SCENES[0]])
+
+    with Phase("diff"):
+        for name in ("simple", "cube"):
+            diff_card_cpu(dev, name)
+
+    with Phase("diff_scale"):
+        diff_scale(dev)
+
+    with Phase("diff_inverse"):
+        diff_inverse(dev)
 
     with Phase("kernels"):
         kernels = kernel_rows(mk, trace_mod, scenes[SCENES[0]],
@@ -3129,6 +3165,86 @@ def aov_denoise(rmod, scene, what, lin, var):
         raise AssertionError(f"{what}: the card differs from the CPU by more "
                              f"than 1e-5: {bad}")
     return ms
+
+
+def diff_card_cpu(dev, name):
+    """render_and_grad on the card against the same call on the CPU; the
+    scan loop's image against the while loop's on the card."""
+    import torch
+    from raytrace_tpu_torch import diff
+    from raytrace_tpu_torch import renderer as rmod
+    from raytrace_tpu_torch import scene as scene_mod
+    from raytrace_tpu_torch import trace as trace_mod
+    from raytrace_tpu_torch.bench.suite import diff_scene_dict
+    w, h, spp = 12, 8, 2
+    cfg = trace_mod.TraceConfig(max_depth=3, shadow_samples=2)
+    out, ms = {}, {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        s = scene_mod.from_dict(diff_scene_dict(name), device=where)[0]
+        diff.render_and_grad(s, w, h, samples=spp, cfg=cfg)  # warm-up
+        ms[key], out[key] = host_ms(lambda: diff.render_and_grad(
+            s, w, h, samples=spp, cfg=cfg))
+        if key == "card":
+            while_img = rmod.render_band(s, 0, width=w, height=h, band_h=h,
+                                         samples=spp, cfg=cfg)
+    (img, grads), (img_c, grads_c) = out["card"], out["cpu"]
+    img_err = float((img.cpu() - img_c).abs().max())
+    if not img_err <= 1e-5:
+        raise AssertionError(f"diff {name}: the card's image is {img_err} "
+                             "from the CPU's")
+    if not torch.equal(while_img, img):
+        raise AssertionError(f"diff {name}: the scan loop's image differs "
+                             "from the while loop's on the card")
+    worst = 0.0
+    for g, sub in grads.items():
+        for f, v in sub.items():
+            v = v.cpu()
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"diff {name}: {g}.{f} not finite")
+            torch.testing.assert_close(v, grads_c[g][f], rtol=1e-4,
+                                       atol=1e-6, msg=f"diff {name}: {g}.{f}"
+                                       " on the card against the CPU")
+            if v.numel():  # the error over its allowance, <= 1
+                err = (v - grads_c[g][f]).abs() / (
+                    1e-6 + 1e-4 * grads_c[g][f].abs())
+                worst = max(worst, float(err.max()))
+    print(f"   {name} [{CARD}]: image max error {img_err:.3e} against the "
+          f"CPU, scan = while bit for bit; gradient error at most "
+          f"{worst:.3f} of its allowance (rtol 1e-4, atol 1e-6); "
+          f"render_and_grad {ms['card']:.1f} ms on the card, "
+          f"{ms['cpu']:.1f} ms on the host's CPU", flush=True)
+
+
+def diff_scale(dev):
+    """The four rows of tools/measure_grad_scale.py on the card."""
+    from raytrace_tpu_torch.tools import measure_grad_scale as mgs
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = mgs.scenes(dev, tmp)
+        rows = {}
+        for name, keep in mgs.ROWS:
+            rows[name, keep] = mgs.measure_row(name, scenes[name], keep)
+            print(f"   [{CARD}] {mgs.line(rows[name, keep])}", flush=True)
+    worst = mgs.accel_agrees(rows["grid-1001", True],
+                             rows["grid-1001", False])
+    print(f"   [{CARD}] grid-1001: keep_accel image equals brute force bit "
+          f"for bit; material and light gradients within {worst:.3e} "
+          "relative", flush=True)
+
+
+def diff_inverse(dev):
+    """tools/inverse_rendering.py's loop on the card."""
+    from raytrace_tpu_torch.tools import inverse_rendering as inv
+    out = inv.run(200, dev)
+    losses = out["losses"]
+    print(f"   [{CARD}] inverse rendering, 200 steps at {inv.W}x{inv.H}, "
+          f"{inv.SPP} spp, depth {inv.CFG.max_depth}: {out['ms_per_step']:.3f}"
+          f" ms a step; loss at steps 0, 25, 199: {losses[0]:.4e}, "
+          f"{losses[25]:.4e}, {losses[199]:.4e}; intensity "
+          f"{out['recovered']:.4f} (true {out['true']}, error "
+          f"{out['rel_err']:.2%})", flush=True)
+    if not out["rel_err"] < 0.1:
+        raise AssertionError("inverse rendering did not recover the "
+                             "intensity within 10%")
 
 
 def checkpoint_check(rmod, scene):

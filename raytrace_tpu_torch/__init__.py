@@ -31,9 +31,12 @@ The production loop is ported too: adaptive sampling over the same trace
 kernels (``render_adaptive``, host or device accumulation, with
 checkpoint/resume), the AOV feature buffers (``render_aovs``), the
 feature-guided denoiser (``denoise``) and the sample-accumulator
-checkpoints of ``parallel``.
+checkpoints of ``parallel``. So is the differentiable path (``diff``):
+reverse-mode gradients of a rendered image through the eager engine,
+checkpointed a bounce at a time, and inverse rendering.
 """
 
+from . import diff
 from .adaptive import render_adaptive
 from .aov import render_aovs
 from .denoising import denoise
@@ -45,5 +48,6 @@ from .trace import TraceConfig
 from .trace import trace as trace_rays
 
 __all__ = ["BenchmarkData", "Renderer", "Scene", "TraceConfig", "denoise",
-           "load_scene", "render_adaptive", "render_aovs", "render_band",
-           "render_wavefront", "scene_from_dict", "trace_rays"]
+           "diff", "load_scene", "render_adaptive", "render_aovs",
+           "render_band", "render_wavefront", "scene_from_dict",
+           "trace_rays"]

@@ -5,7 +5,9 @@ of five golden scenes of ``tests/make_goldens.py`` (``golden_scene_dict``),
 a scene of exact ties for the walks' order (``twin_scene_dict``), and
 copies of the JAX package's two stream-mode workloads of
 ``tools/tpu_stream_smoke.py`` (``grid_scene_dict``, ``icosphere_obj``,
-``mesh_scene_dict``), for runs that may not import the JAX package."""
+``mesh_scene_dict``), grid-1001 of its gradient measurements
+(``grad_grid_scene_dict``) and the two scenes of its gradient tests
+(``diff_scene_dict``), for runs that may not import the JAX package."""
 
 from __future__ import annotations
 
@@ -275,6 +277,65 @@ def grid_scene_dict(side: int = 18):
         "lights": [{"type": "point", "position": [10, 30, 20],
                     "color": [1, 1, 1], "intensity": 2.0}],
     }
+
+
+def grad_grid_scene_dict(side: int = 10):
+    """grid-1001, the JAX package's gradient-at-scale scene
+    (tools/measure_grad_scale.py:39, tests/test_diff.py:303): a 10^3 grid
+    of radius-0.32 spheres (lambertian and metal in turn) over a ground
+    plane, one light: 1,001 primitives."""
+    objs = [{"type": "plane", "position": [0, -0.6, 0],
+             "normal": [0, 1, 0],
+             "material": {"type": "lambertian", "color": [0.5, 0.5, 0.5]}}]
+    mats = [{"type": "lambertian", "color": [0.8, 0.3, 0.3]},
+            {"type": "metal", "color": [0.8, 0.8, 0.9], "roughness": 0.2}]
+    for i in range(side ** 3):
+        ix, iy, iz = i % side, (i // side) % side, i // side ** 2
+        objs.append({"type": "sphere",
+                     "position": [(ix - side / 2) * 1.1, iy * 1.1 + 0.2,
+                                  (iz - side / 2) * 1.1 - 9.0],
+                     "radius": 0.32, "material": mats[i % 2]})
+    return {
+        "camera": {"position": [0, 3, 9], "aspectRatio": 1.33},
+        "objects": objs,
+        "lights": [{"type": "point", "position": [6, 20, 12],
+                    "color": [1, 1, 1], "intensity": 2.0}],
+    }
+
+
+def diff_scene_dict(name: str):
+    """The scenes of the JAX package's gradient tests: "simple"
+    (tests/conftest.py:simple_scene_dict, one lambertian sphere and one
+    light) and "cube" (tests/test_diff.py:CUBE_SCENE, a glass sphere
+    between the camera and a lit cube, so the image depends on the IOR)."""
+    if name == "simple":
+        return {
+            "camera": {"position": [0, 0, 3], "lookAt": [0, 0, 0],
+                       "up": [0, 1, 0], "fov": 60, "aspectRatio": 1.0},
+            "objects": [
+                {"type": "sphere", "position": [0, 0, 0], "radius": 1.0,
+                 "material": {"type": "lambertian",
+                              "color": [0.5, 0.5, 0.5]}}],
+            "lights": [{"type": "point", "position": [0, 5, 5],
+                        "color": [1, 1, 1], "intensity": 2.0}],
+        }
+    if name == "cube":
+        return {
+            "camera": {"position": [0, 0, 4], "lookAt": [0, 0, 0],
+                       "up": [0, 1, 0], "fov": 60, "aspectRatio": 1.5},
+            "objects": [
+                {"type": "cube", "position": [0, 0, 0],
+                 "size": [1.8, 1.8, 1.8],
+                 "material": {"type": "lambertian",
+                              "color": [0.7, 0.3, 0.3]}},
+                {"type": "sphere", "position": [0.2, 0.1, 2.0],
+                 "radius": 0.5,
+                 "material": {"type": "glass", "color": [0.9, 0.9, 1.0],
+                              "refractionIndex": 1.5}}],
+            "lights": [{"type": "point", "position": [3, 5, 4],
+                        "color": [1, 1, 1], "intensity": 2.0}],
+        }
+    raise KeyError(f"no gradient scene {name!r}: 'simple' or 'cube'")
 
 
 def icosphere_obj(subdiv: int = 4) -> str:

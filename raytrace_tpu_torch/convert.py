@@ -6,8 +6,11 @@ leaves as numpy arrays, grouped by table, and builds the port's ``Scene``
 from them unchanged, so both packages can trace the very same tables: the
 vertex normals, the extended-kind columns, the texture bindings and the
 scene BVH (``Scene.accel``) included, with a stream-mode scene's unified
-leaf rows (``accel["stream_tab"]``). This module does not import the JAX
-package: the caller hands over numpy, and texture bindings as plain data.
+leaf rows (``accel["stream_tab"]``). ``params_from_numpy`` carries the
+differentiable parameters of the JAX package's ``diff.split_params`` (or
+a ``TrainState.params``) across as the port's ``diff`` dict. This module
+does not import the JAX package: the caller hands over numpy, and texture
+bindings as plain data.
 """
 
 from __future__ import annotations
@@ -113,3 +116,16 @@ def scene_from_numpy(camera: Mapping[str, np.ndarray],
                          "port's pack_stream_table of the same scene")
     return dataclasses.replace(scene, accel=dataclasses.replace(
         tree, stream_tab=got))
+
+
+def params_from_numpy(params: Mapping[str, Mapping[str, np.ndarray]],
+                      device=None) -> dict:
+    """The port's ``diff`` parameter dict ({group: {field: float32
+    tensor}}) from the JAX package's ``diff.split_params`` dict or
+    ``TrainState.params``, its leaves as numpy arrays. Every field of
+    ``diff.DIFF_FIELDS`` must be there (KeyError otherwise); other keys
+    are ignored."""
+    from .diff import DIFF_FIELDS
+    device = _device.resolve(device)
+    return {group: {f: _tensor(params[group][f], device) for f in fields}
+            for group, fields in DIFF_FIELDS.items()}

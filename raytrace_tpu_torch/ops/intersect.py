@@ -11,6 +11,15 @@ the order [spheres, triangles, planes, boxes]; the triangle any-hit is the
 division-free form (``triangle_blocked``). Every dot product sums x, y, z
 in that order, as the JAX package's reductions do, so both packages agree
 bit for bit where the operations are IEEE.
+
+Reverse mode (``diff.py``) differentiates the closest hit through the hit
+distance of the winning primitive. Two guards keep its gradient finite
+and leave every forward value as it was: an exactly tangent sphere ray
+keeps its root with the gradient cut (``_f32.sqrt_grad_safe``), and the
+tree walks run without autograd, their winner's t re-derived
+straight-through from its gathered parameters (``_winner_t_diff``).
+Any-hit verdicts are booleans and carry no gradient: ``any_hit`` runs
+without autograd.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import numpy as np
 import torch
 
 from .._f32 import sqrt as _sqrt
+from .._f32 import sqrt_grad_safe as _sqrt_grad_safe
 
 BIG = float(np.float32(3.0e38))  # "no hit" distance
 
@@ -62,7 +72,8 @@ def sphere_t(origin, direction, center, radius, t_min, t_max):
     c = _dot(oc, oc) - radius * radius
     disc = half_b * half_b - a * c
     ok = disc >= 0.0
-    sqrtd = _sqrt(torch.where(ok, disc, torch.ones_like(disc)))
+    # a tangent ray (disc == 0) keeps its root and loses its gradient
+    sqrtd = _sqrt_grad_safe(torch.where(ok, disc, torch.ones_like(disc)))
     inv_a = 1.0 / a
     root0 = (-half_b - sqrtd) * inv_a
     root1 = (-half_b + sqrtd) * inv_a
@@ -199,6 +210,57 @@ def _first_min(t):
     return torch.gather(t, -1, idx[..., None])[..., 0], idx
 
 
+def _winner_t_diff(geom, origin, direction, t_walk, pid):
+    """The walk winner's hit distance, straight-through differentiable
+    (intersect.py:_winner_t_diff).
+
+    The walk runs without autograd, so the winner's t is derived again
+    from its gathered sphere or triangle by the closed-form expressions,
+    and ``t_walk + (t_d - t_d.detach())`` keeps the walk's value bit for
+    bit (the correction is exactly 0) while carrying the winner's
+    gradient with respect to the ray and the geometry: the gradient of
+    the brute-force select almost everywhere, since which primitive wins
+    is piecewise constant. A sphere lane takes the root nearer the walk's
+    t, chosen without gradient; lanes that the tree did not win keep t."""
+    pid = pid.detach()
+    tw = t_walk.detach()
+    ns = geom.sph_center.shape[0]
+    nt = geom.tri_v0.shape[0]
+    t_s = t_t = None
+    if ns:
+        sp = torch.clamp(pid, 0, ns - 1)
+        oc = origin - geom.sph_center[sp]
+        r = geom.sph_radius[sp]
+        a = _dot(direction, direction)
+        half_b = _dot(oc, direction)
+        disc = half_b * half_b - a * (_dot(oc, oc) - r * r)
+        # a winner has disc >= 0; the guard keeps the gradient of the
+        # clamped (non-winner) lanes finite
+        sqrtd = _sqrt(torch.where(disc.detach() > 0.0, disc,
+                                  torch.ones_like(disc)))
+        r0 = (-half_b - sqrtd) / a
+        r1 = (-half_b + sqrtd) / a
+        near = (r0 - tw).abs().detach() <= (r1 - tw).abs().detach()
+        t_s = torch.where(near, r0, r1)
+    if nt:
+        ti = torch.clamp(pid - ns, 0, nt - 1)
+        v0 = geom.tri_v0[ti]
+        e1 = geom.tri_v1[ti] - v0
+        e2 = geom.tri_v2[ti] - v0
+        h = _cross(direction, e2)
+        det = _dot(e1, h)
+        f = 1.0 / torch.where(det.detach().abs() >= 1e-6, det,
+                              torch.ones_like(det))
+        t_t = _dot(e2, _cross(origin - v0, e1)) * f
+    if ns and nt:
+        t_d = torch.where(pid < ns, t_s, t_t)
+    else:
+        t_d = t_s if ns else t_t
+    in_tree = (pid >= 0) & (pid < ns + nt)
+    t_d = torch.where(in_tree, t_d, torch.zeros_like(t_d))
+    return t_walk + (t_d - t_d.detach())
+
+
 def _closest_hit_accel(geom, accel, origin, direction, t_min, t_max) -> Hit:
     """Tree walk over spheres and triangles, brute force over planes and
     boxes, merged by nearest t (intersect.py:_closest_hit_accel).
@@ -208,7 +270,13 @@ def _closest_hit_accel(geom, accel, origin, direction, t_min, t_max) -> Hit:
     so a tree primitive at exactly the box's t loses to the box, and a
     plane must be strictly nearer than both to win: at exactly equal t
     the tie order is [boxes, tree, planes], not the brute-force
-    [spheres, triangles, planes, boxes]."""
+    [spheres, triangles, planes, boxes].
+
+    The walk (which writes its tensors in place) runs on detached inputs
+    without autograd; when autograd records the ray or the tree's
+    geometry, the winner's t is made differentiable by
+    ``_winner_t_diff``. Callers that move geometry drop the accel
+    (``diff.split_params``): a stale tree can cull moved primitives."""
     from .. import bvh as bvh_mod
     ns = geom.sph_center.shape[0]
     nt = geom.tri_v0.shape[0]
@@ -222,7 +290,13 @@ def _closest_hit_accel(geom, accel, origin, direction, t_min, t_max) -> Hit:
         tm_walk = torch.minimum(tm_walk, t_box)
     walk = (bvh_mod.traverse_closest_wide if bvh_mod.wide_walk(accel)
             else bvh_mod.traverse_closest)
-    t, pid = walk(accel, geom, origin, direction, t_min, tm_walk)
+    with torch.no_grad():
+        t, pid = walk(accel, geom, origin.detach(), direction.detach(),
+                      t_min, tm_walk.detach())
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (
+            origin, direction, geom.sph_center, geom.sph_radius,
+            geom.tri_v0, geom.tri_v1, geom.tri_v2)):
+        t = _winner_t_diff(geom, origin, direction, t, pid)
     if nb:
         box_wins = t_box < t
         t = torch.where(box_wins, t_box, t)
@@ -364,6 +438,7 @@ def _any_sphere_triangle(geom, origin, direction, t_min, t_max, exact,
     return blocked
 
 
+@torch.no_grad()
 def any_hit(geom, origin, direction, t_min, t_max, accel=None, exact=False,
             occluders=None):
     """(B,) bool: does any primitive intersect with t in [t_min, t_max]?
@@ -376,7 +451,8 @@ def any_hit(geom, origin, direction, t_min, t_max, accel=None, exact=False,
     walk (bvh.traverse_any); planes and boxes stay brute force.
     ``occluders`` (B, spheres + hit triangles + boxes + planes) bool, in
     that order, brute force only: each lane tests only its flagged
-    primitives (K1-guard's flags).
+    primitives (K1-guard's flags). The verdicts carry no gradient, so
+    autograd records nothing here.
     """
     if accel is not None:
         if occluders is not None:

@@ -176,13 +176,16 @@ def _auto_surv_cap(n_lanes: int, frac: Optional[int] = None) -> int:
 
 def pick_deep_caps(scene) -> str:
     """Deep-level capacity policy of the ladder (:577): "const" when at
-    least 5% of the spheres and triangles are glass or dielectric (glass
-    chains keep lanes alive, so deep levels keep the first level's
-    capacity and cannot overflow), else "shrink" (half of the level
-    above). Box and plane materials are not counted, as in the JAX
-    package. Reads the material ids to the host."""
+    least 5% of the material ids of the geometry tables - spheres,
+    triangles (a cube's 12 faces among them), planes and boxes - are glass
+    or dielectric (glass chains keep lanes alive, so deep levels keep the
+    first level's capacity and cannot overflow), else "shrink" (half of
+    the level above). The JAX package counts spheres and triangles only
+    (a parity departure: its planes and boxes never count). Reads the
+    material ids to the host."""
     g = scene.geometry
-    mats = torch.cat([g.sph_mat.reshape(-1), g.tri_mat.reshape(-1)])
+    mats = torch.cat([g.sph_mat.reshape(-1), g.tri_mat.reshape(-1),
+                      g.pl_mat.reshape(-1), g.box_mat.reshape(-1)])
     if mats.numel() == 0:
         return "shrink"
     kind = scene.materials.kind.to(mats.device)[mats.to(torch.int64)]

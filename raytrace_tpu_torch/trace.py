@@ -27,15 +27,30 @@ boosts the survivors by 1/q (``fast_mc``). The boost multiplies by the
 reciprocal, as the JAX kernel does and as the trace kernels do, so the
 plain version and the kernels agree bit for bit; the JAX engine divides,
 which can round one ulp apart and move a later roulette verdict.
+
+``TraceConfig.loop`` picks the form of the same loop, as in the JAX
+package: ``"while"`` (the default; the plain version of the trace
+kernels) or ``"scan"``, the reverse-differentiable form for ``diff.py``.
+"scan" runs each bounce of the one loop under a non-reentrant
+``torch.utils.checkpoint`` (the backward pass runs the bounce again
+instead of keeping its intersection tensors: every draw is a function of
+pixel, sample and bounce, so the rerun is exact); the loop itself is the
+same, so its forward pass equals "while" bit for bit. Autograd follows
+the loop's indexed writes to the radiance, and the non-reentrant form
+keeps the gradients of the scene's tensors, which the bounce reads
+through ``scene`` rather than as arguments (the reentrant one would drop
+them). ``BOUNCES["run"]`` counts the bounces run, forward or rerun.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from . import rng
 from .models import materials as mat_mod
@@ -61,6 +76,9 @@ class TraceConfig:
     # throughput below which a lane dies (0: off)
     russian_roulette_start: Optional[int] = None
     throughput_epsilon: float = 0.0
+    # the loop's form: "while" (in place) or "scan" (per-bounce
+    # checkpoints, reverse-differentiable)
+    loop: str = "while"
 
 
 def fast_mc(cfg: TraceConfig, bounce: int, pix, samp, tp):
@@ -92,12 +110,16 @@ def fast_mc(cfg: TraceConfig, bounce: int, pix, samp, tp):
     return go, tp
 
 
+BOUNCES = {"run": 0}
+
+
 def _bounce(scene, pix, samp, cfg, bounce, origin, direction, throughput):
     """One shading iteration over live lanes.
 
     Returns (indices of the lanes that hit, their emitted and direct
     radiance terms, scattering mask among them, next origin, next
     direction, next throughput)."""
+    BOUNCES["run"] += 1
     geom, mats, lights = scene.geometry, scene.materials, scene.lights
     # the scene BVH, when there is one: the same hits, walked
     accel = scene.accel
@@ -175,7 +197,22 @@ def trace(scene, origin, direction, pix_id, samp_id, cfg: TraceConfig, *,
     died keeps those of the bounce where it missed or stopped scattering.
     Draws key off the absolute bounce index, so [0,b) and then [b,D) from
     the state sum to the [0,D) radiance up to one float add.
+
+    With ``cfg.loop == "scan"`` each bounce runs under a checkpoint, and
+    the resumable form is not available.
     """
+    if cfg.loop == "while":
+        step = _bounce
+    elif cfg.loop == "scan":
+        if (start_bounce or end_bounce is not None or return_state
+                or init_throughput is not None or init_alive is not None):
+            raise ValueError("the resumable trace runs only with "
+                             "loop='while'")
+        step = functools.partial(torch.utils.checkpoint.checkpoint, _bounce,
+                                 use_reentrant=False,
+                                 preserve_rng_state=False)
+    else:
+        raise ValueError(f"unknown loop {cfg.loop!r}: 'while' or 'scan'")
     n = origin.shape[0]
     radiance = torch.zeros_like(direction)
     tp_all = (torch.ones_like(direction) if init_throughput is None
@@ -197,7 +234,7 @@ def trace(scene, origin, direction, pix_id, samp_id, cfg: TraceConfig, *,
     for bounce in range(start_bounce, end):
         if lanes.numel() == 0:
             break
-        keep, emitted, lit, scat, point, new_d, new_tp = _bounce(
+        keep, emitted, lit, scat, point, new_d, new_tp = step(
             scene, pix, samp, cfg, bounce, o, d, tp)
         if state is not None:
             state[lanes, 9] = 0.0  # alive again only if it scatters on

@@ -35,7 +35,10 @@ K5) must take its plain version's hits where primitives tie exactly in
 t. K1-state's two segments must give the alive flags of the plain
 version exactly, its state on the lanes still alive, and the unsplit
 launch's radiance under the image gate. A scene past the JAX package's
-262,144-primitive cap renders through K6-stream and K5.
+262,144-primitive cap renders through K6-stream and K5. The
+differentiable path (no kernel: autograd through the eager engine) gives
+on the card the CPU's image within 1e-5 and its gradients within rtol
+1e-4, atol 1e-6, and its keep_accel form equals brute force.
 """
 
 import copy
@@ -1204,3 +1207,45 @@ def test_aovs_and_denoise_match_the_cpu(cuda, name, monkeypatch):
             want = denoising.denoise(img, b, passes=passes, variance=v,
                                      device="cpu")
             assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["simple", "cube"])
+def test_diff_card_matches_cpu(cuda, name):
+    """render_and_grad at 12x8, 2 spp, depth 3 on the card against the CPU:
+    the image within atol 1e-5, every gradient leaf finite and within
+    rtol 1e-4, atol 1e-6; the scan loop's image equal to the while loop's
+    on the card bit for bit."""
+    from raytrace_tpu_torch import diff
+    from raytrace_tpu_torch.bench.suite import diff_scene_dict
+    cfg = ttrace.TraceConfig(max_depth=3, shadow_samples=2)
+    s = tscene.from_dict(diff_scene_dict(name), device=cuda)[0]
+    img, g = diff.render_and_grad(s, 12, 8, samples=2, cfg=cfg)
+    img_c, g_c = diff.render_and_grad(s.to("cpu"), 12, 8, samples=2,
+                                      cfg=cfg)
+    assert float((img.cpu() - img_c).abs().max()) <= 1e-5
+    for grp, sub in g.items():
+        for f, v in sub.items():
+            assert bool(torch.isfinite(v).all()), (grp, f)
+            torch.testing.assert_close(v.cpu(), g_c[grp][f], rtol=1e-4,
+                                       atol=1e-6)
+    ref = trender.render_band(s, 0, width=12, height=8, band_h=8, samples=2,
+                              cfg=cfg)
+    assert torch.equal(ref, img)
+
+
+def test_diff_keep_accel_equals_brute_on_card(cuda):
+    """keep_accel on the card (the plain walk without autograd, the
+    winner's t straight-through) against brute force on grid-1001 at
+    16x12: the image bit for bit, the material and light gradients within
+    rtol 1e-3, atol 1e-6."""
+    from raytrace_tpu_torch import diff
+    from raytrace_tpu_torch.bench.suite import grad_grid_scene_dict
+    cfg = ttrace.TraceConfig(max_depth=3, shadow_samples=2)
+    s = tscene.from_dict(grad_grid_scene_dict(), device=cuda)[0]
+    img_a, g_a = diff.render_and_grad(s, 16, 12, samples=2, cfg=cfg,
+                                      keep_accel=True)
+    img_b, g_b = diff.render_and_grad(s, 16, 12, samples=2, cfg=cfg)
+    assert torch.equal(img_a, img_b)
+    for grp in ("materials", "lights"):
+        for f, v in g_a[grp].items():
+            torch.testing.assert_close(v, g_b[grp][f], rtol=1e-3, atol=1e-6)

@@ -19,7 +19,10 @@ the CPU.
   and its frame equals the unsplit frame.
 * pick_split, pick_deep_caps, _auto_surv_cap and _split_levels equal the
   JAX functions on grid-5833, ico-10241 and a bvh scene, with the JAX
-  package's RT_* variables unset.
+  package's RT_* variables unset; pick_deep_caps counts the material ids
+  of every geometry table (planes and boxes too, a parity departure),
+  which gives the JAX verdict on those scenes and "const" where the JAX
+  package says "shrink" on a stream scene whose glass is in cubes.
 """
 
 import dataclasses
@@ -195,22 +198,60 @@ def test_overflow_redoes_the_frame_unsplit(stream_scene, monkeypatch):
     torch.testing.assert_close(split_img, dense, rtol=0, atol=1e-6)
 
 
+def box_glass_scene_dict():
+    """A stream scene (4,940 primitives) whose glass is in cubes: 4,700
+    lambertian spheres and 20 glass cubes. Counting the cubes' faces
+    alone, as the JAX package does, puts its glass at 240 of 4,940 ids
+    (4.86%: "shrink"); with the boxes it is 260 of 4,960 (5.24%)."""
+    objs = [{"type": "sphere",
+             "position": [(i % 50) * 1.1, (i // 50) * 1.1, -20.0],
+             "radius": 0.4,
+             "material": {"type": "lambertian", "color": [0.6, 0.6, 0.6]}}
+            for i in range(4700)]
+    objs += [{"type": "cube", "position": [i * 2.0, -3.0, -10.0],
+              "size": [1.0, 1.0, 1.0],
+              "material": {"type": "glass", "color": [0.9, 0.9, 0.9]}}
+             for i in range(20)]
+    return {"camera": {"position": [25, 25, 30], "aspectRatio": 1.333},
+            "objects": objs,
+            "lights": [{"type": "point", "position": [10, 30, 20],
+                        "color": [1, 1, 1], "intensity": 2.0}]}
+
+
 @pytest.fixture(scope="module")
 def policy_scenes(tmp_path_factory):
-    """(JAX scene, port scene) of grid-5833, ico-10241 and mixed, a bvh
-    scene, built without their BVH: the policies read the materials and
-    the kernel mode, which needs only that there is an accel."""
+    """(JAX scene, port scene) of grid-5833, ico-10241, mixed (a bvh
+    scene) and the box-glass stream scene, built without their BVH: the
+    policies read the materials and the kernel mode, which needs only
+    that there is an accel."""
     tmp = str(tmp_path_factory.mktemp("obj"))
     dicts = {"grid5833": suite.grid_scene_dict(),
              "ico10241": suite.mesh_scene_dict(tmp),
-             "mixed": suite.mixed_scene_dict()}
+             "mixed": suite.mixed_scene_dict(),
+             "boxglass": box_glass_scene_dict()}
     return {n: (jscene.from_dict(d, build_accel=False)[0],
                 tscene.from_dict(d, device="cpu", build_accel=False)[0])
             for n, d in dicts.items()}
 
 
-@pytest.mark.parametrize("name", ["grid5833", "ico10241", "mixed"])
+def refractive_share(scene):
+    """The corrected policy's input, from numpy: the glass or dielectric
+    share of the material ids of every geometry table."""
+    g = scene.geometry
+    ids = np.concatenate([t.numpy().reshape(-1) for t in (
+        g.sph_mat, g.tri_mat, g.pl_mat, g.box_mat)])
+    kind = scene.materials.kind.numpy()[ids]
+    return float(np.isin(kind, (4, 5)).mean())  # GLASS, DIELECTRIC
+
+
+@pytest.mark.parametrize("name", ["grid5833", "ico10241", "mixed",
+                                  "boxglass"])
 def test_split_policies_match_jax(policy_scenes, name, monkeypatch):
+    """pick_deep_caps counts planes and boxes too; on the scenes where
+    they do not change the verdict both packages' policies and ladders
+    are equal, and on the box-glass scene the port says "const" where the
+    JAX package says "shrink" (its ladder then starts at bounce 4, as
+    grid-5833's)."""
     for var in ("RT_SPLIT", "RT_NO_SPLIT", "RT_SURV_FRAC"):
         monkeypatch.delenv(var, raising=False)
     js, ts = policy_scenes[name]
@@ -218,13 +259,22 @@ def test_split_policies_match_jax(policy_scenes, name, monkeypatch):
     js = dataclasses.replace(js, accel=marker)
     ts = dataclasses.replace(ts, accel=marker)
     assert tmk._kernel_mode(ts) == jmk._kernel_mode(js)
-    assert trender.pick_deep_caps(ts) == jrender.pick_deep_caps(js)
+    caps = trender.pick_deep_caps(ts)
+    assert caps == ("const" if refractive_share(ts) >= 0.05 else "shrink")
+    if name == "boxglass":
+        assert (caps, jrender.pick_deep_caps(js)) == ("const", "shrink")
+        ref = dataclasses.replace(policy_scenes["grid5833"][0],
+                                  accel=marker)
+    else:
+        assert caps == jrender.pick_deep_caps(js)
+        ref = js
     for depth in (5, 11, 12, 13, 20, 50, 100):
         jcfg = jtrace.TraceConfig(max_depth=depth)
         tcfg = ttrace.TraceConfig(max_depth=depth)
-        assert trender.pick_split(ts, tcfg) == jrender.pick_split(js, jcfg)
+        assert trender.pick_split(ts, tcfg) == jrender.pick_split(ref, jcfg)
     want = {"grid5833": (4, 7, 10, 14, 20, 29, 42),
-            "ico10241": (2, 5, 8, 11, 15, 21, 30, 43), "mixed": 0}[name]
+            "ico10241": (2, 5, 8, 11, 15, 21, 30, 43), "mixed": 0,
+            "boxglass": (4, 7, 10, 14, 20, 29, 42)}[name]
     assert trender.pick_split(ts, ttrace.TraceConfig()) == want
 
 
