@@ -191,6 +191,31 @@ Phases, in order (each prints a line before and after, with its seconds):
                     of about 20k of their lanes, error 0, and against the
                     same launches without the roulette, which must change
                     some lanes
+  capacity          the speculative capacity path of render_wavefront at
+                    800x600, 100 spp, depth 50, 16 soft-shadow rays: on
+                    the bench scene (K2 + K1), ring-1000 (K6 + K3+K4), the
+                    loop frame (K2 + K7), grid-5833 (K6-stream + the K5
+                    ladder) and the bench scene with DoF, the first frame
+                    of the key (one read of the hit count sizes the
+                    capacity) and then a frame at the cached capacity with
+                    assume_capacity under
+                    torch.cuda.set_sync_debug_mode("error") (no host
+                    sync), which must launch the path's kernels and equal
+                    the first frame at error 0, validated by one
+                    flush_capacity_checks; each frame's ms, hit pixels,
+                    capacity and padded share; ring-1000 at the bench
+                    scene's capacity: flush_capacity_checks raises and
+                    drops the key, and the validating frame renders again
+                    equal to ring-1000's first frame; 64 fused bench
+                    frames with post=tonemap_rgb8 synced once (one
+                    flush), three batches, ms a frame beside the bench
+                    phase's Renderer.render frame; grid-5833 through
+                    render_wavefront_chunked in rounds of 10 samples
+                    within the image gate of the one-round frame; the
+                    Renderer's engines "kernels" and "eager" (bands of 20
+                    rows, a ragged last one) at 64x48, 4 spp, depth 12
+                    within the image gate, progress_callback ending at
+                    (48, 48), metrics counting every pixel and camera ray
   effects           Renderer.render(scene, 800, 600, scene_config) on
                     atmosphere_demo.json (sky, fog, volumetric) and on
                     final_silver_prism_purple_cube.json with its fog,
@@ -390,6 +415,11 @@ CHECK_DEPTH = 12
 # costliest lanes (K3_SUBSET of them take the host some 50 s).
 ADAPTIVE_RING_SUBSET = 5000
 CARD = "card not read"  # nvidia-smi's name and power limit, read in env
+FRAME_MS = {}  # bench(): the median frame ms of each bench phase
+# torch.cuda.set_sync_debug_mode of the capacity phase's fused frames:
+# "error" raises at any host sync
+SYNC_MODE = "error"
+BATCH = 64  # frames of the capacity phase's batch, synced once
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and fp32 instructions/s
 # outside the tensor cores: the sheet's 67 TFLOP/s counts an FMA as two
 # operations, and the kernels are built without FMA contraction, so each
@@ -534,27 +564,49 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def uncached(rmod, scene, width, height, samples, cfg, go_camera=True,
+             post=None):
+    """Drop a frame's key from the capacity cache (renderer._KPAD_CACHE),
+    so that its next frame is the first of its key: one pass at the
+    capacity its own hit count sizes. (At a capacity another scene left
+    under the same key a frame may be rendered twice, and a stage hook
+    would see both passes.)"""
+    rmod._KPAD_CACHE.pop(rmod.capacity_key(width, height, samples, cfg,
+                                           go_camera, post, scene.device),
+                         None)
+
+
 def lanes_of(scene, width, height, samples, cfg, chunks=False,
              go_camera=True):
     """The trace's input on the main path: the compacted pixels and the
     rays of their lanes, read from render_wavefront through its stage hook
-    and joined over its trace chunks; with ``chunks``, also the lane count
-    of each trace launch."""
+    and joined over its trace chunks. With ``chunks``, every lane the
+    trace launches (the capacity's padding slots too) and the lane count
+    of each trace launch; else the hit pixels' lanes alone (a padding slot
+    repeats a pixel the mask rejected, whose lanes are black)."""
     import torch
     from raytrace_tpu_torch import renderer as r
-    seen = {"px": [], "origin": [], "direction": [], "pix": [], "samp": []}
+    seen = {"px": [], "origin": [], "direction": [], "pix": [], "samp": [],
+            "slots": []}
+    k = []
 
     def hook(stage, **values):
+        if stage == "count":
+            k.append(values["k"])
         if stage == "lane_rays":
-            for k in seen:
-                seen[k].append(values[k])
+            for key in seen:
+                seen[key].append(values[key])
 
+    uncached(r, scene, width, height, samples, cfg, go_camera)
     r.render_wavefront(scene, width=width, height=height, samples=samples,
                        cfg=cfg, go_camera=go_camera, hook=hook)
-    out = tuple(torch.cat(seen[k]).contiguous() for k in seen)
+    slots = torch.cat(seen.pop("slots"))
+    out = tuple(torch.cat(seen[key]).contiguous() for key in seen)
     if chunks:
         return out + ([int(o.shape[0]) for o in seen["origin"]],)
-    return out
+    hit = slots < k[0]
+    lanes = hit.repeat_interleave(samples)
+    return (out[0][hit],) + tuple(t[lanes].contiguous() for t in out[1:])
 
 
 def chunk_launches(mk, scene, lanes, sizes, cfg, counters=None, **kw):
@@ -585,7 +637,8 @@ def frame_stages(r, scene):
     """Milliseconds of each stage of one bench frame (render_wavefront,
     timed through its stage hook, then tonemap and the copy to the host;
     each stage is ended by a synchronise, so the sum exceeds a frame),
-    the hit-pixel count, and for a split frame the ladder's levels:
+    the hit-pixel count (read by the frame's capacity check), and for a
+    split frame the ladder's levels:
     {bounce: [survivors, lanes, capacity]} summed over the chunks."""
     import torch
     from raytrace_tpu_torch import renderer as rmod
@@ -600,7 +653,7 @@ def frame_stages(r, scene):
         now = time.perf_counter()
         ms[stage] = ms.get(stage, 0.0) + (now - last[0]) * 1e3
         last[0] = now
-        if stage == "count":
+        if stage in ("count", "check"):
             k.append(values["k"])
         if stage == "overflow":
             levels["overflow"] = values["overflow"]
@@ -632,6 +685,9 @@ def bench(scene, mk, what, slow_cut, go_camera=True, dof=False,
     r.set_depth_of_field(dof)
     r.fast_mc = fast_mc
     r.go_camera = go_camera
+    # a new scene: its warm-up sizes its own capacity (at another scene's
+    # the validated frame could be rendered twice)
+    rmod._KPAD_CACHE.clear()
     t0 = time.perf_counter()
     with no_host_mask_prep(mk):
         r.render(scene, W, H)  # warm-up
@@ -660,6 +716,7 @@ def bench(scene, mk, what, slow_cut, go_camera=True, dof=False,
     with tempfile.TemporaryDirectory() as tmp:
         r.save_image(img, os.path.join(tmp, "bench.png"))
     best = sorted(times)[len(times) // 2]
+    FRAME_MS[what] = best * 1e3
     stages, k_px, levels = frame_stages(r, scene)
     print(f"   {what}: stages of one frame, ms (host clock, synchronised): "
           f"{stages}", flush=True)
@@ -1574,6 +1631,12 @@ def main():
             record["fast_mc_err"].append(fast_mc_frame_check(
                 mk, s, fcfg, got, kernel, phase))
 
+    with Phase("capacity"):
+        capacity = capacity_group(mk, rmod, {
+            "bench": scenes[SCENES[0]], "ring1000": bvh_scenes[BVH_SCENES[0]],
+            "loop": loop_scenes["icosphere"], "grid5833": grid}, dev)
+        record["capacity"] = capacity
+
     with Phase("effects"):
         from raytrace_tpu_torch import scene as scene_mod
         atmo, acfg = scene_mod.load(os.path.join(
@@ -1971,7 +2034,7 @@ def render_check_stream(mk, rmod, trace_mod, scene, w=160, h=120, spp=4):
     capacity is forced below the survivors."""
     import torch
     rcfg = trace_mod.TraceConfig(max_depth=CHECK_DEPTH, shadow_samples=SOFT)
-    key = (w, h, spp, rcfg, True)
+    key = rmod.capacity_key(w, h, spp, rcfg, True, None, scene.device)
     seen = {"segment": 0, "overflow": []}
 
     def hook(stage, **values):
@@ -1981,6 +2044,7 @@ def render_check_stream(mk, rmod, trace_mod, scene, w=160, h=120, spp=4):
             seen["overflow"].append(values["overflow"])
 
     split = rmod.pick_split(scene, rcfg)
+    uncached(rmod, scene, w, h, spp, rcfg)
     mk.reset_launches()
     img = rmod.render_wavefront(scene, width=w, height=h, samples=spp,
                                 cfg=rcfg, hook=hook)
@@ -2055,6 +2119,7 @@ def past_cap_check(mk, rmod, trace_mod, dev, record):
         elif stage == "trace":
             seen[-1]["rad"] = v["rad"]
 
+    uncached(rmod, s, 32, 24, 1, cfg)
     mk.reset_launches()
     img = rmod.render_wavefront(s, width=32, height=24, samples=1, cfg=cfg,
                                 hook=hook)
@@ -2357,6 +2422,7 @@ def ladder_frame(mk, scene, cfg, launches, what):
         elif stage == "lane_rays":
             chunks.append(values)
 
+    uncached(rmod, scene, W, H, SPP, cfg)
     rmod.render_wavefront(scene, width=W, height=H, samples=SPP, cfg=cfg,
                           hook=hook)
 
@@ -2762,6 +2828,7 @@ def segments_check(mk, trace_mod, rmod, scene, cfg, what, w=64, h=48,
         if stage == "segment":
             segs.append(values)
 
+    uncached(rmod, scene, w, h, spp, cfg)
     mk.reset_launches()
     rmod.render_wavefront(scene, width=w, height=h, samples=spp, cfg=cfg,
                           hook=hook)
@@ -3783,6 +3850,217 @@ def kernel_rows(mk, trace_mod, scene, ring, cfg, launches, launches_bvh,
             binary_soft_slab_tests=work_bin[6], **subset),
     ]
     return rows
+
+
+def fused_check(mk, rmod, scene, cfg, what, kernels, go_camera=True):
+    """The fused frame at the bench settings: the first frame of its key
+    (one read of the hit count sizes the capacity), then a frame at the
+    cached capacity with assume_capacity under
+    torch.cuda.set_sync_debug_mode(SYNC_MODE): it must make no host sync,
+    launch every kernel of ``kernels`` and equal the first frame at error
+    0, and one flush_capacity_checks validates it. Returns a dict of the
+    numbers and the first frame's image."""
+    import torch
+    kw = dict(width=W, height=H, samples=SPP, cfg=cfg, go_camera=go_camera)
+    uncached(rmod, scene, W, H, SPP, cfg, go_camera)
+    k = []
+    first_ms, ref = host_ms(lambda: rmod.render_wavefront(
+        scene, hook=lambda stage, **v: k.append(v["k"]) if (
+            stage == "count") else None, **kw))
+    k_pad = rmod._KPAD_CACHE[rmod.capacity_key(W, H, SPP, cfg, go_camera,
+                                               None, scene.device)]
+    mk.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(SYNC_MODE)
+    try:
+        t0 = time.perf_counter()
+        img = rmod.render_wavefront(scene, assume_capacity=True, **kw)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(mk.LAUNCHES)
+    n = rmod.flush_capacity_checks()
+    err = float((img - ref).abs().max())
+    padded = (k_pad - k[0]) / k_pad
+    print(f"   {what} [{CARD}]: first frame of the key {first_ms:.3f} ms "
+          f"(hit pixels {k[0]}, capacity {k_pad}, padded slots "
+          f"{padded:.4f} of the lanes); fused frame under sync debug mode "
+          f"{SYNC_MODE!r} {ms:.3f} ms (the host enqueued it in "
+          f"{enqueue_ms:.3f} ms), max error against the first frame "
+          f"{err:.3e}, flags validated {n}; launches {launches}",
+          flush=True)
+    if not torch.equal(img, ref) or n != 1:
+        raise AssertionError(f"{what}: the fused frame differs from the "
+                             "first frame of its key")
+    for name in kernels:
+        if launches[name] < 1:
+            raise AssertionError(f"{what}: the fused frame never launched "
+                                 f"{name}")
+    return dict(k=k[0], k_pad=k_pad, padded=padded, first_ms=first_ms,
+                ms=ms, enqueue_ms=enqueue_ms, err=err, launches=launches,
+                ref=ref)
+
+
+def stale_check(rmod, small, big, cfg, small_k_pad, big_ref):
+    """A stale capacity: ``big`` (more hit pixels) at the capacity that
+    ``small`` left under the same key. With assume_capacity,
+    flush_capacity_checks must raise and drop the key; without it, the
+    validating path must render the frame again ("retry") equal to
+    ``big``'s first frame of the key, bit for bit."""
+    import torch
+    kw = dict(width=W, height=H, samples=SPP, cfg=cfg)
+    key = rmod.capacity_key(W, H, SPP, cfg, True, None, big.device)
+    rmod._KPAD_CACHE[key] = small_k_pad
+    rmod.render_wavefront(big, assume_capacity=True, **kw)
+    try:
+        rmod.flush_capacity_checks()
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    dropped = key not in rmod._KPAD_CACHE
+    rmod._KPAD_CACHE[key] = small_k_pad
+    seen = []
+    img = rmod.render_wavefront(
+        big, hook=lambda stage, **v: seen.append(v) if stage == "retry"
+        else None, **kw)
+    same = torch.equal(img, big_ref)
+    print(f"   stale capacity ({small_k_pad} slots): flush raised "
+          f"{raised!r}, key dropped {dropped}; the validating frame "
+          f"rendered again ({seen}), equal to the first frame of the key "
+          f"{same}", flush=True)
+    if raised is None or not dropped or not seen or not same:
+        raise AssertionError("a stale capacity was not caught")
+
+
+def fused_batch(mk, rmod, scene, cfg, reps=3):
+    """bench.py's method on the port: BATCH fused frames with
+    assume_capacity and post=tonemap_rgb8 back to back, synced once on the
+    last frame's checksum and one flush_capacity_checks; ms a frame of
+    each batch (host clock). Returns (the ms of each batch, the launches
+    of the first batch)."""
+    import torch
+    from raytrace_tpu_torch.ops import tonemap
+    kw = dict(width=W, height=H, samples=SPP, cfg=cfg,
+              post=tonemap.tonemap_rgb8)
+    uncached(rmod, scene, W, H, SPP, cfg, post=tonemap.tonemap_rgb8)
+    first = rmod.render_wavefront(scene, **kw)
+    rmod.render_wavefront(scene, assume_capacity=True, **kw)
+    rmod.flush_capacity_checks()
+    times = []
+    for rep in range(reps):
+        if rep == 0:
+            mk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BATCH):
+            img = rmod.render_wavefront(scene, assume_capacity=True, **kw)
+        checksum = int(img.to(torch.int64).sum())
+        n = rmod.flush_capacity_checks()
+        times.append((time.perf_counter() - t0) * 1e3 / BATCH)
+        if rep == 0:
+            launches = dict(mk.LAUNCHES)
+        if n != BATCH or not torch.equal(img, first):
+            raise AssertionError("the fused batch did not validate or "
+                                 "differs from the first frame")
+    print(f"   {BATCH} fused bench frames with post=tonemap_rgb8, synced "
+          f"once [{CARD}]: ms a frame {[round(t, 4) for t in times]} "
+          f"(best {min(times):.4f}; Renderer.render's bench frame "
+          f"{FRAME_MS.get('bench', float('nan')):.4f} ms in this run); "
+          f"checksum {checksum}; launches of the first batch {launches}",
+          flush=True)
+    return times, launches
+
+
+def chunked_check(mk, rmod, scene, cfg, ref, chunk=10):
+    """render_wavefront_chunked at the bench settings in rounds of
+    ``chunk`` samples: one mask, one capacity, every round a ladder;
+    within the image gate of the one-round frame ``ref``. Returns the
+    numbers."""
+    import torch
+    kw = dict(width=W, height=H, samples=SPP, cfg=cfg, chunk=chunk)
+    rounds = []
+    mk.reset_launches()
+    ms, img = host_ms(lambda: rmod.render_wavefront_chunked(
+        scene, hook=lambda stage, **v: rounds.append(v["s0"]) if (
+            stage == "round") else None, **kw))
+    launches = dict(mk.LAUNCHES)
+    print(f"   chunked frame, rounds of {chunk} samples {rounds} [{CARD}]: "
+          f"{ms:.3f} ms; launches {launches}", flush=True)
+    image_gate(img, ref, "chunked frame vs the one-round frame")
+    if len(rounds) != -(-SPP // chunk) or launches["pixel_mask_stream"] != 1:
+        raise AssertionError("the chunked frame did not run its rounds "
+                             "over one mask")
+    return dict(ms=ms, launches=launches,
+                err=float((img - ref).abs().max()))
+
+
+def engines_check(rmod, scene, dev, width=64, height=48, samples=4):
+    """The Renderer's two engines at a small size (depth CHECK_DEPTH):
+    "kernels" (the fused path) and "eager" (the bands through
+    render_band, a ragged last band) within the image gate;
+    progress_callback ends at (H, H) and metrics count H*W pixels and
+    H*W*spp camera rays on both."""
+    from raytrace_tpu_torch import obs
+    imgs = {}
+    for engine in ("kernels", "eager"):
+        r = rmod.Renderer(device=dev)
+        r.set_samples(samples)
+        r.set_max_depth(CHECK_DEPTH)
+        r.engine = engine
+        r.metrics = obs.MetricsCollector()
+        progress = []
+        r.progress_callback = lambda done, total: progress.append(
+            (done, total))
+        ms, imgs[engine] = host_ms(lambda: r.render_linear_device(
+            scene, width, height, band_h=20))
+        m = r.metrics.snapshot()
+        print(f"   engine {engine!r}: {ms:.3f} ms, progress {progress}, "
+              f"pixels {m.pixels_completed}, rays {m.rays_traced}, jobs "
+              f"{m.jobs_completed}", flush=True)
+        if (progress[-1] != (height, height)
+                or m.pixels_completed != width * height
+                or m.rays_traced != width * height * samples
+                or m.jobs_completed != 1):
+            raise AssertionError(f"engine {engine}: progress or metrics "
+                                 "miscounted")
+    image_gate(imgs["kernels"], imgs["eager"],
+               "engine 'kernels' vs engine 'eager'")
+
+
+def capacity_group(mk, rmod, scenes, dev):
+    """The capacity phase: the fused frame on the bench scene, ring-1000,
+    the loop frame, grid-5833 (the split ladder) and the bench scene with
+    DoF (fused_check); a stale capacity (stale_check); the fused batch;
+    grid-5833 chunked; the two engines. Returns the numbers."""
+    r = rmod.Renderer(device=dev)
+    r.set_samples(SPP)
+    r.set_max_depth(DEPTH)
+    cfg = r.trace_config()
+    r.set_depth_of_field(True)
+    dcfg = r.trace_config()
+    out = {}
+    for name, c, kernels in (
+            ("bench", cfg, ("pixel_mask", "trace_unroll")),
+            ("ring1000", cfg, ("pixel_mask_bvh", "trace_bvh")),
+            ("loop", cfg, ("pixel_mask", "trace_loop")),
+            ("grid5833", cfg, ("pixel_mask_stream", "trace_stream",
+                               "trace_state")),
+            ("bench_dof", dcfg, ("pixel_mask", "trace_unroll",
+                                 "mask_dof"))):
+        s = scenes["bench" if name == "bench_dof" else name]
+        out[name] = fused_check(mk, rmod, s, c, f"fused {name}", kernels)
+    stale_check(rmod, scenes["bench"], scenes["ring1000"], cfg,
+                out["bench"]["k_pad"], out["ring1000"]["ref"])
+    out["batch"] = fused_batch(mk, rmod, scenes["bench"], cfg)
+    out["chunked"] = chunked_check(mk, rmod, scenes["grid5833"], cfg,
+                                   out["grid5833"]["ref"])
+    engines_check(rmod, scenes["bench"], dev)
+    for v in out.values():
+        if isinstance(v, dict):
+            v.pop("ref", None)
+    return out
 
 
 if __name__ == "__main__":

@@ -33,14 +33,21 @@ checkpoint/resume), the AOV feature buffers (``render_aovs``), the
 feature-guided denoiser (``denoise``) and the sample-accumulator
 checkpoints of ``parallel``. So is the differentiable path (``diff``):
 reverse-mode gradients of a rendered image through the eager engine,
-checkpointed a bounce at a time, and inverse rendering.
+checkpointed a bounce at a time, and inverse rendering. Steady-state
+frames run at a cached capacity with no host read
+(``render_wavefront(..., assume_capacity=True, post=...)``, checked a
+batch at a time by ``flush_capacity_checks``), and
+``render_wavefront_chunked`` renders a frame in rounds of samples;
+``obs`` holds the metrics, progress bar and profiler the Renderer feeds.
 """
 
-from . import diff
+from . import diff, obs
 from .adaptive import render_adaptive
 from .aov import render_aovs
 from .denoising import denoise
-from .renderer import BenchmarkData, Renderer, render_band, render_wavefront
+from .renderer import (BenchmarkData, Renderer, flush_capacity_checks,
+                       render_band, render_wavefront,
+                       render_wavefront_chunked)
 from .scene import Scene
 from .scene import from_dict as scene_from_dict
 from .scene import load as load_scene
@@ -48,6 +55,7 @@ from .trace import TraceConfig
 from .trace import trace as trace_rays
 
 __all__ = ["BenchmarkData", "Renderer", "Scene", "TraceConfig", "denoise",
-           "diff", "load_scene", "render_adaptive", "render_aovs",
-           "render_band", "render_wavefront", "scene_from_dict",
-           "trace_rays"]
+           "diff", "flush_capacity_checks", "load_scene", "obs",
+           "render_adaptive", "render_aovs", "render_band",
+           "render_wavefront", "render_wavefront_chunked",
+           "scene_from_dict", "trace_rays"]

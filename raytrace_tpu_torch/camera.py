@@ -21,11 +21,10 @@ def go_rays(camera, u: torch.Tensor, v: torch.Tensor):
     zero = torch.zeros_like(vp_w)
     origin = camera.position
     horizontal = torch.stack([vp_w, zero, zero])
-    vertical = torch.tensor([0.0, 2.0, 0.0], dtype=origin.dtype,
-                            device=origin.device)
+    # built on the device: a host tensor would be a copy, which syncs
+    vertical = torch.stack([zero, zero + 2.0, zero]).to(origin.dtype)
     lower_left = (origin - horizontal / 2.0 - vertical / 2.0
-                  - torch.tensor([0.0, 0.0, 1.0], dtype=origin.dtype,
-                                 device=origin.device))
+                  - torch.stack([zero, zero, zero + 1.0]).to(origin.dtype))
     direction = (lower_left[None, :] + u[..., None] * horizontal[None, :]
                  + v[..., None] * vertical[None, :] - origin[None, :])
     return origin.expand_as(direction), direction

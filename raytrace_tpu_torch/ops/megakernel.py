@@ -275,7 +275,7 @@ def pack_tables(scene, prims: bool = True):
            m.specular[:, None], m.ior[:, None], m.emit, m.eff_albedo]
     if m.has_advanced:
         mat += [m.aux_vec, m.aux_a[:, None], m.aux_b[:, None]]
-    tex, aux = tex_mod.texture_rows(m.textures)
+    tex, aux = _texture_rows(m.textures, scene.device)
     return dict(
         sph=torch.cat([g.sph_center[:ns], g.sph_radius[:ns, None],
                        col(g.sph_mat[:ns])], 1),
@@ -284,9 +284,28 @@ def pack_tables(scene, prims: bool = True):
         box=torch.cat([g.box_min, g.box_max, col(g.box_mat)], 1),
         lit=torch.cat([lt.position, lt.color, lt.intensity[:, None]], 1),
         mat=torch.cat(mat, 1),
-        tex=tex.to(scene.device),
-        aux=aux.to(scene.device),
+        tex=tex,
+        aux=aux,
     )
+
+
+# The texture tables on each device by bindings: {(id, device): (bindings,
+# tex, aux)}, at most 64 (the host builds them from the texture objects,
+# and a copy to the card at every launch would sync).
+_TEX_ROWS: dict = {}
+
+
+def _texture_rows(bindings, device):
+    """``textures.texture_rows`` on the device, built once per bindings."""
+    key = (id(bindings), torch.device(device))
+    seen = _TEX_ROWS.get(key)
+    if seen is None or seen[0] is not bindings:
+        tex, aux = tex_mod.texture_rows(bindings)
+        if len(_TEX_ROWS) >= 64:
+            _TEX_ROWS.pop(next(iter(_TEX_ROWS)))
+        seen = (bindings, tex.to(device), aux.to(device))
+        _TEX_ROWS[key] = seen
+    return seen[1], seen[2]
 
 
 def loop_tables_in_smem(tabs) -> bool:
@@ -397,11 +416,15 @@ def pack_walk_table(scene, tabs=None) -> torch.Tensor:
     is_s = pid < ns
     ti = pid - ns
     is_t = ~is_s & (ti < nt)
+    # gathers at clamped ids and selects, not boolean indexing (a
+    # nonzero, which reads the device on the host at every launch)
     data = torch.zeros((pid.shape[0], 9), dtype=torch.float32, device=dev)
     if ns:
-        data[is_s, 0:4] = sph[pid[is_s], 0:4]
+        s_rows = sph[pid.clamp(0, ns - 1), 0:4]
+        data[:, 0:4] = torch.where(is_s[:, None], s_rows, data[:, 0:4])
     if nt:
-        data[is_t] = tri[ti[is_t], 0:9]
+        data = torch.where(is_t[:, None], tri[ti.clamp(0, nt - 1), 0:9],
+                           data)
     tag = torch.where(is_s, 0.0, torch.where(is_t, 1.0, 2.0))
     ids = torch.where(is_s, pid, ti).to(torch.float32)
     rows = torch.cat([data, tag[:, None], ids[:, None],

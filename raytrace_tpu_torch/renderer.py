@@ -7,19 +7,23 @@ is what ``Renderer.render`` runs:
    mask from one center ray per pixel against cone-inflated primitives,
    K2 (brute force), K6 (a walk over the scene BVH's inflated slabs) or
    K6-stream (the same walk, stopping at the leaf slabs);
-2. pixel-granular compaction: a cumsum and a scatter of hit pixel ids;
-3. camera rays for the hit pixels' lanes (pcg4d jitter, ``_lane_rays``);
+2. pixel-granular compaction into a static capacity ``k_pad``: a cumsum
+   and a scatter of the hit pixel ids; the slots past the hit count point
+   at a pixel the mask rejected (every lane of it is black and ends at
+   its first hit test) and are left out of the image;
+3. camera rays for the compacted pixels' lanes (pcg4d jitter,
+   ``_lane_rays``);
 4. the trace (``megakernel.trace``), by the scene's kernel mode
    (``megakernel._kernel_mode``): K1 (up to 96 primitives, 48 in a
    smooth-shaded scene), K3+K4 (97-4096 primitives with a scene BVH), K5
    (past 4096 primitives with a scene BVH; past the JAX package's
    262,144-primitive cap too, where its Renderer takes a banded jnp
    engine) or K7 (past the unroll limit without a BVH), the whole bounce
-   loop per lane - in stream mode
-   run as the survivor split ladder (``trace_with_split``): segments of
-   bounces, each a resumable launch (K1-state), with the lanes still
-   alive compacted between them;
-5. a per-pixel segment-add of the samples back into the image.
+   loop per lane - in stream mode run as the survivor split ladder
+   (``trace_with_split``): segments of bounces, each a resumable launch
+   (K1-state), with the lanes still alive compacted between them;
+5. a per-pixel segment-add of the samples back into the image, then
+   ``post`` (e.g. ``tonemap.tonemap_rgb8``) on the device.
 
 A lane that misses everything is exactly black, so only hit pixels are
 traced, and since every draw is keyed by (pixel, sample) and by the
@@ -28,10 +32,20 @@ absolute bounce the result equals the dense path's
 lane and serve as the reference) up to the float reassociation of the
 ladder's per-level radiance sums.
 
-The host reads the hit-pixel count, to size the trace, and in a split
-frame the ladder's overflow, once, after the trace. The JAX package's
-speculative capacity cache (``_KPAD_CACHE``) is not in the port yet
-(ROADMAP Queue 1 item 3).
+The speculative capacity path (``raytrace_tpu/renderer.py:398-488``,
+``:614-702``): the first frame of a configuration (``capacity_key``)
+reads the hit-pixel count once, sizes ``k_pad`` (``_capacity``) and
+caches it (``_KPAD_CACHE``, a FIFO of 64). A later frame of the same key
+runs the whole path at the cached capacity with no host read before the
+trace. Without ``assume_capacity`` one transfer then reads the hit count
+and the ladder's overflow: a stale capacity renders the frame again at a
+new one, an overflow blacklists the key (``_SPLIT_BLACKLIST``) and
+renders it unsplit. With ``assume_capacity`` the two flags stay on the
+device (``_PENDING_CHECKS``) until ``flush_capacity_checks`` reads a
+whole batch of them in one transfer and raises on a stale capacity or an
+overflow: such a frame reads nothing from the device, and nothing is
+dropped silently. ``render_wavefront_chunked`` traces a frame in rounds
+of samples over one mask and one capacity.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ import dataclasses
 import json
 import os
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -85,8 +100,9 @@ class BenchmarkData:
 
 def _lane_ids(pixels: torch.Tensor, samples: int, offset: int = 0):
     """(pixel, sample) ids of `samples` lanes per pixel, pixel-major: the
-    sample ids [offset, offset + samples) of each pixel."""
-    pix = torch.repeat_interleave(pixels.to(torch.int64), samples)
+    sample ids [offset, offset + samples) of each pixel. (An expand, not
+    ``repeat_interleave``, which may read its output size on the host.)"""
+    pix = pixels.to(torch.int64)[:, None].expand(-1, samples).reshape(-1)
     samp = torch.arange(offset, offset + samples,
                         device=pixels.device).repeat(pixels.shape[0])
     return pix, samp
@@ -148,12 +164,36 @@ CHUNK_RUN = 64
 SPLIT_QUANTUM = 16 * 128
 # The first level of the ladder keeps 1/SURV_FRAC of a chunk's lanes.
 SURV_FRAC = 4
-# Render configurations whose ladder overflowed: they render unsplit.
+# Render configurations (``capacity_key``) whose ladder overflowed: they
+# render unsplit.
 _SPLIT_BLACKLIST: set = set()
+# The speculative capacity cache of the fused frame: capacity_key -> the
+# last validated k_pad. A bounded FIFO: the key holds cfg, and so the
+# seed, which a progressive render changes every frame.
+_KPAD_CACHE: dict = {}
+_KPAD_CACHE_MAX = 64
+# Deferred capacity flags of assume_capacity frames: (key, hit count,
+# k_pad, overflow), the count and the overflow 0-d tensors on the device.
+# flush_capacity_checks reads them; past _PENDING_MAX it runs by itself.
+_PENDING_CHECKS: list = []
+_PENDING_MAX = 1024
+# pick_deep_caps by scene object: {id: (weak reference, policy)}.
+_DEEP_CAPS: dict = {}
 
 
 def _no_hook(stage, **values):
     pass
+
+
+def _fifo_put(cache: dict, key, value) -> None:
+    """Insert into a FIFO of at most _KPAD_CACHE_MAX entries."""
+    if key not in cache and len(cache) >= _KPAD_CACHE_MAX:
+        cache.pop(next(iter(cache)))
+    cache[key] = value
+
+
+def _kpad_cache_put(key, value) -> None:
+    _fifo_put(_KPAD_CACHE, key, value)
 
 
 def _split_levels(split) -> tuple:
@@ -182,16 +222,22 @@ def pick_deep_caps(scene) -> str:
     first level's capacity and cannot overflow), else "shrink" (half of
     the level above). The JAX package counts spheres and triangles only
     (a parity departure: its planes and boxes never count). Reads the
-    material ids to the host."""
+    material ids to the host once per scene object, whose answer
+    ``_DEEP_CAPS`` keeps, so a steady-state frame reads nothing."""
+    seen = _DEEP_CAPS.get(id(scene))
+    if seen is not None and seen[0]() is scene:
+        return seen[1]
     g = scene.geometry
     mats = torch.cat([g.sph_mat.reshape(-1), g.tri_mat.reshape(-1),
                       g.pl_mat.reshape(-1), g.box_mat.reshape(-1)])
-    if mats.numel() == 0:
-        return "shrink"
-    kind = scene.materials.kind.to(mats.device)[mats.to(torch.int64)]
-    refr = (kind == mat_mod.GLASS) | (kind == mat_mod.DIELECTRIC)
-    return "const" if float(refr.to(torch.float32).mean()) >= 0.05 else (
-        "shrink")
+    caps = "shrink"
+    if mats.numel():
+        kind = scene.materials.kind.to(mats.device)[mats.to(torch.int64)]
+        refr = (kind == mat_mod.GLASS) | (kind == mat_mod.DIELECTRIC)
+        if float(refr.to(torch.float32).mean()) >= 0.05:
+            caps = "const"
+    _fifo_put(_DEEP_CAPS, id(scene), (weakref.ref(scene), caps))
+    return caps
 
 
 def pick_split(scene, cfg: trace_mod.TraceConfig):
@@ -291,109 +337,363 @@ def _pixel_mask(scene, *, width: int, height: int,
     return hit_px, pos_px
 
 
-def _compact_pixels(hit_px, pos_px, k_px: int) -> torch.Tensor:
-    """Scatter the ids of the k_px hit pixels into slots [0, k_px)."""
+def _compact_pixels(hit_px, pos_px, k_pad: int) -> torch.Tensor:
+    """Scatter the ids of the hit pixels into slots [0, k_pad), with no
+    host read: the first k_pad hit pixels in order, and where there are
+    fewer, the slots past them hold the first pixel the mask rejected
+    (every lane of it misses, so it ends at its first hit test; the
+    segment-add leaves those slots out). At k_pad = the hit count the
+    slots are exactly the hit pixels."""
     n = hit_px.shape[0]
-    target = torch.where(hit_px, pos_px, torch.full_like(pos_px, k_px))
-    out = torch.zeros(k_px + 1, dtype=torch.int64, device=hit_px.device)
+    dump = torch.full_like(pos_px, k_pad)
+    target = torch.where(hit_px & (pos_px < k_pad), pos_px, dump)
+    miss = torch.argmin(hit_px.to(torch.uint8)).reshape(1)
+    out = miss.repeat(k_pad + 1)
     out.scatter_(0, target, torch.arange(n, device=hit_px.device))
-    return out[:k_px]  # slot k_px collected the misses
+    return out[:k_pad]  # slot k_pad collected the misses
 
 
-def _pixel_chunks(px_cidx, samples: int, interleave: bool):
-    """The compacted pixels in trace chunks of at most TRACE_LANES lanes:
-    consecutive pixels, or with ``interleave`` (a split frame) runs of
-    CHUNK_RUN neighbouring pixels dealt out in turn - chunk c of n takes
-    runs c, c + n, c + 2n, ... - so that each chunk is a sample of the
-    whole frame. A ladder level's survivors are then about the frame's
-    share, where a chunk of neighbouring rows over glass keeps more lanes
-    alive than the first capacity (a quarter of them) and overflows. An
-    unsplit frame keeps consecutive chunks: interleaved ones slowed K3+K4
-    on ring-1000, each launch then holding the frame's slowest pixels."""
-    n = px_cidx.shape[0]
+def _pixel_chunks(n: int, samples: int, interleave: bool, device):
+    """Slots [0, n) of the compacted pixels in trace chunks of at most
+    TRACE_LANES lanes: slices of consecutive slots, or with ``interleave``
+    (a split frame) index tensors of runs of CHUNK_RUN neighbouring slots
+    dealt out in turn - chunk c of m takes runs c, c + m, c + 2m, ... - so
+    that each chunk is a sample of the whole frame. A ladder level's
+    survivors are then about the frame's share, where a chunk of
+    neighbouring rows over glass keeps more lanes alive than the first
+    capacity (a quarter of them) and overflows. An unsplit frame keeps
+    consecutive chunks: interleaved ones slowed K3+K4 on ring-1000, each
+    launch then holding the frame's slowest pixels. n is the static
+    capacity, so the layout is index arithmetic with no host read."""
     chunk = max(1, TRACE_LANES // samples)
-    if n <= chunk:
-        return [px_cidx]
-    if not interleave:
-        return list(px_cidx.split(chunk))
+    if n <= chunk or not interleave:
+        return [slice(s, min(n, s + chunk)) for s in range(0, n, chunk)]
     runs_per_chunk = max(1, chunk // CHUNK_RUN)
-    n_chunks = -(-(-(-n // CHUNK_RUN)) // runs_per_chunk)
-    run = torch.arange(n, device=px_cidx.device) // CHUNK_RUN % n_chunks
-    return [px_cidx[run == c] for c in range(n_chunks)]
+    n_runs = -(-n // CHUNK_RUN)
+    n_chunks = -(-n_runs // runs_per_chunk)
+    within = torch.arange(CHUNK_RUN, device=device)
+    out = []
+    for c in range(n_chunks):
+        runs = torch.arange(c, n_runs, n_chunks, device=device)
+        slots = (runs[:, None] * CHUNK_RUN + within).reshape(-1)
+        if (n_runs - 1 - c) % n_chunks == 0:  # the last run is partial
+            slots = slots[:slots.shape[0] - (n_runs * CHUNK_RUN - n)]
+        out.append(slots)
+    return out
 
 
-def _trace_compacted_pixels(scene, px_cidx, *, width: int, height: int,
+def _trace_compacted_pixels(scene, px_cidx, k, *, width: int, height: int,
                             samples: int, cfg: trace_mod.TraceConfig,
                             go_camera: bool, split=0,
-                            deep_caps: str = "const", hook=_no_hook):
+                            deep_caps: str = "const", offset: int = 0,
+                            sum_image: bool = False, hook=_no_hook):
     """Trace every lane of the compacted pixels with the scene's trace
     kernel and segment-add each pixel's samples into the (H,W,3) mean
-    image, in chunks of at most TRACE_LANES lanes (``_pixel_chunks``),
+    image (with ``sum_image`` the sum, which render_wavefront_chunked
+    divides), in chunks of at most TRACE_LANES lanes (``_pixel_chunks``),
     each chunk through the split ladder (``trace_with_split``; first-level
-    capacity from the chunk's lane count). Returns (image, overflow summed
-    over the chunks, a 0-d tensor on the device)."""
-    img = torch.zeros((width * height, 3), dtype=torch.float32,
-                      device=scene.device)
-    overflow = torch.zeros((), dtype=torch.int64, device=scene.device)
-    for px in _pixel_chunks(px_cidx, samples, interleave=bool(split)):
-        pix, samp = _lane_ids(px, samples)
+    capacity from the chunk's lane count). ``k`` (a 0-d tensor) is the hit
+    count: the slots from k on are padding and add into a row past the
+    image. The lanes take the sample ids [offset, offset + samples). Returns
+    (image, overflow summed over the chunks, a 0-d tensor on the
+    device)."""
+    n_px = width * height
+    dev = scene.device
+    img = torch.zeros((n_px + 1, 3), dtype=torch.float32, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    dump = torch.full((), n_px, dtype=torch.int64, device=dev)
+    for sl in _pixel_chunks(px_cidx.shape[0], samples, bool(split), dev):
+        px = px_cidx[sl]
+        slots = (torch.arange(sl.start, sl.stop, device=dev)
+                 if isinstance(sl, slice) else sl)
+        pix, samp = _lane_ids(px, samples, offset)
         origin, direction = _lane_rays(scene, pix, samp, width=width,
                                        height=height, cfg=cfg,
                                        go_camera=go_camera)
-        hook("lane_rays", px=px, pix=pix, samp=samp, origin=origin,
-             direction=direction)
+        hook("lane_rays", px=px, slots=slots, pix=pix, samp=samp,
+             origin=origin, direction=direction)
         rad, ov = trace_with_split(
             scene, origin, direction, pix, samp, cfg, split=split,
             surv_cap=_auto_surv_cap(pix.shape[0]) if split else 0,
             deep_caps=deep_caps, hook=hook)
         overflow = overflow + ov
         hook("trace", rad=rad)
-        img.index_add_(0, px, rad.reshape(-1, samples, 3).sum(dim=1))
+        img.index_add_(0, torch.where(slots < k, px, dump),
+                       rad.reshape(-1, samples, 3).sum(dim=1))
         hook("segment_add", img=img)
-    return (img / samples).reshape(height, width, 3), overflow
+    img = img[:n_px].reshape(height, width, 3)
+    return (img if sum_image else img / samples), overflow
+
+
+def capacity_key(width: int, height: int, samples: int,
+                 cfg: trace_mod.TraceConfig, go_camera: bool, post,
+                 device, *more) -> tuple:
+    """The key of _KPAD_CACHE and _SPLIT_BLACKLIST: the JAX package's
+    (raytrace_tpu/renderer.py:633) without its block_rows, with the
+    device; ``more`` marks render_wavefront_chunked's keys."""
+    return (width, height, samples, cfg, go_camera, post,
+            torch.device(device)) + more
+
+
+def _pad_bucket(k: int, quantum: int) -> int:
+    """The capacity for k hit pixels: k rounded up to whole quanta, and
+    the count of quanta rounded up to four significant bits, so that the
+    padding adds less than an eighth to the quanta k needs. (The JAX
+    package rounds to a power of two, against XLA recompiles, which
+    PyTorch does not have.)"""
+    blocks = max(1, -(-k // quantum))
+    step = 1 << max(0, (blocks - 1).bit_length() - 4)
+    return quantum * (-(-blocks // step) * step)
+
+
+def _quantum(samples: int) -> int:
+    """Pixels of one SPLIT_QUANTUM lane block at ``samples`` a pixel."""
+    return max(1, SPLIT_QUANTUM // max(1, samples))
+
+
+def _capacity(k: int, samples: int, n_px: int) -> int:
+    """The capacity of a frame with k hit pixels: ``_pad_bucket``, never
+    past the frame's pixels, nor into a trace chunk that k itself does not
+    need (a chunk of padding alone would cost its lane rays and a launch
+    of every ladder level). Chunks are counted as the interleaved ones
+    hold pixels (whole runs), which is never more than the consecutive
+    ones hold."""
+    chunk = max(1, TRACE_LANES // samples)
+    if chunk >= CHUNK_RUN:
+        chunk = chunk // CHUNK_RUN * CHUNK_RUN
+    return min(_pad_bucket(k, _quantum(samples)), n_px,
+               -(-k // chunk) * chunk)
+
+
+def _defer_check(key, k, k_pad: int, overflow) -> None:
+    """Record an assume_capacity frame's flags for flush_capacity_checks,
+    which runs by itself past _PENDING_MAX pending frames."""
+    _PENDING_CHECKS.append((key, k, k_pad, overflow))
+    if len(_PENDING_CHECKS) > _PENDING_MAX:
+        flush_capacity_checks()
+
+
+def flush_capacity_checks() -> int:
+    """Read the deferred flags of the assume_capacity frames since the
+    last flush, in one transfer a device (the flags are stacked on the
+    device first), and raise RuntimeError if a frame's hit count exceeded
+    its cached capacity (pixels were dropped: the key leaves _KPAD_CACHE,
+    so its next frame sizes again) or its ladder overflowed (survivors
+    were dropped: the key renders unsplit from then on). Returns the
+    number of frames validated."""
+    pending = list(_PENDING_CHECKS)
+    _PENDING_CHECKS.clear()
+    flags = {}
+    for dev in {k.device for _, k, _, _ in pending}:
+        rows = [i for i, p in enumerate(pending) if p[1].device == dev]
+        read = torch.stack([torch.stack([pending[i][1], pending[i][3]])
+                            for i in rows]).tolist()
+        flags.update(zip(rows, read))
+    for i, (key, _, k_pad, _) in enumerate(pending):
+        k, ov = flags[i]
+        if ov > 0:
+            _SPLIT_BLACKLIST.add(key)
+            raise RuntimeError(
+                f"an assume_capacity frame overflowed the split ladder's "
+                f"survivor capacity by {ov} lanes; render it again without "
+                f"assume_capacity (the configuration now renders unsplit)")
+        if k > k_pad:
+            _KPAD_CACHE.pop(key, None)
+            raise RuntimeError(
+                f"an assume_capacity frame dropped pixels: {k} hit pixels "
+                f"past its cached capacity of {k_pad} (the scene changed); "
+                f"render it again without assume_capacity")
+    return len(pending)
+
+
+def _finish(img, post, as_numpy: bool):
+    if post is not None:
+        img = post(img)
+    return img.cpu().numpy() if as_numpy else img
+
+
+def _black(scene, width: int, height: int) -> torch.Tensor:
+    return torch.zeros((height, width, 3), dtype=torch.float32,
+                       device=scene.device)
 
 
 def render_wavefront(scene, *, width: int, height: int, samples: int,
                      cfg: trace_mod.TraceConfig, go_camera: bool = True,
-                     hook=_no_hook) -> torch.Tensor:
-    """Compacted-wavefront render: (H,W,3) mean linear radiance, on the
-    scene's device.
+                     as_numpy: bool = False, assume_capacity: bool = False,
+                     post=None, hook=_no_hook):
+    """Compacted-wavefront render: (H,W,3) mean linear radiance, a tensor
+    on the scene's device (``as_numpy``: the host array), or ``post`` of
+    it (a function of the image run on the device, e.g.
+    ``tonemap.tonemap_rgb8``).
+
+    The first frame of a key (``capacity_key``) reads the hit count and
+    sizes the capacity from it (``_capacity``); later frames run at the
+    cached capacity with no host read before the trace. Without
+    ``assume_capacity`` one transfer then reads the count and the
+    ladder's overflow: the frame is kept if count <= k_pad <= max(2 *
+    the count's capacity, one quantum), else rendered again at a new
+    capacity (reusing the mask), and an overflow blacklists the key and
+    renders the frame unsplit. With ``assume_capacity`` (the caller
+    asserts that the scene has not changed since a validated frame) the
+    frame reads nothing from the device: its flags wait for
+    ``flush_capacity_checks``.
 
     The trace runs the split ladder of ``pick_split`` (stream mode at
-    depth 12 or more) unless this configuration overflowed before
-    (``_SPLIT_BLACKLIST``); a frame whose ladder overflows is blacklisted
-    and traced again unsplit.
+    depth 12 or more) unless this key overflowed before
+    (``_SPLIT_BLACKLIST``).
 
-    ``hook(stage, **values)`` is called after each stage ("mask", "count",
-    "compact", then per trace chunk "lane_rays", the ladder's "segment"
-    and "split_compact" stages, "trace", "segment_add", and in a split
-    frame "overflow") with what the stage made, so that a profiler or a
-    kernel check reads the path itself instead of repeating it."""
-    key = (width, height, samples, cfg, go_camera)
+    ``hook(stage, **values)`` is called after each stage ("mask", on the
+    first frame of a key "count", then "compact", per trace chunk
+    "lane_rays", the ladder's "segment" and "split_compact" stages,
+    "trace", "segment_add"; after a validated frame "check" with the
+    count and the overflow, and "retry" before a frame is rendered again;
+    in a split frame "overflow") with what the stage made, so that a
+    profiler or a kernel check reads the path itself instead of repeating
+    it."""
+    key = capacity_key(width, height, samples, cfg, go_camera, post,
+                       scene.device)
+    split = 0 if key in _SPLIT_BLACKLIST else pick_split(scene, cfg)
+    deep_caps = pick_deep_caps(scene) if split else "const"
+    n_px = width * height
+    hit_px, pos_px = _pixel_mask(scene, width=width, height=height, cfg=cfg,
+                                 go_camera=go_camera)
+    hook("mask", hit=hit_px, pos=pos_px)
+    k_dev = pos_px[-1] + 1
+
+    def trace_px(sp, k_pad):
+        px_cidx = _compact_pixels(hit_px, pos_px, k_pad)
+        hook("compact", px=px_cidx)
+        return _trace_compacted_pixels(
+            scene, px_cidx, k_dev, width=width, height=height,
+            samples=samples, cfg=cfg, go_camera=go_camera, split=sp,
+            deep_caps=deep_caps, hook=hook)
+
+    k_pad = _KPAD_CACHE.get(key)
+    if k_pad is not None:
+        img, ov_dev = trace_px(split, k_pad)
+        if assume_capacity:
+            _defer_check(key, k_dev, k_pad, ov_dev)
+            return _finish(img, post, as_numpy)
+        k_px, ov = torch.stack([k_dev, ov_dev]).tolist()  # one transfer
+        hook("check", k=k_px, overflow=ov)
+        if split:
+            hook("overflow", overflow=ov)
+        if ov > 0:
+            _SPLIT_BLACKLIST.add(key)
+            split = 0
+        else:
+            want = _capacity(max(k_px, 1), samples, n_px)
+            if k_px <= k_pad <= max(2 * want, _quantum(samples)):
+                _kpad_cache_put(key, want if k_px > 0 else k_pad)
+                return _finish(img, post, as_numpy)
+        hook("retry", k=k_px, k_pad=k_pad, overflow=ov)
+    else:
+        k_px = int(k_dev)  # the first frame's one read: sizes the capacity
+        hook("count", k=k_px)
+    if k_px <= 0:
+        return _finish(_black(scene, width, height), post, as_numpy)
+    k_pad = _capacity(k_px, samples, n_px)
+    _kpad_cache_put(key, k_pad)
+    img, ov_dev = trace_px(split, k_pad)
+    if split:
+        ov = int(ov_dev)  # the ladder's one read, after the trace
+        hook("overflow", overflow=ov)
+        if ov > 0:
+            _SPLIT_BLACKLIST.add(key)
+            img, _ = trace_px(0, k_pad)
+    return _finish(img, post, as_numpy)
+
+
+def pick_chunk_spp(scene, samples: int, cfg: trace_mod.TraceConfig) -> int:
+    """Samples a round of render_wavefront_chunked (:705): 10 for a
+    stream-mode scene, else the whole frame. (The JAX package's
+    RT_CHUNK_SPP is not read: the ``chunk`` argument overrides.)"""
+    if megakernel._kernel_mode(scene) == "stream":
+        return min(samples, 10)
+    return samples
+
+
+def render_wavefront_chunked(scene, *, width: int, height: int,
+                             samples: int, cfg: trace_mod.TraceConfig,
+                             chunk: Optional[int] = None,
+                             go_camera: bool = True, as_numpy: bool = False,
+                             assume_capacity: bool = False, post=None,
+                             hook=_no_hook):
+    """render_wavefront in rounds of at most ``chunk`` samples
+    (``pick_chunk_spp`` by default; chunk >= samples goes through
+    render_wavefront).
+
+    Round r traces the sample ids [r*chunk, r*chunk + c) of every
+    compacted pixel, which are the lanes the one-round frame traces, and
+    adds its per-pixel sums into a sum image on the device (one float add
+    a round boundary). The mask runs once, and one capacity (cached under
+    the key of this chunk size) serves every round. Without
+    ``assume_capacity`` the frame reads its hit count and sizes the
+    capacity, and an overflow of the ladder blacklists the key and
+    renders the frame again unsplit; with it (and a cached capacity) the
+    frame reads nothing and records one deferred flag for
+    ``flush_capacity_checks``. ``hook`` sees the stages of
+    render_wavefront and "round" before each round."""
+    if chunk is None:
+        chunk = pick_chunk_spp(scene, samples, cfg)
+    chunk = max(1, min(chunk, samples))
+    kw = dict(width=width, height=height, samples=samples, cfg=cfg,
+              go_camera=go_camera, as_numpy=as_numpy, post=post, hook=hook)
+    if chunk >= samples:
+        return render_wavefront(scene, assume_capacity=assume_capacity, **kw)
+    key = capacity_key(width, height, samples, cfg, go_camera, post,
+                       scene.device, "chunked", chunk)
     split = 0 if key in _SPLIT_BLACKLIST else pick_split(scene, cfg)
     deep_caps = pick_deep_caps(scene) if split else "const"
     hit_px, pos_px = _pixel_mask(scene, width=width, height=height, cfg=cfg,
                                  go_camera=go_camera)
     hook("mask", hit=hit_px, pos=pos_px)
-    k_px = int(pos_px[-1]) + 1  # the one host read: sizes the trace
-    hook("count", k=k_px)
-    if k_px <= 0:
-        return torch.zeros((height, width, 3), dtype=torch.float32,
-                           device=scene.device)
-    px_cidx = _compact_pixels(hit_px, pos_px, k_px)
+    k_dev = pos_px[-1] + 1
+    k_pad = _KPAD_CACHE.get(key)
+    if k_pad is None or not assume_capacity:
+        k_px = int(k_dev)  # sizes the capacity
+        hook("count", k=k_px)
+        if k_px <= 0:
+            return _finish(_black(scene, width, height), post, as_numpy)
+        k_pad = _capacity(k_px, chunk, width * height)
+        _kpad_cache_put(key, k_pad)
+    px_cidx = _compact_pixels(hit_px, pos_px, k_pad)
     hook("compact", px=px_cidx)
-    trace_px = lambda sp: _trace_compacted_pixels(
-        scene, px_cidx, width=width, height=height, samples=samples,
-        cfg=cfg, go_camera=go_camera, split=sp, deep_caps=deep_caps,
-        hook=hook)
-    img, overflow = trace_px(split)
-    if split:
-        ov = int(overflow)  # the ladder's one host read, after the trace
+    img = None
+    overflow = torch.zeros((), dtype=torch.int64, device=scene.device)
+    for s0 in range(0, samples, chunk):
+        c = min(chunk, samples - s0)
+        hook("round", s0=s0, samples=c)
+        part, ov = _trace_compacted_pixels(
+            scene, px_cidx, k_dev, width=width, height=height, samples=c,
+            cfg=cfg, go_camera=go_camera, split=split, deep_caps=deep_caps,
+            offset=s0, sum_image=True, hook=hook)
+        img = part if img is None else img + part
+        overflow = overflow + ov
+    if assume_capacity:
+        _defer_check(key, k_dev, k_pad, overflow)
+    elif split:
+        ov = int(overflow)
         hook("overflow", overflow=ov)
         if ov > 0:
             _SPLIT_BLACKLIST.add(key)
-            img, _ = trace_px(0)
-    return img
+            return render_wavefront_chunked(scene, chunk=chunk, **kw)
+    return _finish(img / samples, post, as_numpy)
+
+
+# The Renderer's engines (raytrace_tpu/renderer.py:842).
+ENGINES = ("auto", "kernels", "eager")
+
+
+def pick_band_height(width: int, height: int, samples: int,
+                     lane_budget: int = 1 << 21, n_prims: int = 1) -> int:
+    """Rows of a band of the eager engine (:122): the largest band whose
+    lanes stay under the budget, which past 128 primitives also caps the
+    (lanes x primitives) product near 2^28."""
+    if n_prims > 128:
+        lane_budget = min(lane_budget, max(1 << 15, (1 << 28) // n_prims))
+    rows = max(1, lane_budget // max(1, width * samples))
+    return int(min(rows, height))
 
 
 class Renderer:
@@ -403,7 +703,8 @@ class Renderer:
     ``device="cpu"`` is given) through the main path, ``render_wavefront``,
     in the unroll, bvh, stream and loop modes: every scene, those past the
     JAX package's 262,144-primitive cap in stream mode (up to
-    ``megakernel.MAX_STREAM_ROWS``). ``render_adaptive`` runs the adaptive
+    ``megakernel.MAX_STREAM_ROWS``). ``engine`` (``ENGINES``) picks that
+    path or the banded dense one. ``render_adaptive`` runs the adaptive
     sampler over the same kernels, and ``render(..., denoise=True)`` the
     AOV-guided denoiser.
     """
@@ -421,7 +722,15 @@ class Renderer:
         self.seed = 0
         self.go_camera = True
         self.fast_mc = False
+        # "auto" and "kernels": the compacted wavefront (the kernels on the
+        # card, their plain versions on the CPU; "kernels" raises where
+        # megakernel.scene_fits_kernel refuses the scene); "eager": the
+        # banded dense path, render_band (the JAX package's "auto" |
+        # "pallas" | "jnp")
+        self.engine = "auto"
         self.benchmark_data = BenchmarkData()
+        self.progress_callback = None  # fn(done_rows, total_rows)
+        self.metrics = None  # an obs.MetricsCollector, or None
 
     # -- settings (the reference's settings.go) ---------------------------
     def set_samples(self, n):
@@ -464,17 +773,69 @@ class Renderer:
             throughput_epsilon=1e-4 if self.fast_mc else 0.0,
         )
 
-    def render_linear_device(self, scene, width: int,
-                             height: int) -> torch.Tensor:
-        """(H,W,3) mean linear radiance as a tensor on the device."""
-        cfg = self.trace_config()
-        return render_wavefront(scene.to(self.device), width=width,
-                                height=height, samples=self.samples,
-                                cfg=cfg, go_camera=self.go_camera)
+    def _engine(self, scene) -> str:
+        """"kernels" (the compacted wavefront) or "eager" (the bands)."""
+        if self.engine not in ENGINES:
+            raise ValueError(f"engine {self.engine!r} is not one of "
+                             f"{ENGINES}")
+        if self.engine == "kernels" and not megakernel.scene_fits_kernel(
+                scene):
+            raise ValueError(
+                f"engine 'kernels': the scene's {scene.prim_count} "
+                "primitives fit no kernel mode of the JAX package "
+                "(megakernel.scene_fits_kernel); use engine 'auto', which "
+                "renders it in stream mode, or 'eager'")
+        return "eager" if self.engine == "eager" else "kernels"
 
-    def render_linear(self, scene, width: int, height: int) -> np.ndarray:
+    def render_linear_device(self, scene, width: int, height: int,
+                             band_h: Optional[int] = None) -> torch.Tensor:
+        """(H,W,3) mean linear radiance as a tensor on the device, by the
+        Renderer's engine: the compacted wavefront (``render_wavefront``
+        at the validated capacity) in one piece, or the dense path in row
+        bands of ``band_h`` rows (``pick_band_height`` by default; a
+        ragged last band renders at full height and keeps its new rows,
+        as raytrace_tpu/renderer.py:947-955 does). ``progress_callback``
+        is called after each band (once, with (H, H), on the wavefront),
+        and ``metrics`` records the pixels and the camera rays."""
+        scene = scene.to(self.device)
+        cfg = self.trace_config()
+        engine = self._engine(scene)
+        m = self.metrics
+        if m is not None:
+            m.start(total_pixels=width * height)
+        if engine == "kernels":
+            out = render_wavefront(scene, width=width, height=height,
+                                   samples=self.samples, cfg=cfg,
+                                   go_camera=self.go_camera)
+            bands = [(0, height)]
+        else:
+            bh = band_h or pick_band_height(width, height, self.samples,
+                                            n_prims=scene.prim_count)
+            bh = min(bh, height)
+            out = torch.empty((height, width, 3), dtype=torch.float32,
+                              device=scene.device)
+            bands = []
+            for y0 in range(0, height, bh):
+                top = min(y0, height - bh)
+                out[top:top + bh] = render_band(
+                    scene, top, width=width, height=height, band_h=bh,
+                    samples=self.samples, cfg=cfg, go_camera=self.go_camera)
+                bands.append((y0, min(bh, height - y0)))
+        for y0, rows in bands:
+            if self.progress_callback is not None:
+                self.progress_callback(y0 + rows, height)
+            if m is not None:
+                m.record_pixels(rows * width)
+                m.record_rays(rows * width * self.samples)
+        if m is not None:
+            m.record_job_complete()
+        return out
+
+    def render_linear(self, scene, width: int, height: int,
+                      band_h: Optional[int] = None) -> np.ndarray:
         """(H,W,3) float32 numpy mean linear radiance."""
-        return self.render_linear_device(scene, width, height).cpu().numpy()
+        return self.render_linear_device(scene, width, height,
+                                         band_h).cpu().numpy()
 
     def render(self, scene, width: int, height: int,
                scene_config=None, denoise: bool = False) -> np.ndarray:

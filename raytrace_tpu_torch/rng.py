@@ -82,9 +82,12 @@ def uniform4(pix_id, samp_id, stream, seed):
     """
     pix = pix_id.to(torch.int64)
     samp = samp_id.to(torch.int64)
-    s = torch.as_tensor(stream, dtype=torch.int64, device=pix.device)
-    sd = torch.as_tensor(seed, dtype=torch.int64, device=pix.device)
-    x, y, z, w = pcg4d(pix, samp, s.expand_as(pix), sd.expand_as(pix))
+    # a Python int fills on the device (a host tensor would be a copy,
+    # which syncs)
+    wide = lambda v: (v.to(torch.int64).expand_as(pix)
+                      if isinstance(v, torch.Tensor)
+                      else torch.full_like(pix, v))
+    x, y, z, w = pcg4d(pix, samp, wide(stream), wide(seed))
     return (_to_unit_float(x), _to_unit_float(y), _to_unit_float(z),
             _to_unit_float(w))
 

@@ -212,6 +212,10 @@ def capture(scene, cfg, samples, go_camera=True):
         elif stage == "segment":
             segs.append(values)
 
+    # the first frame of its key: one pass (a frame at the capacity of
+    # another scene may be rendered twice)
+    rmod._KPAD_CACHE.pop(rmod.capacity_key(W, H, samples, cfg, go_camera,
+                                           None, scene.device), None)
     rmod.render_wavefront(scene, width=W, height=H, samples=samples,
                           cfg=cfg, go_camera=go_camera, hook=hook)
     return chunks, segs

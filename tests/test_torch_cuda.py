@@ -38,7 +38,11 @@ launch's radiance under the image gate. A scene past the JAX package's
 262,144-primitive cap renders through K6-stream and K5. The
 differentiable path (no kernel: autograd through the eager engine) gives
 on the card the CPU's image within 1e-5 and its gradients within rtol
-1e-4, atol 1e-6, and its keep_accel form equals brute force.
+1e-4, atol 1e-6, and its keep_accel form equals brute force. The fused
+frame of render_wavefront (assume_capacity, at a cached capacity) makes
+no host sync and equals the first frame of its key at error 0 in every
+kernel mode; a stale capacity is caught; the chunked frame is within the
+goldens gate of the one-round frame.
 """
 
 import copy
@@ -1249,3 +1253,85 @@ def test_diff_keep_accel_equals_brute_on_card(cuda):
     for grp in ("materials", "lights"):
         for f, v in g_a[grp].items():
             torch.testing.assert_close(v, g_b[grp][f], rtol=1e-3, atol=1e-6)
+
+
+def capacity_scene(mode, device, monkeypatch):
+    """A scene of each kernel mode for the capacity path's card tests."""
+    if mode == "unroll":
+        return scene_on(SCENES[0], device)
+    if mode == "bvh":
+        return tscene.from_dict(bvh_scene_dict("ring100"), device=device)[0]
+    if mode == "loop":
+        return tscene.from_dict(icosphere_dict(), device=device,
+                                build_accel=False)[0]
+    return forced_stream(bvh_scene_dict("mixed"), device, monkeypatch)
+
+
+def first_of_key(scene, **kw):
+    """render_wavefront as the first frame of its key (one read of the
+    hit count sizes the capacity)."""
+    trender._KPAD_CACHE.pop(trender.capacity_key(
+        kw["width"], kw["height"], kw["samples"], kw["cfg"], True, None,
+        scene.device), None)
+    return trender.render_wavefront(scene, **kw)
+
+
+@pytest.mark.parametrize("mode", ["unroll", "bvh", "loop", "stream"])
+def test_fused_frame_equals_first_frame_without_a_sync(cuda, mode,
+                                                       monkeypatch):
+    """At a cached capacity the fused frame (assume_capacity) makes no host
+    sync (torch.cuda.set_sync_debug_mode("error")), launches the mode's
+    mask and trace kernels and equals the first frame of its key at error
+    0; depth 12 takes the stream scene through the split ladder."""
+    s = capacity_scene(mode, cuda, monkeypatch)
+    cfg = ttrace.TraceConfig(max_depth=12, shadow_samples=4)
+    kw = dict(width=48, height=36, samples=2, cfg=cfg)
+    ref = first_of_key(s, **kw)
+    tmk.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img = trender.render_wavefront(s, assume_capacity=True, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert trender.flush_capacity_checks() == 1
+    assert torch.equal(img, ref)
+    assert tmk.LAUNCHES[tmk.MASKS[mode]] == 1
+    assert tmk.LAUNCHES[tmk.KERNELS[mode]] >= 1
+    if mode == "stream":
+        assert tmk.LAUNCHES["trace_state"] >= 2
+
+
+def test_stale_capacity_is_caught_on_card(cuda):
+    """ring-100 (every pixel hit) at the capacity the bench scene left
+    under its key: flush_capacity_checks raises and drops the key, and the
+    validating frame renders again equal to ring-100's first frame."""
+    small, big = scene_on(SCENES[0], cuda), tscene.from_dict(
+        bvh_scene_dict("ring100"), device=cuda)[0]
+    cfg = ttrace.TraceConfig(max_depth=8, shadow_samples=4)
+    kw = dict(width=64, height=48, samples=2, cfg=cfg)
+    key = trender.capacity_key(64, 48, 2, cfg, True, None, big.device)
+    first_of_key(small, **kw)
+    k_small = trender._KPAD_CACHE[key]
+    want = first_of_key(big, **kw)
+    trender._KPAD_CACHE[key] = k_small
+    trender.render_wavefront(big, assume_capacity=True, **kw)
+    with pytest.raises(RuntimeError, match="dropped pixels"):
+        trender.flush_capacity_checks()
+    assert key not in trender._KPAD_CACHE
+    trender._KPAD_CACHE[key] = k_small
+    assert torch.equal(trender.render_wavefront(big, **kw), want)
+
+
+def test_chunked_frame_within_gate_on_card(cuda, monkeypatch):
+    """render_wavefront_chunked on the stream scene (the split ladder at
+    depth 12) in rounds of 3 samples: within the goldens gate of the
+    one-round frame, one mask launch."""
+    s = capacity_scene("stream", cuda, monkeypatch)
+    cfg = ttrace.TraceConfig(max_depth=12, shadow_samples=4)
+    kw = dict(width=48, height=36, samples=8, cfg=cfg)
+    whole = first_of_key(s, **kw)
+    tmk.reset_launches()
+    img = trender.render_wavefront_chunked(s, chunk=3, **kw)
+    assert tmk.LAUNCHES["pixel_mask_stream"] == 1
+    gate(img, whole)

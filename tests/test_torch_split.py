@@ -177,7 +177,7 @@ def test_trace_with_split_matches_unsplit(stream_scene, deep_caps):
 def test_overflow_redoes_the_frame_unsplit(stream_scene, monkeypatch):
     cfg = ttrace.TraceConfig(max_depth=12, shadow_samples=2)
     kw = dict(width=12, height=8, samples=2, cfg=cfg)
-    key = (12, 8, 2, cfg, True)
+    key = trender.capacity_key(12, 8, 2, cfg, True, None, "cpu")
     seen = []
     hook = lambda stage, **v: seen.append(v["overflow"]) if (
         stage == "overflow") else None
