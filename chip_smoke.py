@@ -43,7 +43,8 @@ Phases, in order (each prints a line before and after, with its seconds):
                     and the walk reading it in place (the budget lowered)
                     must give the same mask
   k3_check          K3+K4 (bounce megakernel, bvh mode) against its plain
-                    version on the lanes of a 64x48 frame, 4 spp, depth 50,
+                    version on the lanes of a 64x48 frame, 4 spp, depth 12
+                    (CHECK_DEPTH),
                     ring-1000 and the mixed scene: equal bit for bit; here
                     and in every phase below that runs K3+K4 (k3wide_check,
                     k1ext_check, bounds_check, kstate_check, fast_mc) the
@@ -52,8 +53,8 @@ Phases, in order (each prints a line before and after, with its seconds):
                     for bit, and the same launch reading its walk table in
                     place, radiance and work counters
   k3wide_check      K3-wide (the 4-wide stack walk of K3+K4 and K5) on the
-                    lanes of a 64x48 frame, 4 spp, depth 12
-                    (CHECK_DEPTH): K3+K4 on the
+                    lanes of a 32x24 frame (64x48 on the twin scene), 4
+                    spp, depth 12 (CHECK_DEPTH): K3+K4 on the
                     4-wide walk and on the binary walk (the same scene
                     without its 4-wide view), each against its plain
                     version (max lane error 0 or the image gate), on
@@ -62,7 +63,8 @@ Phases, in order (each prints a line before and after, with its seconds):
                     on the twin scene, whose exact ties must split them
   k3walk_check      K3+K4's walk table: ico-2561 (two smooth icospheres
                     of 1,280 triangles over a plane, a 135 KB table) on
-                    a strided subset of the lanes of a 64x48, 4 spp frame;
+                    a strided subset of the lanes of a 64x48, 4 spp frame
+                    at depth 12 (CHECK_DEPTH);
                     the mixed scene with the budget lowered
                     (megakernel.BVH_SMEM_BYTES) so the table is read in
                     place; 1,001 lanes (not a multiple of 32); a segment
@@ -70,7 +72,7 @@ Phases, in order (each prints a line before and after, with its seconds):
                     plain version bit for bit and to the launch reading the
                     table in place (work counters too)
   render_check_bvh  the main path (K6, compaction, K3+K4) against the
-                    dense plain path at 160x120, 4 spp, depth 50 on
+                    dense plain path at 160x120, 4 spp, depth 12 on
                     ring-1000, under the image gate
   k7_check          K7 (loop mode: brute force without a BVH, persistent
                     blocks, K1-guard in chunks of 96 occluders) on the
@@ -85,14 +87,16 @@ Phases, in order (each prints a line before and after, with its seconds):
                     bounds; then on the twin scene's 96 spheres (exact
                     ties) K7 (the unroll limit lowered) equal to K1,
                     radiance and all eight work counters
-  k1ext_check       the extended body (K1-ext) on the same lanes: K1 on
+  k1ext_check       the extended body (K1-ext) on the lanes of a 64x48
+                    frame, 4 spp, depth 12 (CHECK_DEPTH): K1 on
                     textured_mirror_demo and the extended_textured golden
                     scene, K3+K4 on smooth_shading_demo; image gate, with
                     the max lane error printed
   bounds_check      max_depth 100, 20 lights and 80 soft-shadow samples on
                     K1, K3+K4, K7 and K5 (grid-5833, where K5 must also
-                    equal K3+K4 on the same tree, work counters too) (a
-                    few hundred lanes each) against the plain version bit
+                    equal K3+K4 on the same tree, work counters too) (the
+                    60 lanes of a 6x5, 2 spp frame each) against the
+                    plain version bit
                     for bit (K1 and K7 also against themselves unguarded)
   k6s_check         K6-stream (pixel mask, node-only walk, stream mode)
                     against its plain version at 800x600 on grid-5833 and
@@ -120,7 +124,7 @@ Phases, in order (each prints a line before and after, with its seconds):
                     (max lane errors printed)
   render_check_stream  the stream main path (K6-stream, compaction, the
                     split ladder of K5 launches with K1-state) on
-                    grid-5833 at 160x120, 4 spp, depth 12, against the
+                    grid-5833 at 80x60, 4 spp, depth 12, against the
                     dense plain path and against the same path unsplit,
                     under the image gate; then one frame with the first
                     capacity forced below the survivors, which must report
@@ -156,10 +160,12 @@ Phases, in order (each prints a line before and after, with its seconds):
                     the dense plain path under the image gate (depth 12)
   fast_mc           K1, K3+K4 and K7 with fast_mc (roulette from bounce 8,
                     the Renderer's, and from bounce 2; cutoff 1e-4) equal
-                    to their plain version on the lanes of a 64x48 frame,
-                    every segment of grid-5833's split ladder (K5) too,
+                    to their plain version on the lanes of a 64x48 frame
+                    at depth 12, every segment of grid-5833's split ladder
+                    (K5, depth 50) too,
                     with the lanes the roulette changed printed; the
-                    fast_mc main path against the dense plain path
+                    fast_mc main path against the dense plain path at
+                    80x60, 4 spp
   bench             Renderer().render of the bench workload (800x600,
                     100 spp, depth 50, 16 soft-shadow rays, seed 0): one
                     warm-up, then 3 timed frames; launch counts are reset
@@ -188,7 +194,7 @@ Phases, in order (each prints a line before and after, with its seconds):
   bench_fast_mc*    the bench scene and ring-1000 with the Renderer's
                     fast_mc; then the frame's own trace launches (K1,
                     K3+K4) against the plain version on a strided subset
-                    of about 20k of their lanes, error 0, and against the
+                    of about 2k of their lanes, error 0, and against the
                     same launches without the roulette, which must change
                     some lanes
   capacity          the speculative capacity path of render_wavefront at
@@ -228,7 +234,7 @@ Phases, in order (each prints a line before and after, with its seconds):
                     other, whose 48M lanes the plain path cannot trace
                     within the watchdog, the frame's own K1 launches
                     against the plain guarded version on a strided subset
-                    of about 20k of their lanes (error 0 or the image
+                    of about 2k of their lanes (error 0 or the image
                     gate)
   adaptive          Renderer().render_adaptive (device accumulation) at
                     800x600, cap 100, depth 50, 16 soft-shadow rays,
@@ -237,7 +243,8 @@ Phases, in order (each prints a line before and after, with its seconds):
                     through the full-capacity split ladder; were its deep
                     caps not "const", the ladder would run on the mixed
                     scene forced into stream mode): one warm-up, then 3
-                    timed frames (1 on grid-5833), launch counts reset
+                    timed frames (1 on grid-5833, without a warm-up: its
+                    kernels ran in earlier phases), launch counts reset
                     just before the first and read just after; frame ms,
                     mean spp, samples taken/s; then one frame through the
                     stage hook (the same spp map): its stages, each ended
@@ -247,7 +254,7 @@ Phases, in order (each prints a line before and after, with its seconds):
                     ladder level within its capacity (overflow 0), and the
                     trace launches of the second batch (s0 8) against the
                     plain version at error 0: the radiance on a strided
-                    subset of about 20k lanes (5k on ring-1000, whose
+                    subset of about 2k lanes (1k on ring-1000, whose
                     unconverged lanes are the costliest), each ladder
                     segment's radiance and state on about K5_SUBSET of its
                     lanes; then on the bench scene rel_tol = abs_tol = 0,
@@ -281,8 +288,8 @@ Phases, in order (each prints a line before and after, with its seconds):
                     JAX package's four rows): 64x48, 2 spp, depth 3 on
                     grid-1001 (brute force, keep_accel) and ico-10241
                     (keep_accel, brute force): forward and
-                    forward+backward ms (1 warm-up, median of 3; 1 timed
-                    run past 5 s), the call's own peak device memory,
+                    forward+backward ms (1 warm-up, 1 timed run), the
+                    call's own peak device memory,
                     bounces run and rerun, every leaf finite, the
                     light-intensity gradient against a central
                     difference (eps 0.1, rtol 2e-2); grid-1001's
@@ -291,11 +298,49 @@ Phases, in order (each prints a line before and after, with its seconds):
                     1e-3, atol 1e-6
   diff_inverse      inverse rendering (tools/inverse_rendering.py): the
                     light's intensity tripled and recovered within 10%
-                    by 200 Adam steps at 16x16, 2 spp, depth 3; ms a step
-                    and the loss at steps 0, 25 and 199
+                    by INVERSE_STEPS (160) Adam steps at 16x16, 2 spp,
+                    depth 3; ms a step and the loss at steps 0, 25 and the
+                    last
+  multigpu_mask     the masks of a row band (a px shard's rows): K2, K2-dof
+                    (L=0.1, F=10) on the bench scene, K6 on ring-1000 and
+                    K6-stream on grid-5833, each on a 3-band split of
+                    800x600 (MASK_BANDS), one launch a band, equal to its
+                    plain band and to the full mask's rows at error 0;
+                    device ms of the full mask and of each band
+  multigpu_wavefront  parallel.render_wavefront_sharded at 800x600, 100
+                    spp, depth 50, 16 soft rays on meshes of px = 1, 2 and
+                    4 coordinates over cuda:0 (the same card backs every
+                    coordinate) on the bench scene (K2 + K1, the default
+                    capacity), ring-1000 (K6 + K3+K4) and the loop frame
+                    (K2 + K7), their capacity every pixel of a band;
+                    grid-5833 (K6-stream + the K5 ladder) at 8 spp, px 4:
+                    each frame's overflow 0, every shard's kernels
+                    launched (counts reset before the frame, read after),
+                    the goldens gate and the max error against
+                    render_wavefront in this call, and ms a frame beside
+                    render_wavefront's (the cost of sharding on one
+                    card); then px_capacity=1 on the bench scene must
+                    report overflow
+  multigpu_adaptive render_adaptive over a px=2 mesh on cuda:0, bench
+                    scene, 800x600, cap 100, host and device accumulation:
+                    the spp map equal to the unsharded run's, the image
+                    within the gate
+  multigpu_train    one SGD step of diff.make_train_step over a (2, 2)
+                    mesh on cuda:0 (64x48, 2 spp, depth 3): loss and
+                    updated parameters within 1e-5 of the unsharded step
+  multigpu_clusters a 1-rank NCCL group and a 2-rank gloo group sharing
+                    cuda:0, started together, each rank a process of
+                    tools/dist_worker.py with its own timeout: heartbeat
+                    all ones, NodeStatus, DistributedRenderer.render_linear
+                    at 64x48, 4 spp, depth 5 against the same render in
+                    this process, the sharded train step, and
+                    render_wavefront_sharded on the bench scene at the
+                    bench settings gathered on every rank (overflow 0,
+                    the image gate against render_wavefront); any rank's
+                    failure fails the run; the groups' wall time
   kernels           K1 and K3+K4 against their plain versions on the bench
                     frames' own lanes (all of them for K1, a strided subset
-                    of about 20k for K3+K4, whose main-path launches must
+                    of about 2k for K3+K4, whose main-path launches must
                     give the same lanes); K3+K4 at ring-1000, smooth and
                     ico-2561 with soft shadows, hard only and without
                     lights (the split of its walks), with its registers,
@@ -306,15 +351,17 @@ Phases, in order (each prints a line before and after, with its seconds):
                     frame's kernel time) beside its plain version's and
                     its bound for the same work; then K7 and K1-ext (and
                     K3+K4 with vertex normals) the same way at the three
-                    new bench frames, on a strided subset of about 20k of
-                    their lanes (2.5k on the smooth frame) for the plain
+                    new bench frames, on a strided subset of about 2k of
+                    their lanes (250 on the smooth and ico-2561 frames) for
+                    the plain
                     version, and K7 also unguarded (time and the bound of
                     the unguarded work); then K6-stream, K5
                     and K1-state at the grid-5833 frame: K5's time per
                     launch over the frame's own ladder segments (inputs
-                    read through the stage hook; each segment equal to
-                    K3+K4 on the same tree, work counters too, on a subset
-                    of its lanes), the ladder's summed segment times
+                    read through the stage hook; each level's first
+                    segment equal to K3+K4 on the same tree, work counters
+                    too, on a subset of its lanes), the ladder's summed
+                    segment times
                     beside one unsplit launch per chunk over the same
                     lanes, and the plain version on a
                     strided subset of about K5_SUBSET lanes, and
@@ -346,7 +393,11 @@ Phases, in order (each prints a line before and after, with its seconds):
                     P1's main path); registers, stack and spills of every
                     kernel from the build; each row the kernel walks on
                     the adaptive path also carries its launches in that
-                    path's first timed frame (adaptive_launches)
+                    path's first timed frame (adaptive_launches), and in
+                    the multigpu group's sharded frames
+                    (multigpu_launches); K2, K2-dof, K6 and K6-stream
+                    carry the banded masks' device ms (band_ms, beside
+                    band_full_ms)
 
 The image gate is the goldens gate of tests/test_goldens.py: at most 0.1%
 of pixels off by more than 1e-3 and a mean absolute error below 1e-4.
@@ -374,6 +425,7 @@ the script exits non-zero at once.
 """
 
 import contextlib
+import dataclasses
 import faulthandler
 import json
 import os
@@ -394,26 +446,28 @@ MASK_SCENES = BVH_SCENES + ("ring1000-noground", "mixed-noground")
 LOOP_LDG_RING = 2500  # ring spheres: 51 KB of K7 tables, past 48 KB
 PAST_CAP_SIDE = 65    # a grid of 65^3 spheres: past the 262,144 cap
 PLAIN_CHUNK = 2048    # lanes per call of the plain brute-force engine
-K3_SUBSET = 20000   # lanes of the bench frame checked against the plain
+K3_SUBSET = 2000    # lanes of the bench frame checked against the plain
 # The plain versions run on the host's clock, which varies by 1.5x between
 # machines; these subsets keep the script well inside its watchdog.
-K5_SUBSET = 2000    # lanes of a stream frame checked against the plain
+K5_SUBSET = 200     # lanes of a stream frame checked against the plain
 PARTIAL_LANES = 500   # about this many for K5 on partial warps
-SMOOTH_SUBSET = 2500  # the same for the smooth frame, whose plain version
+SMOOTH_SUBSET = 250  # the same for the smooth frame, whose plain version
                       # tests some 50 triangles a soft-shadow ray
-STATE_SUBSET = 500    # lanes of a stream frame for K1-state's plain time
+STATE_SUBSET = 50     # lanes of a stream frame for K1-state's plain time
 SLOW_FRAME_S = 30.0
 # Depth of the checks whose point is not the depth (the 4-wide walk order,
-# K5 against K3+K4 on one tree, K1-state's split, the stream and DoF main
-# paths against the dense plain path): bounds_check holds every trace
+# K5 against K3+K4 on one tree, K1-state's split, the extended body, the
+# walk table's layouts, the stream and DoF main paths against the dense
+# plain path): bounds_check holds every trace
 # kernel at depth 100 and the kernels phase at the bench depth, so these
 # run at depth 12 (the least at which the stream main path splits) to keep
 # the script inside its watchdog.
 CHECK_DEPTH = 12
 # Lanes of an adaptive batch held against the plain version on ring-1000:
 # a batch past the first holds only the unconverged pixels, the frame's
-# costliest lanes (K3_SUBSET of them take the host some 50 s).
-ADAPTIVE_RING_SUBSET = 5000
+# costliest lanes (20,000 of them took the card's plain version some 50
+# s).
+ADAPTIVE_RING_SUBSET = 1000
 CARD = "card not read"  # nvidia-smi's name and power limit, read in env
 FRAME_MS = {}  # bench(): the median frame ms of each bench phase
 # torch.cuda.set_sync_debug_mode of the capacity phase's fused frames:
@@ -452,6 +506,9 @@ GUARD_SCENES = ("bench", "textured_mirror_demo", "cubes_dielectric_plane",
 # focused near (the case where the JAX kernel's leaf slack falls short).
 DOF_LENSES = ((0.1, 10.0), (0.25, 5.0))
 DOF_DENSE = 256       # lens samples a pixel of the conservativeness check
+# Steps of the inverse-rendering phase: the tool's 200 recover the
+# intensity to 0.2%, 160 to about 2% (the gate is 10%).
+INVERSE_STEPS = 160
 
 
 class Phase:
@@ -1186,10 +1243,10 @@ def main():
     with Phase("k3_check"):
         for name in BVH_SCENES:
             s = bvh_scenes[name]
-            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
-            got = mk.trace(s, o, d, pix, samp, cfg)
-            want = trace_mod.trace(s, o, d, pix, samp, cfg)
-            if not torch.equal(got, k3_both(mk, s, (o, d, pix, samp), cfg,
+            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, ccfg)
+            got = mk.trace(s, o, d, pix, samp, ccfg)
+            want = trace_mod.trace(s, o, d, pix, samp, ccfg)
+            if not torch.equal(got, k3_both(mk, s, (o, d, pix, samp), ccfg,
                                             want)):
                 raise AssertionError(f"{name}: the main path's K3+K4 launch "
                                      "differs from k3_both's")
@@ -1200,9 +1257,12 @@ def main():
 
     with Phase("k3wide_check"):
         twins = twin_scene(dev)
-        for name, s in (("ring1000", bvh_scenes["ring1000"]),
-                        ("mixed", bvh_scenes["mixed"]), ("twins", twins)):
-            err, differ = wide_check(mk, trace_mod, s, ccfg, name)
+        # the twin scene's ties need the 64x48 frame's lanes; the others
+        # a 32x24 frame's
+        for name, s, w, h in (("ring1000", bvh_scenes["ring1000"], 32, 24),
+                              ("mixed", bvh_scenes["mixed"], 32, 24),
+                              ("twins", twins, 64, 48)):
+            err, differ = wide_check(mk, trace_mod, s, ccfg, name, w, h)
             record.setdefault("k3wide_err", []).append(err)
             if name == "twins" and differ < 5:
                 raise AssertionError("the twin scene's ties must split the "
@@ -1210,7 +1270,8 @@ def main():
 
     with Phase("render_check_bvh"):
         ring = bvh_scenes[BVH_SCENES[0]]
-        rcfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT)
+        rcfg = trace_mod.TraceConfig(max_depth=CHECK_DEPTH,
+                                     shadow_samples=SOFT)
         main_img = rmod.render_wavefront(ring, width=160, height=120,
                                          samples=4, cfg=rcfg)
         ref_img = rmod.render_band(ring, 0, width=160, height=120,
@@ -1242,14 +1303,14 @@ def main():
                ("smooth_shading_demo", asset_scene("smooth_shading_demo",
                                                    dev), False, "trace_bvh"))
         for name, s, go, kernel in ext:
-            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg, go_camera=go)
+            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, ccfg, go_camera=go)
             mk.reset_launches()
-            got = mk.trace(s, o, d, pix, samp, cfg)
+            got = mk.trace(s, o, d, pix, samp, ccfg)
             if mk.LAUNCHES[kernel] != 1:
                 raise AssertionError(f"{name}: {kernel} was not launched")
-            want = trace_mod.trace(s, o, d, pix, samp, cfg)
+            want = trace_mod.trace(s, o, d, pix, samp, ccfg)
             if kernel == "trace_bvh" and not torch.equal(
-                    got, k3_both(mk, s, (o, d, pix, samp), cfg, want)):
+                    got, k3_both(mk, s, (o, d, pix, samp), ccfg, want)):
                 raise AssertionError(f"{name}: the main path's K3+K4 launch "
                                      "differs from k3_both's")
             err = float((got - want).abs().max())
@@ -1266,7 +1327,7 @@ def main():
 
     with Phase("k3walk_check"):
         k3walk_check(mk, trace_mod, {"ico2561": ico2561,
-                                     "mixed": bvh_scenes["mixed"]}, cfg,
+                                     "mixed": bvh_scenes["mixed"]}, ccfg,
                      record)
 
     with Phase("bounds_check"):
@@ -1277,9 +1338,9 @@ def main():
                         ("loop", loop_scenes["icosphere"]),
                         ("stream", stream_scenes["grid5833"])):
             s = with_lights(s, 20)
-            # the stream scene's plain version is slow at these bounds
-            w, h = (6, 5) if name == "stream" else (12, 9)
-            px, o, d, pix, samp = lanes_of(s, w, h, 2, bcfg)
+            # the plain version is slow at these bounds: 60 lanes
+            t0 = time.perf_counter()
+            px, o, d, pix, samp = lanes_of(s, 6, 5, 2, bcfg)
             lanes = (o, d, pix, samp)
             want = trace_mod.trace(s, *lanes, bcfg)
             if name == "stream":
@@ -1290,7 +1351,8 @@ def main():
                 got = brute_both(mk, s, lanes, bcfg, want)[0]
             err = float((got - want).abs().max())
             print(f"   {name}: depth 100, 20 lights, 80 soft rays, "
-                  f"{o.shape[0]} lanes, max lane error {err:.3e}", flush=True)
+                  f"{o.shape[0]} lanes, max lane error {err:.3e} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     with Phase("k6s_check"):
         for name, s in stream_scenes.items():
@@ -1415,7 +1477,8 @@ def main():
               "counters too)", flush=True)
 
     with Phase("render_check_stream"):
-        render_check_stream(mk, rmod, trace_mod, stream_scenes["grid5833"])
+        render_check_stream(mk, rmod, trace_mod, stream_scenes["grid5833"],
+                            80, 60)
 
     with Phase("past_cap"):
         past_cap_check(mk, rmod, trace_mod, dev, record)
@@ -1506,10 +1569,13 @@ def main():
                                                      dev), "trace_unroll"),
                 ("ring1000", bvh_scenes["ring1000"], "trace_bvh"),
                 ("icosphere", loop_scenes["icosphere"], "trace_loop")):
-            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, cfg)
-            full = mk.trace(s, o, d, pix, samp, cfg)
-            cut = mk.trace(s, o, d, pix, samp, without_roulette(fcfg))
-            for c in fcfgs:
+            px, o, d, pix, samp = lanes_of(s, 64, 48, 4, ccfg)
+            full = mk.trace(s, o, d, pix, samp, ccfg)
+            lane_cfgs = [dataclasses.replace(c, max_depth=CHECK_DEPTH)
+                         for c in fcfgs]
+            cut = mk.trace(s, o, d, pix, samp,
+                           without_roulette(lane_cfgs[0]))
+            for c in lane_cfgs:
                 mk.reset_launches()
                 got = mk.trace(s, o, d, pix, samp, c)
                 if mk.LAUNCHES[kernel] != 1:
@@ -1538,11 +1604,11 @@ def main():
                 f"roulette from bounce {c.russian_roulette_start})"))
         for name, s in (("bench", scenes[SCENES[0]]),
                         ("ring1000", bvh_scenes["ring1000"])):
-            img = rmod.render_wavefront(s, width=160, height=120, samples=4,
+            img = rmod.render_wavefront(s, width=80, height=60, samples=4,
                                         cfg=fcfg)
-            ref = rmod.render_band(s, 0, width=160, height=120, band_h=120,
+            ref = rmod.render_band(s, 0, width=80, height=60, band_h=60,
                                    samples=4, cfg=fcfg)
-            image_gate(img, ref, f"fast_mc main path on {name} (160x120, "
+            image_gate(img, ref, f"fast_mc main path on {name} (80x60, "
                        "4 spp) vs dense plain path")
 
     with Phase("bench"):
@@ -1677,7 +1743,7 @@ def main():
         for key, s, kernels_used, n, sub in cases:
             adaptive[key] = adaptive_frame(mk, rmod, s, f"adaptive {key}",
                                            kernels_used, frames=n,
-                                           subset=sub)
+                                           subset=sub, warm_up=n > 1)
         if ad._split_spec(grid, cfg_r):
             if adaptive["grid5833"]["launches"]["trace_state"] < 1:
                 raise AssertionError("the adaptive grid frame ran no ladder")
@@ -1724,6 +1790,10 @@ def main():
     with Phase("diff_inverse"):
         diff_inverse(dev)
 
+    multigpu_launches = multigpu_group(mk, rmod, {
+        "bench": scenes[SCENES[0]], "ring1000": bvh_scenes[BVH_SCENES[0]],
+        "loop": loop_scenes["icosphere"], "grid5833": grid}, dev, record)
+
     with Phase("kernels"):
         kernels = kernel_rows(mk, trace_mod, scenes[SCENES[0]],
                               bvh_scenes[BVH_SCENES[0]], cfg, launches,
@@ -1766,6 +1836,25 @@ def main():
             if frame:
                 row["adaptive_frame"] = frame
                 row["adaptive_launches"] = adaptive[frame]["launches"][key]
+        # the launches of the multigpu group's sharded frames (px 1, 2 and
+        # 4 on bench, ring-1000 and the loop frame; px 4 on grid-5833), and
+        # the banded masks' device ms
+        on_multigpu = {"K1": "trace_unroll", "K1-guard": "trace_guard",
+                       "K2": "pixel_mask", "K3": "trace_bvh",
+                       "K4": "trace_bvh", "K3-wide": "trace_wide",
+                       "K6": "pixel_mask_bvh", "K7": "trace_loop",
+                       "K5": "trace_stream",
+                       "K6-stream": "pixel_mask_stream",
+                       "K1-state": "trace_state"}
+        bands = record["multigpu"]["band"]
+        for row in kernels:
+            name = row["name"].split()[0]
+            if name in on_multigpu:
+                row["multigpu_launches"] = multigpu_launches.get(
+                    on_multigpu[name], 0)
+            if name in bands:
+                row["band_full_ms"] = bands[name]["full_ms"]
+                row["band_ms"] = bands[name]["band_ms"]
         obj_dir.cleanup()
         regs = _build.kernel_resources(res.ptxas)
         entry = {"K1": "rt_trace_unroll_kernel", "K2": "rt_pixel_mask_kernel",
@@ -1810,6 +1899,339 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# ------------------------------------------------------------ multigpu ----
+# The multi-GPU slice on one card: a mesh coordinate is a logical shard, so
+# meshes of px coordinates over cuda:0 run the sharded code for real; the
+# clusters are a 1-rank NCCL group and a 2-rank gloo group sharing the card
+# (NCCL puts no two ranks on one device). No scaling figure comes from one
+# card.
+MULTIGPU_PX = (1, 2, 4)
+# The rows [row0, row0 + rows) of the banded masks' 3-band split of the
+# bench frame: bands that do not start on a tile row.
+MASK_BANDS = ((0, 201), (201, 201), (402, 198))
+CLUSTER_TIMEOUT = 150  # seconds of each cluster's processes
+# The clusters' render_linear: 64x48, 4 spp, depth 5 (2 soft rays, the
+# worker's); their sharded wavefront: the bench settings.
+CLUSTER_SIZE, CLUSTER_SPP, CLUSTER_DEPTH = (64, 48), 4, 5
+
+
+def band_mask_check(mk, scene, cfg, what, go_camera=True):
+    """The mask of each band of MASK_BANDS (the kernel, one launch a band)
+    against its plain band and the full mask's rows at error 0; ms on the
+    device of the full mask and of the three bands (the kernel alone, as
+    mask_numbers times it). Returns a dict of the numbers."""
+    import torch
+    from raytrace_tpu_torch.tools.measure_mask import device_ms
+    kw = dict(width=W, height=H, cfg=cfg, go_camera=go_camera)
+    full = mk.pixel_mask(scene, **kw)
+    if not torch.equal(full, mk.pixel_mask_plain(scene, **kw)):
+        raise AssertionError(f"{what}: the full mask differs from its plain "
+                             "version")
+    _, launch = mk.prepare_pixel_mask(scene, **kw)
+    full_ms = device_ms([launch])
+    band_ms, parts = [], []
+    for row0, rows in MASK_BANDS:
+        mk.reset_launches()
+        got = mk.pixel_mask(scene, row0=row0, rows=rows, **kw)
+        if mk.LAUNCHES[mk.MASKS[mk._kernel_mode(scene)]] != 1:
+            raise AssertionError(f"{what}: the band's mask was not launched "
+                                 "once")
+        want = mk.pixel_mask_plain(scene, row0=row0, rows=rows, **kw)
+        if not (torch.equal(got, want) and torch.equal(
+                got, full[row0 * W:(row0 + rows) * W])):
+            raise AssertionError(f"{what}: the mask of rows [{row0}, "
+                                 f"{row0 + rows}) differs from its plain band "
+                                 "or from the full mask's rows")
+        parts.append(got)
+        _, band_launch = mk.prepare_pixel_mask(scene, row0=row0, rows=rows,
+                                               **kw)
+        band_ms.append(device_ms([band_launch]))
+    print(f"   {what} [{CARD}]: bands {list(MASK_BANDS)} equal their plain "
+          f"bands and the full mask's rows ({int(full.sum())} of {W * H} "
+          f"pixels); device ms full {full_ms:.4f}, bands "
+          f"{[round(m, 4) for m in band_ms]} (sum {sum(band_ms):.4f})",
+          flush=True)
+    return dict(full_ms=full_ms, band_ms=band_ms, err=0.0)
+
+
+def sharded_frames(mk, rmod, scene, what, kernels, samples=SPP,
+                   shapes=MULTIGPU_PX, full_capacity=True, go_camera=True):
+    """render_wavefront_sharded at 800x600, depth 50, 16 soft rays on px
+    meshes over cuda:0 against render_wavefront in the same call: overflow
+    0, the goldens image gate, the max error printed (0 is expected: with
+    sp = 1 a pixel's samples are summed in one order), each frame's ms
+    (host clock, synchronised, after a warm-up) beside render_wavefront's.
+    ``full_capacity``: each shard's capacity is every pixel of its band,
+    else the default (half). Returns {px: {ms, err, launches}} and the
+    reference frame's ms."""
+    import torch
+    from raytrace_tpu_torch import parallel
+    from raytrace_tpu_torch import trace as trace_mod
+    dev = torch.device("cuda")
+    cfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT,
+                                seed=0)
+    kw = dict(width=W, height=H, samples=samples, cfg=cfg,
+              go_camera=go_camera)
+    uncached(rmod, scene, W, H, samples, cfg, go_camera)
+    rmod.render_wavefront(scene, **kw)
+    ref_ms, ref = host_ms(lambda: rmod.render_wavefront(scene, **kw))
+    out = {}
+    for px in shapes:
+        mesh = parallel.make_mesh([dev] * px)
+        cap = (H // px) * W if full_capacity else 0
+
+        def frame():
+            return parallel.render_wavefront_sharded(
+                scene, mesh=mesh, px_capacity=cap, **kw)
+
+        frame()
+        mk.reset_launches()
+        ms, (img, ov) = host_ms(frame)
+        launches = {k: v for k, v in mk.LAUNCHES.items() if v}
+        ov = int(ov)
+        err = float((img - ref).abs().max())
+        print(f"   {what}, px={px} [{CARD}]: overflow {ov}, max error vs "
+              f"render_wavefront {err:.3e}; {ms:.3f} ms a frame vs "
+              f"render_wavefront {ref_ms:.3f} ms; launches {launches}",
+              flush=True)
+        if ov != 0:
+            raise AssertionError(f"{what}, px={px}: overflow {ov}")
+        for k in kernels:
+            if launches.get(k, 0) < px:
+                raise AssertionError(f"{what}, px={px}: {k} was not "
+                                     "launched on every shard")
+        image_gate(img, ref, f"{what}, px={px} vs render_wavefront")
+        out[px] = dict(ms=ms, err=err, launches=launches)
+    return out, ref_ms
+
+
+def adaptive_mesh_check(rmod, scene):
+    """render_adaptive over a px=2 mesh on cuda:0 against the unsharded
+    run, host and device accumulation: spp maps equal, images within the
+    gate."""
+    import torch
+    from raytrace_tpu_torch import adaptive as ad
+    from raytrace_tpu_torch import parallel
+    cfg = adaptive_renderer(rmod).trace_config()
+    kw = dict(width=W, height=H, cfg=cfg, min_spp=ADAPTIVE_MIN_SPP,
+              max_spp=SPP, rel_tol=ADAPTIVE_TOL, as_numpy=False)
+    mesh = parallel.make_mesh([torch.device("cuda")] * 2)
+    out = {}
+    for accum in ("host", "device"):
+        ms1, (img1, spp1) = host_ms(lambda: ad.render_adaptive(
+            scene, accum=accum, device="cuda", **kw))
+        ms2, (img2, spp2) = host_ms(lambda: ad.render_adaptive(
+            scene, accum=accum, mesh=mesh, **kw))
+        if not torch.equal(spp1, spp2):
+            raise AssertionError(f"adaptive over a px=2 mesh ({accum}): the "
+                                 "spp map differs from the unsharded one")
+        err = float((img1 - img2).abs().max())
+        image_gate(img2, img1, f"adaptive px=2 ({accum}) vs unsharded "
+                   f"(spp maps equal, mean spp "
+                   f"{float(spp2.float().mean()):.4f}; {ms2:.1f} ms vs "
+                   f"{ms1:.1f} ms)")
+        out[accum] = dict(ms=ms2, unsharded_ms=ms1, err=err)
+    return out
+
+
+def train_mesh_check(dev):
+    """One SGD step (lr 1e-2) of the simple gradient scene at 64x48, 2 spp,
+    depth 3, sharded over a (2, 2) mesh on cuda:0 against the unsharded
+    step: the loss and every updated parameter within 1e-5."""
+    import functools
+    import numpy as np
+    import torch
+    from raytrace_tpu_torch import diff, parallel
+    from raytrace_tpu_torch import scene as scene_mod
+    from raytrace_tpu_torch import trace as trace_mod
+    from raytrace_tpu_torch.bench.suite import diff_scene_dict
+    s = scene_mod.from_dict(diff_scene_dict("simple"), device=dev)[0]
+    cfg = trace_mod.TraceConfig(max_depth=3, shadow_samples=2)
+    w, h, spp = 64, 48, 2
+    kw = dict(width=w, height=h, samples=spp, cfg=cfg,
+              optimizer=functools.partial(torch.optim.SGD, lr=1e-2))
+    target = np.zeros((h, w, 3), np.float32)
+    results = []
+    for mesh in (None, parallel.make_mesh([dev] * 4, px=2, sp=2)):
+        state, step = diff.make_train_step(s, target, mesh=mesh, **kw)
+        ms, (state, loss) = host_ms(lambda: step(state))
+        results.append((ms, float(loss), state.params))
+    (ms1, loss1, p1), (ms2, loss2, p2) = results
+    err = max((float((p1[g][f] - p2[g][f]).detach().abs().max())
+               for g in p1 for f in p1[g] if p1[g][f].numel()), default=0.0)
+    print(f"   train step (2, 2) over cuda:0 [{CARD}]: loss {loss2:.6e} vs "
+          f"{loss1:.6e} unsharded; parameters max abs difference {err:.3e}; "
+          f"{ms2:.1f} ms a step vs {ms1:.1f} ms", flush=True)
+    if not (abs(loss2 - loss1) <= 1e-5 * abs(loss1) and err <= 1e-5):
+        raise AssertionError("the sharded train step differs from the "
+                             "unsharded one")
+    return dict(ms=ms2, unsharded_ms=ms1, err=err)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def clusters_check(rmod, scene, dev, tmp):
+    """A 1-rank NCCL group and a 2-rank gloo group sharing cuda:0, each a
+    group of processes of the port's worker (tools/dist_worker.py) started
+    together, each process under CLUSTER_TIMEOUT: heartbeat all ones,
+    NodeStatus, DistributedRenderer.render_linear at 64x48, 4 spp, depth 5
+    within 1e-6 of the same render in this process (a one-coordinate
+    mesh; 0 is expected),
+    the sharded train step's loss and intensity within 1e-5 of this
+    process's unsharded step, and render_wavefront_sharded on the bench
+    scene at the bench settings (overflow 0) against render_wavefront.
+    A failure in any process fails the run."""
+    import numpy as np
+    import torch
+    from raytrace_tpu_torch import parallel
+    from raytrace_tpu_torch import trace as trace_mod
+    from raytrace_tpu_torch.tools import dist_worker
+    data = json.load(open(os.path.join(REPO, "assets",
+                                       f"{SCENES[0]}.json")))
+    data["camera"]["position"][2] = -data["camera"]["position"][2]
+    path = os.path.join(tmp, "bench.json")
+    with open(path, "w") as f:
+        json.dump(data, f)
+    w, h = CLUSTER_SIZE
+    groups = {"nccl, 1 rank": 1, "gloo, 2 ranks on cuda:0": 2}
+    procs, outs = {}, {}
+    t0 = time.perf_counter()
+    for name, n in groups.items():
+        port, outs[name] = free_port(), os.path.join(tmp, f"{n}.npz")
+        procs[name] = [subprocess.Popen(
+            [sys.executable, "-m", "raytrace_tpu_torch.tools.dist_worker",
+             f"127.0.0.1:{port}", str(n), str(i), outs[name], "--scene",
+             path, "--size", f"{w}x{h}", "--spp", str(CLUSTER_SPP),
+             "--depth", str(CLUSTER_DEPTH), "--wavefront",
+             f"{W}x{H},{SPP},{DEPTH}"], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT) for i in range(n)]
+    logs = {}
+    try:
+        # this process's references, while the groups start
+        cfg = trace_mod.TraceConfig(max_depth=CLUSTER_DEPTH,
+                                    shadow_samples=2)
+        one = parallel.render_linear_sharded(
+            scene, w, h, samples=CLUSTER_SPP, cfg=cfg,
+            mesh=parallel.single_device_mesh(dev))
+        loss, intensity = dist_worker.train_step(
+            scene, width=w, height=h, samples=CLUSTER_SPP, cfg=cfg)
+        wcfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT)
+        uncached(rmod, scene, W, H, SPP, wcfg)
+        wref = rmod.render_wavefront(scene, width=W, height=H, samples=SPP,
+                                     cfg=wcfg)
+        for name, ps in procs.items():
+            logs[name] = [p.communicate(timeout=CLUSTER_TIMEOUT)[0].decode(
+                errors="replace") for p in ps]
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    wall = time.perf_counter() - t0
+    for name, ps in procs.items():
+        for i, p in enumerate(ps):
+            if p.returncode != 0:
+                raise AssertionError(f"cluster {name}: rank {i} exited "
+                                     f"{p.returncode}:\n"
+                                     f"{logs[name][i][-3000:]}")
+    out = {"wall_s": wall}
+    for name, n in groups.items():
+        z = np.load(outs[name])
+        if not (np.array_equal(z["hb"], np.ones(n, np.float32))
+                and int(z["process_count"]) == n
+                and str(z["platform"]) == "cuda"):
+            raise AssertionError(f"cluster {name}: heartbeat {z['hb']}, "
+                                 f"{int(z['process_count'])} processes, "
+                                 f"platform {z['platform']}")
+        err = float(np.abs(z["img"] - one).max())
+        if err > 1e-6:
+            raise AssertionError(f"cluster {name}: the gathered image "
+                                 f"differs from this process's by {err}")
+        if not (np.allclose(z["loss"], loss, rtol=1e-5, atol=0)
+                and np.allclose(z["intensity"], intensity, rtol=1e-5,
+                                atol=0)):
+            raise AssertionError(f"cluster {name}: the train step differs "
+                                 "from this process's")
+        if int(z["overflow"]) != 0:
+            raise AssertionError(f"cluster {name}: wavefront overflow")
+        wf = torch.from_numpy(z["wavefront"]).to(dev)
+        werr = float((wf - wref).abs().max())
+        image_gate(wf, wref, f"cluster {name}: render_wavefront_sharded "
+                   f"gathered vs render_wavefront (max error {werr:.3e})")
+        print(f"   cluster {name} [{CARD}]: heartbeat {z['hb'].tolist()}, "
+              f"render_linear {w}x{h} within {err:.3e} of this process's "
+              "(at most 1e-6), train step "
+              f"loss {float(z['loss']):.6e} (here {float(loss):.6e}), stats "
+              f"{str(z['stats'])}", flush=True)
+        out[name] = dict(wavefront_err=werr, linear_err=err)
+    print(f"   clusters: {wall:.1f} s wall for both groups, started "
+          "together (this process's references computed meanwhile)",
+          flush=True)
+    return out
+
+
+def multigpu_group(mk, rmod, scenes, dev, record):
+    """The multigpu phases (see the module docstring); returns the numbers
+    for the kernel rows and the launches of the sharded frames."""
+    import tempfile as tf
+    from raytrace_tpu_torch import trace as trace_mod
+    bench, ring, loop, grid = (scenes[k] for k in ("bench", "ring1000",
+                                                   "loop", "grid5833"))
+    cfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT, seed=0)
+    dof = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT, seed=0,
+                                depth_of_field=True, dof_lens_radius=0.1,
+                                dof_focus_distance=10.0)
+    out = {}
+    with Phase("multigpu_mask"):
+        out["band"] = {
+            "K2": band_mask_check(mk, bench, cfg, "K2 bench"),
+            "K2-dof": band_mask_check(mk, bench, dof, "K2-dof bench"),
+            "K6": band_mask_check(mk, ring, cfg, "K6 ring-1000"),
+            "K6-stream": band_mask_check(mk, grid, cfg,
+                                         "K6-stream grid-5833")}
+    launches = {}
+    with Phase("multigpu_wavefront"):
+        frames = {}
+        for key, s, kernels, full in (
+                ("bench", bench, ("pixel_mask", "trace_unroll"), False),
+                ("ring1000", ring, ("pixel_mask_bvh", "trace_bvh"), True),
+                ("loop", loop, ("pixel_mask", "trace_loop"), True)):
+            frames[key] = sharded_frames(mk, rmod, s, f"sharded {key}",
+                                         kernels, full_capacity=full)
+        frames["grid5833"] = sharded_frames(
+            mk, rmod, grid, "sharded grid-5833 (8 spp)",
+            ("pixel_mask_stream", "trace_stream", "trace_state"), samples=8,
+            shapes=(4,))
+        for f, _ in frames.values():
+            for row in f.values():
+                for k, v in row["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        from raytrace_tpu_torch import parallel
+        _, ov = parallel.render_wavefront_sharded(
+            bench, width=W, height=H, samples=SPP, cfg=cfg,
+            mesh=parallel.make_mesh([dev] * 2), px_capacity=1)
+        print(f"   bench, px=2 at px_capacity=1: overflow {int(ov)}",
+              flush=True)
+        if int(ov) <= 0:
+            raise AssertionError("px_capacity=1 did not report an overflow")
+        out["frames"] = frames
+    with Phase("multigpu_adaptive"):
+        out["adaptive"] = adaptive_mesh_check(rmod, bench)
+    with Phase("multigpu_train"):
+        out["train"] = train_mesh_check(dev)
+    with Phase("multigpu_clusters"):
+        with tf.TemporaryDirectory() as tmp:
+            out["clusters"] = clusters_check(rmod, bench, dev, tmp)
+    record["multigpu"] = out
+    return launches
 
 
 def twin_scene(device):
@@ -1915,13 +2337,13 @@ def without_wide(scene):
         scene.accel, wide4=None))
 
 
-def wide_check(mk, trace_mod, scene, cfg, what):
-    """K3-wide on the lanes of a 64x48 frame, 4 spp: K3+K4 with the 4-wide
+def wide_check(mk, trace_mod, scene, cfg, what, w=64, h=48):
+    """K3-wide on the lanes of a w x h frame, 4 spp: K3+K4 with the 4-wide
     walk against its plain version, and the same launch on the binary walk
     against its own; returns (the larger max lane error, the lanes on
     which the two walks differ by more than 1e-3)."""
     import torch
-    px, o, d, pix, samp = lanes_of(scene, 64, 48, 4, cfg)
+    px, o, d, pix, samp = lanes_of(scene, w, h, 4, cfg)
     lanes = (o, d, pix, samp)
     binary = without_wide(scene)
     mk.reset_launches()
@@ -1939,8 +2361,8 @@ def wide_check(mk, trace_mod, scene, cfg, what):
         errs.append(float((got - want).abs().max()))
     differ = int(((wide - walk2).abs().amax(dim=-1) > 1e-3).sum())
     if what != "twins":   # no exact ties: the two walks take the same hits
-        image_gate(pixel_image(px, wide, 64, 48, 4),
-                   pixel_image(px, walk2, 64, 48, 4),
+        image_gate(pixel_image(px, wide, w, h, 4),
+                   pixel_image(px, walk2, w, h, 4),
                    f"K3 4-wide vs binary walk on {what}")
     print(f"   {what}: {o.shape[0]} lanes; max lane error vs plain: 4-wide "
           f"{errs[0]:.3e}, binary {errs[1]:.3e}; the two walks differ on "
@@ -2384,7 +2806,7 @@ def k3walk_check(mk, trace_mod, scenes, cfg, record):
 def k3_split(mk, scene, lanes, sizes, cfg):
     """K3+K4 at a bench frame's own chunks, ms per launch, with soft
     shadows, hard shadows only and without lights (the split of its
-    walks), each timed twice in turns."""
+    walks), each timed once."""
     import dataclasses
     import torch
     from raytrace_tpu_torch import scene as scene_mod
@@ -2397,11 +2819,8 @@ def k3_split(mk, scene, lanes, sizes, cfg):
     runs = {name: chunk_launches(mk, s, lanes, sizes, c)[1]
             for name, s, c in (("soft", scene, cfg), ("hard", scene, hard),
                                ("none", dark, cfg))}
-    times = {k: [] for k in runs}
-    for _ in range(2):
-        for name in ("soft", "hard", "none"):
-            times[name].append(cuda_ms(runs[name], 1) / len(sizes))
-    return {name: sum(t) / 2 for name, t in times.items()}
+    return {name: cuda_ms(runs[name], 1) / len(sizes)
+            for name in ("soft", "hard", "none")}
 
 
 def ladder_frame(mk, scene, cfg, launches, what):
@@ -2447,21 +2866,29 @@ def ladder_frame(mk, scene, cfg, launches, what):
         raise AssertionError(f"{what}: {n_launch} ladder segments, but the "
                              f"bench frame launched {launches}")
     prepared = [prepare(v)[1] for v in segs]
-    ladder_ms = min(cuda_ms(lambda: [f() for f in prepared], 1)
-                    for _ in range(2))
-    # each level's launches on their own: where the ladder's time goes
+    # one pass over the ladder, an event after each launch: the ladder's
+    # time, and each level's (where the ladder's time goes)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(n_launch + 1)]
+    torch.cuda.synchronize()
+    events[0].record()
+    for f, e in zip(prepared, events[1:]):
+        f()
+        e.record()
+    events[-1].synchronize()
+    ladder_ms = events[0].elapsed_time(events[-1])
     level_ms = {}
-    for v, f in zip(segs, prepared):
-        level_ms[v["b0"]] = level_ms.get(v["b0"], 0.0) + cuda_ms(f, 1)
+    for v, a, b in zip(segs, events, events[1:]):
+        level_ms[v["b0"]] = level_ms.get(v["b0"], 0.0) + a.elapsed_time(b)
     del prepared
     alive_in = {}
     for v in segs:
         n_alive = (v["origin"].shape[0] if v["alive"] is None
                    else int((v["alive"] > 0).sum()))
         alive_in[v["b0"]] = alive_in.get(v["b0"], 0) + n_alive
-    print(f"   {what}: the ladder's levels, launched one at a time "
-          "(first bounce: ms over the chunks, lanes alive in, lanes "
-          "launched): " + "; ".join(
+    print(f"   {what}: the ladder's levels, timed by events around each "
+          "launch of the ladder's pass (first bounce: ms over the chunks, "
+          "lanes alive in, lanes launched): " + "; ".join(
               f"{b}: {level_ms[b]:.2f}, {alive_in[b]}, "
               f"{sum(v['origin'].shape[0] for v in segs if v['b0'] == b)}"
               for b in sorted(level_ms)), flush=True)
@@ -2481,6 +2908,7 @@ def ladder_frame(mk, scene, cfg, launches, what):
     work = [0] * mk.BVH_COUNTERS
     tables = 4 * (scene.accel.n_nodes * 9
                   + scene.accel.stream_tab.numel())
+    checked = set()
     for v in segs:
         n = v["origin"].shape[0]
         cnt = torch.zeros((n, mk.BVH_COUNTERS), dtype=torch.int32,
@@ -2488,21 +2916,25 @@ def ladder_frame(mk, scene, cfg, launches, what):
         out, launch_counted = prepare(v, cnt)
         launch_counted()
         # K5 against K3+K4 on the same tree (the plain version: below, on
-        # the frame's lanes), on a strided subset of the segment's lanes
-        sidx = torch.arange(0, n, max(1, n // PARTIAL_LANES),
-                            device=v["origin"].device)
-        sub = tuple(v[k][sidx] for k in ("origin", "direction", "pix",
-                                         "samp"))
-        got = k5_both(mk, scene, sub, cfg, check_plain=False,
-                      **seg_kw(v, sidx))
-        if not (same(got, tuple_at(out, sidx))):
-            raise AssertionError(f"{what}: K5's segment from bounce "
-                                 f"{v['b0']} differs from its own launch on "
-                                 "a subset of its lanes")
+        # the frame's lanes), on a strided subset of the lanes of each
+        # level's first segment
+        if v["b0"] not in checked:
+            checked.add(v["b0"])
+            sidx = torch.arange(0, n, max(1, n // PARTIAL_LANES),
+                                device=v["origin"].device)
+            sub = tuple(v[k][sidx] for k in ("origin", "direction", "pix",
+                                             "samp"))
+            got = k5_both(mk, scene, sub, cfg, check_plain=False,
+                          **seg_kw(v, sidx))
+            if not (same(got, tuple_at(out, sidx))):
+                raise AssertionError(f"{what}: K5's segment from bounce "
+                                     f"{v['b0']} differs from its own launch "
+                                     "on a subset of its lanes")
+            del got
         o_, _, w_ = k3_ops(cnt)
         ops += o_
         work = [a + b for a, b in zip(work, w_)]
-        del out, got
+        del out
         n_bytes += tables + n * (12 + 12 + 4 + 4 + 12) + (
             n * 16 if v["b0"] > 0 else 0) + (
             n * 40 if v["b1"] < cfg.max_depth else 0)
@@ -2559,8 +2991,9 @@ def ladder_frame(mk, scene, cfg, launches, what):
           f"chunk(s), {sum(v['origin'].shape[0] for v in segs)} segment "
           f"lanes; work {work}, {ops:.4e} ops; ladder {ladder_ms:.3f} ms "
           f"({ladder_ms / n_launch:.4f} ms a launch) vs one unsplit launch "
-          f"a chunk {unsplit_ms:.3f} ms; every segment equal to K3+K4 on the "
-          f"same tree on a subset of its lanes (work counters too); bound "
+          f"a chunk {unsplit_ms:.3f} ms; each level's first segment equal to "
+          f"K3+K4 on the same tree on a subset of its lanes (work counters "
+          f"too); bound "
           f"per launch {bnd:.4f} ms "
           f"({by}); on {idx.numel()} lanes: kernel {sub_ms:.3f} ms vs "
           f"plain {plain_ms:.1f} ms; on {sidx.numel()} lanes as two "
@@ -2966,10 +3399,11 @@ def adaptive_renderer(rmod):
 
 
 def adaptive_frame(mk, rmod, scene, what, kernels, frames=3,
-                   subset=K3_SUBSET):
+                   subset=K3_SUBSET, warm_up=True):
     """Renderer.render_adaptive at 800x600, cap SPP, depth 50, min_spp 8,
-    rel_tol 0.02, device accumulation: one warm-up, then ``frames`` timed
-    frames (launch counts reset just before the first and read just
+    rel_tol 0.02, device accumulation: one warm-up (unless ``warm_up`` is
+    False: the process has run the same kernels before), then ``frames``
+    timed frames (launch counts reset just before the first and read just
     after it: each of ``kernels`` must have launched); then one run
     through the stage hook, which must give the same spp map: its test
     rounds, the k read at each, the reads of CUDA tensors to the host by
@@ -2983,7 +3417,8 @@ def adaptive_frame(mk, rmod, scene, what, kernels, frames=3,
     kw = dict(min_spp=ADAPTIVE_MIN_SPP, rel_tol=ADAPTIVE_TOL)
     split = ad._split_spec(scene, r.trace_config())
     t0 = time.perf_counter()
-    r.render_adaptive(scene, W, H, **kw)  # warm-up
+    if warm_up:
+        r.render_adaptive(scene, W, H, **kw)
     warm = time.perf_counter() - t0
     times = []
     for i in range(frames):
@@ -3289,7 +3724,8 @@ def diff_scale(dev):
         scenes = mgs.scenes(dev, tmp)
         rows = {}
         for name, keep in mgs.ROWS:
-            rows[name, keep] = mgs.measure_row(name, scenes[name], keep)
+            rows[name, keep] = mgs.measure_row(name, scenes[name], keep,
+                                               reps=1)
             print(f"   [{CARD}] {mgs.line(rows[name, keep])}", flush=True)
     worst = mgs.accel_agrees(rows["grid-1001", True],
                              rows["grid-1001", False])
@@ -3301,12 +3737,13 @@ def diff_scale(dev):
 def diff_inverse(dev):
     """tools/inverse_rendering.py's loop on the card."""
     from raytrace_tpu_torch.tools import inverse_rendering as inv
-    out = inv.run(200, dev)
+    out = inv.run(INVERSE_STEPS, dev)
     losses = out["losses"]
-    print(f"   [{CARD}] inverse rendering, 200 steps at {inv.W}x{inv.H}, "
+    print(f"   [{CARD}] inverse rendering, {INVERSE_STEPS} steps at "
+          f"{inv.W}x{inv.H}, "
           f"{inv.SPP} spp, depth {inv.CFG.max_depth}: {out['ms_per_step']:.3f}"
-          f" ms a step; loss at steps 0, 25, 199: {losses[0]:.4e}, "
-          f"{losses[25]:.4e}, {losses[199]:.4e}; intensity "
+          f" ms a step; loss at steps 0, 25, {len(losses) - 1}: "
+          f"{losses[0]:.4e}, {losses[25]:.4e}, {losses[-1]:.4e}; intensity "
           f"{out['recovered']:.4f} (true {out['true']}, error "
           f"{out['rel_err']:.2%})", flush=True)
     if not out["rel_err"] < 0.1:

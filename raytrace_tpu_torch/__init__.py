@@ -39,6 +39,9 @@ frames run at a cached capacity with no host read
 batch at a time by ``flush_capacity_checks``), and
 ``render_wavefront_chunked`` renders a frame in rounds of samples;
 ``obs`` holds the metrics, progress bar and profiler the Renderer feeds.
+``parallel`` shards frames over a (px, sp) mesh of devices (each px
+shard's mask over its own rows) and across ``torch.distributed``
+processes.
 """
 
 from . import diff, obs

@@ -47,6 +47,7 @@ scene fingerprints hash different tables.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import os
 import tempfile
@@ -117,6 +118,41 @@ def _batch_sums(scene, active: torch.Tensor, s0: int, *, width: int,
     if not out:
         return torch.zeros((0, 5), dtype=torch.float32, device=dev)
     return torch.cat(out)
+
+
+def _batch_sums_sharded(scene, active: torch.Tensor, s0: int, *, mesh,
+                        hook=_no_hook, **kw) -> torch.Tensor:
+    """``_batch_sums`` with the active pixels split over every coordinate
+    of ``mesh`` (raytrace_tpu/adaptive.py:_batch_sums_sharded): contiguous
+    runs of the active set, in the coordinates' row-major order, each
+    traced on its coordinate's device, the sums gathered in order on the
+    device of ``active``. A pixel's whole batch stays on one coordinate
+    and every draw is keyed by (pixel, sample), so the sums, and with them
+    the spp decisions, are those of the unsharded run. (The JAX package
+    pads the active set to a multiple of the coordinate count; the port
+    traces the live rows alone, so runs differ by one pixel at most.)
+    Across processes each process traces its own coordinates' runs and
+    one ``all_reduce`` of the zero-filled (k, 5) sums assembles them on
+    every process (the runs are disjoint: the sum is exact)."""
+    home = active.device
+    px, sp = mesh.devices.shape
+    runs = torch.tensor_split(active, px * sp)
+    out = torch.zeros((active.shape[0], 5), dtype=torch.float32,
+                      device=home)
+    scenes = {}
+    start = 0
+    for c, run in enumerate(runs):
+        i, j = divmod(c, sp)
+        if run.numel() and mesh.is_local(i, j):
+            dev = mesh.devices[i, j]
+            if dev not in scenes:
+                scenes[dev] = scene.to(dev)
+            part = _batch_sums(scenes[dev], run.to(dev), s0, hook=hook, **kw)
+            out[start:start + run.shape[0]] = part.to(home)
+        start += run.shape[0]
+    if mesh.multi_process:
+        torch.distributed.all_reduce(out)
+    return out
 
 
 def _stderr_keep(sums: torch.Tensor, n: int, rel_tol: float,
@@ -260,23 +296,26 @@ def render_adaptive(scene, *, width: int, height: int,
     its extra pixels are black, have no variance and stop at the first
     test round. A resumed render carries its active set.
 
-    Runs on ``device`` (default CUDA; raises without a GPU unless
-    ``device="cpu"``), the scene moved there. ``pad_quantum`` is kept for
-    the JAX signature and unused: the JAX package pads the active set to
-    limit recompiles, the port traces the live rows only. ``mesh`` is not
-    ported (ROADMAP Queue 1 item 7). ``hook(stage, **values)`` sees the
+    Runs on ``device`` (default CUDA, or with a ``mesh`` its home device;
+    raises without a GPU unless ``device="cpu"`` or a mesh of CPU devices
+    is given), the scene moved there. ``mesh`` (``parallel.make_mesh``)
+    splits each batch's active pixels over its coordinates
+    (``_batch_sums_sharded``): in both accumulation modes the sums and
+    the spp decisions are those of the unsharded run. ``pad_quantum`` is
+    kept for the JAX signature and unused: the JAX package pads the active
+    set to limit recompiles (and under a mesh rounds the padding to the
+    coordinate count), the port traces the live rows only. ``hook(stage,
+    **values)`` sees the
     stages "mask", "round" (s0, batch, test) before each batch, those of
     ``_batch_sums``, in device mode "k_read" (the one host read of a test
     round), and "finish" after the last batch.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded adaptive sampling is not "
-                                  "ported yet (ROADMAP Queue 1 item 7)")
     if cfg is None:
         cfg = trace_mod.TraceConfig()
     if not 0 < min_spp <= max_spp:
         raise ValueError("need 0 < min_spp <= max_spp")
-    dev = _device.resolve(device)
+    dev = _device.resolve(mesh.home if mesh is not None and device is None
+                          else device)
     scene = scene.to(dev)
     if accum is None:
         accum = "device" if dev.type == "cuda" else "host"
@@ -325,7 +364,9 @@ def render_adaptive(scene, *, width: int, height: int,
               go_camera=go_camera, return_variance=return_variance,
               checkpoint_path=checkpoint_path,
               checkpoint_every=checkpoint_every, header=header,
-              as_numpy=as_numpy, split_spec=split_spec, hook=hook)
+              as_numpy=as_numpy, split_spec=split_spec, hook=hook,
+              sums=(_batch_sums if mesh is None else functools.partial(
+                  _batch_sums_sharded, mesh=mesh)))
     if accum == "device":
         return _render_adaptive_device(**kw)
     return _render_adaptive_host(**kw)
@@ -335,7 +376,7 @@ def _render_adaptive_host(*, scene, sum_rgb, sum_y, sum_y2, n_taken, active,
                           s0, width, height, cfg, min_spp, max_spp, batch,
                           rel_tol, abs_tol, go_camera, return_variance,
                           checkpoint_path, checkpoint_every, header,
-                          as_numpy, split_spec, hook):
+                          as_numpy, split_spec, hook, sums):
     """The accum="host" loop: each batch's sums come to the host and
     accumulate in float64; the test runs on the host."""
     dev = scene.device
@@ -349,10 +390,10 @@ def _render_adaptive_host(*, scene, sum_rgb, sum_y, sum_y2, n_taken, active,
     while active.size and s0 < max_spp:
         b = int(min(batch, max_spp - s0))
         hook("round", s0=s0, batch=b, test=min_spp <= s0 + b < max_spp)
-        sums = _batch_sums(scene, torch.from_numpy(active).to(dev), s0,
-                           width=width, height=height, batch=b, cfg=cfg,
-                           go_camera=go_camera, split=split_spec, hook=hook)
-        add = sums.to(torch.float64).cpu().numpy()
+        add = sums(scene, torch.from_numpy(active).to(dev), s0,
+                   width=width, height=height, batch=b, cfg=cfg,
+                   go_camera=go_camera, split=split_spec, hook=hook)
+        add = add.to(torch.float64).cpu().numpy()
         sum_rgb[active] += add[:, :3]
         sum_y[active] += add[:, 3]
         sum_y2[active] += add[:, 4]
@@ -395,7 +436,7 @@ def _render_adaptive_device(*, scene, sum_rgb, sum_y, sum_y2, n_taken,
                             max_spp, batch, rel_tol, abs_tol, go_camera,
                             return_variance, checkpoint_path,
                             checkpoint_every, header, as_numpy, split_spec,
-                            hook):
+                            hook, sums):
     """The accum="device" loop: the state (act_ids (k,), act_sums (k,5)
     float32 active-aligned; full_sums (n_px+1,5) and spp_map (n_px+1,)
     pixel-aligned, row n_px the dump row) stays on the device; the host
@@ -443,7 +484,7 @@ def _render_adaptive_device(*, scene, sum_rgb, sum_y, sum_y2, n_taken,
         b = int(min(batch, max_spp - s0))
         do_test = min_spp <= s0 + b < max_spp
         hook("round", s0=s0, batch=b, test=do_test)
-        act_sums = act_sums + _batch_sums(
+        act_sums = act_sums + sums(
             scene, act_ids, s0, width=width, height=height, batch=b,
             cfg=cfg, go_camera=go_camera, split=split_spec, hook=hook)
         s0 += b

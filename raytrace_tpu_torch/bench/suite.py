@@ -7,13 +7,17 @@ copies of the JAX package's two stream-mode workloads of
 ``tools/tpu_stream_smoke.py`` (``grid_scene_dict``, ``icosphere_obj``,
 ``mesh_scene_dict``), grid-1001 of its gradient measurements
 (``grad_grid_scene_dict``) and the two scenes of its gradient tests
-(``diff_scene_dict``), for runs that may not import the JAX package."""
+(``diff_scene_dict``), for runs that may not import the JAX package;
+and the JAX package's scaling sweep over mesh sizes
+(``scaling_benchmark``)."""
 
 from __future__ import annotations
 
 import copy
 import math
 import os
+import time
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -405,3 +409,44 @@ def mesh_scene_dict(tmpdir: str, subdiv: int = 4):
         "lights": [{"type": "point", "position": [6, 10, 8],
                     "color": [1, 1, 1], "intensity": 2.0}],
     }
+
+
+def scaling_benchmark(width: int = 400, height: int = 300,
+                      samples: int = 8,
+                      mesh_shapes: Sequence[int] = (1, 2, 4, 8)) -> Dict:
+    """The scaling sweep over mesh sizes
+    (raytrace_tpu/bench/suite.py:198-232): ``render_linear_sharded`` of
+    the ring scene (depth 10, 4 soft-shadow rays) on px = n meshes over
+    the first n local devices (``parallel.mesh.local_devices()``: every
+    local CUDA device; raises without a GPU), n capped at their count; one
+    warm-up, then one timed render a size. The reference computed a
+    degenerate efficiency (always 100 / workers,
+    comprehensive_benchmark.go:385); here, as in the JAX package,
+    efficiency = t(first size) / (t(n) * n)."""
+    from .. import parallel
+    from .. import scene as scene_mod
+    from .. import trace as trace_mod
+
+    devs = parallel.mesh.local_devices()
+    scene, _ = scene_mod.from_dict(ring_scene_dict(), device=devs[0])
+    cfg = trace_mod.TraceConfig(max_depth=10, shadow_samples=4)
+    out = {"shapes": [], "times": [], "efficiency": []}
+    base = None
+    for n in mesh_shapes:
+        if n > len(devs):
+            break
+        mesh = parallel.make_mesh(devs[:n], px=n, sp=1)
+
+        def render():
+            return parallel.render_linear_sharded(
+                scene, width, height, samples=samples, cfg=cfg, mesh=mesh)
+
+        render()
+        t0 = time.perf_counter()
+        render()
+        dt = time.perf_counter() - t0
+        base = base if base is not None else dt
+        out["shapes"].append(n)
+        out["times"].append(dt)
+        out["efficiency"].append(base / (dt * n))
+    return out

@@ -44,11 +44,17 @@
 //   plain versions (megakernel.mask_table_plain, k2_table_plain), in the
 //   same order, so every test gives the same bits as the per-pixel form.
 //   Rows are built a row a thread.
+// - A launch covers a band of rows [row0, row0 + band) of the image and
+//   writes the band's (band * width,) bits: the whole image, or a px
+//   shard's rows (raytrace_tpu_torch/parallel/shard.py; the JAX package's
+//   shard.py:140-147 takes the mask over the shard's own pixels). The
+//   camera row stays the whole image's, so a band's bits are the full
+//   mask's rows.
 // - Each warp then takes a tile of 8x4 pixels at a time, by a static
-//   stride over the tiles, so the 32 center rays of a warp stay close. A
-//   node test is two 16-byte loads (and a third at a boxed node); a leaf
-//   test is a dot product and two compares (plus the thin-lens slack,
-//   compiled into K2's DoF entry only).
+//   stride over the band's tiles, so the 32 center rays of a warp stay
+//   close. A node test is two 16-byte loads (and a third at a boxed
+//   node); a leaf test is a dot product and two compares (plus the
+//   thin-lens slack, compiled into K2's DoF entry only).
 // - Past the wrapper's budget (megakernel.MASK_SMEM_BYTES, the camera
 //   row's slot included): K6 and K6-stream (the past-cap grid's 393 KB
 //   table) take the pre-pass (rt_mask_table_kernel, a row a thread),
@@ -461,15 +467,16 @@ RT_DEV bool table_walk(const CenterRay& c, const float* nodes, int n_nodes,
   return hit;
 }
 
-// The pixels of a persistent launch: warp w takes tiles w, w + n_warps,
-// ... of kMaskTileW x kMaskTileH pixels (a static stride: no counter to
-// zero before a launch of a few microseconds), the tile's coordinates
-// stepped without a division a tile; f(x, y, p) gives pixel p = y*width
-// + x its bit.
+// The pixels of a persistent launch over the row band [row0, row0 +
+// band) (the whole image, or a px shard's rows): warp w takes tiles w, w +
+// n_warps, ... of kMaskTileW x kMaskTileH pixels of the band (a static
+// stride: no counter to zero before a launch of a few microseconds), the
+// tile's coordinates stepped without a division a tile; f(x, y, p) gives
+// the band's pixel p = (y - row0)*width + x, image row y, its bit.
 template <class F>
-RT_DEV void for_mask_pixels(int width, int height, F&& f) {
+RT_DEV void for_mask_pixels(int width, int row0, int band, F&& f) {
   const int tiles_x = (width + kMaskTileW - 1) / kMaskTileW;
-  const int tiles_y = (height + kMaskTileH - 1) / kMaskTileH;
+  const int tiles_y = (band + kMaskTileH - 1) / kMaskTileH;
   const int thread = static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x);
   const int n_warps = static_cast<int>(gridDim.x * blockDim.x) / kWarpLanes;
   const int in_warp = static_cast<int>(threadIdx.x) % kWarpLanes;
@@ -479,7 +486,7 @@ RT_DEV void for_mask_pixels(int width, int height, F&& f) {
     const int x0 = tx * kMaskTileW, y0 = ty * kMaskTileH;
     for (int l = in_warp; l < 32; l += kWarpLanes) {
       const int x = x0 + l % kMaskTileW, y = y0 + l / kMaskTileW;
-      if (x < width && y < height) f(x, y, y * width + x);
+      if (x < width && y < band) f(x, row0 + y, y * width + x);
     }
     tx += step_x;   // tile t + n_warps
     ty += step_y;
@@ -492,12 +499,12 @@ RT_DEV void for_mask_pixels(int width, int height, F&& f) {
 
 // K6 and K6-stream's pixels: the walk, then the planes.
 template <bool kNodeOnly, bool kLdg>
-RT_DEV void mask_tiles(uint8_t* out, int width, int height, float inv_w,
-                       float inv_h, const float* cam, const float* table,
-                       int n_nodes, int dof, const float* pp,
-                       const float* pn, int npl) {
+RT_DEV void mask_tiles(uint8_t* out, int width, int row0, int band,
+                       float inv_w, float inv_h, const float* cam,
+                       const float* table, int n_nodes, int dof,
+                       const float* pp, const float* pn, int npl) {
   const float* leaves = table + kMaskNode * n_nodes;
-  for_mask_pixels(width, height, [&](int x, int y, int p) {
+  for_mask_pixels(width, row0, band, [&](int x, int y, int p) {
     CenterRay c = center_ray(x, y, inv_w, inv_h, cam);
     bool hit = table_walk<kNodeOnly, kLdg>(c, table, n_nodes, leaves, dof);
     hit = hit | planes_hit(c, pp, pn, npl);
@@ -529,10 +536,10 @@ RT_DEV float* camera_prologue(const MaskCam& m) {
 // in_smem: the block builds the table in shared memory, else it reads the
 // pre-pass's table in place.
 template <bool kNodeOnly>
-RT_DEV void mask_walk_body(uint8_t* out, int width, int height, float inv_w,
-                           float inv_h, const MaskCam& m, const float* table,
-                           int in_smem, const float* pp, const float* pn,
-                           int npl, const MaskScene& s) {
+RT_DEV void mask_walk_body(uint8_t* out, int width, int row0, int band,
+                           float inv_w, float inv_h, const MaskCam& m,
+                           const float* table, int in_smem, const float* pp,
+                           const float* pn, int npl, const MaskScene& s) {
   const float* cam = camera_prologue(m);
   if (in_smem) {
     float* tab = const_cast<float*>(cam) + kCamPad;
@@ -540,11 +547,11 @@ RT_DEV void mask_walk_body(uint8_t* out, int width, int height, float inv_w,
          i += static_cast<int>(blockDim.x))
       mask_row(s, row_in(s, i), cam, m.focus, m.dof, i, tab);
     __syncthreads();
-    mask_tiles<kNodeOnly, false>(out, width, height, inv_w, inv_h, cam, tab,
-                                 s.n_nodes, m.dof, pp, pn, npl);
+    mask_tiles<kNodeOnly, false>(out, width, row0, band, inv_w, inv_h, cam,
+                                 tab, s.n_nodes, m.dof, pp, pn, npl);
   } else {
-    mask_tiles<kNodeOnly, true>(out, width, height, inv_w, inv_h, cam, table,
-                                s.n_nodes, m.dof, pp, pn, npl);
+    mask_tiles<kNodeOnly, true>(out, width, row0, band, inv_w, inv_h, cam,
+                                table, s.n_nodes, m.dof, pp, pn, npl);
   }
 }
 
@@ -552,10 +559,11 @@ RT_DEV void mask_walk_body(uint8_t* out, int width, int height, float inv_w,
 // (on the first chunk), then the rows in primitive order, stopping at the
 // first hit; a pixel already marked by an earlier chunk is skipped.
 template <bool kDof>
-RT_DEV void k2_tiles(uint8_t* out, int width, int height, float inv_w,
-                     float inv_h, const float* cam, const float* rows, int n,
-                     bool first, const float* pp, const float* pn, int npl) {
-  for_mask_pixels(width, height, [&](int x, int y, int p) {
+RT_DEV void k2_tiles(uint8_t* out, int width, int row0, int band,
+                     float inv_w, float inv_h, const float* cam,
+                     const float* rows, int n, bool first, const float* pp,
+                     const float* pn, int npl) {
+  for_mask_pixels(width, row0, band, [&](int x, int y, int p) {
     if (!first && out[p]) return;
     CenterRay c = center_ray(x, y, inv_w, inv_h, cam);
     bool hit = first && planes_hit(c, pp, pn, npl);
@@ -574,10 +582,10 @@ RT_DEV void k2_tiles(uint8_t* out, int width, int height, float inv_w,
 // overlap it: about 1 us a launch on the H100 (PERF.md). (K6 and
 // K6-stream, whose rows are many, ran no faster so.)
 template <bool kDof>
-RT_DEV void k2_body(uint8_t* out, int width, int height, float inv_w,
-                    float inv_h, const MaskCam& m, int chunk_rows,
-                    const float* pp, const float* pn, int npl,
-                    const MaskScene& s) {
+RT_DEV void k2_body(uint8_t* out, int width, int row0, int band,
+                    float inv_w, float inv_h, const MaskCam& m,
+                    int chunk_rows, const float* pp, const float* pn,
+                    int npl, const MaskScene& s) {
   const int n = s.n_slots;
   const int t = static_cast<int>(threadIdx.x);
   RowIn first{};
@@ -591,7 +599,7 @@ RT_DEV void k2_body(uint8_t* out, int width, int height, float inv_w,
     for (int i = t + step; i < m_rows; i += step)
       mask_leaf_row(leaf_in(s, c0 + i), cam, kDof, rows + kMaskLeaf * i);
     __syncthreads();
-    k2_tiles<kDof>(out, width, height, inv_w, inv_h, cam, rows, m_rows,
+    k2_tiles<kDof>(out, width, row0, band, inv_w, inv_h, cam, rows, m_rows,
                    c0 == 0, pp, pn, npl);
     if (c0 + chunk_rows >= n) break;
     if (t < chunk_rows && c0 + chunk_rows + t < n)
@@ -605,13 +613,13 @@ RT_DEV void k2_body(uint8_t* out, int width, int height, float inv_w,
 // K2, pinhole and with depth of field (the thin-lens slack compiled in
 // only here).
 #define RT_K2_PARAMS                                                       \
-  uint8_t *__restrict__ out, int width, int height, float inv_w,           \
+  uint8_t *__restrict__ out, int width, int row0, int band, float inv_w,   \
       float inv_h, rt::MaskCam m, int chunk_rows,                          \
       const float *__restrict__ pl_point,                                  \
       const float *__restrict__ pl_normal, int npl, rt::MaskScene s
 #define RT_K2_ARGS                                                         \
-  out, width, height, inv_w, inv_h, m, chunk_rows, pl_point, pl_normal,    \
-      npl, s
+  out, width, row0, band, inv_w, inv_h, m, chunk_rows, pl_point,          \
+      pl_normal, npl, s
 
 extern "C" __global__ void __launch_bounds__(RT_MASK_THREADS)
 rt_pixel_mask_kernel(RT_K2_PARAMS) {
@@ -635,12 +643,12 @@ rt_mask_table_kernel(float* __restrict__ tab, rt::MaskCam m,
 }
 
 #define RT_WALK_PARAMS                                                     \
-  uint8_t *__restrict__ out, int width, int height, float inv_w,           \
+  uint8_t *__restrict__ out, int width, int row0, int band, float inv_w,   \
       float inv_h, rt::MaskCam m, const float *__restrict__ table,         \
       int in_smem, const float *__restrict__ pl_point,                     \
       const float *__restrict__ pl_normal, int npl, rt::MaskScene s
 #define RT_WALK_ARGS                                                       \
-  out, width, height, inv_w, inv_h, m, table, in_smem, pl_point,           \
+  out, width, row0, band, inv_w, inv_h, m, table, in_smem, pl_point,       \
       pl_normal, npl, s
 
 extern "C" __global__ void __launch_bounds__(RT_MASK_THREADS)
@@ -714,14 +722,15 @@ extern "C" int rt_mask_table(float* tab, int width, int height,
   return static_cast<int>(cudaGetLastError());
 }
 
-// A persistent mask launch of `kernel` over the pixels' tiles, with
-// `floats` of dynamic shared memory besides the camera row.
+// A persistent mask launch of `kernel` over the tiles of a band of
+// `band` rows, with `floats` of dynamic shared memory besides the camera
+// row.
 template <class Kernel, class... Args>
-static int launch_mask(Kernel kernel, int width, int height, size_t floats,
+static int launch_mask(Kernel kernel, int width, int band, size_t floats,
                        void* stream, Args... args) {
-  if (width > 0 && height > 0) {
+  if (width > 0 && band > 0) {
     const int tiles = ((width + rt::kMaskTileW - 1) / rt::kMaskTileW) *
-                      ((height + rt::kMaskTileH - 1) / rt::kMaskTileH);
+                      ((band + rt::kMaskTileH - 1) / rt::kMaskTileH);
     const size_t smem = sizeof(float) * (rt::kCamPad + floats);
     const int blocks =
         rt::persistent_blocks(kernel, RT_MASK_THREADS, smem, 32 * tiles);
@@ -731,21 +740,26 @@ static int launch_mask(Kernel kernel, int width, int height, size_t floats,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The mask launchers take the image's width and height (the camera's)
+// and the row band [row0, row0 + band) whose (band * width,) bits they
+// write to out.
+
 // Launch K2 on `stream`: each block builds the leaf rows in its shared
 // memory, chunk_rows at a time. Returns cudaGetLastError() after the
 // launch.
-extern "C" int rt_pixel_mask(uint8_t* out, int width, int height,
-                             float inv_w, float inv_h, RT_MASK_CAM_ARGS,
-                             int chunk_rows, const float* pl_point,
+extern "C" int rt_pixel_mask(uint8_t* out, int width, int height, int row0,
+                             int band, float inv_w, float inv_h,
+                             RT_MASK_CAM_ARGS, int chunk_rows,
+                             const float* pl_point,
                              const float* pl_normal, int npl,
                              RT_MASK_SCENE_ARGS, void* stream) {
   const rt::MaskCam m = RT_MASK_CAM;
   const rt::MaskScene s = RT_MASK_SCENE;
   const int rows = n_slots < chunk_rows ? n_slots : chunk_rows;
   return launch_mask(dof ? rt_pixel_mask_dof_kernel : rt_pixel_mask_kernel,
-                     width, height, static_cast<size_t>(rt::kMaskLeaf) * rows,
-                     stream, out, width, height, inv_w, inv_h, m, chunk_rows,
-                     pl_point, pl_normal, npl, s);
+                     width, band, static_cast<size_t>(rt::kMaskLeaf) * rows,
+                     stream, out, width, row0, band, inv_w, inv_h, m,
+                     chunk_rows, pl_point, pl_normal, npl, s);
 }
 
 // Launch a walk, K6 or K6-stream: in_smem, each block builds the mask
@@ -753,25 +767,26 @@ extern "C" int rt_pixel_mask(uint8_t* out, int width, int height,
 // pre-pass's table at `table` in place.
 template <class Kernel>
 static int launch_mask_walk(Kernel kernel, uint8_t* out, int width,
-                            int height, float inv_w, float inv_h,
+                            int row0, int band, float inv_w, float inv_h,
                             const rt::MaskCam& m, const float* table,
                             int table_floats, int in_smem,
                             const float* pl_point, const float* pl_normal,
                             int npl, const rt::MaskScene& s, void* stream) {
-  return launch_mask(kernel, width, height,
+  return launch_mask(kernel, width, band,
                      in_smem ? static_cast<size_t>(table_floats) : 0, stream,
-                     out, width, height, inv_w, inv_h, m, table, in_smem,
+                     out, width, row0, band, inv_w, inv_h, m, table, in_smem,
                      pl_point, pl_normal, npl, s);
 }
 
 // Launch K6 on `stream`. Returns cudaGetLastError() after the launch.
 extern "C" int rt_pixel_mask_bvh(uint8_t* out, int width, int height,
-                                 float inv_w, float inv_h, RT_MASK_CAM_ARGS,
+                                 int row0, int band, float inv_w,
+                                 float inv_h, RT_MASK_CAM_ARGS,
                                  const float* table, int table_floats,
                                  int in_smem, const float* pl_point,
                                  const float* pl_normal, int npl,
                                  RT_MASK_SCENE_ARGS, void* stream) {
-  return launch_mask_walk(rt_pixel_mask_bvh_kernel, out, width, height,
+  return launch_mask_walk(rt_pixel_mask_bvh_kernel, out, width, row0, band,
                           inv_w, inv_h, RT_MASK_CAM, table, table_floats,
                           in_smem, pl_point, pl_normal, npl, RT_MASK_SCENE,
                           stream);
@@ -780,15 +795,16 @@ extern "C" int rt_pixel_mask_bvh(uint8_t* out, int width, int height,
 // Launch K6-stream on `stream`. Returns cudaGetLastError() after the
 // launch.
 extern "C" int rt_pixel_mask_stream(uint8_t* out, int width, int height,
-                                    float inv_w, float inv_h,
-                                    RT_MASK_CAM_ARGS, const float* table,
-                                    int table_floats, int in_smem,
+                                    int row0, int band, float inv_w,
+                                    float inv_h, RT_MASK_CAM_ARGS,
+                                    const float* table, int table_floats,
+                                    int in_smem,
                                     const float* pl_point,
                                     const float* pl_normal, int npl,
                                     RT_MASK_SCENE_ARGS, void* stream) {
-  return launch_mask_walk(rt_pixel_mask_stream_kernel, out, width, height,
-                          inv_w, inv_h, RT_MASK_CAM, table, table_floats,
-                          in_smem, pl_point, pl_normal, npl, RT_MASK_SCENE,
-                          stream);
+  return launch_mask_walk(rt_pixel_mask_stream_kernel, out, width, row0,
+                          band, inv_w, inv_h, RT_MASK_CAM, table,
+                          table_floats, in_smem, pl_point, pl_normal, npl,
+                          RT_MASK_SCENE, stream);
 }
 #endif

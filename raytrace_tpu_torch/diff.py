@@ -16,8 +16,8 @@ walk runs without autograd and the winner's t is re-derived
 straight-through (``ops/intersect._winner_t_diff``).
 
 No fused kernel runs here: the JAX path reaches no Pallas kernel either.
-Everything runs on the scene's device. The sharded train step
-(``make_train_step(mesh=)``) is not ported yet.
+Everything runs on the scene's device, or with ``make_train_step(mesh=)``
+on the devices of the mesh's coordinates.
 """
 
 from __future__ import annotations
@@ -176,11 +176,15 @@ def make_train_step(scene, target, *, width: int, height: int,
     {"lights.intensity"}); the gradients of every other field are zeroed
     before the step (with an adaptive optimizer, unconstrained near-zero
     gradients on geometry would otherwise random-walk the scene).
+
+    ``mesh`` (``parallel.make_mesh``): the lanes shard over (px, sp), as in
+    the JAX package (``_sharded_loss``); pixels and samples must divide
+    the mesh. One set of parameters takes the step: within a process every
+    coordinate reads it through a differentiable copy to its device; under
+    a process group every process holds the same parameters, and the
+    gradients are summed over the processes before the step, so they stay
+    the same.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded train step is not ported yet: it comes with "
-            "the multi-GPU slice (ROADMAP Queue 1 item 7)")
     params0, merge = split_params(scene)
     params = _leaves(params0)
     make_opt = optimizer or functools.partial(torch.optim.Adam, lr=1e-2)
@@ -189,13 +193,32 @@ def make_train_step(scene, target, *, width: int, height: int,
     n_px = width * height
     target = torch.as_tensor(target, dtype=torch.float32,
                              device=scene.device).reshape(n_px, 3)
+    if mesh is None:
+        def loss_fn(p):
+            img = render_image(merge(p), width, height, samples, cfg,
+                               go_camera)
+            return torch.mean((img.reshape(n_px, 3) - target) ** 2)
+    else:
+        n_shards, n_sp = mesh.shape["px"], mesh.shape["sp"]
+        if n_px % n_shards or samples % n_sp:
+            raise ValueError(
+                f"pixels ({n_px}) and samples ({samples}) must divide the "
+                f"mesh ({n_shards}x{n_sp}) for the sharded train step")
+        loss_fn = functools.partial(
+            _sharded_loss, scene=scene, target=target, width=width,
+            height=height, samples=samples, cfg=cfg, go_camera=go_camera,
+            mesh=mesh)
 
     def step(state: TrainState):
-        img = render_image(merge(state.params), width, height, samples, cfg,
-                           go_camera)
-        loss = torch.mean((img.reshape(n_px, 3) - target) ** 2)
+        loss = loss_fn(state.params)
+        # under a process group: see _sharded_loss
+        world = (torch.distributed.get_world_size()
+                 if mesh is not None and mesh.multi_process else 1)
         grads = _grads(state.params, torch.autograd.grad(
-            loss, _flat(state.params), allow_unused=True))
+            loss / world, _flat(state.params), allow_unused=True))
+        if world > 1:
+            for g in _flat(grads):
+                torch.distributed.all_reduce(g)
         for g, sub in state.params.items():
             for f, t in sub.items():
                 gr = grads[g][f]
@@ -206,6 +229,60 @@ def make_train_step(scene, target, *, width: int, height: int,
                 loss.detach())
 
     return TrainState(params, opt, 0), step
+
+
+def _sharded_loss(params, *, scene, target, width: int, height: int,
+                  samples: int, cfg: trace_mod.TraceConfig, go_camera: bool,
+                  mesh) -> torch.Tensor:
+    """The train step's loss with the lanes sharded over (px, sp)
+    (raytrace_tpu/diff.py:212-258): coordinate (i, j) traces the samples
+    of sp shard j for the pixels of px shard i on its device, from the
+    parameters copied there (a differentiable copy); the px shard adds its
+    sp partial sums in order on its device before the square; the shards'
+    sums fill a zero (n_px, 3) image on the mesh's home device, and the
+    loss is its squared error summed over n_px * 3.
+
+    Under a process group each process fills its own coordinates' rows and
+    ``torch.distributed.nn.functional.all_reduce`` sums the images over
+    the processes, differentiably; every process then holds the whole
+    image and the same loss. The step takes the gradient of loss / world:
+    the all_reduce's backward sums the processes' gradients of the image,
+    so each process's parameters receive its own lanes' part of the
+    gradient, and the step sums those over the processes."""
+    n_px = width * height
+    n_shards, n_sp = mesh.shape["px"], mesh.shape["sp"]
+    np_l, ns_l = n_px // n_shards, samples // n_sp
+    dcfg = _diff_cfg(cfg)
+    merged = {}
+    home = mesh.home
+    img = torch.zeros((n_px, 3), dtype=torch.float32, device=home)
+    for i in range(n_shards):
+        total = None
+        for j in range(n_sp):
+            if not mesh.is_local(i, j):
+                continue
+            dev = mesh.devices[i, j]
+            if dev not in merged:
+                _, merge_d = split_params(scene.to(dev))
+                merged[dev] = merge_d({g: {f: t.to(dev) for f, t in
+                                           sub.items()}
+                                       for g, sub in params.items()})
+            pix, samp = renderer_mod._lane_ids(
+                torch.arange(i * np_l, (i + 1) * np_l, device=dev), ns_l,
+                offset=j * ns_l)
+            rad = renderer_mod.lane_radiance(merged[dev], pix, samp,
+                                             width=width, height=height,
+                                             cfg=dcfg, go_camera=go_camera)
+            part = rad.reshape(np_l, ns_l, 3).sum(dim=1)
+            total = part if total is None else total + part.to(total.device)
+        if total is not None:  # the shards' rows are disjoint: exact
+            img = img.index_add(0, torch.arange(i * np_l, (i + 1) * np_l,
+                                                device=home), total.to(home))
+    if mesh.multi_process:
+        from torch.distributed.nn import functional as dist_fn
+        img = dist_fn.all_reduce(img)
+    err = img / samples - target.reshape(n_px, 3).to(home)
+    return torch.sum(err * err) / (n_px * 3)
 
 
 def finite_difference_grad(scene, width: int, height: int, *, samples: int,

@@ -150,7 +150,8 @@ def library() -> ctypes.CDLL:
     # node_max, skip, first, count, n_nodes, prim_index, n_slots,
     # sph_center, sph_radius, ns, v0, v1, v2
     mask_scene = [p] * 5 + [i, p, i, p, p, i, p, p, p]
-    head = [p, i, i, f, f] + cam  # out, width, height, inv_w, inv_h, cam
+    # out, width, height, row0, band (the rows written), inv_w, inv_h, cam
+    head = [p, i, i, i, i, f, f] + cam
     planes = [p, p, i]            # pl_point, pl_normal, npl
     # K2: rows a chunk; K6 and K6-stream: the mask table, its floats, in
     # shared memory

@@ -702,13 +702,26 @@ def _mask_walk(o, d, nodes, leaf_size, leaf_hits, work):
     return hit
 
 
-def _center_rays(cam, width, height, device):
-    """The pixels' center-ray directions d (P,3) of the camera row and
-    inv_a = 1/|d|^2, sqa = |d|, inv_sq = 1/|d| (P,1), as
+def _band(height: int, row0: int, rows) -> int:
+    """The row count of the band [row0, row0 + rows) of an image of
+    ``height`` rows (``rows`` None: to the last row); raises where the
+    band is not inside the image."""
+    rows = height - row0 if rows is None else rows
+    if not (0 <= row0 and 0 <= rows and row0 + rows <= height):
+        raise ValueError(f"row band [{row0}, {row0} + {rows}) is not inside "
+                         f"an image of {height} rows")
+    return rows
+
+
+def _center_rays(cam, width, height, device, row0: int = 0, rows=None):
+    """The center-ray directions d (P,3) of the camera row of the pixels of
+    rows [row0, row0 + rows) (the whole image by default), and inv_a =
+    1/|d|^2, sqa = |d|, inv_sq = 1/|d| (P,1), as
     ``csrc/pixel_mask.cu:center_ray`` computes them."""
     inv_w = float(np.float32(1.0 / width))
     inv_h = float(np.float32(1.0 / height))
-    pix = torch.arange(width * height, device=device)
+    rows = _band(height, row0, rows)
+    pix = row0 * width + torch.arange(width * rows, device=device)
     u = ((pix % width).to(torch.float32) + 0.5) * inv_w
     v = ((pix // width).to(torch.float32) + 0.5) * inv_h
     d = cam[3:6] + u[:, None] * cam[6:9] + v[:, None] * cam[9:12]  # (P,3)
@@ -776,12 +789,14 @@ def _planes_hit(point, normal, o, dx, dy, dz, cam) -> torch.Tensor:
 
 
 def mask_walk_plain(scene, cam, table, *, width: int, height: int, cfg,
-                    work=None) -> torch.Tensor:
-    """(H*W,) bool: the walk of K6 (bvh mode) or K6-stream (stream mode)
-    over a mask table (``mask_table_plain``), planes left out."""
+                    work=None, row0: int = 0, rows=None) -> torch.Tensor:
+    """(rows*W,) bool: the walk of K6 (bvh mode) or K6-stream (stream mode)
+    over a mask table (``mask_table_plain``) for the pixels of rows [row0,
+    row0 + rows) (the whole image by default), planes left out."""
     n = scene.accel.n_nodes
     nodes = table[:MASK_NODE * n].reshape(n, MASK_NODE)
-    d, inv_a, sqa, inv_sq = _center_rays(cam, width, height, scene.device)
+    d, inv_a, sqa, inv_sq = _center_rays(cam, width, height, scene.device,
+                                         row0, rows)
     leaf_hits = None
     if require_mode(scene) == "bvh":
         leaves = table[MASK_NODE * n:].reshape(-1, MASK_LEAF)
@@ -798,10 +813,12 @@ def mask_walk_plain(scene, cam, table, *, width: int, height: int, cfg,
 
 
 def pixel_mask_plain(scene, *, width: int, height: int, cfg,
-                     go_camera: bool = True, work=None,
-                     cam=None) -> torch.Tensor:
+                     go_camera: bool = True, work=None, cam=None,
+                     row0: int = 0, rows=None) -> torch.Tensor:
     """The plain version of K2 (unroll and loop modes), K6 (bvh mode) and
-    K6-stream (stream mode): (H*W,) bool, the same float32 operations as
+    K6-stream (stream mode): (rows*W,) bool, the mask of the row band
+    [row0, row0 + rows) (the whole image, (H*W,), by default; a band's
+    bits are the whole image's rows), the same float32 operations as
     ``csrc/pixel_mask.cu``, vectorised over pixels; K2 tests
     ``k2_table_plain``'s rows, K6 and K6-stream walk ``mask_table_plain``'s
     table. ``cam``: the camera row (18,) to use (the kernels' own,
@@ -814,21 +831,22 @@ def pixel_mask_plain(scene, *, width: int, height: int, cfg,
         cam = _mask_camera(scene, width, height, cfg, go_camera)
     g, dev = scene.geometry, scene.device
     o = cam[0:3]
-    d, inv_a, sqa, inv_sq = _center_rays(cam, width, height, dev)
+    rows = _band(height, row0, rows)
+    d, inv_a, sqa, inv_sq = _center_rays(cam, width, height, dev, row0, rows)
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    hit = torch.zeros((width * height,), dtype=torch.bool, device=dev)
+    hit = torch.zeros((width * rows,), dtype=torch.bool, device=dev)
     if g.pl_point.shape[0]:
         hit |= _planes_hit(g.pl_point, g.pl_normal, o, dx, dy, dz, cam)
     if mode in ("bvh", "stream"):
         hit |= mask_walk_plain(scene, cam, mask_table_plain(scene, cam, cfg),
                                width=width, height=height, cfg=cfg,
-                               work=work)
+                               work=work, row0=row0, rows=rows)
         return hit
-    rows = k2_table_plain(scene, cam, cfg).reshape(-1, MASK_LEAF)
+    leaves = k2_table_plain(scene, cam, cfg).reshape(-1, MASK_LEAF)
     if work is not None:
-        return k2_walk_plain(rows, d, inv_a, sqa, inv_sq, cam,
+        return k2_walk_plain(leaves, d, inv_a, sqa, inv_sq, cam,
                              cfg.depth_of_field, hit, work)
-    return hit | _k2_hits(rows, d, inv_a, sqa, inv_sq, cam,
+    return hit | _k2_hits(leaves, d, inv_a, sqa, inv_sq, cam,
                           cfg.depth_of_field)
 
 
@@ -887,10 +905,12 @@ def _camera_args(scene, cfg, go_camera):
 
 
 def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
-                       go_camera: bool = True):
+                       go_camera: bool = True, row0: int = 0, rows=None):
     """The mask kernel's inputs on the card: returns (out, launch).
     ``launch()`` (a ``MaskLaunch``) runs K2 (unroll and loop modes), K6
-    (bvh mode) or K6-stream (stream mode) into ``out``, (H*W,) bool,
+    (bvh mode) or K6-stream (stream mode) into ``out``, (rows*W,) bool,
+    the mask of the row band [row0, row0 + rows) of the (H, W) image (the
+    whole image by default: the kernels tile the band's rows alone),
     counting the launch under the kernel's name (``MASKS``). Every mask
     block builds the camera row and its table from the scene's own
     tensors: the host only allocates the output (and K6's table, which
@@ -906,7 +926,8 @@ def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
     mode = require_mode(scene)
     name = MASKS[mode]
     acc, g = scene.accel, scene.geometry
-    out = torch.empty((width * height,), dtype=torch.bool, device=dev)
+    rows = _band(height, row0, rows)
+    out = torch.empty((width * rows,), dtype=torch.bool, device=dev)
     lib = _build.library()
     inv_w = float(np.float32(1.0 / width))
     inv_h = float(np.float32(1.0 / height))
@@ -915,7 +936,7 @@ def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
     # the kernels' arguments; tensors stay referenced here until a launch
     # reads their pointers
     cam = _camera_args(scene, cfg, go_camera)
-    head = (out, width, height, inv_w, inv_h) + cam
+    head = (out, width, height, row0, rows, inv_w, inv_h) + cam
     planes = (_f32(g.pl_point, "pl_point"), _f32(g.pl_normal, "pl_normal"),
               g.pl_point.shape[0])
     ns, nt = g.sph_center.shape[0], g.tri_v0.shape[0]
@@ -975,14 +996,18 @@ def prepare_pixel_mask(scene, *, width: int, height: int, cfg,
 
 
 def pixel_mask(scene, *, width: int, height: int, cfg,
-               go_camera: bool = True) -> torch.Tensor:
+               go_camera: bool = True, row0: int = 0,
+               rows=None) -> torch.Tensor:
     """(H*W,) bool conservative per-pixel hit mask on the scene's device:
-    K2, K6 or K6-stream on CUDA, their plain version on the CPU."""
+    K2, K6 or K6-stream on CUDA, their plain version on the CPU. With
+    ``row0`` and ``rows``, the (rows*W,) mask of that row band alone (a
+    px shard's rows, ``parallel.shard``)."""
     if scene.device.type == "cpu":
         return pixel_mask_plain(scene, width=width, height=height, cfg=cfg,
-                                go_camera=go_camera)
+                                go_camera=go_camera, row0=row0, rows=rows)
     out, launch = prepare_pixel_mask(scene, width=width, height=height,
-                                     cfg=cfg, go_camera=go_camera)
+                                     cfg=cfg, go_camera=go_camera,
+                                     row0=row0, rows=rows)
     launch()
     return out
 

@@ -386,7 +386,8 @@ def _trace_compacted_pixels(scene, px_cidx, k, *, width: int, height: int,
                             samples: int, cfg: trace_mod.TraceConfig,
                             go_camera: bool, split=0,
                             deep_caps: str = "const", offset: int = 0,
-                            sum_image: bool = False, hook=_no_hook):
+                            sum_image: bool = False, row0: int = 0,
+                            rows: Optional[int] = None, hook=_no_hook):
     """Trace every lane of the compacted pixels with the scene's trace
     kernel and segment-add each pixel's samples into the (H,W,3) mean
     image (with ``sum_image`` the sum, which render_wavefront_chunked
@@ -394,10 +395,13 @@ def _trace_compacted_pixels(scene, px_cidx, k, *, width: int, height: int,
     each chunk through the split ladder (``trace_with_split``; first-level
     capacity from the chunk's lane count). ``k`` (a 0-d tensor) is the hit
     count: the slots from k on are padding and add into a row past the
-    image. The lanes take the sample ids [offset, offset + samples). Returns
-    (image, overflow summed over the chunks, a 0-d tensor on the
+    image. The lanes take the sample ids [offset, offset + samples). With
+    ``rows``, the pixels lie in the row band [row0, row0 + rows) (a px
+    shard's, ``parallel.shard``) and the image is that band's, (rows,W,3).
+    Returns (image, overflow summed over the chunks, a 0-d tensor on the
     device)."""
-    n_px = width * height
+    rows = height - row0 if rows is None else rows
+    n_px = width * rows
     dev = scene.device
     img = torch.zeros((n_px + 1, 3), dtype=torch.float32, device=dev)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
@@ -418,10 +422,10 @@ def _trace_compacted_pixels(scene, px_cidx, k, *, width: int, height: int,
             deep_caps=deep_caps, hook=hook)
         overflow = overflow + ov
         hook("trace", rad=rad)
-        img.index_add_(0, torch.where(slots < k, px, dump),
+        img.index_add_(0, torch.where(slots < k, px - row0 * width, dump),
                        rad.reshape(-1, samples, 3).sum(dim=1))
         hook("segment_add", img=img)
-    img = img[:n_px].reshape(height, width, 3)
+    img = img[:n_px].reshape(rows, width, 3)
     return (img if sum_image else img / samples), overflow
 
 

@@ -23,7 +23,10 @@ same spp (rtol 1e-6) in both modes; batch 2 against batch 8 is invisible;
 an interrupted and resumed render is bit-identical to the uninterrupted
 one in both modes; a checkpoint with another split spec, without one, of
 another scene, batch or accumulation mode is refused; the Renderer
-wrapper and the CLI run with --adaptive --denoise.
+wrapper and the CLI run with --adaptive --denoise. Over a mesh of 8 CPU
+coordinates (``parallel.make_mesh``), both modes hold the gates above
+against the JAX package's 8-device mesh and equal the unsharded run bit
+for bit.
 """
 
 import os
@@ -40,6 +43,7 @@ from raytrace_tpu.ops import megakernel as jmk
 from raytrace_tpu_torch import adaptive as tadaptive
 from raytrace_tpu_torch import cli
 from raytrace_tpu_torch import convert
+from raytrace_tpu_torch import parallel as tparallel
 from raytrace_tpu_torch import renderer as trender
 from raytrace_tpu_torch import scene as tscene
 from raytrace_tpu_torch import trace as ttrace
@@ -239,13 +243,50 @@ def test_scene_fingerprint_ignores_the_device_and_sees_the_tables():
 
 
 def test_entry_points_default_to_cuda_and_mesh_is_queued():
+    """The default device is CUDA, with a mesh too (make_mesh() raises
+    without a GPU); a mesh of CPU coordinates runs on the CPU (its home
+    device) without device="cpu"."""
     ts = unroll_scene()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tadaptive.render_adaptive(ts, mesh=object(), device="cpu", **KW)
+    cfg = ttrace.TraceConfig(seed=0, max_depth=2, shadow_samples=1)
+    img, spp = tadaptive.render_adaptive(
+        ts, cfg=cfg, mesh=tparallel.make_mesh(["cpu"] * 2),
+        **dict(KW, max_spp=4, min_spp=4))
+    assert img.shape == (H, W, 3) and (spp[spp > 0] == 4).all()
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; the default is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tadaptive.render_adaptive(ts, **KW)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tadaptive.render_adaptive(ts, mesh=tparallel.make_mesh(), **KW)
+
+
+@pytest.mark.parametrize("accum", ["host", "device"])
+def test_mesh_matches_jax(accum):
+    """render_adaptive over 8 CPU coordinates against the JAX package's
+    over its 8-device mesh (engine jnp), under test_adaptive_matches_jax's
+    gates; and equal to the port's unsharded run bit for bit (a pixel's
+    batch stays on one coordinate)."""
+    from raytrace_tpu import parallel as jparallel
+    js = jscene.from_dict(golden_dict("spheres_metal_glass"))[0]
+    ts = carry(js)
+    jcfg, tcfg = configs("spheres_metal_glass")
+    img_j, spp_j = jadaptive.render_adaptive(
+        js, cfg=jcfg, engine="jnp", accum=accum, pad_quantum=256,
+        mesh=jparallel.make_mesh(), **KW)
+    img_t, spp_t = tadaptive.render_adaptive(
+        ts, cfg=tcfg, accum=accum, mesh=tparallel.make_mesh(["cpu"] * 8),
+        **KW)
+    act = spp_j > 0
+    assert act.any() and (~act).any()
+    assert (spp_t[act] == spp_j[act]).mean() >= 0.999
+    extra = ~act & (spp_t > 0)
+    assert (spp_t[extra] == KW["min_spp"]).all()
+    assert (spp_t > KW["min_spp"]).any()
+    gate(img_t, img_j)
+    img_1, spp_1 = tadaptive.render_adaptive(ts, cfg=tcfg, accum=accum,
+                                             device="cpu", **KW)
+    np.testing.assert_array_equal(spp_t, spp_1)
+    np.testing.assert_array_equal(img_t, img_1)
 
 
 def test_renderer_adaptive_wrapper():

@@ -42,7 +42,10 @@ on the card the CPU's image within 1e-5 and its gradients within rtol
 frame of render_wavefront (assume_capacity, at a cached capacity) makes
 no host sync and equals the first frame of its key at error 0 in every
 kernel mode; a stale capacity is caught; the chunked frame is within the
-goldens gate of the one-round frame.
+goldens gate of the one-round frame. The masks of a row band (K2, K2-dof,
+K6, K6-stream) equal their plain band and the full mask's rows at error
+0; the px=2 sharded wavefront over two coordinates on the card reports
+overflow 0 and is within the goldens gate of render_wavefront.
 """
 
 import copy
@@ -1335,3 +1338,61 @@ def test_chunked_frame_within_gate_on_card(cuda, monkeypatch):
     img = trender.render_wavefront_chunked(s, chunk=3, **kw)
     assert tmk.LAUNCHES["pixel_mask_stream"] == 1
     gate(img, whole)
+
+
+# The multi-GPU slice on one card: the banded masks and the px-sharded
+# wavefront over coordinates that share the card.
+BAND_CASES = {"K2": ("unroll", "pinhole"), "K2-dof": ("unroll", "dof"),
+              "K6": ("bvh", "pinhole"), "K6-stream": ("stream", "pinhole")}
+
+
+@pytest.mark.parametrize("kernel", list(BAND_CASES))
+def test_banded_masks_equal_plain_bands(cuda, kernel, monkeypatch):
+    """K2, K2-dof, K6 and K6-stream on a 3-band split of a 200x150 frame
+    (bands of 53, 53 and 44 rows): each band equals its plain band and the
+    full mask's rows at error 0, one mask launch a band."""
+    mode, lens = BAND_CASES[kernel]
+    if mode == "unroll":
+        s = scene_on(SCENES[0], cuda)
+    else:
+        d = bvh_scene_dict("mixed-noground")
+        s = (forced_stream(d, cuda, monkeypatch) if mode == "stream"
+             else tscene.from_dict(d, device=cuda)[0])
+    cfg = mask_cfg(lens)
+    w, h = 200, 150
+    full = tmk.pixel_mask(s, width=w, height=h, cfg=cfg)
+    assert full.any() and (~full).any()
+    tmk.reset_launches()
+    parts = []
+    for row0, rows in ((0, 53), (53, 53), (106, 44)):
+        got = tmk.pixel_mask(s, width=w, height=h, cfg=cfg, row0=row0,
+                             rows=rows)
+        want = tmk.pixel_mask_plain(s, width=w, height=h, cfg=cfg,
+                                    row0=row0, rows=rows)
+        assert got.shape == (rows * w,) and torch.equal(got, want)
+        parts.append(got)
+    assert torch.equal(torch.cat(parts), full)
+    assert tmk.LAUNCHES[tmk.MASKS[mode]] == 3
+
+
+@pytest.mark.parametrize("mode", ["unroll", "bvh", "loop", "stream"])
+def test_sharded_wavefront_px2_equals_render_wavefront(cuda, mode,
+                                                       monkeypatch):
+    """render_wavefront_sharded on a px=2 mesh of two coordinates on the
+    card (each a band of 18 rows, its capacity every pixel of its band)
+    launches the mode's mask and trace kernels on each band, reports
+    overflow 0 and equals render_wavefront under the goldens gate (the
+    same lanes summed in the same order; depth 12 takes the stream scene
+    through the split ladder)."""
+    from raytrace_tpu_torch import parallel as tparallel
+    s = capacity_scene(mode, cuda, monkeypatch)
+    cfg = ttrace.TraceConfig(max_depth=12, shadow_samples=4)
+    kw = dict(width=48, height=36, samples=2, cfg=cfg)
+    ref = first_of_key(s, **kw)
+    tmk.reset_launches()
+    img, ov = tparallel.render_wavefront_sharded(
+        s, mesh=tparallel.make_mesh([cuda] * 2), px_capacity=18 * 48, **kw)
+    assert int(ov) == 0
+    assert tmk.LAUNCHES[tmk.MASKS[mode]] == 2
+    assert tmk.LAUNCHES[tmk.KERNELS[mode]] >= 2
+    gate(img, ref)

@@ -24,8 +24,9 @@ gradient (10x8, 1 spp, depth 2) against a central difference, keep_accel
 1e-6, and a light scale recovered through the walk: loss down more than
 100x), inverse rendering (intensity within 10%), the default optimizer
 against optax's adam over 5 steps of the same gradients (rtol 1e-5), an
-exactly tangent ray (finite gradients), mesh= refused, and the two tools
-at a small size.
+exactly tangent ray (finite gradients), a mesh the frame does not divide
+refused, one step sharded over px=4, sp=2 against the JAX package's
+sharded step, and the two tools at a small size.
 """
 
 import dataclasses
@@ -41,6 +42,7 @@ from raytrace_tpu import diff as jdiff
 from raytrace_tpu import trace as jtrace
 from raytrace_tpu_torch import convert
 from raytrace_tpu_torch import diff as tdiff
+from raytrace_tpu_torch import parallel as tparallel
 from raytrace_tpu_torch import renderer as trender
 from raytrace_tpu_torch import scene as tscene
 from raytrace_tpu_torch import trace as ttrace
@@ -464,11 +466,49 @@ def test_tangent_ray_gives_finite_gradients():
 
 
 def test_mesh_is_refused(scenes):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    """A mesh that the pixels or the samples do not divide is refused, with
+    the JAX package's error."""
+    mesh = tparallel.make_mesh(["cpu"] * 5)
+    with pytest.raises(ValueError, match="must divide the mesh"):
         tdiff.make_train_step(scenes["simple"][1],
                               np.zeros((H, W, 3), np.float32), width=W,
-                              height=H, samples=SPP, cfg=TCFG,
-                              mesh=object())
+                              height=H, samples=SPP, cfg=TCFG, mesh=mesh)
+
+
+def test_sharded_train_step_matches_jax(scenes):
+    """One SGD step (lr 1e-2) sharded over px=4, sp=2 against the JAX
+    package's make_train_step(mesh=) on its (4, 2) mesh: the loss within
+    rtol 1e-5, the updated parameters within test_diff.py's sharded
+    tolerance (rtol 1e-4, atol 2e-5); and against the port's unsharded
+    step within rtol 1e-6, atol 1e-7."""
+    import functools
+    import optax
+    from raytrace_tpu import parallel as jparallel
+    js, ts = scenes["simple"]
+    target = np.zeros((H, W, 3), np.float32)
+    jstate, jstep = jdiff.make_train_step(
+        js, target, width=W, height=H, samples=SPP, cfg=JCFG,
+        optimizer=optax.sgd(1e-2), mesh=jparallel.make_mesh(px=4, sp=2))
+    jstate, jloss = jstep(jstate)
+    sgd = functools.partial(torch.optim.SGD, lr=1e-2)
+    state, step = tdiff.make_train_step(
+        ts, target, width=W, height=H, samples=SPP, cfg=TCFG, optimizer=sgd,
+        mesh=tparallel.make_mesh(["cpu"] * 8, px=4, sp=2))
+    state, loss = step(state)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    one, step1 = tdiff.make_train_step(ts, target, width=W, height=H,
+                                       samples=SPP, cfg=TCFG, optimizer=sgd)
+    one, loss1 = step1(one)
+    np.testing.assert_allclose(float(loss), float(loss1), rtol=1e-6)
+    jp = np_tree(jstate.params)
+    for g, sub in state.params.items():
+        for f, t in sub.items():
+            got = t.detach().numpy()
+            np.testing.assert_allclose(got, jp[g][f], rtol=1e-4, atol=2e-5,
+                                       err_msg=f"{g}.{f}")
+            np.testing.assert_allclose(got, one.params[g][f].detach().numpy(),
+                                       rtol=1e-6, atol=1e-7,
+                                       err_msg=f"{g}.{f}")
 
 
 def test_tools_at_a_small_size():
