@@ -398,6 +398,38 @@ Phases, in order (each prints a line before and after, with its seconds):
                     (multigpu_launches); K2, K2-dof, K6 and K6-stream
                     carry the banded masks' device ms (band_ms, beside
                     band_full_ms)
+  sah               (the modules group: the JAX package's last modules,
+                    driven through the existing kernels; about 20 s in
+                    all) ring-1000 and ico-2561 with their BVH rebuilt by
+                    the binned SAH (bvh.build_scene_bvh(method="sah")),
+                    and a tree past the 4-wide stack
+                    (bench/suite.py:deep_sah_scene_dict, which must walk
+                    binary): each tree's depth and walk, K6 equal to its
+                    plain version at 800x600, K3+K4 to its plain version
+                    bit for bit on MODULES_SUBSET lanes at CHECK_DEPTH;
+                    the SAH frame under the image gate against the
+                    median-tree frame and both frames' ms (median of 3,
+                    in turns, after a warm-up)
+  lighting          lighting.one_bounce_indirect on LIGHT_POINTS hit
+                    points of the bench frame (bench scene, ring-1000)
+                    through the scene's trace kernel (8 launches) against
+                    the same call through trace.trace on the card; the
+                    four lights (atol 1e-5), AreaLight.integrate and
+                    ambient_occlusion (the gate over lanes) on the card
+                    against the CPU
+  pipeline          run_pipeline at 64x48, 2 spp, depth 3 against the
+                    eager engine (atol 1e-5); AdaptivePipeline (batches of
+                    2, 160x120, 6 spp) through the kernels against
+                    render_with_checkpoints
+  native            the host C++ library built with g++ (fails if not);
+                    its median tree of grid-5833 equal to the numpy
+                    build's bit for bit; both build times
+  bench_cli         python -m raytrace_tpu_torch.bench.cli (ring,
+                    400x300, 4 spp, depth 10) as a process started with
+                    the group, its report read back (rays/s); then
+                    optimization_demo.demo_spatial at its defaults (naive
+                    and BVH ms, node count); the group's numbers on one
+                    "modules: {...}" line
 
 The image gate is the goldens gate of tests/test_goldens.py: at most 0.1%
 of pixels off by more than 1e-3 and a mean absolute error below 1e-4.
@@ -1892,6 +1924,10 @@ def main():
                    "rt_trace_loop_state_kernel"):
             print(f"   {fn}: {regs.get(fn)} (registers, stack bytes, "
                   "spill bytes)", flush=True)
+
+    modules_group(mk, rmod, {"bench": scenes[SCENES[0]],
+                             "ring1000": bvh_scenes[BVH_SCENES[0]],
+                             "ico2561": ico2561}, grid, dev)
 
     print(gpu_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4497,6 +4533,371 @@ def capacity_group(mk, rmod, scenes, dev):
     for v in out.values():
         if isinstance(v, dict):
             v.pop("ref", None)
+    return out
+
+
+# ------------------------------------------------------------- modules ----
+# The last modules of the JAX package, ported without a kernel of their
+# own: the SAH build and the host trees, lighting, the staged pipeline,
+# the benchmark CLIs and the native library, driven on the card through
+# the kernels that exist. The group keeps to about 30 s: the SAH checks
+# hold MODULES_SUBSET lanes to the plain version, the lighting checks
+# 4,096 hit points.
+MODULES_SUBSET = 250
+LIGHT_POINTS = 4096
+BENCH_CLI_TIMEOUT = 120
+
+
+def tree_depth(accel):
+    """Levels of a binary skip-pointer tree (the root is level 1)."""
+    cnt = accel.node_count.cpu().tolist()
+    skip = accel.node_skip.cpu().tolist()
+    depth, best, stack = 0, 0, [(0, 1)]
+    while stack:
+        i, depth = stack.pop()
+        best = max(best, depth)
+        if cnt[i] == 0:
+            stack += [(i + 1, depth + 1), (skip[i + 1], depth + 1)]
+    return best
+
+
+def sah_scene_of(scene, leaf_size=None):
+    """The scene with its BVH rebuilt by the binned SAH (no scene key asks
+    for one: the JAX package has none either)."""
+    from raytrace_tpu_torch import bvh as bvh_mod
+    leaf = scene.accel.leaf_size if leaf_size is None else leaf_size
+    return dataclasses.replace(scene, accel=bvh_mod.build_scene_bvh(
+        scene.geometry, leaf_size=leaf, method="sah"))
+
+
+def sah_check(mk, rmod, scenes, dev, out):
+    """The sah phase: per scene the SAH tree's depth and walk, K6 equal to
+    its plain version, K3+K4 equal to its plain version bit for bit on a
+    strided subset of the frame's lanes at CHECK_DEPTH, the SAH frame
+    under the image gate against the median-tree frame, and both frames'
+    ms (median of 3, in turns, after a warm-up of each)."""
+    import torch
+    from raytrace_tpu_torch import bvh as bvh_mod
+    from raytrace_tpu_torch import scene as scene_mod
+    from raytrace_tpu_torch import trace as trace_mod
+    from raytrace_tpu_torch.bench.suite import deep_sah_scene_dict
+    cfg = trace_mod.TraceConfig(max_depth=DEPTH, shadow_samples=SOFT)
+    ccfg = trace_mod.TraceConfig(max_depth=CHECK_DEPTH, shadow_samples=SOFT)
+    deep = scene_mod.from_dict(deep_sah_scene_dict(), device=dev)[0]
+    cases = [(n, scenes[n], sah_scene_of(scenes[n]), True)
+             for n in ("ring1000", "ico2561")]
+    cases.append(("deep-sah", deep, sah_scene_of(deep, 1), False))
+    for name, med, sah, frames in cases:
+        accel = sah.accel
+        wide = bvh_mod.wide_walk(accel)
+        row = {"nodes": accel.n_nodes, "depth": tree_depth(accel),
+               "median_depth": tree_depth(med.accel),
+               "walk": "4-wide" if wide else "binary",
+               "wide_stack": accel.wide_stack}
+        print(f"   {name} SAH tree: {row['nodes']} nodes, depth "
+              f"{row['depth']} (median tree {row['median_depth']}), 4-wide "
+              f"stack bound {row['wide_stack']}: the {row['walk']} walk",
+              flush=True)
+        if mk._kernel_mode(sah) != "bvh":
+            raise AssertionError(f"{name}: not a bvh-mode scene")
+        if name == "deep-sah" and wide:
+            raise AssertionError("the deep SAH tree reached the 4-wide walk")
+        mk.reset_launches()
+        got = mk.pixel_mask(sah, width=W, height=H, cfg=cfg)
+        if mk.LAUNCHES["pixel_mask_bvh"] != 1:
+            raise AssertionError(f"{name}: K6 did not launch once")
+        want = mk.pixel_mask_plain(sah, width=W, height=H, cfg=cfg)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6 differs from its plain version on "
+                                 f"{name}'s SAH tree")
+        px, o, d, pix, samp = lanes_of(sah, W, H, SPP, ccfg)
+        idx = torch.arange(0, o.shape[0], max(1, o.shape[0]
+                                              // MODULES_SUBSET),
+                           device=dev)
+        sub = tuple(t[idx].contiguous() for t in (o, d, pix, samp))
+        mk.reset_launches()
+        k3_both(mk, sah, sub, ccfg)
+        if mk.LAUNCHES["trace_wide"] != (2 if wide else 0):
+            raise AssertionError(f"{name}: the walk is not the one "
+                                 "wide_walk chose")
+        row["k6_err"] = float((got.float() - want.float()).abs().max())
+        row["k3_lanes"] = int(idx.numel())
+        row["k3_err"] = 0.0
+        print(f"   {name} SAH: K6 equal to plain at {W}x{H}, K3+K4 equal to "
+              f"plain bit for bit on {idx.numel()} lanes at depth "
+              f"{CHECK_DEPTH}", flush=True)
+        if frames:
+            ms = {"median": [], "sah": []}
+            imgs = {}
+            for key, s in (("median", med), ("sah", sah)):
+                uncached(rmod, s, W, H, SPP, cfg)
+                imgs[key] = rmod.render_wavefront(s, width=W, height=H,
+                                                  samples=SPP, cfg=cfg)
+            for _ in range(3):
+                for key, s in (("median", med), ("sah", sah)):
+                    ms[key].append(host_ms(lambda: rmod.render_wavefront(
+                        s, width=W, height=H, samples=SPP, cfg=cfg))[0])
+            image_gate(imgs["sah"], imgs["median"],
+                       f"{name} SAH frame against the median-tree frame")
+            for key in ms:
+                row[f"{key}_frame_ms"] = sorted(ms[key])[1]
+            print(f"   {name} {W}x{H}x{SPP} d{DEPTH}: median tree "
+                  f"{row['median_frame_ms']:.3f} ms, SAH tree "
+                  f"{row['sah_frame_ms']:.3f} ms a frame (median of 3) on "
+                  f"{CARD}", flush=True)
+        out[name] = row
+
+
+def lighting_check(mk, rmod, scenes, dev, out):
+    """The lighting phase: one_bounce_indirect on LIGHT_POINTS hit points
+    of the bench frame's camera rays (strided over the frame's hits) on the
+    bench scene and ring-1000 through the scene's trace
+    kernel against the same call forced through trace.trace on the card;
+    ambient_occlusion, the four lights and AreaLight.integrate on the
+    card against the CPU (light samples at atol 1e-5; occlusion verdicts
+    may flip at a rounding boundary between the card's and the CPU's
+    float32 operations, so those two under the goldens gate over lanes)."""
+    import torch
+    from raytrace_tpu_torch import lighting
+    from raytrace_tpu_torch import trace as trace_mod
+    from raytrace_tpu_torch.ops import intersect
+    cfg = trace_mod.TraceConfig()
+    for name in ("bench", "ring1000"):
+        s = scenes[name]
+        pix, samp = rmod._lane_ids(torch.arange(W * H, device=dev), 1)
+        o, d = rmod._lane_rays(s, pix, samp, width=W, height=H, cfg=cfg,
+                               go_camera=True)
+        hit = intersect.closest_hit(s.geometry, o, d, accel=s.accel)
+        at = hit.hit.nonzero()[:, 0]
+        at = at[torch.arange(0, at.numel(), max(1, at.numel()
+                                                // LIGHT_POINTS),
+                             device=dev)][:LIGHT_POINTS]
+        p, n, pix, samp = hit.point[at], hit.normal[at], pix[at], samp[at]
+        kernel = mk.KERNELS[mk._kernel_mode(s)]
+        mk.reset_launches()
+        t0 = time.perf_counter()
+        got = lighting.one_bounce_indirect(s, p, n, pix, samp)
+        torch.cuda.synchronize()
+        k_ms = (time.perf_counter() - t0) * 1e3
+        launches = mk.LAUNCHES[kernel]
+        if launches != 8:
+            raise AssertionError(f"{name}: one_bounce_indirect launched "
+                                 f"{kernel} {launches} times, not 8")
+        old = mk.trace
+        mk.trace = trace_mod.trace
+        try:
+            t0 = time.perf_counter()
+            want = lighting.one_bounce_indirect(s, p, n, pix, samp)
+            torch.cuda.synchronize()
+            e_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            mk.trace = old
+        err = float((got - want).abs().max())
+        if err != 0.0:
+            image_gate(got, want, f"{name} one_bounce_indirect, kernel "
+                       "against eager")
+        if not float(want.sum()) > 0.0:
+            raise AssertionError(f"{name}: one_bounce_indirect is black")
+        print(f"   {name} one_bounce_indirect on {p.shape[0]} hit points: "
+              f"{kernel} x {launches} equal to the eager engine "
+              f"{'at error 0' if err == 0 else f'under the gate (max {err:.3e})'}"
+              f"; {k_ms:.1f} ms through the kernel, {e_ms:.1f} ms eager "
+              "(host clock)", flush=True)
+        out[f"{name}_indirect"] = {"points": int(p.shape[0]),
+                                   "launches": launches, "max_abs_err": err,
+                                   "kernel_ms": k_ms, "eager_ms": e_ms}
+    s = scenes["bench"]
+    cpu = s.to("cpu")
+    pc, nc, pixc, sampc = (t.cpu() for t in (p, n, pix, samp))
+    lights = {
+        "point": lambda dv: lighting.PointLight([0.5, 3.0, -1.0],
+                                                (1, 0.8, 0.6), 2.0,
+                                                device=dv),
+        "directional": lambda dv: lighting.DirectionalLight(
+            [0.3, -1.0, 0.2], device=dv),
+        "area": lambda dv: lighting.AreaLight([-1.0, 4.0, -1.0], [2, 0, 0],
+                                              [0, 0, 2], intensity=3.0,
+                                              samples=8, device=dv),
+        "spot": lambda dv: lighting.SpotLight([0, 5, 0], [0.1, -1, 0],
+                                              intensity=4.0, device=dv),
+    }
+    worst = 0.0
+    for key, make in lights.items():
+        a = make(dev).sample(p, pix, samp)
+        b = make("cpu").sample(pc, pixc, sampc)
+        for f in ("direction", "distance", "radiance"):
+            e = float((getattr(a, f).cpu() - getattr(b, f)).abs().max())
+            worst = max(worst, e)
+            if e > 1e-5:
+                raise AssertionError(f"{key} light {f}: card against CPU "
+                                     f"{e:.3e} > 1e-5")
+    area = lights["area"]
+    ig = area(dev).integrate(p, pix, samp, geom=s.geometry).radiance
+    ic = area("cpu").integrate(pc, pixc, sampc, geom=cpu.geometry).radiance
+    image_gate(ig.cpu(), ic, "AreaLight.integrate, card against CPU")
+    ao = lighting.ambient_occlusion(s.geometry, p, n, pix, samp)
+    aoc = lighting.ambient_occlusion(cpu.geometry, pc, nc, pixc, sampc)
+    image_gate(ao.cpu()[:, None], aoc[:, None],
+               "ambient_occlusion, card against CPU")
+    out["lights_max_abs_err"] = worst
+    print(f"   four lights card against CPU: max {worst:.3e}; "
+          f"AreaLight.integrate and ambient_occlusion within the gate",
+          flush=True)
+
+
+def pipeline_check(mk, rmod, scene, dev, out):
+    """The pipeline phase: run_pipeline at 64x48, 2 spp, depth 3 on the
+    card against the Renderer's eager engine at the same settings (atol
+    1e-5, the JAX test's); AdaptivePipeline with fixed batches of 2 at
+    160x120, 6 spp through the kernels against render_with_checkpoints
+    (samples_per_round=2; rtol 1e-6, atol 1e-7, the JAX test's)."""
+    import numpy as np
+    import torch
+    from raytrace_tpu_torch import pipeline
+    from raytrace_tpu_torch.parallel import render_with_checkpoints
+    r = rmod.Renderer(device=dev)
+    r.engine, r.samples, r.max_depth = "eager", 2, 3
+    ms, img = host_ms(lambda: pipeline.run_pipeline(
+        scene, width=64, height=48, samples=2, cfg=r.trace_config()))
+    ref = r.render_linear_device(scene, 64, 48)
+    err = float((img - ref).abs().max())
+    if not (err <= 1e-5 and float(img.sum()) > 0):
+        raise AssertionError(f"run_pipeline against the eager engine: "
+                             f"{err:.3e} > 1e-5")
+    print(f"   run_pipeline 64x48x2 d3: max {err:.3e} against the eager "
+          f"engine; {ms:.1f} ms", flush=True)
+    r = rmod.Renderer(device=dev)
+    r.max_depth = DEPTH
+    kernel = mk.KERNELS[mk._kernel_mode(scene)]
+    mk.reset_launches()
+    ap = pipeline.AdaptivePipeline(target_seconds=0.05, batch=2,
+                                   min_batch=2, max_batch=2)
+    got = ap.render(r, scene, 160, 120, total_samples=6)
+    if mk.LAUNCHES[kernel] < 3 or mk.LAUNCHES["pixel_mask"] < 3:
+        raise AssertionError(f"AdaptivePipeline did not run the kernels: "
+                             f"{dict(mk.LAUNCHES)}")
+    r2 = rmod.Renderer(device=dev)
+    r2.max_depth = DEPTH
+    ref = render_with_checkpoints(r2, scene, 160, 120, total_samples=6,
+                                  samples_per_round=2)
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
+    out["pipeline"] = {"run_pipeline_err": err, "run_pipeline_ms": ms,
+                       "adaptive_launches": mk.LAUNCHES[kernel],
+                       "adaptive_err": float(np.abs(got - ref).max())}
+    print(f"   AdaptivePipeline 160x120x6 (batches of 2): {kernel} x "
+          f"{mk.LAUNCHES[kernel]}, equal to render_with_checkpoints "
+          f"(max {out['pipeline']['adaptive_err']:.3e})", flush=True)
+
+
+def start_bench_cli(tmp):
+    """Start the sweep's CLI as a subprocess (ring, 400x300, 4 spp, depth
+    10, one repetition), its report into tmp: the process spends most of
+    its time importing, so the group's other phases run meanwhile, and
+    the card is idle when its frames run (bench_cli_check waits for it
+    before demo_spatial)."""
+    path = os.path.join(tmp, "report.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "raytrace_tpu_torch.bench.cli",
+         "--width", "400", "--height", "300", "--samples", "4",
+         "--repetitions", "1", "--max-depth", "10", "--output", path],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, path, time.perf_counter()
+
+
+def bench_cli_check(dev, cli, out):
+    """The bench_cli phase: the CLI's report read back once its process
+    ends, then optimization_demo's demo_spatial at its defaults."""
+    from raytrace_tpu_torch.bench import optimization_demo
+    proc, path, t0 = cli
+    t_wait = time.perf_counter()
+    try:
+        _, err = proc.communicate(timeout=BENCH_CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    wall, waited = time.perf_counter() - t0, time.perf_counter() - t_wait
+    if proc.returncode != 0:
+        raise AssertionError(f"bench.cli failed ({proc.returncode}): "
+                             f"{err[-2000:]}")
+    with open(path) as f:
+        rep = json.load(f)
+    res = rep["results"][0]
+    print(f"   bench.cli ring 400x300x4 d10: {res['rays_per_second']:.4e} "
+          f"rays/s ({res['min_s'] * 1e3:.2f} ms a frame) on {CARD}; its "
+          f"process {wall:.1f} s from its start, {waited:.1f} s of it "
+          "after this process's other phases", flush=True)
+    out["bench_cli"] = {"rays_per_second": res["rays_per_second"],
+                        "min_s": res["min_s"], "device": rep["device"],
+                        "wall_s": wall, "waited_s": waited}
+    spatial = optimization_demo.demo_spatial(device=dev)
+    print(f"   demo_spatial 1000 spheres, 4096 rays on {CARD}: naive "
+          f"{spatial['naive_seconds'] * 1e3:.3f} ms, BVH "
+          f"{spatial['bvh_seconds'] * 1e3:.3f} ms, {spatial['bvh_nodes']} "
+          "nodes", flush=True)
+    out["demo_spatial"] = spatial
+
+
+def native_check(grid, out):
+    """The native phase: the library built with g++ here (no fallback),
+    and its median tree of grid-5833 equal to the numpy build's, every
+    array bit for bit."""
+    import numpy as np
+    from raytrace_tpu_torch import bvh as bvh_mod
+    from raytrace_tpu_torch import native
+    t0 = time.perf_counter()
+    if native.load() is None:
+        raise AssertionError("the native library did not build (g++)")
+    load_s = time.perf_counter() - t0
+    g = grid.geometry
+    c = g.sph_center.cpu().numpy()
+    r = g.sph_radius.cpu().numpy()[:, None]
+    lo, hi = c - r, c + r
+    leaf = grid.accel.leaf_size
+    t0 = time.perf_counter()
+    nat = native.build_bvh_native(lo, hi, leaf)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = bvh_mod.flat_arrays(lo, hi, leaf)
+    np_s = time.perf_counter() - t0
+    for a, b, f in zip(nat, want, ("node_min", "node_max", "node_skip",
+                                   "node_first", "node_count",
+                                   "prim_index")):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"native tree {f} differs from numpy's")
+    print(f"   native library loaded in {load_s:.2f} s; grid-5833 median "
+          f"tree ({want[0].shape[0]} nodes, leaf {leaf}) equal to numpy's: "
+          f"native {nat_s * 1e3:.2f} ms, numpy {np_s * 1e3:.1f} ms (host)",
+          flush=True)
+    out["native"] = {"load_s": load_s, "native_ms": nat_s * 1e3,
+                     "numpy_ms": np_s * 1e3, "nodes": int(want[0].shape[0])}
+
+
+def modules_group(mk, rmod, scenes, grid, dev):
+    """The modules group (phases sah, lighting, pipeline, bench_cli,
+    native); prints its numbers as one JSON line and returns them."""
+    out = {"sah": {}, "lighting": {}}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = start_bench_cli(tmp)
+        try:
+            with Phase("sah"):
+                sah_check(mk, rmod, scenes, dev, out["sah"])
+            with Phase("lighting"):
+                lighting_check(mk, rmod, scenes, dev, out["lighting"])
+            with Phase("pipeline"):
+                pipeline_check(mk, rmod, scenes["bench"], dev, out)
+            with Phase("native"):
+                native_check(grid, out)
+            with Phase("bench_cli"):
+                bench_cli_check(dev, cli, out)
+        finally:
+            if cli[0].poll() is None:
+                cli[0].kill()
+                cli[0].communicate()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"   modules group: {out['seconds']:.1f} s", flush=True)
+    print("modules: " + json.dumps(out), flush=True)
     return out
 
 

@@ -42,6 +42,14 @@ batch at a time by ``flush_capacity_checks``), and
 ``parallel`` shards frames over a (px, sp) mesh of devices (each px
 shard's mask over its own rows) and across ``torch.distributed``
 processes.
+
+The rest of the JAX package has its counterparts under the same module
+names: ``fastmath``, ``rays``, ``models.geometry_extras``,
+``effects_spectacular``, ``lighting`` (its indirect light traced through
+the trace kernels), ``pipeline`` (the staged render), the SAH build,
+``closest_hit_bvh``, ``Octree`` and ``KDTree`` in ``bvh``, ``native``
+(the host C++ library) and the benchmark sweep and demo of ``bench``.
+As in the JAX package, the package root exports none of them.
 """
 
 from . import diff, obs

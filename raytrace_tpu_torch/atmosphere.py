@@ -120,6 +120,13 @@ def atmospheric_attenuation(distance: torch.Tensor) -> torch.Tensor:
     return torch.exp(-0.1 * d) * torch.exp(-0.05 * d)
 
 
+# Rayleigh scattering coefficients at sea level, 1e-6 m^-1 a channel, and
+# Mie's (the reference's atmospheric_effects.go:44), as the JAX package
+# keeps them.
+RAYLEIGH_BETA = np.array([5.802e-6, 13.558e-6, 33.1e-6], np.float32)
+MIE_BETA = np.float32(3.996e-6)
+
+
 def rayleigh_phase(cos_theta: torch.Tensor) -> torch.Tensor:
     """3/(16 pi) (1 + cos^2) (atmospheric_effects.go:49-55)."""
     c = cos_theta.to(torch.float32)

@@ -1,23 +1,37 @@
-"""Benchmark and check scenes of the port: a copy of the JAX package's
-``bench/suite.py:ring_scene_dict`` (the benchmark sweep is not ported),
-the bvh-mode scenes that the tests and ``chip_smoke.py`` share, copies
-of five golden scenes of ``tests/make_goldens.py`` (``golden_scene_dict``),
+"""Benchmark and check scenes of the port, and the JAX package's
+benchmark sweep.
+
+The sweep (``BenchmarkSuite``, ``quick_benchmark``, ``memory_benchmark``;
+``python -m raytrace_tpu_torch.bench.cli`` drives it) renders a grid of
+scenes x samples at one resolution through ``Renderer.render_linear``
+(on the card: the mask and trace kernels) with a warm-up, and reports
+min/max/avg/median/stddev seconds and rays/s as the reference defines
+them (pixels/s x samples), as in ``raytrace_tpu/bench/suite.py``.
+
+The scenes: a copy of the JAX package's ``ring_scene_dict``, the
+bvh-mode scenes that the tests and ``chip_smoke.py`` share, copies of
+five golden scenes of ``tests/make_goldens.py`` (``golden_scene_dict``),
 a scene of exact ties for the walks' order (``twin_scene_dict``), and
 copies of the JAX package's two stream-mode workloads of
 ``tools/tpu_stream_smoke.py`` (``grid_scene_dict``, ``icosphere_obj``,
 ``mesh_scene_dict``), grid-1001 of its gradient measurements
 (``grad_grid_scene_dict``) and the two scenes of its gradient tests
-(``diff_scene_dict``), for runs that may not import the JAX package;
+(``diff_scene_dict``), and a scene whose SAH tree is deeper than the
+kernels' 4-wide stack (``deep_sah_scene_dict``), for runs that may not
+import the JAX package;
 and the JAX package's scaling sweep over mesh sizes
 (``scaling_benchmark``)."""
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import json
 import math
 import os
+import statistics
 import time
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -411,6 +425,32 @@ def mesh_scene_dict(tmpdir: str, subdiv: int = 4):
     }
 
 
+def deep_sah_scene_dict():
+    """A scene whose binned-SAH tree is deeper than the kernels' 4-wide
+    stack allows (``bvh.WIDE_STACK``): 90 spheres on six half-axis combs,
+    each 17 times further out than the one before (the SAH peels them off
+    one level at a time), and 10 near the origin; 100 primitives, bvh
+    mode. ``bvh.build_scene_bvh(geom, leaf_size=1, method="sah")`` builds
+    the deep tree."""
+    objs = []
+    for ax in range(3):
+        for sg in (1.0, -1.0):
+            for k in range(15):
+                p = [0.0, 0.0, 0.0]
+                p[ax] = sg * 17.0 ** (k + 1)
+                objs.append(p)
+    r = np.random.default_rng(11)
+    objs += r.uniform(-3, 3, (10, 3)).tolist()
+    return {"camera": {"position": [0, 0, 30], "lookAt": [0, 0, 0],
+                       "up": [0, 1, 0], "fov": 60, "aspectRatio": 1.0},
+            "objects": [{"type": "sphere", "position": p, "radius": 0.5,
+                         "material": {"type": "lambertian",
+                                      "color": [0.6, 0.5, 0.4]}}
+                        for p in objs],
+            "lights": [{"type": "point", "position": [4, 9, 6],
+                        "color": [1, 1, 1], "intensity": 2.0}]}
+
+
 def scaling_benchmark(width: int = 400, height: int = 300,
                       samples: int = 8,
                       mesh_shapes: Sequence[int] = (1, 2, 4, 8)) -> Dict:
@@ -450,3 +490,163 @@ def scaling_benchmark(width: int = 400, height: int = 300,
         out["times"].append(dt)
         out["efficiency"].append(base / (dt * n))
     return out
+
+
+# ------------------------------------------------------------ the sweep ----
+
+@dataclasses.dataclass
+class BenchmarkConfig:
+    """The sweep's axes (cmd/benchmark/main.go:290-301)."""
+
+    width: int = 400
+    height: int = 300
+    samples_list: Sequence[int] = (4, 16)
+    max_depth: int = 50
+    scenes: Sequence[str] = ("ring",)
+    repetitions: int = 3
+    warmup: int = 1
+
+
+@dataclasses.dataclass
+class BenchmarkResult:
+    scene: str
+    width: int
+    height: int
+    samples: int
+    max_depth: int
+    times_seconds: List[float]
+    min_s: float
+    max_s: float
+    avg_s: float
+    median_s: float
+    stddev_s: float
+    pixels_per_second: float
+    rays_per_second: float
+
+    def to_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+def _stats(times: List[float]) -> Dict[str, float]:
+    return {
+        "min_s": min(times),
+        "max_s": max(times),
+        "avg_s": sum(times) / len(times),
+        "median_s": statistics.median(times),
+        "stddev_s": statistics.pstdev(times) if len(times) > 1 else 0.0,
+    }
+
+
+class BenchmarkSuite:
+    """The grid sweep on ``device`` (None: the card; "cpu" runs the plain
+    versions). A render's time is the host clock around
+    ``Renderer.render_linear``, which ends in the image's copy to the
+    host, so it holds the device's work."""
+
+    def __init__(self, config: Optional[BenchmarkConfig] = None,
+                 device=None):
+        from .. import _device
+        self.config = config or BenchmarkConfig()
+        self.device = _device.resolve(device)
+        self.results: List[BenchmarkResult] = []
+
+    def _scene(self, name: str):
+        from .. import scene as scene_mod
+        if name == "ring":
+            return scene_mod.from_dict(ring_scene_dict(),
+                                       device=self.device)[0]
+        return scene_mod.load(name, device=self.device)[0]
+
+    def run(self, progress: bool = True) -> List[BenchmarkResult]:
+        from .. import renderer as renderer_mod
+        cfg = self.config
+        for scene_name in cfg.scenes:
+            scene = self._scene(scene_name)
+            for samples in cfg.samples_list:
+                r = renderer_mod.Renderer(device=self.device)
+                r.set_samples(samples)
+                r.set_max_depth(cfg.max_depth)
+                for _ in range(cfg.warmup):
+                    r.render_linear(scene, cfg.width, cfg.height)
+                times = []
+                for _ in range(cfg.repetitions):
+                    t0 = time.perf_counter()
+                    r.render_linear(scene, cfg.width, cfg.height)
+                    times.append(time.perf_counter() - t0)
+                st = _stats(times)
+                px_s = cfg.width * cfg.height / st["min_s"]
+                res = BenchmarkResult(
+                    scene=scene_name, width=cfg.width, height=cfg.height,
+                    samples=samples, max_depth=cfg.max_depth,
+                    times_seconds=times, pixels_per_second=px_s,
+                    # rays/s = px/s * samples (cmd/benchmark/main.go:125-127)
+                    rays_per_second=px_s * samples, **st)
+                self.results.append(res)
+                if progress:
+                    print(f"{scene_name} {cfg.width}x{cfg.height} "
+                          f"spp={samples}: {st['min_s']:.3f}s  "
+                          f"{res.rays_per_second / 1e6:.1f}M rays/s")
+        return self.results
+
+    def device_name(self) -> str:
+        import torch
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return str(self.device)
+
+    def report_dict(self) -> Dict:
+        """The JAX package's report, plus the device it ran on."""
+        return {
+            "config": dataclasses.asdict(self.config),
+            "results": [r.to_dict() for r in self.results],
+            "timestamp": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
+            "device": self.device_name(),
+        }
+
+    def save_report(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.report_dict(), f, indent=2, default=list)
+
+    def print_table(self) -> None:
+        hdr = (f"{'scene':<24} {'res':>9} {'spp':>5} {'min':>8} "
+               f"{'median':>8} {'rays/s':>12}")
+        print(hdr)
+        print("-" * len(hdr))
+        for r in self.results:
+            print(f"{r.scene:<24} {r.width}x{r.height:>4} {r.samples:>5} "
+                  f"{r.min_s:>8.3f} {r.median_s:>8.3f} "
+                  f"{r.rays_per_second:>12,.0f}")
+
+
+def quick_benchmark(width: int = 200, height: int = 150, samples: int = 4,
+                    device=None) -> BenchmarkResult:
+    """QuickBenchmark (comprehensive_benchmark.go:393-404)."""
+    suite = BenchmarkSuite(BenchmarkConfig(
+        width=width, height=height, samples_list=(samples,),
+        repetitions=2, warmup=1), device=device)
+    return suite.run(progress=False)[0]
+
+
+def memory_benchmark(n_spheres: int = 1000, device=None) -> Dict:
+    """MemoryBenchmark (comprehensive_benchmark.go:406-424): the host
+    memory taken by building a ring scene of ``n_spheres`` and a sphere
+    tree over it, and the tree's build time."""
+    from .. import _device
+    from .. import bvh as bvh_mod
+    from .. import obs
+    from .. import scene as scene_mod
+    dev = _device.resolve(device)
+    before = obs.host_memory_in_use()
+    scene, _ = scene_mod.from_dict(ring_scene_dict(n_spheres=n_spheres),
+                                   device=dev)
+    g = scene.geometry
+    t0 = time.perf_counter()
+    tree = bvh_mod.build_sphere_bvh(g.sph_center.cpu().numpy(),
+                                    g.sph_radius.cpu().numpy())
+    build_s = time.perf_counter() - t0
+    return {
+        "spheres": n_spheres,
+        "bvh_nodes": tree.n_nodes,
+        "bvh_build_seconds": build_s,
+        "host_memory_delta_bytes": obs.host_memory_in_use() - before,
+    }

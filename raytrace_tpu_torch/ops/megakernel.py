@@ -93,6 +93,8 @@ from . import _build
 from .shade import shadow_factor as _shadow_factor  # before any swap
 
 UNROLL_PRIM_LIMIT = 96
+MAX_KERNEL_PRIMS = UNROLL_PRIM_LIMIT  # the JAX name of the same limit
+BIG = np.float32(3.0e38)  # the miss distance (intersect.BIG)
 UNROLL_PRIM_LIMIT_VN = scene_mod.UNROLL_PRIM_LIMIT_VN  # 48
 MAX_BVH_KERNEL_PRIMS = scene_mod.MAX_BVH_KERNEL_PRIMS  # 4096
 MAX_STREAM_KERNEL_PRIMS = 1 << 18  # the JAX package's (scene_fits_kernel)

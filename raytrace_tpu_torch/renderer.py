@@ -689,6 +689,11 @@ def render_wavefront_chunked(scene, *, width: int, height: int,
 ENGINES = ("auto", "kernels", "eager")
 
 
+def scene_prim_count(scene) -> int:
+    """Spheres + triangles + planes (``Scene.prim_count``)."""
+    return scene.prim_count
+
+
 def pick_band_height(width: int, height: int, samples: int,
                      lane_budget: int = 1 << 21, n_prims: int = 1) -> int:
     """Rows of a band of the eager engine (:122): the largest band whose

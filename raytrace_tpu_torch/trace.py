@@ -113,8 +113,13 @@ def fast_mc(cfg: TraceConfig, bounce: int, pix, samp, tp):
 BOUNCES = {"run": 0}
 
 
-def _bounce(scene, pix, samp, cfg, bounce, origin, direction, throughput):
+def _bounce(scene, pix, samp, cfg, bounce, origin, direction, throughput,
+            hit=None):
     """One shading iteration over live lanes.
+
+    ``hit``: the closest hit of these lanes' rays (t_min 1e-3), given by a
+    caller that ran the intersection itself (the staged pipeline's shade
+    stage); None runs it here.
 
     Returns (indices of the lanes that hit, their emitted and direct
     radiance terms, scattering mask among them, next origin, next
@@ -123,8 +128,9 @@ def _bounce(scene, pix, samp, cfg, bounce, origin, direction, throughput):
     geom, mats, lights = scene.geometry, scene.materials, scene.lights
     # the scene BVH, when there is one: the same hits, walked
     accel = scene.accel
-    hit = intersect.closest_hit(geom, origin, direction, t_min=1e-3,
-                                accel=accel)
+    if hit is None:
+        hit = intersect.closest_hit(geom, origin, direction, t_min=1e-3,
+                                    accel=accel)
     keep = hit.hit.nonzero()[:, 0]
     pix, samp = pix[keep], samp[keep]
     d = direction[keep]

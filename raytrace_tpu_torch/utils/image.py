@@ -1,9 +1,10 @@
-"""PNG encode/decode with the standard library only (zlib + struct).
+"""PNG encode/decode with zlib and struct, and the reference's ASCII
+PPM and PGM writers (port of ``raytrace_tpu/utils/image.py``).
 
-Port of ``raytrace_tpu/utils/image.py`` without its optional native Paeth
-filter: scanlines use filter type 0 (None), which every PNG reader
-accepts. ``write_ppm`` and ``write_ppm_float`` write the reference's ASCII
-PPM.
+``encode_png`` Paeth-filters its scanlines through the native library
+(``native.png_filter_paeth_native``) when it loaded, else writes filter
+type 0 (None); ``read_png`` unfilters through the native library, else in
+Python. Either way every PNG reader decodes the same pixels.
 """
 
 from __future__ import annotations
@@ -19,26 +20,29 @@ def _chunk(tag: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
 
 
-def encode_png(img: np.ndarray) -> bytes:
-    """(H,W,3) or (H,W,4) uint8 -> PNG bytes."""
+def encode_png(img: np.ndarray, compress_level: int = 6) -> bytes:
+    """(H,W,3) or (H,W,4) uint8 -> PNG bytes, zlib at ``compress_level``."""
+    from .. import native
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f"expected uint8 image, got {img.dtype}")
     if img.ndim != 3 or img.shape[2] not in (3, 4):
         raise ValueError(f"expected (H,W,3|4), got {img.shape}")
     h, w, c = img.shape
-    raw = np.empty((h, 1 + w * c), np.uint8)
-    raw[:, 0] = 0
-    raw[:, 1:] = img.reshape(h, w * c)
+    raw = native.png_filter_paeth_native(img.reshape(h, w * c), c)
+    if raw is None:
+        raw = np.empty((h, 1 + w * c), np.uint8)
+        raw[:, 0] = 0
+        raw[:, 1:] = img.reshape(h, w * c)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), compress_level))
             + _chunk(b"IEND", b""))
 
 
-def write_png(path: str, img: np.ndarray) -> None:
+def write_png(path: str, img: np.ndarray, compress_level: int = 6) -> None:
     with open(path, "wb") as f:
-        f.write(encode_png(img))
+        f.write(encode_png(img, compress_level))
 
 
 def read_png(path: str) -> np.ndarray:
@@ -67,6 +71,10 @@ def read_png(path: str) -> np.ndarray:
     stride = w * bpp
     raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
         h, 1 + stride)
+    from .. import native
+    nat = native.png_unfilter_native(raw[:, 0], raw[:, 1:], bpp)
+    if nat is not None:
+        return nat.reshape(h, w, bpp)
     out = np.zeros((h, stride), np.uint8)
     for y in range(h):
         f, line = raw[y, 0], raw[y, 1:].astype(np.int32)
@@ -113,3 +121,13 @@ def write_ppm_float(path: str, img: np.ndarray, gamma: float = 1.0) -> None:
     (ppm.go:119-156)."""
     x = np.clip(img, 0.0, 1.0) ** (1.0 / gamma)
     write_ppm(path, (x * 255).astype(np.uint8))
+
+
+def write_pgm(path: str, gray: np.ndarray) -> None:
+    """P2 ASCII PGM from an (H,W) float image in [0, 1] (ppm.go:79-117)."""
+    h, w = gray.shape
+    g = (np.clip(gray, 0, 1) * 255).astype(np.uint8)
+    with open(path, "w") as f:
+        f.write(f"P2\n{w} {h}\n255\n")
+        for y in range(h):
+            f.write(" ".join(str(int(v)) for v in g[y]) + "\n")

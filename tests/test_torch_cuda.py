@@ -1396,3 +1396,93 @@ def test_sharded_wavefront_px2_equals_render_wavefront(cuda, mode,
     assert tmk.LAUNCHES[tmk.MASKS[mode]] == 2
     assert tmk.LAUNCHES[tmk.KERNELS[mode]] >= 2
     gate(img, ref)
+
+
+# ------------------------------------------------ the last modules ----
+
+def sah_scene(d, device, leaf_size=None):
+    """A scene dict's scene with its BVH rebuilt by the binned SAH."""
+    s = tscene.from_dict(d, device=device)[0]
+    leaf = s.accel.leaf_size if leaf_size is None else leaf_size
+    return dataclasses.replace(s, accel=tbvh.build_scene_bvh(
+        s.geometry, leaf_size=leaf, method="sah"))
+
+
+def sah_cases(tmp_path):
+    from raytrace_tpu_torch.bench.suite import deep_sah_scene_dict
+    return {"ring1000-noground": (bvh_scene_dict("ring1000-noground"), None),
+            "ico2561": (ico2561_dict(tmp_path), None),
+            "deep": (deep_sah_scene_dict(), 1)}
+
+
+@pytest.mark.parametrize("name", ["ring1000-noground", "ico2561", "deep"])
+def test_sah_tree_through_k6_and_k3(cuda, name, tmp_path):
+    """An SAH tree (built by hand: no scene key asks for one) through K6
+    and K3+K4: the mask equals its plain version, and K3+K4 its plain
+    version bit for bit on the main path's lanes at depth 12. The deep
+    tree (past the 4-wide stack) must take the binary walk: no K3-wide
+    launch."""
+    d, leaf = sah_cases(tmp_path)[name]
+    s = sah_scene(d, cuda, leaf)
+    assert tmk._kernel_mode(s) == "bvh"
+    wide = tbvh.wide_walk(s.accel)
+    assert wide == (name != "deep")
+    cfg = ttrace.TraceConfig(max_depth=12, shadow_samples=4)
+    got = tmk.pixel_mask(s, width=200, height=150, cfg=cfg)
+    assert torch.equal(got, tmk.pixel_mask_plain(s, width=200, height=150,
+                                                 cfg=cfg))
+    lanes = main_path_lanes(s, 32, 24, 2, cfg)
+    tmk.reset_launches()
+    out = tmk.trace(s, *lanes, cfg)
+    assert tmk.LAUNCHES["trace_bvh"] == 1
+    assert tmk.LAUNCHES["trace_wide"] == int(wide)
+    assert torch.equal(out, ttrace.trace(s, *lanes, cfg))
+
+
+def hit_points(s, n, W=160, H=120):
+    """(points, normals, pix, samp) of n camera rays' closest hits, strided
+    over the frame's hits (a ring frame's first rows hit the far ground,
+    whose indirect rays all miss)."""
+    from raytrace_tpu_torch.ops import intersect as tisect
+    cfg = ttrace.TraceConfig()
+    pix, samp = trender._lane_ids(torch.arange(W * H, device=s.device), 1)
+    o, d = trender._lane_rays(s, pix, samp, width=W, height=H, cfg=cfg,
+                              go_camera=True)
+    hit = tisect.closest_hit(s.geometry, o, d, accel=s.accel)
+    at = hit.hit.nonzero()[:, 0]
+    at = at[::max(1, at.numel() // n)][:n]  # strided over the frame
+    return hit.point[at], hit.normal[at], pix[at], samp[at]
+
+
+@pytest.mark.parametrize("name", ["bench", "ring1000"])
+def test_one_bounce_indirect_kernel_equals_eager(cuda, name, monkeypatch):
+    """lighting.one_bounce_indirect through the scene's trace kernel (K1,
+    K3+K4) against the same call forced through the eager engine on the
+    card: the goldens gate over its lanes (K3+K4 is bit-exact; K1 admits
+    an ulp of a library pow or sin)."""
+    from raytrace_tpu_torch import lighting as tl
+    s = (scene_on(SCENES[0], cuda) if name == "bench" else
+         tscene.from_dict(bvh_scene_dict("ring1000"), device=cuda)[0])
+    p, n, pix, samp = hit_points(s, 1024)
+    tmk.reset_launches()
+    got = tl.one_bounce_indirect(s, p, n, pix, samp, samples=4)
+    kernel = tmk.KERNELS[tmk._kernel_mode(s)]
+    assert tmk.LAUNCHES[kernel] == 4
+    monkeypatch.setattr(tmk, "trace", ttrace.trace)
+    want = tl.one_bounce_indirect(s, p, n, pix, samp, samples=4)
+    assert float(want.sum()) > 0
+    gate(got, want)
+    if name == "ring1000":
+        assert torch.equal(got, want)
+
+
+def test_run_pipeline_card_equals_cpu(cuda):
+    from raytrace_tpu_torch import pipeline as tpipe
+    cfg = ttrace.TraceConfig(max_depth=3, shadow_samples=4)
+    d = scene_dict(SCENES[0])
+    got = tpipe.run_pipeline(tscene.from_dict(d, device=cuda)[0], width=32,
+                             height=24, samples=2, cfg=cfg)
+    want = tpipe.run_pipeline(tscene.from_dict(d, device="cpu")[0],
+                              width=32, height=24, samples=2, cfg=cfg)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
